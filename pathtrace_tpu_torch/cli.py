@@ -1,0 +1,178 @@
+"""Headless CLI: ``python -m pathtrace_tpu_torch.cli scene.txt``.
+
+Counterpart of ``pathtrace_tpu/cli.py`` (the role of the reference's
+src/main.cpp): parse the scene, run ITERATIONS samples per pixel in
+chunks, log each chunk (ms/iter, Mrays/s of live path segments, or a
+JSON line with ``--stats``), and save
+``<FILE>.<start time>.<N>samp.png``.
+
+``--device cuda`` (the default) runs the CUDA megakernel K1 and raises
+when there is no GPU; ``--device cpu`` runs its plain PyTorch version.
+The reference's other engines and options are not ported yet: they raise
+``NotImplementedError`` naming the ROADMAP item that brings them.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import os
+import sys
+import time
+
+import torch
+
+PREFIX = "[pathtrace_tpu_torch]"
+
+# flag -> (value that is ported, ROADMAP item that ports the others)
+_NOT_PORTED = {
+    "engine": ("pallas", "Queue 1 item 9 (split/sorted engines, K5) and "
+                         "item 3 (the wavefront twin)"),
+    "compaction": ("mask", "Queue 1 item 9 (sort compaction, K6)"),
+    "split_depth": (0, "Queue 1 item 9 (split engine, K5)"),
+    "nee": (False, "Queue 1 item 6 (NEE, K2)"),
+    "rr": (False, "Queue 1 item 6 (Russian roulette)"),
+    "shard": (False, "Queue 1 item 11 (multi-device)"),
+    "checkpoint": (None, "Queue 1 item 12 (checkpoint/resume)"),
+    "interactive": (None, "Queue 1 item 12 (interactive camera)"),
+}
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="pathtrace_tpu_torch",
+        description="path tracer on PyTorch + a hand-written CUDA "
+                    "megakernel",
+    )
+    p.add_argument("scene", help="scene file (reference text format)")
+    p.add_argument("--spp", type=int, default=None,
+                   help="override ITERATIONS (samples per pixel)")
+    p.add_argument("--depth", type=int, default=None,
+                   help="override DEPTH (max bounces)")
+    p.add_argument("--res", type=int, nargs=2, default=None,
+                   metavar=("W", "H"), help="override RES")
+    p.add_argument("--out", default=None,
+                   help="output path (default: reference naming convention)")
+    p.add_argument("--hdr", action="store_true",
+                   help="also write a Radiance .hdr")
+    p.add_argument("--chunk", type=int, default=8,
+                   help="samples per pixel per kernel launch")
+    p.add_argument("--seed", type=int, default=0,
+                   help="iteration-stream offset (0 matches the reference)")
+    p.add_argument("--stats", action="store_true",
+                   help="emit per-chunk JSON stats lines")
+    p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                   help="cuda = the K1 CUDA kernel (raises without a GPU); "
+                        "cpu = its plain PyTorch version")
+    # the reference's other engines and options: not ported yet
+    p.add_argument("--engine", choices=["pallas", "sorted", "planes", "xla"],
+                   default="pallas",
+                   help="pallas = the forward megakernel (K1); the others "
+                        "are not ported yet")
+    p.add_argument("--compaction", choices=["mask", "sort"], default="mask")
+    p.add_argument("--split-depth", type=int, default=0)
+    p.add_argument("--nee", action="store_true")
+    p.add_argument("--rr", action="store_true")
+    p.add_argument("--shard", action="store_true")
+    p.add_argument("--checkpoint", default=None)
+    p.add_argument("--interactive", default=None, metavar="CTRL")
+    return p
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    for flag, (ported, item) in _NOT_PORTED.items():
+        if getattr(args, flag) != ported:
+            raise NotImplementedError(
+                f"--{flag.replace('_', '-')} {getattr(args, flag)} is not "
+                f"ported yet: ROADMAP {item}")
+
+    import pathtrace_tpu_torch as ptt
+    from pathtrace_tpu_torch.io import image_io
+    from pathtrace_tpu_torch.ops.cuda.megakernel import prepare, trace_k1
+
+    scene = ptt.load_scene(args.scene)
+    if args.res:
+        scene = dataclasses.replace(scene, resolution=tuple(args.res))
+    if args.depth:
+        scene = dataclasses.replace(scene, trace_depth=args.depth)
+    n_iters = args.spp if args.spp is not None else scene.iterations
+    width, height = scene.resolution
+    depth = int(scene.trace_depth)
+    device = torch.device(args.device)
+    # tables resident on the device for the whole render
+    cam, mats, gmat = prepare(scene, device)
+
+    print(
+        f"{PREFIX} {args.scene}: {width}x{height}, {n_iters} spp, "
+        f"depth {depth}, device={device}",
+        flush=True,
+    )
+
+    start_time = image_io.timestamp()
+    accum = torch.zeros((scene.pixel_count, 3), dtype=torch.float32,
+                        device=device)
+    done = 0
+    rays_total = 0
+    steady_rays = 0
+    steady_time = 0.0
+    first_chunk = True
+    t_start = time.time()
+    while done < n_iters:
+        step = min(args.chunk, n_iters - done)
+        t0 = time.time()
+        rad, counts = trace_k1(cam, mats, gmat, scene.geoms.type, width,
+                               height, depth, args.seed + done + 1, step)
+        accum += rad
+        # the (tiny) counts copy waits for the launch, keeping dt honest
+        counts = counts.cpu().numpy()
+        dt = time.time() - t0
+        done += step
+        segs = int(counts.sum())
+        rays_total += segs
+        if first_chunk:
+            first_chunk = False  # holds the kernel build; not averaged
+        else:
+            steady_rays += segs
+            steady_time += dt
+        if args.stats:
+            print(json.dumps(dict(
+                iter=done,
+                ms_per_iter=round(dt / step * 1e3, 2),
+                mrays_per_s=round(segs / dt / 1e6, 2),
+                live_per_bounce=counts.tolist(),
+            )), flush=True)
+        else:
+            print(
+                f"{PREFIX} iter {done}/{n_iters} "
+                f"({dt / step * 1e3:.1f} ms/iter, "
+                f"{segs / dt / 1e6:.1f} Mrays/s)",
+                flush=True,
+            )
+
+    wall = time.time() - t_start
+    steady = (
+        f", {steady_rays / steady_time / 1e6:.1f} Mrays/s steady-state"
+        if steady_time > 0 else ""
+    )
+    print(
+        f"{PREFIX} {done} iterations in {wall:.1f}s "
+        f"({rays_total / max(wall, 1e-9) / 1e6:.1f} Mrays/s avg{steady})",
+        flush=True,
+    )
+    if done:
+        img = image_io.to_display(accum.cpu().numpy(), width, height, done)
+        out = args.out or image_io.render_filename(
+            scene.image_name, start_time, done)
+        image_io.save_png(out, img)
+        print(f"{PREFIX} saved {out}", flush=True)
+        if args.hdr:
+            hdr_out = os.path.splitext(out)[0] + ".hdr"
+            image_io.save_hdr(hdr_out, img)
+            print(f"{PREFIX} saved {hdr_out}", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,91 @@
+"""K1, the CUDA kernel, against its plain PyTorch version on a GPU.
+
+Every test here needs a CUDA GPU (marker ``cuda``) and skips without
+one: the kernel has no CPU mode.  This file imports neither JAX nor the
+JAX package, so on a machine with a GPU but no JAX it runs as
+
+    python -m pytest --noconftest -q tests/test_torch_cuda.py
+
+The kernel is built with ``-fmad=false`` and IEEE division and square
+root, as its plain version rounds, so the bound is the tie-flip bound of
+the CPU tests (under 0.5% of pixels off by more than 1e-3); so far the
+two agree bit for bit.
+"""
+
+import dataclasses
+import os
+
+import pytest
+import torch
+
+import pathtrace_tpu_torch as ptt
+from pathtrace_tpu_torch.ops.cuda import megakernel as K
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernel has no CPU mode")
+    return torch.device("cuda")
+
+
+def _scene(name, res, depth=8):
+    s = ptt.load_scene(os.path.join(REPO, "scenes", f"{name}.txt"))
+    return dataclasses.replace(s, resolution=res, trace_depth=depth)
+
+
+def _assert_tie_flip_bound(rad, ref, counts, ref_counts):
+    d = (rad - ref).abs().amax(dim=-1)
+    assert float((d > 1e-3).float().mean()) < 0.005
+    torch.testing.assert_close(counts.double(), ref_counts.double(),
+                               rtol=0.005, atol=0)
+
+
+@pytest.mark.parametrize("name,res", [("cornell", (96, 80)),
+                                      ("sphere", (96, 80)),
+                                      ("cornell", (33, 7))])
+def test_k1_matches_plain(cuda, name, res):
+    scene = _scene(name, res)
+    tables = K.pack_scene(scene, cuda)
+    before = K.LAUNCHES
+    rad, counts = K.trace_k1(*tables, scene.geoms.type, *res, 8, 1, 3)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES == before + 1
+    assert rad.shape == (res[0] * res[1], 3) and rad.device.type == "cuda"
+    ref, ref_counts = K.trace_plain(*tables, scene.geoms.type, *res, 8, 1, 3)
+    assert int(counts[0]) == 3 * res[0] * res[1]
+    _assert_tie_flip_bound(rad, ref, counts, ref_counts)
+
+
+def test_k1_pixel_range(cuda):
+    scene = _scene("cornell", (40, 30), 4)
+    tables = K.pack_scene(scene, cuda)
+    args = (scene.geoms.type, 40, 30, 4, 9, 2)
+    whole, counts = K.trace_k1(*tables, *args)
+    tail, _ = K.trace_k1(*tables, *args, pix0=500)
+    assert torch.equal(tail, whole[500:])
+    assert int(counts[0]) == 2 * 40 * 30
+
+
+def test_pathtrace_batch_cuda_runs_the_kernel(cuda):
+    scene = _scene("cornell", (64, 48))
+    before = K.LAUNCHES
+    rad, counts = ptt.pathtrace_batch(scene, 1, 2, device="cuda")
+    assert K.LAUNCHES == before + 1
+    ref, ref_counts = ptt.pathtrace_batch(scene, 1, 2, device="cpu")
+    _assert_tie_flip_bound(rad.cpu(), ref, counts.cpu(), ref_counts)
+
+
+def test_k1_rejects_bad_tables(cuda):
+    scene = _scene("cornell", (8, 8))
+    cam, mats, gmat = K.pack_scene(scene, cuda)
+    args = (scene.geoms.type, 8, 8, 8, 1, 1)
+    with pytest.raises(ValueError, match="mats"):
+        K.trace_k1(cam, mats.double(), gmat, *args)
+    with pytest.raises(ValueError, match="gmat"):
+        K.trace_k1(cam, mats, gmat[:, :36], *args)
+    with pytest.raises(ValueError, match="on cpu"):
+        K.trace_k1(cam, mats.cpu(), gmat, *args)

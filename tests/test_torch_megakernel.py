@@ -1,0 +1,108 @@
+"""K1's plain PyTorch version against the reference's Pallas kernel.
+
+The same packed tables (made by the port, handed over as numpy) go to the
+reference's ``_run`` in interpret mode, every feature flag off, and to
+``trace_plain``.  Bounds are those of ``tests/test_pallas.py``: under
+0.5% of pixels may differ by more than 1e-3, and the live counts agree
+within rtol 0.02.  The two libraries round sin/cos differently, and a
+last-bit change at a geometry edge can flip which geom a ray hits (or
+which lobe it takes), which changes that pixel's whole path: a discrete
+tie flip, not drift, so it is bounded by a pixel share and not by a
+tolerance on every pixel.
+
+The CUDA kernel itself runs only on a GPU: ``tests/test_torch_cuda.py``
+(marker ``cuda``) holds it against ``trace_plain`` there and skips here.
+"""
+
+import dataclasses
+import os
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from pathtrace_tpu.ops.pallas.megakernel import _run
+import pathtrace_tpu_torch as ptt
+from pathtrace_tpu_torch.ops.cuda import megakernel as K
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _scene(name, res=None, depth=None):
+    s = ptt.load_scene(os.path.join(REPO, "scenes", f"{name}.txt"))
+    return dataclasses.replace(s, resolution=res or s.resolution,
+                               trace_depth=depth or s.trace_depth)
+
+
+def assert_tie_flip_bound(rad, ref_rad, counts, ref_counts):
+    d = np.abs(np.asarray(rad) - np.asarray(ref_rad)).max(axis=-1)
+    assert (d > 1e-3).mean() < 0.005, (d > 1e-3).mean()
+    np.testing.assert_allclose(np.asarray(counts), np.asarray(ref_counts),
+                               rtol=0.02)
+
+
+@pytest.mark.parametrize("name,res,depth", [
+    ("cornell", (32, 32), 4),
+    ("sphere", (32, 32), 4),
+    # 960 pixels: not a multiple of the reference's 4096-ray tile, so its
+    # valid mask and output crop are exercised
+    ("cornell", (40, 24), 3),
+])
+def test_trace_plain_matches_pallas_kernel(name, res, depth):
+    scene = _scene(name, res, depth)
+    cam, mats, gmat = K.pack_scene(scene)
+    ref_rad, ref_counts = _run(
+        cam.numpy(), mats.numpy(), gmat.numpy(), None, None,
+        jnp.asarray(1, jnp.int32), res, depth, scene.geoms.type,
+        interpret=True, n_spp=2, features=(False,) * 7)
+    rad, counts = K.trace_plain(cam, mats, gmat, scene.geoms.type, *res,
+                                depth, 1, 2)
+    assert rad.shape == (res[0] * res[1], 3) and rad.dtype == torch.float32
+    assert counts.dtype == torch.int64 and counts.shape == (depth,)
+    assert int(counts[0]) == 2 * res[0] * res[1]
+    assert_tie_flip_bound(rad, ref_rad, counts, ref_counts)
+
+
+def test_trace_plain_pixel_range_and_chunks():
+    # samples are keyed by the global pixel and the iteration, so a pixel
+    # range starting at pix0 and chunks of samples tile the whole render
+    scene = _scene("cornell", (24, 16), 3)
+    tables = K.pack_scene(scene)
+    args = (scene.geoms.type, 24, 16, 3)
+    whole, counts = K.trace_plain(*tables, *args, 5, 2)
+    tail, _ = K.trace_plain(*tables, *args, 5, 2, pix0=100)
+    assert torch.equal(tail, whole[100:])
+    a, _ = K.trace_plain(*tables, *args, 5, 1)
+    b, _ = K.trace_plain(*tables, *args, 6, 1)
+    assert torch.equal(a + b, whole)
+
+
+def test_trace_k1_on_cpu_is_the_plain_version():
+    scene = _scene("cornell", (16, 16), 3)
+    tables = K.pack_scene(scene)
+    before = K.LAUNCHES
+    got = K.trace_k1(*tables, scene.geoms.type, 16, 16, 3, 1, 2)
+    want = K.trace_plain(*tables, scene.geoms.type, 16, 16, 3, 1, 2)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert K.LAUNCHES == before
+
+
+@pytest.mark.parametrize("name,kw,match", [
+    ("cornell_glass", {}, "glass"),
+    ("cornell_checker", {}, "motion blur, checker"),
+    ("cornell", {"nee": True}, "NEE"),
+    ("cornell", {"rr": True}, "Russian roulette"),
+])
+def test_unported_paths_raise(name, kw, match):
+    with pytest.raises(NotImplementedError, match=match):
+        K.pathtrace_batch_cuda(_scene(name, (8, 8)), 1, 1, device="cpu", **kw)
+
+
+def test_cuda_device_without_gpu_raises(monkeypatch):
+    # no silent fall back to the CPU when the GPU is missing
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        K.pathtrace_batch_cuda(_scene("cornell", (8, 8)), 1, 1,
+                               device="cuda")
+

@@ -1,0 +1,111 @@
+"""The port's main path as a whole: CLI -> K1 (plain version on the CPU)
+-> accumulation -> PNG, against the reference's Pallas path in interpret
+mode.  Bounds as in ``tests/test_torch_megakernel.py`` (tie flips)."""
+
+import dataclasses
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+from PIL import Image
+
+import pathtrace_tpu as pt
+from pathtrace_tpu.io import image_io as ref_io
+from pathtrace_tpu.ops.pallas.megakernel import pathtrace_batch_pallas
+import pathtrace_tpu_torch as ptt
+from pathtrace_tpu_torch import cli
+from pathtrace_tpu_torch.io import image_io
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CORNELL = os.path.join(REPO, "scenes", "cornell.txt")
+
+
+def test_cli_slice_matches_reference(tmp_path, monkeypatch):
+    seen = []
+    to_display = image_io.to_display
+
+    def spy(accum, *args):
+        seen.append(np.array(accum))
+        return to_display(accum, *args)
+
+    monkeypatch.setattr(image_io, "to_display", spy)
+    out = tmp_path / "c.png"
+    assert cli.main([CORNELL, "--device", "cpu", "--res", "32", "32",
+                     "--depth", "4", "--spp", "2", "--out", str(out)]) == 0
+    assert out.exists()
+    (accum,) = seen
+
+    scene = pt.load_scene(CORNELL)
+    scene = dataclasses.replace(scene, resolution=(32, 32), trace_depth=4)
+    ref_rad, _ = pathtrace_batch_pallas(scene, 1, 2, interpret=True)
+    d = np.abs(accum - np.asarray(ref_rad)).max(axis=-1)
+    assert (d > 1e-3).mean() < 0.005
+
+    png = np.asarray(Image.open(out))
+    np.testing.assert_array_equal(
+        png, ref_io.to_uint8(ref_io.to_display(accum, 32, 32, 2)))
+
+
+@pytest.mark.parametrize("flag", [
+    ["--engine", "sorted"], ["--nee"], ["--rr"], ["--split-depth", "2"],
+    ["--shard"], ["--checkpoint", "x.ckpt"], ["--interactive", "ctl"],
+    ["--compaction", "sort"],
+])
+def test_cli_unported_flags_raise(flag):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        cli.main([CORNELL, "--device", "cpu", *flag])
+
+
+def test_cli_cuda_without_gpu_raises(monkeypatch, tmp_path):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        cli.main([CORNELL, "--res", "8", "8", "--spp", "1",
+                  "--out", str(tmp_path / "x.png")])
+
+
+def test_render_chunks_equal_one_batch():
+    scene = ptt.load_scene(CORNELL)
+    scene = dataclasses.replace(scene, resolution=(16, 12), trace_depth=3)
+    seen = []
+    accum = ptt.render(scene, 5, chunk=2, device="cpu",
+                       callback=lambda done, acc, counts: seen.append(done))
+    assert seen == [2, 4, 5]
+    # samples are keyed by iteration: chunks (1,2) (3,4) (5) summed in
+    # the same order give the same bits
+    want = torch.zeros_like(accum)
+    for it0, n in ((1, 2), (3, 2), (5, 1)):
+        want += ptt.pathtrace_batch(scene, it0, n, device="cpu")[0]
+    assert torch.equal(accum, want)
+
+
+def test_image_io_matches_reference(tmp_path):
+    rs = np.random.default_rng(3)
+    accum = rs.uniform(0, 3, (6 * 5, 3)).astype(np.float32)
+    img = image_io.to_display(accum, 6, 5, 2)
+    ref_img = ref_io.to_display(accum, 6, 5, 2)
+    np.testing.assert_array_equal(img, ref_img)
+    np.testing.assert_array_equal(image_io.to_uint8(img),
+                                  ref_io.to_uint8(ref_img))
+    image_io.save_hdr(str(tmp_path / "a.hdr"), img)
+    ref_io.save_hdr(str(tmp_path / "b.hdr"), ref_img)
+    assert (tmp_path / "a.hdr").read_bytes() == \
+        (tmp_path / "b.hdr").read_bytes()
+    assert image_io.render_filename("c", "t", 4) == \
+        ref_io.render_filename("c", "t", 4)
+
+
+def test_port_imports_no_jax():
+    # a subprocess: this test process imported jax through conftest
+    code = (
+        "import pkgutil, sys, pathtrace_tpu_torch as p\n"
+        "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
+        "    __import__(m.name)\n"
+        "bad = sorted(k for k in sys.modules\n"
+        "             if k.split('.')[0] in ('jax', 'jaxlib', 'pathtrace_tpu'))\n"
+        "assert not bad, bad\n"
+    )
+    subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
+                   timeout=120)
