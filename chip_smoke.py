@@ -6,18 +6,27 @@
 Phases, each of which raises on failure (exit code non-zero):
 
 1. the card: ``nvidia-smi`` name and power limit;
-2. build the CUDA kernel K1 from ``pathtrace_tpu_torch/csrc`` (timed);
-3. K1 against its plain PyTorch version on the card, cornell.txt and
-   sphere.txt at 800x800, depth 8, 1 spp: under 0.5% of pixels may differ
-   by more than 1e-3, bounce 0 must count every pixel and the other
-   bounces must agree within 0.5%;
+2. build every variant of the CUDA kernel K1 that the phases run, one per
+   feature set (with NEE, its section K2), from
+   ``pathtrace_tpu_torch/csrc``, all ``nvcc`` processes at once (timed;
+   each build's registers and spills printed);
+3. the main path per configuration at 800x800, depth 8, 1 spp, through
+   ``pathtrace_batch`` (the variant's launch count is reset before and
+   read after), held against the plain PyTorch version on the same
+   tables: cornell.txt and sphere.txt (feature-free), cornell with NEE
+   and with Russian roulette, cornell_glass.txt with and without NEE,
+   cornell_checker.txt, and a bump + SSS variant of cornell_glass.  Under
+   0.5% of pixels may differ by more than 1e-3, bounce 0 must count every
+   pixel and the other bounces must agree within 0.5%; the share of
+   bit-equal pixels is printed;
 4. the main path through the CLI entry point (``cli.main``, default
-   ``--device cuda``): cornell.txt at 64 spp to a PNG, which must have a
-   plausible mean, a red left third and a green right third; the kernel's
-   launch count is reset before and read after this phase;
-5. timing on cornell 800x800 depth 8: warm, tables resident on the
-   device, CUDA events, median of k calls of 8 spp, for K1 and for the
-   plain version; Mrays/s counts live path segments.
+   ``--device cuda``), launch counts reset before and read after:
+   cornell.txt and cornell_glass.txt --nee at 64 spp to PNGs, which must
+   have a plausible mean, a red left third and a green right third;
+5. timing of each variant at 800x800 depth 8: warm, tables resident on
+   the device, CUDA events, median of k calls of 8 spp (runs listed), for
+   the kernel and for the plain version; Mrays/s counts live path
+   segments.
 
 The line before the last is a JSON object describing each kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Without a CUDA GPU it
@@ -38,6 +47,26 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 TIE_SHARE = 0.005      # share of pixels allowed to differ by > 1e-3
 COUNT_RTOL = 0.005     # per-bounce live counts after bounce 0
 SPP_PER_CALL = 8
+K1_SITE = "pathtrace_tpu/ops/pallas/megakernel.py:2424"   # _kernel
+K2_SITE = "pathtrace_tpu/ops/pallas/megakernel.py:2223"   # _nee_add
+
+# bump on the diffuse white, a dense medium in the glass sphere
+BUMP = ("EMITTANCE   0\n\n// Diffuse red",
+        "EMITTANCE   0\nBUMP        2 0.6\n\n// Diffuse red")
+SSS = ("REFRIOR     1.5\nEMITTANCE   0\n",
+       "REFRIOR     1.5\nEMITTANCE   0\nSSS         6.0 .9 .6 .4\n")
+# (label, scene file, text replacements, nee, rr); the first of each
+# feature set is the one timed
+CONFIGS = [
+    ("cornell", "cornell", (), False, False),
+    ("sphere", "sphere", (), False, False),
+    ("cornell NEE", "cornell", (), True, False),
+    ("cornell RR", "cornell", (), False, True),
+    ("cornell_glass", "cornell_glass", (), False, False),
+    ("cornell_glass NEE", "cornell_glass", (), True, False),
+    ("cornell_checker", "cornell_checker", (), False, False),
+    ("cornell_glass bump+SSS", "cornell_glass", (BUMP, SSS), False, False),
+]
 
 
 def card_line():
@@ -48,53 +77,76 @@ def card_line():
     return out.stdout.strip().splitlines()[0]
 
 
-def compare(name, K, torch):
-    """K1 (through pathtrace_batch_cuda) against trace_plain, 1 spp."""
-    import pathtrace_tpu_torch as ptt
+def load(ptt, name, edits):
+    with open(os.path.join(HERE, "scenes", f"{name}.txt")) as f:
+        text = f.read()
+    for old, new in edits:
+        if text.count(old) != 1:
+            raise RuntimeError(f"{name}: replacement not found: {old!r}")
+        text = text.replace(old, new)
+    return ptt.parse_scene(text)
 
-    scene = ptt.load_scene(os.path.join(HERE, "scenes", f"{name}.txt"))
+
+def mask_of(K, scene, nee, rr):
+    return K.feature_mask(K.scene_features(scene), nee, rr)
+
+
+def kernel_name(K, mask):
+    on = [n for i, n in enumerate(K.FEATURE_NAMES) if mask >> i & 1]
+    if mask & K.RR_BIT:
+        on.append("russian roulette")
+    name = "k1_trace+k2_nee" if mask & K.NEE_BIT else "k1_trace"
+    return f"{name}[{','.join(on)}]" if on else name
+
+
+def compare(ptt, K, torch, label, scene, nee, rr, mask):
+    """The main path (pathtrace_batch) for one configuration, 1 spp,
+    against trace_plain; returns (launches, max abs error)."""
     width, height = scene.resolution
     n_pix = width * height
-    before = K.LAUNCHES
-    rad, counts = K.pathtrace_batch_cuda(scene, 1, 1, device="cuda")
+    K.LAUNCHES.clear()
+    rad, counts = ptt.pathtrace_batch(scene, 1, 1, device="cuda", nee=nee,
+                                      rr=rr)
     torch.cuda.synchronize()
-    if K.LAUNCHES != before + 1:
-        raise RuntimeError(f"{name}: K1 was not launched")
-    tables = K.pack_scene(scene, "cuda")
-    ref, ref_counts = K.trace_plain(*tables, scene.geoms.type, width, height,
-                                    int(scene.trace_depth), 1, 1)
+    launches = K.LAUNCHES[mask]
+    if launches != 1 or sum(K.LAUNCHES.values()) != 1:
+        raise RuntimeError(f"{label}: launches {dict(K.LAUNCHES)}, want one "
+                           f"of mask {mask}")
+    job = K.prepare(scene, "cuda", nee=nee, rr=rr)
+    ref, ref_counts = K.trace_plain(**job, it0=1, n_spp=1)
     torch.cuda.synchronize()
     if rad.shape != (n_pix, 3) or not bool(torch.isfinite(rad).all()):
-        raise RuntimeError(f"{name}: bad radiance {tuple(rad.shape)}")
+        raise RuntimeError(f"{label}: bad radiance {tuple(rad.shape)}")
     diff = (rad - ref).abs().amax(dim=-1)
     share = float((diff > 1e-3).float().mean())
     max_err = float(diff.max())
     counts, ref_counts = counts.tolist(), ref_counts.tolist()
-    print(f"compare {name} 800x800 d8 1spp: share>1e-3 {share:.6f} "
-          f"max_abs_err {max_err:.3g} exact {float((diff == 0).float().mean()):.6f} "
-          f"counts k1 {counts} plain {ref_counts}", flush=True)
+    print(f"compare {label} {width}x{height} d{len(counts)} 1spp (mask "
+          f"{mask}): share>1e-3 {share:.6f} max_abs_err {max_err:.3g} exact "
+          f"{float((diff == 0).float().mean()):.6f} counts kernel {counts} "
+          f"plain {ref_counts}", flush=True)
     if share >= TIE_SHARE:
-        raise RuntimeError(f"{name}: {share:.4%} of pixels differ > 1e-3")
+        raise RuntimeError(f"{label}: {share:.4%} of pixels differ > 1e-3")
     if counts[0] != n_pix or ref_counts[0] != n_pix:
-        raise RuntimeError(f"{name}: bounce-0 count is not {n_pix}")
+        raise RuntimeError(f"{label}: bounce-0 count is not {n_pix}")
     for d, (a, b) in enumerate(zip(counts, ref_counts)):
         if abs(a - b) > COUNT_RTOL * max(b, 1):
-            raise RuntimeError(f"{name}: bounce {d} count {a} vs {b}")
-    return max_err
+            raise RuntimeError(f"{label}: bounce {d} count {a} vs {b}")
+    return launches, max_err
 
 
-def cli_main_path(K, np):
-    """The main path as a user runs it; returns K1's launches in it."""
+def cli_main_path(K, np, scene_file, flags):
+    """The main path as a user runs it; returns the launches by mask."""
     from PIL import Image
 
     from pathtrace_tpu_torch import cli
 
     with tempfile.TemporaryDirectory() as tmp:
-        out = os.path.join(tmp, "cornell.png")
-        K.LAUNCHES = 0
-        rc = cli.main([os.path.join(HERE, "scenes", "cornell.txt"),
-                       "--spp", "64", "--out", out])
-        launches = K.LAUNCHES
+        out = os.path.join(tmp, "render.png")
+        K.LAUNCHES.clear()
+        rc = cli.main([os.path.join(HERE, "scenes", scene_file),
+                       "--spp", "64", "--out", out, *flags])
+        launches = dict(K.LAUNCHES)
         if rc != 0 or not os.path.exists(out):
             raise RuntimeError(f"CLI returned {rc}, wrote no {out}")
         img = np.asarray(Image.open(out), dtype=np.float32) / 255.0
@@ -102,15 +154,16 @@ def cli_main_path(K, np):
     third = img.shape[1] // 3
     left = img[:, :third].reshape(-1, 3).mean(axis=0)
     right = img[:, -third:].reshape(-1, 3).mean(axis=0)
-    print(f"cli cornell 64spp: {img.shape} mean {mean:.4f} "
-          f"left rgb {left.round(4).tolist()} right rgb "
-          f"{right.round(4).tolist()} K1 launches {launches}", flush=True)
+    print(f"cli {scene_file} {' '.join(flags)} 64spp: {img.shape} mean "
+          f"{mean:.4f} left rgb {left.round(4).tolist()} right rgb "
+          f"{right.round(4).tolist()} launches by mask {launches}",
+          flush=True)
     if not (np.isfinite(mean) and 0.02 < mean < 0.6):
         raise RuntimeError(f"implausible image mean {mean}")
     if not (left[0] > left[1] and right[1] > right[0]):
         raise RuntimeError("orientation: left third must be red, right green")
-    if launches == 0:
-        raise RuntimeError("the main path did not launch K1")
+    if not launches:
+        raise RuntimeError(f"the CLI on {scene_file} launched no kernel")
     return launches
 
 
@@ -149,47 +202,72 @@ def main():
     print(f"card: {card} | torch {torch.__version__} cuda "
           f"{torch.version.cuda} | {kind}", flush=True)
 
+    configs = []
+    for label, name, edits, nee, rr in CONFIGS:
+        scene = load(ptt, name, edits)
+        configs.append((label, scene, nee, rr, mask_of(K, scene, nee, rr)))
+    masks = sorted({c[4] for c in configs})
+
     t0 = time.perf_counter()
-    build.load_k1()
-    build_s = time.perf_counter() - t0
-    ptxas = build.BUILD_INFO.get("k1", (0.0, "(library found built)"))[1]
-    usage = [ln.strip() for ln in ptxas.splitlines()
-             if "registers" in ln or "spill" in ln]
-    print(f"build K1: {build_s:.2f} s, nvcc {' '.join(build.NVCC_FLAGS)} | "
-          f"{' | '.join(usage)}", flush=True)
+    build.build_k1(masks)
+    print(f"build K1 variants {masks}: {time.perf_counter() - t0:.2f} s, "
+          f"nvcc {' '.join(build.NVCC_FLAGS)} -DPT_FEATURES=<mask>",
+          flush=True)
+    for mask in masks:
+        sec, log = build.BUILD_INFO.get(f"k1_m{mask}",
+                                        (0.0, "(library found built)"))
+        usage = [ln.strip() for ln in log.splitlines()
+                 if "registers" in ln or "spill" in ln]
+        print(f"build {kernel_name(K, mask)} (mask {mask}): {sec:.2f} s | "
+              f"{' | '.join(usage)}", flush=True)
 
-    max_err = max(compare(name, K, torch) for name in ("cornell", "sphere"))
-    launches = cli_main_path(K, np)
+    launches = dict.fromkeys(masks, 0)
+    max_err = dict.fromkeys(masks, 0.0)
+    for label, scene, nee, rr, mask in configs:
+        n, err = compare(ptt, K, torch, label, scene, nee, rr, mask)
+        launches[mask] += n
+        max_err[mask] = max(max_err[mask], err)
+    for scene_file, flags in (("cornell.txt", []),
+                              ("cornell_glass.txt", ["--nee"])):
+        for mask, n in cli_main_path(K, np, scene_file, flags).items():
+            launches[mask] += n
+    missing = [m for m in masks if not launches[m]]
+    if missing:
+        raise RuntimeError(f"the main path launched no kernel of masks "
+                           f"{missing}")
 
-    scene = ptt.load_scene(os.path.join(HERE, "scenes", "cornell.txt"))
-    width, height = scene.resolution
-    depth = int(scene.trace_depth)
-    tables = K.prepare(scene, "cuda")
-    args = (scene.geoms.type, width, height, depth, 1, SPP_PER_CALL)
-    ms_k1, all_k1, (_, counts) = median_ms(
-        lambda: K.trace_k1(*tables, *args), torch, k=9)
-    ms_plain, all_plain, _ = median_ms(
-        lambda: K.trace_plain(*tables, *args), torch, k=5)
-    segs = int(counts.sum())
-    for label, ms, runs in (("K1", ms_k1, all_k1),
-                            ("plain", ms_plain, all_plain)):
-        print(f"time {label} cornell 800x800 d8 {SPP_PER_CALL}spp/call: "
-              f"median {ms:.4f} ms/call = {ms / SPP_PER_CALL:.4f} ms/iter, "
-              f"{segs / (ms / 1e3) / 1e6:.1f} Mrays/s ({segs} live segments"
-              f"/call; runs {[round(t, 4) for t in runs]}) on {card}",
-              flush=True)
+    timed = {}
+    for label, scene, nee, rr, mask in configs:
+        if mask in timed:
+            continue
+        job = K.prepare(scene, "cuda", nee=nee, rr=rr)
+        ms_k, runs_k, (_, counts) = median_ms(
+            lambda: K.trace_k1(**job, it0=1, n_spp=SPP_PER_CALL), torch, k=9)
+        ms_p, runs_p, _ = median_ms(
+            lambda: K.trace_plain(**job, it0=1, n_spp=SPP_PER_CALL), torch,
+            k=5)
+        timed[mask] = (ms_k / SPP_PER_CALL, ms_p / SPP_PER_CALL)
+        segs = int(counts.sum())
+        for version, ms, runs in (("kernel", ms_k, runs_k),
+                                  ("plain", ms_p, runs_p)):
+            print(f"time {version} {label} 800x800 d8 {SPP_PER_CALL}spp/call "
+                  f"({kernel_name(K, mask)}): median {ms:.4f} ms/call = "
+                  f"{ms / SPP_PER_CALL:.4f} ms/iter, "
+                  f"{segs / (ms / 1e3) / 1e6:.1f} Mrays/s ({segs} live "
+                  f"segments/call; runs {[round(t, 4) for t in runs]}) on "
+                  f"{card}", flush=True)
 
     print(card, flush=True)
     print(json.dumps({"kernels": [{
-        "name": "k1_trace",
+        "name": kernel_name(K, mask),
         "route": "cuda",
         "source": "pathtrace_tpu_torch/csrc/megakernel.cu",
-        "replaces": "pathtrace_tpu/ops/pallas/megakernel.py:2424",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": ms_k1 / SPP_PER_CALL,
-        "plain_ms": ms_plain / SPP_PER_CALL,
-    }]}), flush=True)
+        "replaces": K2_SITE if mask & K.NEE_BIT else K1_SITE,
+        "launches": launches[mask],
+        "max_abs_err": max_err[mask],
+        "ms": timed[mask][0],
+        "plain_ms": timed[mask][1],
+    } for mask in masks]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -2,10 +2,11 @@
 
 The port of ``pathtrace_tpu`` (JAX on a TPU), which stays beside it as
 the reference.  Module paths follow the reference's.  Today the port
-renders the main path: scenes of spheres and cubes with diffuse, mirror
-and emissive materials, traced by the hand-written CUDA megakernel K1
-(``csrc/megakernel.cu``) on a GPU, or by its plain PyTorch version on
-the CPU.  Every entry point takes an explicit ``device``.
+renders every scene of spheres and cubes, with every material and
+camera feature of the reference, NEE and Russian roulette, traced by the
+hand-written CUDA megakernel K1 (``csrc/megakernel.cu``) on a GPU, or by
+its plain PyTorch version on the CPU.  Meshes and image textures are not
+ported yet.  Every entry point takes an explicit ``device``.
 """
 
 from __future__ import annotations
@@ -15,36 +16,38 @@ import torch
 from .core import types
 from .core.types import Camera, Geoms, Materials, Scene, TriMesh
 from .ops.cuda.megakernel import (
-    pack_scene, pathtrace_batch_cuda, prepare, trace_k1,
+    pack_lights, pack_scene, pathtrace_batch_cuda, prepare, trace_k1,
 )
 from .scene.parser import load_scene, parse_scene
 
 __version__ = "0.1.0"
 
 
-def pathtrace_batch(scene, it0, n_iters, device="cuda"):
-    """``n_iters`` samples per pixel starting at iteration ``it0``:
+def pathtrace_batch(scene, it0, n_iters, device="cuda", nee=False,
+                    rr=False):
+    """``n_iters`` samples per pixel starting at iteration ``it0``, with
+    next-event estimation if ``nee`` and Russian roulette if ``rr``:
     (accumulated radiance (P,3) f32, live counts per bounce (depth,)
     int64), both on ``device``."""
-    return pathtrace_batch_cuda(scene, it0, n_iters, device=device)
+    return pathtrace_batch_cuda(scene, it0, n_iters, device=device, nee=nee,
+                                rr=rr)
 
 
-def render(scene, n_iters=None, chunk=8, callback=None, device="cuda"):
+def render(scene, n_iters=None, chunk=8, callback=None, device="cuda",
+           nee=False, rr=False):
     """Progressive render to completion, ``chunk`` samples per launch;
     returns the accumulated image (P,3) on ``device`` (divide by
     ``n_iters`` for display).  ``callback(done, accum, counts)`` runs
     after each chunk."""
     n_iters = n_iters if n_iters is not None else scene.iterations
     # the tables stay resident on the device across chunks
-    cam, mats, gmat = prepare(scene, device)
-    width, height = scene.resolution
+    job = prepare(scene, device, nee=nee, rr=rr)
     accum = torch.zeros((scene.pixel_count, 3), dtype=torch.float32,
                         device=device)
     done = 0
     while done < n_iters:
         step = min(chunk, n_iters - done)
-        rad, counts = trace_k1(cam, mats, gmat, scene.geoms.type, width,
-                               height, int(scene.trace_depth), done + 1, step)
+        rad, counts = trace_k1(**job, it0=done + 1, n_spp=step)
         accum += rad
         done += step
         if callback is not None:

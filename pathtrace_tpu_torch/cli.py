@@ -6,8 +6,9 @@ chunks, log each chunk (ms/iter, Mrays/s of live path segments, or a
 JSON line with ``--stats``), and save
 ``<FILE>.<start time>.<N>samp.png``.
 
-``--device cuda`` (the default) runs the CUDA megakernel K1 and raises
-when there is no GPU; ``--device cpu`` runs its plain PyTorch version.
+``--device cuda`` (the default) runs the CUDA megakernel K1 (with
+``--nee``, its NEE section K2) and raises when there is no GPU;
+``--device cpu`` runs its plain PyTorch version.
 The reference's other engines and options are not ported yet: they raise
 ``NotImplementedError`` naming the ROADMAP item that brings them.
 """
@@ -31,8 +32,6 @@ _NOT_PORTED = {
                          "item 3 (the wavefront twin)"),
     "compaction": ("mask", "Queue 1 item 9 (sort compaction, K6)"),
     "split_depth": (0, "Queue 1 item 9 (split engine, K5)"),
-    "nee": (False, "Queue 1 item 6 (NEE, K2)"),
-    "rr": (False, "Queue 1 item 6 (Russian roulette)"),
     "shard": (False, "Queue 1 item 11 (multi-device)"),
     "checkpoint": (None, "Queue 1 item 12 (checkpoint/resume)"),
     "interactive": (None, "Queue 1 item 12 (interactive camera)"),
@@ -72,8 +71,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "are not ported yet")
     p.add_argument("--compaction", choices=["mask", "sort"], default="mask")
     p.add_argument("--split-depth", type=int, default=0)
-    p.add_argument("--nee", action="store_true")
-    p.add_argument("--rr", action="store_true")
+    p.add_argument("--nee", action="store_true",
+                   help="next-event estimation: one light sample and shadow "
+                        "ray per light at each non-refractive hit")
+    p.add_argument("--rr", action="store_true",
+                   help="Russian roulette from bounce 3 on")
     p.add_argument("--shard", action="store_true")
     p.add_argument("--checkpoint", default=None)
     p.add_argument("--interactive", default=None, metavar="CTRL")
@@ -102,11 +104,12 @@ def main(argv=None) -> int:
     depth = int(scene.trace_depth)
     device = torch.device(args.device)
     # tables resident on the device for the whole render
-    cam, mats, gmat = prepare(scene, device)
+    job = prepare(scene, device, nee=args.nee, rr=args.rr)
 
     print(
         f"{PREFIX} {args.scene}: {width}x{height}, {n_iters} spp, "
-        f"depth {depth}, device={device}",
+        f"depth {depth}, device={device}"
+        f"{', nee' if args.nee else ''}{', rr' if args.rr else ''}",
         flush=True,
     )
 
@@ -122,8 +125,7 @@ def main(argv=None) -> int:
     while done < n_iters:
         step = min(args.chunk, n_iters - done)
         t0 = time.time()
-        rad, counts = trace_k1(cam, mats, gmat, scene.geoms.type, width,
-                               height, depth, args.seed + done + 1, step)
+        rad, counts = trace_k1(**job, it0=args.seed + done + 1, n_spp=step)
         accum += rad
         # the (tiny) counts copy waits for the launch, keeping dt honest
         counts = counts.cpu().numpy()

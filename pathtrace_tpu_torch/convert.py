@@ -2,10 +2,10 @@
 
 ``from_jax_scene`` reads a ``pathtrace_tpu`` ``Scene`` by attribute name
 (its array leaves through ``np.asarray``) into this package's ``Scene``;
-``packed_tables_from_numpy`` turns packed ``cam``/``mats``/``gmat``
-tables (numpy, e.g. from the reference's ``_pack_scene``) into device
-tensors.  The tests use both to make the two packages compute the same
-thing.
+``packed_tables_from_numpy`` and ``lights_table_from_numpy`` turn packed
+``cam``/``mats``/``gmat`` and ``lights`` tables (numpy, e.g. from the
+reference's ``_pack_scene`` and ``_pack_lights``) into device tensors.
+The tests use them to make the two packages compute the same thing.
 """
 
 from __future__ import annotations
@@ -49,11 +49,19 @@ def from_jax_scene(scene) -> T.Scene:
     )
 
 
+def _tensor(t, device):
+    # a copy: the arrays of a JAX package are read-only
+    return torch.tensor(np.asarray(t, dtype=np.float32)).to(device)
+
+
 def packed_tables_from_numpy(cam, mats, gmat, device="cpu"):
     """(cam (1,16), mats (G,24), gmat (G,40)) float32 tensors on
     ``device``."""
-    return tuple(
-        torch.as_tensor(np.asarray(t, dtype=np.float32)).contiguous()
-        .to(device)
-        for t in (cam, mats, gmat)
-    )
+    return tuple(_tensor(t, device) for t in (cam, mats, gmat))
+
+
+def lights_table_from_numpy(lights, device="cpu"):
+    """A packed NEE light table (L,128) (numpy, e.g. from the
+    reference's ``_pack_lights``) as a float32 tensor on ``device``;
+    None stays None (a scene with no light)."""
+    return None if lights is None else _tensor(lights, device)

@@ -39,8 +39,19 @@ __device__ __forceinline__ float uniform(uint32_t it, uint32_t pixel,
 // Draw slots (core/rng.py Draw): depth slot 0 is raygen, bounce d uses d+1.
 constexpr uint32_t kDrawAaX = 0;
 constexpr uint32_t kDrawAaY = 1;
+constexpr uint32_t kDrawDofU = 2;
+constexpr uint32_t kDrawDofV = 3;
+constexpr uint32_t kDrawTime = 4;
 constexpr uint32_t kDrawLobe = 0;
 constexpr uint32_t kDrawDiffU1 = 1;
 constexpr uint32_t kDrawDiffU2 = 2;
+constexpr uint32_t kDrawFresnel = 3;
+constexpr uint32_t kDrawSpecU1 = 4;
+constexpr uint32_t kDrawSpecU2 = 5;
+constexpr uint32_t kDrawRr = 6;
+constexpr uint32_t kDrawSssStep = 8;
+constexpr uint32_t kDrawSssU = 9;
+constexpr uint32_t kDrawSssV = 10;
+constexpr uint32_t kDrawNeeBase = 16;  // light k: kDrawNeeBase + 3k .. +3k+2
 
 }  // namespace pt

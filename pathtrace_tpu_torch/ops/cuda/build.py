@@ -2,10 +2,12 @@
 
 The sources under ``pathtrace_tpu_torch/csrc`` have a plain C interface
 and include no PyTorch header, so one ``nvcc`` call builds each shared
-library in seconds.  The build runs at first use, into
+library in seconds.  The megakernel is built once per feature set (a
+``-DPT_FEATURES=<mask>`` define), as Mosaic compiles the reference's once
+per ``_scene_features``.  The build runs at first use, into
 ``pathtrace_tpu_torch/build/`` (not committed), under a name keyed by the
-hash of the sources and flags, so an edited source is never served from
-a stale library.  A failed build raises with nvcc's output.
+hash of the sources, flags and defines, so an edited source is never
+served from a stale library.  A failed build raises with nvcc's output.
 """
 
 from __future__ import annotations
@@ -50,51 +52,88 @@ def nvcc_path():
     return path
 
 
-def build(name, sources):
-    """Compile ``sources`` (file names in ``csrc``) into a shared library
-    unless a build of the same sources and flags exists; return its
-    path."""
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def _library_path(name, defines):
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS + defines).encode())
     for f in sorted(CSRC.glob("*.cu*")):
         digest.update(f.name.encode())
         digest.update(f.read_bytes())
-    out = BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # build to a private name, then rename: concurrent builds never
-    # load a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp,
-           *(str(CSRC / s) for s in sources)]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed building {name} (exit {proc.returncode}):\n"
-            f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)
-    BUILD_INFO[name] = (seconds, proc.stdout + proc.stderr)
-    return out
+    return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
 
 
-def load_k1():
-    """The K1 library (``csrc/megakernel.cu``), built at first use."""
-    if "k1" not in _LIBS:
-        lib = ctypes.CDLL(str(build("k1", ["megakernel.cu"])))
+def build_many(jobs):
+    """Compile each (name, sources, defines) job into a shared library
+    unless a build of the same sources, flags and defines exists, all
+    ``nvcc`` processes running at once; return the libraries' paths.
+    ``sources`` are file names in ``csrc``; ``defines`` are nvcc flags
+    such as ``-DPT_FEATURES=3``."""
+    paths, running = [], []
+    for name, sources, defines in jobs:
+        out = _library_path(name, tuple(defines))
+        paths.append(out)
+        if out.exists() or any(r[1] == out for r in running):
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        # build to a private name, then rename: concurrent builds never
+        # load a half-written library
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [nvcc_path(), *NVCC_FLAGS, *defines, "-I", str(CSRC), "-o",
+               tmp, *(str(CSRC / s) for s in sources)]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        running.append((name, out, tmp, cmd, proc, time.perf_counter()))
+    failed = []
+    for name, out, tmp, cmd, proc, t0 in running:
+        log, _ = proc.communicate()
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            failed.append(f"nvcc failed building {name} (exit "
+                          f"{proc.returncode}):\n{' '.join(cmd)}\n{log}")
+            continue
+        os.replace(tmp, out)
+        BUILD_INFO[name] = (seconds, log)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return paths
+
+
+def build(name, sources, defines=()):
+    """:func:`build_many` of one job."""
+    return build_many([(name, sources, defines)])[0]
+
+
+def _k1_job(mask):
+    return f"k1_m{mask}", ["megakernel.cu"], (f"-DPT_FEATURES={mask}",)
+
+
+def build_k1(masks):
+    """Build the K1 libraries of these feature masks at once (nvcc in
+    parallel), so that later :func:`load_k1` calls find them built."""
+    build_many([_k1_job(m) for m in sorted(set(masks))])
+
+
+def load_k1(mask=0):
+    """The K1 library (``csrc/megakernel.cu``) compiled for the feature
+    mask ``mask`` (``megakernel.feature_mask``), built at first use."""
+    if mask not in _LIBS:
+        lib = ctypes.CDLL(str(build(*_k1_job(mask))))
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.pt_k1_trace.argtypes = [
-            p, p, p, p,                            # cam, mats, gmat, types
-            i, i, i, i,                            # n_geoms, width, height, depth
+            p, p, p, p, p,                         # cam, mats, gmat, types, lights
+            i, i, i, i, i,                         # n_geoms, n_lights, width, height, depth
             ctypes.c_uint, i,                      # it0, n_spp
             ctypes.c_longlong, ctypes.c_longlong,  # pix0, n_local
             p, p, p,                               # rad, counts, stream
         ]
         lib.pt_k1_trace.restype = i
+        lib.pt_k1_features.argtypes = []
+        lib.pt_k1_features.restype = i
         lib.pt_cuda_error_string.argtypes = [i]
         lib.pt_cuda_error_string.restype = ctypes.c_char_p
-        _LIBS["k1"] = lib
-    return _LIBS["k1"]
+        if lib.pt_k1_features() != mask:
+            raise RuntimeError(
+                f"K1 library built for mask {lib.pt_k1_features()}, "
+                f"wanted {mask}")
+        _LIBS[mask] = lib
+    return _LIBS[mask]

@@ -1,4 +1,5 @@
-"""K1, the CUDA kernel, against its plain PyTorch version on a GPU.
+"""K1 (with its NEE section K2), the CUDA kernel, against its plain
+PyTorch version on a GPU.
 
 Every test here needs a CUDA GPU (marker ``cuda``) and skips without
 one: the kernel has no CPU mode.  This file imports neither JAX nor the
@@ -8,11 +9,11 @@ JAX package, so on a machine with a GPU but no JAX it runs as
 
 The kernel is built with ``-fmad=false`` and IEEE division and square
 root, as its plain version rounds, so the bound is the tie-flip bound of
-the CPU tests (under 0.5% of pixels off by more than 1e-3); so far the
-two agree bit for bit.
+the CPU tests (under 0.5% of pixels off by more than 1e-3).
 """
 
 import dataclasses
+import hashlib
 import os
 
 import pytest
@@ -20,6 +21,7 @@ import torch
 
 import pathtrace_tpu_torch as ptt
 from pathtrace_tpu_torch.ops.cuda import megakernel as K
+import torch_scenes as S
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 pytestmark = pytest.mark.cuda
@@ -50,10 +52,10 @@ def _assert_tie_flip_bound(rad, ref, counts, ref_counts):
 def test_k1_matches_plain(cuda, name, res):
     scene = _scene(name, res)
     tables = K.pack_scene(scene, cuda)
-    before = K.LAUNCHES
+    before = K.LAUNCHES[0]
     rad, counts = K.trace_k1(*tables, scene.geoms.type, *res, 8, 1, 3)
     torch.cuda.synchronize()
-    assert K.LAUNCHES == before + 1
+    assert K.LAUNCHES[0] == before + 1
     assert rad.shape == (res[0] * res[1], 3) and rad.device.type == "cuda"
     ref, ref_counts = K.trace_plain(*tables, scene.geoms.type, *res, 8, 1, 3)
     assert int(counts[0]) == 3 * res[0] * res[1]
@@ -72,9 +74,9 @@ def test_k1_pixel_range(cuda):
 
 def test_pathtrace_batch_cuda_runs_the_kernel(cuda):
     scene = _scene("cornell", (64, 48))
-    before = K.LAUNCHES
+    before = K.LAUNCHES[0]
     rad, counts = ptt.pathtrace_batch(scene, 1, 2, device="cuda")
-    assert K.LAUNCHES == before + 1
+    assert K.LAUNCHES[0] == before + 1
     ref, ref_counts = ptt.pathtrace_batch(scene, 1, 2, device="cpu")
     _assert_tie_flip_bound(rad.cpu(), ref, counts.cpu(), ref_counts)
 
@@ -89,3 +91,41 @@ def test_k1_rejects_bad_tables(cuda):
         K.trace_k1(cam, mats, gmat[:, :36], *args)
     with pytest.raises(ValueError, match="on cpu"):
         K.trace_k1(cam, mats.cpu(), gmat, *args)
+
+
+@pytest.mark.parametrize("config", [c for c in S.CONFIGS if c != "cornell"])
+def test_features_match_plain(cuda, config):
+    # each feature build of K1 (and K2 with NEE) on its configuration
+    job = S.job(config, (96, 80), 8, cuda)
+    mask = K.feature_mask(job["features"], job["lights"] is not None,
+                          job["rr"])
+    before = K.LAUNCHES[mask]
+    rad, counts = K.trace_k1(**job, it0=1, n_spp=2)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES[mask] == before + 1
+    assert bool(torch.isfinite(rad).all())
+    assert int(counts[0]) == 2 * 96 * 80
+    ref, ref_counts = K.trace_plain(**job, it0=1, n_spp=2)
+    _assert_tie_flip_bound(rad, ref, counts, ref_counts)
+
+
+@pytest.mark.parametrize("name", ["cornell", "sphere"])
+def test_feature_free_build_is_bit_equal(cuda, name):
+    # the feature-free library (mask 0) rounds as the plain version does,
+    # bit for bit, as the first K1 did
+    job = K.prepare(_scene(name, (96, 80)), cuda)
+    assert K.feature_mask(job["features"], False, False) == 0
+    got = K.trace_k1(**job, it0=1, n_spp=3)
+    want = K.trace_plain(**job, it0=1, n_spp=3)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    if name == "cornell":
+        # the first, feature-free K1 (built alone, H100, CUDA 12.8) gave
+        # these bits: sha256 of the float32 radiance, first 16 digits
+        digest = hashlib.sha256(got[0].cpu().numpy().tobytes()).hexdigest()
+        assert digest[:16] == "56f1410781372ccc"
+
+
+def test_k1_rejects_mismatched_lights(cuda):
+    job = S.job("cornell-nee", (8, 8), 2, cuda)
+    with pytest.raises(ValueError, match="lights"):
+        K.trace_k1(**dict(job, lights=job["lights"][:, :64]), it0=1, n_spp=1)

@@ -15,6 +15,7 @@ from PIL import Image
 import pathtrace_tpu as pt
 from pathtrace_tpu.io import image_io as ref_io
 from pathtrace_tpu.ops.pallas.megakernel import pathtrace_batch_pallas
+from pathtrace_tpu.render.plane_engine import pathtrace_batch_planes
 import pathtrace_tpu_torch as ptt
 from pathtrace_tpu_torch import cli
 from pathtrace_tpu_torch.io import image_io
@@ -49,14 +50,44 @@ def test_cli_slice_matches_reference(tmp_path, monkeypatch):
         png, ref_io.to_uint8(ref_io.to_display(accum, 32, 32, 2)))
 
 
+def test_cli_glass_nee_matches_reference(tmp_path, monkeypatch):
+    seen = []
+    to_display = image_io.to_display
+
+    def spy(accum, *args):
+        seen.append(np.array(accum))
+        return to_display(accum, *args)
+
+    monkeypatch.setattr(image_io, "to_display", spy)
+    glass = os.path.join(REPO, "scenes", "cornell_glass.txt")
+    assert cli.main([glass, "--device", "cpu", "--res", "32", "32",
+                     "--depth", "4", "--spp", "2", "--nee",
+                     "--out", str(tmp_path / "g.png")]) == 0
+    (accum,) = seen
+    scene = pt.load_scene(glass)
+    scene = dataclasses.replace(scene, resolution=(32, 32), trace_depth=4)
+    ref_rad, _ = pathtrace_batch_planes(scene, 1, 2, nee=True)
+    d = np.abs(accum - np.asarray(ref_rad)).max(axis=-1)
+    assert (d > 1e-3).mean() < 0.005
+
+
 @pytest.mark.parametrize("flag", [
-    ["--engine", "sorted"], ["--nee"], ["--rr"], ["--split-depth", "2"],
-    ["--shard"], ["--checkpoint", "x.ckpt"], ["--interactive", "ctl"],
-    ["--compaction", "sort"],
+    ["--engine", "sorted"], ["--engine", "planes"], ["--engine", "xla"],
+    ["--split-depth", "2"], ["--shard"], ["--checkpoint", "x.ckpt"],
+    ["--interactive", "ctl"], ["--compaction", "sort"],
 ])
 def test_cli_unported_flags_raise(flag):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         cli.main([CORNELL, "--device", "cpu", *flag])
+
+
+@pytest.mark.parametrize("flags", [["--nee"], ["--rr"], ["--nee", "--rr"]])
+def test_cli_nee_rr_render(flags, tmp_path):
+    out = tmp_path / "c.png"
+    assert cli.main([CORNELL, "--device", "cpu", "--res", "8", "8",
+                     "--depth", "4", "--spp", "2", "--out", str(out),
+                     *flags]) == 0
+    assert np.asarray(Image.open(out)).shape == (8, 8, 3)
 
 
 def test_cli_cuda_without_gpu_raises(monkeypatch, tmp_path):
