@@ -6,26 +6,40 @@
 Phases, each of which raises on failure (exit code non-zero):
 
 1. the card: ``nvidia-smi`` name and power limit;
-2. build every variant of the CUDA kernel K1 that the phases run, one per
-   feature set (with NEE, its section K2), from
-   ``pathtrace_tpu_torch/csrc``, all ``nvcc`` processes at once (timed;
-   each build's registers and spills printed);
-3. the main path per configuration at 800x800, depth 8, 1 spp, through
-   ``pathtrace_batch`` (the variant's launch count is reset before and
-   read after), held against the plain PyTorch version on the same
-   tables: cornell.txt and sphere.txt (feature-free), cornell with NEE
-   and with Russian roulette, cornell_glass.txt with and without NEE,
-   cornell_checker.txt, and a bump + SSS variant of cornell_glass.  Under
-   0.5% of pixels may differ by more than 1e-3, bounce 0 must count every
-   pixel and the other bounces must agree within 0.5%; the share of
-   bit-equal pixels is printed;
-4. the main path through the CLI entry point (``cli.main``, default
+2. the scenes: the primitive ones, and the triangle-mesh ones with their
+   load and BVH-build seconds (``scenes/gen_icosphere7.obj``, the
+   hugemesh's OBJ, is made by ``tools/gen_mesh.py 7`` when absent);
+3. build every variant of the CUDA kernel K1 that the phases run, one per
+   feature set (with NEE, its section K2; with meshes, its section K3),
+   and the traversal probe K9, from ``pathtrace_tpu_torch/csrc``, all
+   ``nvcc`` processes at once (timed; each build's registers and spills
+   printed);
+4. the main path per configuration, 1 spp, through ``pathtrace_batch``
+   (launch counts reset before and read after), held against the plain
+   PyTorch version on the same tables.  At 800x800, depth 8: cornell.txt
+   and sphere.txt (feature-free), cornell with NEE and with Russian
+   roulette, cornell_glass.txt with and without NEE, cornell_checker.txt,
+   and a bump + SSS variant of cornell_glass.  At the mesh files' own
+   1920x1080, depth 8: cornell_mesh.txt with and without NEE,
+   cornell_bigmesh.txt, a glass + checker + motion variant of
+   cornell_mesh, and cornell_hugemesh.txt.  Under 0.5% of pixels may
+   differ by more than 1e-3, bounce 0 must count every pixel and the
+   other bounces must agree within 0.5%; the share of bit-equal pixels is
+   printed;
+5. the main path through the CLI entry point (``cli.main``, default
    ``--device cuda``), launch counts reset before and read after:
-   cornell.txt and cornell_glass.txt --nee at 64 spp to PNGs, which must
-   have a plausible mean, a red left third and a green right third;
-5. timing of each variant at 800x800 depth 8: warm, tables resident on
-   the device, CUDA events, median of k calls of 8 spp (runs listed), for
-   the kernel and for the plain version; Mrays/s counts live path
+   cornell.txt and cornell_glass.txt --nee at 800x800 and cornell_mesh.txt
+   at 1920x1080, 64 spp, to PNGs, which must have a plausible mean, a red
+   left third and a green right third;
+6. K9: the probe's 32x128 ray bundle over the bigmesh tables, CUDA
+   against plain (final cursor, steps, leaves, tsum equal), and a one-warp
+   bundle of 32 rays for information;
+7. timing, warm, tables resident on the device, CUDA events, median of k
+   calls (runs listed), for each kernel and its plain version: each
+   primitive variant at 800x800 depth 8 (8 spp per call); the mesh
+   variants at 1920x1080 depth 8, cornell_bigmesh and cornell_hugemesh
+   at 1920x1080 and cornell_bigmesh at 800x800 (8 spp per call for the
+   kernel, 1 for the plain version); K9.  Mrays/s counts live path
    segments.
 
 The line before the last is a JSON object describing each kernel; the
@@ -35,6 +49,7 @@ prints no result and exits non-zero.  It imports nothing of JAX.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import statistics
@@ -49,6 +64,9 @@ COUNT_RTOL = 0.005     # per-bounce live counts after bounce 0
 SPP_PER_CALL = 8
 K1_SITE = "pathtrace_tpu/ops/pallas/megakernel.py:2424"   # _kernel
 K2_SITE = "pathtrace_tpu/ops/pallas/megakernel.py:2223"   # _nee_add
+K3_SITE = "pathtrace_tpu/ops/pallas/megakernel.py:1069"   # the bvh_meta walk
+K9_SITE = "tools/probe_trav.py:32"                        # kernel
+HUGEMESH_OBJ = os.path.join("scenes", "gen_icosphere7.obj")
 
 # bump on the diffuse white, a dense medium in the glass sphere
 BUMP = ("EMITTANCE   0\n\n// Diffuse red",
@@ -67,6 +85,21 @@ CONFIGS = [
     ("cornell_checker", "cornell_checker", (), False, False),
     ("cornell_glass bump+SSS", "cornell_glass", (BUMP, SSS), False, False),
 ]
+# cornell_mesh's icosahedron (material 4) made glass with a checker, and
+# moving
+MESH_GLASS = ("REFR        0\nREFRIOR     0\nEMITTANCE   0\n\n// Camera",
+              "REFR        1\nREFRIOR     1.5\nEMITTANCE   0\n"
+              "CHECKER     3 .2 .4 .9\n\n// Camera")
+MESH_MOTION = ("SCALE       2 2 2", "SCALE       2 2 2\nMOTION      .6 0 .3")
+# the same, at the files' own 1920x1080 depth 8
+MESH_CONFIGS = [
+    ("cornell_mesh", "cornell_mesh", (), False, False),
+    ("cornell_mesh NEE", "cornell_mesh", (), True, False),
+    ("cornell_bigmesh", "cornell_bigmesh", (), False, False),
+    ("cornell_mesh glass+checker+motion", "cornell_mesh",
+     (MESH_GLASS, MESH_MOTION), False, False),
+    ("cornell_hugemesh", "cornell_hugemesh", (), False, False),
+]
 
 
 def card_line():
@@ -84,11 +117,25 @@ def load(ptt, name, edits):
         if text.count(old) != 1:
             raise RuntimeError(f"{name}: replacement not found: {old!r}")
         text = text.replace(old, new)
-    return ptt.parse_scene(text)
+    return ptt.parse_scene(text, base_dir=os.path.join(HERE, "scenes"))
 
 
-def mask_of(K, scene, nee, rr):
-    return K.feature_mask(K.scene_features(scene), nee, rr)
+def load_mesh_scene(ptt, name, edits):
+    """A mesh scene, with its load and BVH-build seconds printed (the
+    build is timed again apart from the load that includes it)."""
+    from pathtrace_tpu_torch.scene import bvh
+
+    t0 = time.perf_counter()
+    scene = load(ptt, name, edits)
+    t_load = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    bvh.build_mesh_bvh(scene.mesh.tri_verts, scene.mesh.tri_geom,
+                       scene.geoms.count)
+    t_bvh = time.perf_counter() - t0
+    print(f"load {name}{' (edited)' if edits else ''}: {t_load:.2f} s, "
+          f"of which the BVH build {t_bvh:.2f} s; {scene.mesh.count} "
+          f"triangles, bvh_meta {scene.mesh.bvh_meta}", flush=True)
+    return scene
 
 
 def kernel_name(K, mask):
@@ -96,6 +143,8 @@ def kernel_name(K, mask):
     if mask & K.RR_BIT:
         on.append("russian roulette")
     name = "k1_trace+k2_nee" if mask & K.NEE_BIT else "k1_trace"
+    if mask & K.MESH_BIT:
+        name += "+k3_mesh"
     return f"{name}[{','.join(on)}]" if on else name
 
 
@@ -167,6 +216,30 @@ def cli_main_path(K, np, scene_file, flags):
     return launches
 
 
+def probe_phase(K, P, scene):
+    """K9 on the bigmesh tables: the reference's 32x128 bundle through
+    the wrapper (launch count reset before and read after), against the
+    plain version; then a one-warp bundle.  Returns the launches."""
+    tri, nodes, meta = K.pack_mesh(scene, "cuda")
+    P.LAUNCHES.clear()
+    got = P.probe_k9(nodes, tri, meta[0])
+    launches = P.LAUNCHES["k9_probe"]
+    want = P.probe_plain(nodes, tri, meta[0])
+    print(f"k9 bigmesh {P.BUNDLE[0]}x{P.BUNDLE[1]} rays: (n, steps, leaves, "
+          f"tsum) cuda {got} plain {want}; launches {launches}", flush=True)
+    if got != want or launches != 1:
+        raise RuntimeError(f"K9: cuda {got} != plain {want} or launches "
+                           f"{launches} != 1")
+    err = max(abs(a - b) for a, b in zip(got, want))
+    warp, warp_plain = (f(nodes, tri, meta[0], 1, 32)
+                        for f in (P.probe_k9, P.probe_plain))
+    print(f"k9 bigmesh 1x32 rays (one warp, information): cuda {warp} "
+          f"plain {warp_plain}", flush=True)
+    if warp != warp_plain:
+        raise RuntimeError(f"K9 one warp: cuda {warp} != plain {warp_plain}")
+    return launches, err, (nodes, tri, meta[0])
+
+
 def median_ms(fn, torch, k):
     """Median over k calls of fn's CUDA-event time, after one warm call."""
     out = fn()
@@ -183,6 +256,34 @@ def median_ms(fn, torch, k):
     return statistics.median(times), times, out
 
 
+T_START = time.perf_counter()
+
+
+def phase_done(name):
+    print(f"phase {name} done at {time.perf_counter() - T_START:.1f} s",
+          flush=True)
+
+
+def time_variant(K, torch, label, job, mask, card, spp_kernel, k_kernel,
+                 spp_plain, k_plain):
+    """Kernel and plain ms/iter of one configuration (runs printed)."""
+    width, height = job["width"], job["height"]
+    ms_k, runs_k, (_, counts) = median_ms(
+        lambda: K.trace_k1(**job, it0=1, n_spp=spp_kernel), torch, k_kernel)
+    ms_p, runs_p, _ = median_ms(
+        lambda: K.trace_plain(**job, it0=1, n_spp=spp_plain), torch, k_plain)
+    segs = int(counts.sum()) / spp_kernel  # live segments per iteration
+    for version, ms, runs, spp in (("kernel", ms_k, runs_k, spp_kernel),
+                                   ("plain", ms_p, runs_p, spp_plain)):
+        print(f"time {version} {label} {width}x{height} d{job['depth']} "
+              f"{spp}spp/call ({kernel_name(K, mask)}): median {ms:.4f} "
+              f"ms/call = {ms / spp:.4f} ms/iter, "
+              f"{segs / (ms / spp / 1e3) / 1e6:.1f} Mrays/s ({segs:.0f} live "
+              f"segments/iter; runs {[round(t, 4) for t in runs]}) on {card}",
+              flush=True)
+    return ms_k / spp_kernel, ms_p / spp_plain
+
+
 def main():
     import torch
 
@@ -196,6 +297,7 @@ def main():
     import pathtrace_tpu_torch as ptt
     from pathtrace_tpu_torch.ops.cuda import build
     from pathtrace_tpu_torch.ops.cuda import megakernel as K
+    from pathtrace_tpu_torch.ops.cuda import probe as P
 
     card = card_line()
     kind = torch.cuda.get_device_name(0)
@@ -205,69 +307,105 @@ def main():
     configs = []
     for label, name, edits, nee, rr in CONFIGS:
         scene = load(ptt, name, edits)
-        configs.append((label, scene, nee, rr, mask_of(K, scene, nee, rr)))
-    masks = sorted({c[4] for c in configs})
+        configs.append((label, scene, nee, rr, K.scene_mask(scene, nee, rr)))
+    if not os.path.exists(os.path.join(HERE, HUGEMESH_OBJ)):
+        t0 = time.perf_counter()
+        subprocess.run([sys.executable,
+                        os.path.join(HERE, "tools", "gen_mesh.py"), "7",
+                        os.path.join(HERE, HUGEMESH_OBJ)], check=True,
+                       timeout=300)
+        print(f"generated {HUGEMESH_OBJ}: {time.perf_counter() - t0:.2f} s",
+              flush=True)
+    mesh_configs = []
+    for label, name, edits, nee, rr in MESH_CONFIGS:
+        scene = load_mesh_scene(ptt, name, edits)
+        mesh_configs.append(
+            (label, scene, nee, rr, K.scene_mask(scene, nee, rr)))
+    masks = sorted({c[4] for c in configs + mesh_configs})
+    phase_done("scenes")
 
     t0 = time.perf_counter()
-    build.build_k1(masks)
-    print(f"build K1 variants {masks}: {time.perf_counter() - t0:.2f} s, "
-          f"nvcc {' '.join(build.NVCC_FLAGS)} -DPT_FEATURES=<mask>",
-          flush=True)
-    for mask in masks:
-        sec, log = build.BUILD_INFO.get(f"k1_m{mask}",
-                                        (0.0, "(library found built)"))
+    build.build_kernels(masks)
+    print(f"build K1 variants {masks} and K9: "
+          f"{time.perf_counter() - t0:.2f} s, nvcc "
+          f"{' '.join(build.NVCC_FLAGS)} -DPT_FEATURES=<mask>", flush=True)
+    for lib, name in ([(f"k1_m{m}", f"{kernel_name(K, m)} (mask {m})")
+                       for m in masks] + [("k9_probe", "k9_probe")]):
+        sec, log = build.BUILD_INFO.get(lib, (0.0, "(library found built)"))
         usage = [ln.strip() for ln in log.splitlines()
                  if "registers" in ln or "spill" in ln]
-        print(f"build {kernel_name(K, mask)} (mask {mask}): {sec:.2f} s | "
-              f"{' | '.join(usage)}", flush=True)
+        print(f"build {name}: {sec:.2f} s | {' | '.join(usage)}", flush=True)
+    phase_done("build")
 
     launches = dict.fromkeys(masks, 0)
     max_err = dict.fromkeys(masks, 0.0)
-    for label, scene, nee, rr, mask in configs:
+    for label, scene, nee, rr, mask in configs + mesh_configs:
         n, err = compare(ptt, K, torch, label, scene, nee, rr, mask)
         launches[mask] += n
         max_err[mask] = max(max_err[mask], err)
+        phase_done(f"compare {label}")
     for scene_file, flags in (("cornell.txt", []),
-                              ("cornell_glass.txt", ["--nee"])):
+                              ("cornell_glass.txt", ["--nee"]),
+                              ("cornell_mesh.txt", [])):
         for mask, n in cli_main_path(K, np, scene_file, flags).items():
             launches[mask] += n
+        phase_done(f"cli {scene_file}")
     missing = [m for m in masks if not launches[m]]
     if missing:
         raise RuntimeError(f"the main path launched no kernel of masks "
                            f"{missing}")
+    bigmesh = next(c[1] for c in mesh_configs if c[0] == "cornell_bigmesh")
+    k9_launches, k9_err, k9_args = probe_phase(K, P, bigmesh)
+    phase_done("k9")
 
     timed = {}
     for label, scene, nee, rr, mask in configs:
-        if mask in timed:
-            continue
+        if mask not in timed:
+            timed[mask] = time_variant(
+                K, torch, label, K.prepare(scene, "cuda", nee=nee, rr=rr),
+                mask, card, SPP_PER_CALL, 9, SPP_PER_CALL, 5)
+            phase_done(f"time {label}")
+    for label, scene, nee, rr, mask in mesh_configs:
         job = K.prepare(scene, "cuda", nee=nee, rr=rr)
-        ms_k, runs_k, (_, counts) = median_ms(
-            lambda: K.trace_k1(**job, it0=1, n_spp=SPP_PER_CALL), torch, k=9)
-        ms_p, runs_p, _ = median_ms(
-            lambda: K.trace_plain(**job, it0=1, n_spp=SPP_PER_CALL), torch,
-            k=5)
-        timed[mask] = (ms_k / SPP_PER_CALL, ms_p / SPP_PER_CALL)
-        segs = int(counts.sum())
-        for version, ms, runs in (("kernel", ms_k, runs_k),
-                                  ("plain", ms_p, runs_p)):
-            print(f"time {version} {label} 800x800 d8 {SPP_PER_CALL}spp/call "
-                  f"({kernel_name(K, mask)}): median {ms:.4f} ms/call = "
-                  f"{ms / SPP_PER_CALL:.4f} ms/iter, "
-                  f"{segs / (ms / 1e3) / 1e6:.1f} Mrays/s ({segs} live "
-                  f"segments/call; runs {[round(t, 4) for t in runs]}) on "
-                  f"{card}", flush=True)
+        ms = time_variant(K, torch, label, job, mask, card, SPP_PER_CALL, 5,
+                          1, 3)
+        timed.setdefault(mask, ms)
+        phase_done(f"time {label}")
+        if label == "cornell_bigmesh":
+            # the reference's bigmesh secondary metric scene, 800x800 d8,
+            # here on the megakernel route
+            small = dataclasses.replace(scene, resolution=(800, 800))
+            time_variant(K, torch, label, K.prepare(small, "cuda"), mask,
+                         card, SPP_PER_CALL, 5, 1, 3)
+    ms_k9, runs_k9, _ = median_ms(lambda: P.probe_k9(*k9_args), torch, 9)
+    ms_k9p, runs_k9p, _ = median_ms(lambda: P.probe_plain(*k9_args), torch, 3)
+    print(f"time k9_probe bigmesh 32x128 rays: kernel median {ms_k9:.4f} ms "
+          f"(runs {[round(t, 4) for t in runs_k9]}), plain median "
+          f"{ms_k9p:.4f} ms (runs {[round(t, 4) for t in runs_k9p]}) on "
+          f"{card}", flush=True)
+    phase_done("time k9")
 
     print(card, flush=True)
     print(json.dumps({"kernels": [{
         "name": kernel_name(K, mask),
         "route": "cuda",
         "source": "pathtrace_tpu_torch/csrc/megakernel.cu",
-        "replaces": K2_SITE if mask & K.NEE_BIT else K1_SITE,
+        "replaces": (K3_SITE if mask & K.MESH_BIT else
+                     K2_SITE if mask & K.NEE_BIT else K1_SITE),
         "launches": launches[mask],
         "max_abs_err": max_err[mask],
         "ms": timed[mask][0],
         "plain_ms": timed[mask][1],
-    } for mask in masks]}), flush=True)
+    } for mask in masks] + [{
+        "name": "k9_probe",
+        "route": "cuda",
+        "source": "pathtrace_tpu_torch/csrc/probe_trav.cu",
+        "replaces": K9_SITE,
+        "launches": k9_launches,
+        "max_abs_err": k9_err,
+        "ms": ms_k9,
+        "plain_ms": ms_k9p,
+    }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -2,9 +2,10 @@
 
 ``from_jax_scene`` reads a ``pathtrace_tpu`` ``Scene`` by attribute name
 (its array leaves through ``np.asarray``) into this package's ``Scene``;
-``packed_tables_from_numpy`` and ``lights_table_from_numpy`` turn packed
-``cam``/``mats``/``gmat`` and ``lights`` tables (numpy, e.g. from the
-reference's ``_pack_scene`` and ``_pack_lights``) into device tensors.
+``packed_tables_from_numpy``, ``lights_table_from_numpy`` and
+``mesh_tables_from_numpy`` turn packed ``cam``/``mats``/``gmat``,
+``lights`` and ``tri``/``nodes`` tables (numpy, e.g. from the reference's
+``_pack_scene`` and ``_pack_lights``) into device tensors.
 The tests use them to make the two packages compute the same thing.
 """
 
@@ -65,3 +66,10 @@ def lights_table_from_numpy(lights, device="cpu"):
     reference's ``_pack_lights``) as a float32 tensor on ``device``;
     None stays None (a scene with no light)."""
     return None if lights is None else _tensor(lights, device)
+
+
+def mesh_tables_from_numpy(tri, nodes, device="cpu"):
+    """Packed mesh tables (tri (T,16), nodes (N,16), numpy, e.g. from
+    the reference's ``_pack_scene`` BVH branch) as float32 tensors on
+    ``device``."""
+    return _tensor(tri, device), _tensor(nodes, device)

@@ -65,8 +65,10 @@ class Geoms:
 @dataclass
 class TriMesh:
     """Triangle soup for MESH geoms, object space (``tri_verts.shape[0]
-    == 0`` means no mesh).  The ``bvh_*`` fields are filled by the BVH
-    construction, which the port does not have yet."""
+    == 0`` means no mesh).  The ``bvh_*`` fields are filled at load time
+    by ``scene/bvh.with_bvh``: the node table, the triangle order and
+    one ``(geom, node_off, n_nodes, tri_off, n_tris)`` entry per MESH
+    geom."""
 
     tri_verts: Any  # (T, 3, 3)
     tri_geom: Any   # (T,) int32

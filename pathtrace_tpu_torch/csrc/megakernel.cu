@@ -1,19 +1,19 @@
 // K1 — forward path-trace megakernel for NVIDIA Hopper (sm_90a), with its
-// NEE section K2.
+// NEE section K2 and its triangle-mesh section K3.
 //
 // Replaces the Pallas TPU kernel `_kernel` of
 // pathtrace_tpu/ops/pallas/megakernel.py (its body is `_make_tracer`; it is
-// reached from the pallas_call in `_run`) for scenes of spheres and cubes:
-// diffuse, mirror, imperfect-specular (power cosine), glass (Schlick +
-// Snell), emissive and subsurface (random-walk medium) materials; depth of
-// field, motion blur, checker and bump; next-event estimation (`_nee_add`:
-// one area sample and one shadow ray per light and bounce) and Russian
-// roulette.  Meshes, image textures and gradients are not here.
+// reached from the pallas_call in `_run`) for scenes of spheres, cubes and
+// triangle meshes: diffuse, mirror, imperfect-specular (power cosine), glass
+// (Schlick + Snell), emissive and subsurface (random-walk medium) materials;
+// depth of field, motion blur, checker and bump; next-event estimation
+// (`_nee_add`: one area sample and one shadow ray per light and bounce) and
+// Russian roulette.  Image textures and gradients are not here.
 //
 // Like Mosaic's kernel, it is specialized at compile time on the feature
 // set: PT_FEATURES (ops/cuda/megakernel.py feature_mask) holds one bit per
-// scene feature, then NEE and Russian roulette, and each section is an
-// `if constexpr`.  With PT_FEATURES=0 it is the feature-free kernel.
+// scene feature, then NEE, Russian roulette and meshes, and each section is
+// an `if constexpr`.  With PT_FEATURES=0 it is the feature-free kernel.
 //
 // What bounds it on the card: ALU work and divergence.  There is no
 // device-memory traffic to speak of: the scene and light tables are a few
@@ -43,10 +43,24 @@
 //   Shadow rays are not counted.  The reference keeps int32 counts; at
 //   800x800 and 5000 samples a single bounce sees 3.2e9 paths, which int32
 //   cannot hold.
+// K3, meshes (the reference's BVH walk `trav_w`/`leaf_w` and its winner
+// fold `mt_shade_fold`): per MESH geom, after the spheres and cubes, each
+// thread walks the geom's skip-link BVH (scene/bvh.py: DFS order, no stack)
+// on its own ray, reading the node and triangle tables from global memory
+// as float4s through the read-only cache.  They fit in the 50 MB L2: 16
+// floats a node and a triangle, 7.3 MB for an 81,920-triangle mesh.  What
+// bounds the walk is latency: one dependent node load per step, a few
+// hundred steps on a big mesh, warps diverging as their rays take different
+// paths.  The walk carries only (winner row, t_loc); the shading fold runs
+// once, afterwards, on the winner's reloaded row, with the same arithmetic
+// as the walk's test, so the winner and its distance are the ones the
+// reference's winner fold finds.
+//
 // It is built with -fmad=false and IEEE division and square root, so that
 // it rounds as its plain PyTorch version (ops/cuda/megakernel.py
 // trace_plain) does.
 
+#include <cmath>
 #include <cstdint>
 
 #include <cuda_runtime.h>
@@ -69,6 +83,7 @@ constexpr bool kBump = kFeatures & 32u;
 constexpr bool kSss = kFeatures & 64u;
 constexpr bool kNee = kFeatures & 128u;
 constexpr bool kRr = kFeatures & 256u;
+constexpr bool kMesh = kFeatures & 512u;
 
 constexpr int kBlock = 128;
 constexpr int kWarps = kBlock / 32;
@@ -77,8 +92,12 @@ constexpr int kMatCols = 24;
 constexpr int kGeomCols = 40;
 constexpr int kLightCols = 128;
 constexpr int kSphere = 0;
+constexpr int kMeshType = 2;
+constexpr int kMetaCols = 5;  // geom, node_off, n_nodes, tri_off, n_tris
 constexpr float kNoHit = 1e30f;
 constexpr float kRayOffset = 1e-4f;
+// slack of the object-space pruning bound, float32(1 + 1e-5)
+constexpr float kBoundSlack = static_cast<float>(1.0 + 1e-5);
 constexpr float kTwoPi = 6.2831853071795864769f;
 constexpr float kSqrtThird = 0.5773502691896257645f;
 // float32 of the double constants, as the reference rounds them
@@ -101,17 +120,78 @@ struct Hit {
   bool outside;      // entering the geom (glass, SSS)
 };
 
-// Nearest hit by world-space distance.  The strict `<` keeps the lower geom
-// index on a tie.  gmat rows: forward 3x4 (0..11), inverse 3x4 (12..23),
-// inverse-transpose 3x3 (24..32), velocity (33..35).  `time` is the ray's
-// shutter time (motion blur).  The shadow form (NEE visibility) skips the
-// normals; its distances and winners are those of the full fold.
-template <bool kShadow>
+// The triangle meshes.  Rows of 16 floats, 4 float4s: tri (pack_mesh) v0 e1
+// e2 n_obj pad, in BVH order; nodes (scene/bvh.py) min max skip start count
+// pad.  meta: kMetaCols ints per MESH geom.  An empty struct in the builds
+// without meshes, so that their code does not change.
+template <bool kOn>
+struct MeshTables {
+  __device__ MeshTables(const float4* t, const float4* n, const int* m, int c)
+      : tri(t), nodes(n), meta(m), n_meta(c) {}
+  const float4* tri;
+  const float4* nodes;
+  const int* meta;
+  int n_meta;
+};
+template <>
+struct MeshTables<false> {
+  __device__ MeshTables(const float4*, const float4*, const int*, int) {}
+};
+using Mesh = MeshTables<kMesh>;
+
+// One axis of the ray/box slab test: t entering and leaving.  A NaN (origin
+// on the slab plane, zero direction component) frees the axis, as the
+// reference's guard does; fminf/fmaxf would drop it instead.
+__device__ __forceinline__ void slab(float mn, float mx, float o, float ird,
+                                     float& ta, float& tb) {
+  const float t1 = (mn - o) * ird;
+  const float t2 = (mx - o) * ird;
+  const bool nan = isnan(t1) || isnan(t2);
+  ta = nan ? -INFINITY : fminf(t1, t2);
+  tb = nan ? INFINITY : fmaxf(t1, t2);
+}
+
+// Moller-Trumbore against the triangle row at t (3 float4 loads): the hit
+// distance along the object-space ray in tt.
+__device__ __forceinline__ bool tri_test(float rox, float roy, float roz,
+                                         float rdx, float rdy, float rdz,
+                                         const float4* t, float& tt) {
+  const float4 a = __ldg(t), b = __ldg(t + 1), c = __ldg(t + 2);
+  const float v0x = a.x, v0y = a.y, v0z = a.z;
+  const float e1x = a.w, e1y = b.x, e1z = b.y;
+  const float e2x = b.z, e2y = b.w, e2z = c.x;
+  const float pvx = rdy * e2z - rdz * e2y;
+  const float pvy = rdz * e2x - rdx * e2z;
+  const float pvz = rdx * e2y - rdy * e2x;
+  const float det = pvx * e1x + pvy * e1y + pvz * e1z;
+  const bool ok = fabsf(det) > 1e-12f;
+  const float inv_det = 1.f / (ok ? det : 1.f);
+  const float tvx = rox - v0x, tvy = roy - v0y, tvz = roz - v0z;
+  const float u = (tvx * pvx + tvy * pvy + tvz * pvz) * inv_det;
+  const float qvx = tvy * e1z - tvz * e1y;
+  const float qvy = tvz * e1x - tvx * e1z;
+  const float qvz = tvx * e1y - tvy * e1x;
+  const float vv = (rdx * qvx + rdy * qvy + rdz * qvz) * inv_det;
+  tt = (e2x * qvx + e2y * qvy + e2z * qvz) * inv_det;
+  return ok && u >= 0.f && vv >= 0.f && u + vv <= 1.f && tt > 0.f;
+}
+
+// Nearest hit by world-space distance: the spheres and cubes in index
+// order, then (mesh builds) each MESH geom in meta order.  The strict `<`
+// keeps the geom folded first on a tie.  gmat rows: forward 3x4 (0..11),
+// inverse 3x4 (12..23), inverse-transpose 3x3 (24..32), velocity (33..35).
+// `time` is the ray's shutter time (motion blur).  The shadow form (NEE
+// visibility) skips the normals; its distances and winners are those of the
+// full fold.
+template <bool kShadow, typename M>
 __device__ Hit nearest(float ox, float oy, float oz, float dx, float dy,
                        float dz, float time, const float* gmat,
-                       const int* types, int n_geoms) {
+                       const int* types, int n_geoms, const M mesh) {
   Hit best{kNoHit, ox, oy, oz, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, -1, false};
   for (int g = 0; g < n_geoms; ++g) {
+    if constexpr (kMesh) {
+      if (types[g] == kMeshType) continue;  // walked below
+    }
     const float* m = gmat + g * kGeomCols;
     // motion blur: the ray origin moves back by time * velocity
     float gox = ox, goy = oy, goz = oz;
@@ -225,6 +305,98 @@ __device__ Hit nearest(float ox, float oy, float oz, float dx, float dy,
     if (dist < best.dist)
       best = Hit{dist, pxw, pyw, pzw, nx, ny, nz, qx, qy, qz, g, outside};
   }
+  if constexpr (kMesh) {
+    for (int e = 0; e < mesh.n_meta; ++e) {
+      const int* me = mesh.meta + e * kMetaCols;
+      const int g = me[0], n_nodes = me[2];
+      const float4* nodes = mesh.nodes + 4ll * me[1];
+      const float4* tri = mesh.tri + 4ll * me[3];
+      const float* m = gmat + g * kGeomCols;
+      float gox = ox, goy = oy, goz = oz;
+      if constexpr (kMotion) {
+        gox = ox - time * m[33];
+        goy = oy - time * m[34];
+        goz = oz - time * m[35];
+      }
+      const float rox = m[12] * gox + m[13] * goy + m[14] * goz + m[15];
+      const float roy = m[16] * gox + m[17] * goy + m[18] * goz + m[19];
+      const float roz = m[20] * gox + m[21] * goy + m[22] * goz + m[23];
+      float rdx = m[12] * dx + m[13] * dy + m[14] * dz;
+      float rdy = m[16] * dx + m[17] * dy + m[18] * dz;
+      float rdz = m[20] * dx + m[21] * dy + m[22] * dz;
+      normalize3(rdx, rdy, rdz);
+      const float irdx = 1.f / rdx, irdy = 1.f / rdy, irdz = 1.f / rdz;
+      // exact object-space pruning bound from the winner so far: dist =
+      // (t - RAY_OFFSET) * |L rd| with L the linear part of the forward
+      // transform, so t_bound = dist / |L rd| + RAY_OFFSET (+ slack)
+      const float wdx = m[0] * rdx + m[1] * rdy + m[2] * rdz;
+      const float wdy = m[4] * rdx + m[5] * rdy + m[6] * rdz;
+      const float wdz = m[8] * rdx + m[9] * rdy + m[10] * rdz;
+      const float s_ray = sqrtf(wdx * wdx + wdy * wdy + wdz * wdz);
+      float t_loc = best.dist / fmaxf(s_ray, 1e-20f) * kBoundSlack + kRayOffset + 1e-4f;
+      // the walk: enter a node whose box the ray meets before t_loc, else
+      // take its skip link; in a leaf, a nearer hit becomes the winner
+      int win = -1;
+      for (int n = 0; n < n_nodes;) {
+        const float4 na = __ldg(nodes + 4 * n);      // min xyz, max x
+        const float4 nb = __ldg(nodes + 4 * n + 1);  // max yz, skip, start
+        const float4 nc = __ldg(nodes + 4 * n + 2);  // count
+        float tax, tbx, tay, tby, taz, tbz;
+        slab(na.x, na.w, rox, irdx, tax, tbx);
+        slab(na.y, nb.x, roy, irdy, tay, tby);
+        slab(na.z, nb.y, roz, irdz, taz, tbz);
+        const float tnear = fmaxf(fmaxf(tax, tay), fmaxf(taz, 0.f));
+        const float tfar = fminf(fminf(tbx, tby), tbz);
+        const bool box_hit = tnear <= tfar && tnear < t_loc;
+        // float-coded integers, truncated as the reference's astype
+        const int count = static_cast<int>(nc.x);
+        if (box_hit && count > 0) {
+          const int start = static_cast<int>(nb.w);
+          for (int k = start; k < start + count; ++k) {
+            float tt;
+            if (tri_test(rox, roy, roz, rdx, rdy, rdz, tri + 4 * k, tt) && tt < t_loc) {
+              t_loc = tt;
+              win = k;
+            }
+          }
+        }
+        n = (count > 0 || !box_hit) ? static_cast<int>(nb.z) : n + 1;
+      }
+      if (win < 0) continue;
+      // the shading fold, once, on the winner
+      float tt;
+      if (!tri_test(rox, roy, roz, rdx, rdy, rdz, tri + 4 * win, tt)) continue;
+      const float tofs = tt - kRayOffset;
+      const float qx = rox + tofs * rdx;
+      const float qy = roy + tofs * rdy;
+      const float qz = roz + tofs * rdz;
+      float nx = 0.f, ny = 0.f, nz = 0.f;
+      bool outside = false;
+      if constexpr (!kShadow) {
+        // the ray-facing geometric normal through invT
+        const float4 c = __ldg(tri + 4 * win + 2);  // e2z, n_obj
+        const float face = rdx * c.y + rdy * c.z + rdz * c.w;
+        const float flip = face < 0.f ? 1.f : -1.f;
+        nx = (m[24] * c.y + m[25] * c.z + m[26] * c.w) * flip;
+        ny = (m[27] * c.y + m[28] * c.z + m[29] * c.w) * flip;
+        nz = (m[30] * c.y + m[31] * c.z + m[32] * c.w) * flip;
+        normalize3(nx, ny, nz);
+        outside = face < 0.f;
+      }
+      float pxw = m[0] * qx + m[1] * qy + m[2] * qz + m[3];
+      float pyw = m[4] * qx + m[5] * qy + m[6] * qz + m[7];
+      float pzw = m[8] * qx + m[9] * qy + m[10] * qz + m[11];
+      const float ddx = gox - pxw, ddy = goy - pyw, ddz = goz - pzw;
+      if constexpr (kMotion) {
+        pxw = pxw + time * m[33];
+        pyw = pyw + time * m[34];
+        pzw = pzw + time * m[35];
+      }
+      const float dist = sqrtf(ddx * ddx + ddy * ddy + ddz * ddz);
+      if (dist < best.dist)
+        best = Hit{dist, pxw, pyw, pzw, nx, ny, nz, qx, qy, qz, g, outside};
+    }
+  }
   return best;
 }
 
@@ -293,11 +465,13 @@ __device__ __forceinline__ void imperfect_specular(float m_ex, float& mrx,
 // (pack_lights): 0 geom | 1 type | 2-4 emission | cube: 5 area, 6-11 face
 // cdf, 12-29 origins, 30-47 e_b, 48-65 e_c, 66-83 normals | sphere: 12-20
 // forward 3x3, 21-23 center, 24-32 invT 3x3, 33 |det| | 120-122 velocity.
+template <typename M>
 __device__ __forceinline__ void nee_add(
     float& rr, float& rg, float& rb, float tr, float tg, float tb,
     const Hit& h, float nx, float ny, float nz, const float* al, float time,
     uint32_t it, uint32_t pix, uint32_t dep, const float* lights,
-    int n_lights, const float* gmat, const int* types, int n_geoms) {
+    int n_lights, const float* gmat, const int* types, int n_geoms,
+    const M mesh) {
   for (int k = 0; k < n_lights; ++k) {
     const float* lr = lights + k * kLightCols;
     const uint32_t base = pt::kDrawNeeBase + 3u * static_cast<uint32_t>(k);
@@ -326,8 +500,9 @@ __device__ __forceinline__ void nee_add(
       lny *= inv_nl;
       lnz *= inv_nl;
     } else {
-      // cube: face f covers [cdf[f-1], cdf[f]) of u_sel, the last face the
-      // rest; then (s, t) on its parallelogram
+      // cube (and, as in the reference, any light that is not a sphere):
+      // face f covers [cdf[f-1], cdf[f]) of u_sel, the last face the rest;
+      // then (s, t) on its parallelogram
       int f = 0;
       while (f < 5 && !(u_sel < lr[6 + f])) ++f;
       const float ss = u1 - 0.5f, tt = u2 - 0.5f;
@@ -356,7 +531,7 @@ __device__ __forceinline__ void nee_add(
     const float inv_dl = 1.f / dist_l;
     const float sdx = wlx * inv_dl, sdy = wly * inv_dl, sdz = wlz * inv_dl;
     const Hit sh = nearest<true>(h.px, h.py, h.pz, sdx, sdy, sdz, time, gmat,
-                                 types, n_geoms);
+                                 types, n_geoms, mesh);
     // seen: the nearest hit along the shadow ray is the light, at the
     // sampled distance
     const float tol = fmaxf(1e-3f, 5e-3f * dist_l);
@@ -375,12 +550,14 @@ __device__ __forceinline__ void nee_add(
 __global__ void __launch_bounds__(kBlock)
 k1_trace(const float* __restrict__ cam_g, const float* __restrict__ mats_g,
          const float* __restrict__ gmat_g, const int* __restrict__ types_g,
-         const float* __restrict__ lights_g, int n_geoms, int n_lights,
-         int width, int height, int depth, uint32_t it0, int n_spp,
-         long long pix0, long long n_local, float* __restrict__ rad,
+         const float* __restrict__ lights_g, const float4* __restrict__ tri_g,
+         const float4* __restrict__ nodes_g, const int* __restrict__ meta_g,
+         int n_geoms, int n_lights, int n_meta, int width, int height,
+         int depth, uint32_t it0, int n_spp, long long pix0,
+         long long n_local, float* __restrict__ rad,
          unsigned long long* __restrict__ counts) {
   // shared: per-warp live counts [kWarps][depth], then cam, mats, gmat,
-  // lights (NEE), types
+  // lights (NEE), types, mesh meta (meshes)
   extern __shared__ unsigned long long smem[];
   unsigned long long* s_counts = smem;
   float* s_cam = reinterpret_cast<float*>(s_counts + kWarps * depth);
@@ -395,6 +572,11 @@ k1_trace(const float* __restrict__ cam_g, const float* __restrict__ mats_g,
     for (int i = threadIdx.x; i < n_lights * kLightCols; i += kBlock) s_lights[i] = lights_g[i];
   }
   for (int i = threadIdx.x; i < n_geoms; i += kBlock) s_types[i] = types_g[i];
+  int* s_meta = s_types + n_geoms;
+  if constexpr (kMesh) {
+    for (int i = threadIdx.x; i < n_meta * kMetaCols; i += kBlock) s_meta[i] = meta_g[i];
+  }
+  const Mesh mesh(tri_g, nodes_g, s_meta, n_meta);
   for (int i = threadIdx.x; i < kWarps * depth; i += kBlock) s_counts[i] = 0ull;
   __syncthreads();
 
@@ -468,7 +650,7 @@ k1_trace(const float* __restrict__ cam_g, const float* __restrict__ mats_g,
       if (lane == 0) s_counts[warp * depth + d] += __popc(ballot);
       if (!live) continue;
       const Hit h = nearest<false>(ox, oy, oz, dx, dy, dz, time, s_gmat,
-                                   s_types, n_geoms);
+                                   s_types, n_geoms, mesh);
       if (h.geom < 0) {  // miss: the path ends
         live = false;
         continue;
@@ -600,7 +782,8 @@ k1_trace(const float* __restrict__ cam_g, const float* __restrict__ mats_g,
         // taken (the reference's rule)
         if (!scatter_inside && !(mt[8] > 0.f))
           nee_add(rr, rg, rb, tr, tg, tb, h, nx, ny, nz, albedo, time, it,
-                  pix_u, dep, s_lights, n_lights, s_gmat, s_types, n_geoms);
+                  pix_u, dep, s_lights, n_lights, s_gmat, s_types, n_geoms,
+                  mesh);
       }
       if constexpr (kSss) {
         if (scatter_inside) {
@@ -683,22 +866,25 @@ extern "C" int pt_k1_features() { return static_cast<int>(kFeatures); }
 // Launches K1 on `stream` over pixels pix0 .. pix0+n_local-1: n_spp samples
 // each, iterations it0 .. it0+n_spp-1.  `lights` (n_lights, 128) is read by
 // a library built with NEE, which needs n_lights > 0; the others need 0.
+// `tri` (T, 16), `nodes` (N, 16) (16-byte aligned) and `meta` (n_meta, 5)
+// are read by a library built for meshes; the others need n_meta = 0.
 // rad (n_local,3) float32 is written; counts (depth,) must be zeroed by the
 // caller and is added into.  Returns the cudaError_t of the launch (0 =
 // success).
 extern "C" int pt_k1_trace(const float* cam, const float* mats,
                            const float* gmat, const int* geom_types,
-                           const float* lights, int n_geoms, int n_lights,
-                           int width, int height, int depth,
-                           unsigned int it0, int n_spp, long long pix0,
-                           long long n_local, float* rad,
+                           const float* lights, const float* tri,
+                           const float* nodes, const int* meta, int n_geoms,
+                           int n_lights, int n_meta, int width, int height,
+                           int depth, unsigned int it0, int n_spp,
+                           long long pix0, long long n_local, float* rad,
                            unsigned long long* counts, void* stream) {
-  if (kNee != (n_lights > 0) || n_lights < 0)
+  if (kNee != (n_lights > 0) || n_lights < 0 || n_meta < 0 || (!kMesh && n_meta > 0))
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = sizeof(unsigned long long) * kWarps * depth +
                       sizeof(float) * (kCamCols + n_geoms * (kMatCols + kGeomCols) +
                                        n_lights * kLightCols) +
-                      sizeof(int) * n_geoms;
+                      sizeof(int) * (n_geoms + n_meta * kMetaCols);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         k1_trace, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
@@ -708,8 +894,9 @@ extern "C" int pt_k1_trace(const float* cam, const float* mats,
   if (blocks <= 0 || blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   k1_trace<<<static_cast<unsigned>(blocks), kBlock, smem,
              static_cast<cudaStream_t>(stream)>>>(
-      cam, mats, gmat, geom_types, lights, n_geoms, n_lights, width, height,
-      depth, it0, n_spp, pix0, n_local, rad, counts);
+      cam, mats, gmat, geom_types, lights, reinterpret_cast<const float4*>(tri),
+      reinterpret_cast<const float4*>(nodes), meta, n_geoms, n_lights, n_meta, width,
+      height, depth, it0, n_spp, pix0, n_local, rad, counts);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -4,10 +4,10 @@ The sources under ``pathtrace_tpu_torch/csrc`` have a plain C interface
 and include no PyTorch header, so one ``nvcc`` call builds each shared
 library in seconds.  The megakernel is built once per feature set (a
 ``-DPT_FEATURES=<mask>`` define), as Mosaic compiles the reference's once
-per ``_scene_features``.  The build runs at first use, into
-``pathtrace_tpu_torch/build/`` (not committed), under a name keyed by the
-hash of the sources, flags and defines, so an edited source is never
-served from a stale library.  A failed build raises with nvcc's output.
+per ``_scene_features``; the traversal probe K9 is a library of its
+own.  The build runs at first use, into ``pathtrace_tpu_torch/build/``
+(not committed), under a name keyed by the hash of the sources, flags
+and defines, so an edited source is never served from a stale library.  A failed build raises with nvcc's output.
 """
 
 from __future__ import annotations
@@ -107,10 +107,14 @@ def _k1_job(mask):
     return f"k1_m{mask}", ["megakernel.cu"], (f"-DPT_FEATURES={mask}",)
 
 
-def build_k1(masks):
-    """Build the K1 libraries of these feature masks at once (nvcc in
-    parallel), so that later :func:`load_k1` calls find them built."""
-    build_many([_k1_job(m) for m in sorted(set(masks))])
+K9_JOB = ("k9_probe", ["probe_trav.cu"], ())
+
+
+def build_kernels(masks):
+    """Build the K1 libraries of these feature masks and the K9 probe's
+    at once, nvcc in parallel, so that later :func:`load_k1` and
+    :func:`load_k9` calls find them built."""
+    build_many([_k1_job(m) for m in sorted(set(masks))] + [K9_JOB])
 
 
 def load_k1(mask=0):
@@ -121,7 +125,9 @@ def load_k1(mask=0):
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.pt_k1_trace.argtypes = [
             p, p, p, p, p,                         # cam, mats, gmat, types, lights
-            i, i, i, i, i,                         # n_geoms, n_lights, width, height, depth
+            p, p, p,                               # tri, nodes, meta
+            i, i, i,                               # n_geoms, n_lights, n_meta
+            i, i, i,                               # width, height, depth
             ctypes.c_uint, i,                      # it0, n_spp
             ctypes.c_longlong, ctypes.c_longlong,  # pix0, n_local
             p, p, p,                               # rad, counts, stream
@@ -137,3 +143,17 @@ def load_k1(mask=0):
                 f"wanted {mask}")
         _LIBS[mask] = lib
     return _LIBS[mask]
+
+
+def load_k9():
+    """The K9 traversal-probe library (``csrc/probe_trav.cu``), built at
+    first use."""
+    if "k9" not in _LIBS:
+        lib = ctypes.CDLL(str(build(*K9_JOB)))
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.pt_k9_probe.argtypes = [p, p, i, i, i, i, p, p]
+        lib.pt_k9_probe.restype = i
+        lib.pt_cuda_error_string.argtypes = [i]
+        lib.pt_cuda_error_string.restype = ctypes.c_char_p
+        _LIBS["k9"] = lib
+    return _LIBS["k9"]

@@ -1,20 +1,22 @@
-"""Forward path-trace megakernel (K1, with NEE: K2): host side, plain
-version, wrapper.
+"""Forward path-trace megakernel (K1, with NEE: K2, with meshes: K3):
+host side, plain version, wrapper.
 
 Counterpart of ``pathtrace_tpu/ops/pallas/megakernel.py`` for the
-forward render path: ``pack_scene`` and ``pack_lights`` build the same
-``cam``/``mats``/``gmat``/``lights`` tables as ``_pack_scene`` and
-``_pack_lights``; ``trace_k1`` launches the CUDA kernel
+forward render path: ``pack_scene``, ``pack_lights`` and ``pack_mesh``
+build the same ``cam``/``mats``/``gmat``/``lights``/``tri``/``nodes``
+tables as ``_pack_scene`` and ``_pack_lights``; ``trace_k1`` launches
+the CUDA kernel
 ``csrc/megakernel.cu`` (which replaces the Pallas ``_kernel``), built
 once per feature set as Mosaic specializes the reference's; and
 ``trace_plain`` is the same computation in plain PyTorch, one element per
 pixel, following the kernel's own math and operation order (not the
 wavefront integrator's).
 
-Every primitive scene renders here: spheres and cubes; diffuse, mirror,
-imperfect-specular, glass, emissive and subsurface materials; depth of
-field, motion blur, checker and bump; NEE and Russian roulette.  Meshes
-and image textures raise ``NotImplementedError`` naming the ROADMAP item
+Every scene without image textures renders here: spheres, cubes and
+triangle meshes (one skip-link BVH walk per ray and MESH geom); diffuse,
+mirror, imperfect-specular, glass, emissive and subsurface materials;
+depth of field, motion blur, checker and bump; NEE and Russian roulette.
+Image textures raise ``NotImplementedError`` naming the ROADMAP item
 that ports them.
 """
 
@@ -46,8 +48,9 @@ NO_FEATURES = (False,) * len(FEATURE_NAMES)
 # bits of the kernel's compile-time feature mask past the scene features
 NEE_BIT = 1 << len(FEATURE_NAMES)
 RR_BIT = NEE_BIT << 1
+MESH_BIT = RR_BIT << 1
 LIGHT_COLS = 128
-_MESH_TODO = "ROADMAP Queue 1 item 7 (meshes, kernel K3)"
+TRI_COLS = 16  # v0 (3), e1 (3), e2 (3), object-space unit normal (3), pad
 _TEX_TODO = "ROADMAP Queue 1 item 8 (image textures, kernel K4)"
 
 
@@ -73,18 +76,24 @@ def scene_features(scene):
     )
 
 
-def feature_mask(features, nee, rr):
+def feature_mask(features, nee, rr, mesh=False):
     """The kernel's compile-time feature set as an int: bit i for
-    ``FEATURE_NAMES[i]``, then ``NEE_BIT`` and ``RR_BIT``."""
+    ``FEATURE_NAMES[i]``, then ``NEE_BIT``, ``RR_BIT`` and ``MESH_BIT``
+    (the scene has a MESH geom)."""
     mask = sum(1 << i for i, on in enumerate(features) if on)
-    return mask | (NEE_BIT if nee else 0) | (RR_BIT if rr else 0)
+    return (mask | (NEE_BIT if nee else 0) | (RR_BIT if rr else 0)
+            | (MESH_BIT if mesh else 0))
+
+
+def scene_mask(scene, nee=False, rr=False):
+    """``feature_mask`` of ``scene`` rendered with these options."""
+    return feature_mask(scene_features(scene), nee, rr,
+                        any(t == T.MESH for t in scene.geoms.type))
 
 
 def check_supported(scene):
     """Raise ``NotImplementedError`` for what the kernel does not port
-    yet: meshes and image textures."""
-    if scene.mesh.count or any(t == T.MESH for t in scene.geoms.type):
-        raise NotImplementedError(f"meshes are not ported yet: {_MESH_TODO}")
+    yet: image textures."""
     if scene.textures or any(i >= 0 for i in scene.texture_ids) or any(
             i >= 0 for i in scene.bump_texture_ids) or (
             scene.materials.bumptex_strength is not None):
@@ -200,8 +209,47 @@ def pack_lights(scene, device="cpu"):
     return torch.stack(rows).to(device), tuple(statics)
 
 
+def pack_mesh(scene, device="cpu"):
+    """The triangle tables of the reference's ``_pack_scene`` (its BVH
+    branch): (tri (T,16), nodes (N,16)) float32 tensors on ``device``
+    and the static ``bvh_meta``, or (None, None, ()) for a scene with no
+    triangles.
+
+    * tri: one row per triangle in BVH (leaf-contiguous) order: v0 (3),
+      e1 = v1 - v0 (3), e2 = v2 - v0 (3), the object-space unit normal
+      cross(e1, e2) / max(|.|, 1e-20) (3), zeros (4);
+    * nodes: ``scene.mesh.bvh_nodes`` (``scene/bvh.py``: aabb min and
+      max, skip link, leaf start and count, as float32);
+    * bvh_meta: ((geom, node_off, n_nodes, tri_off, n_tris), ...), one
+      entry per MESH geom that owns triangles.
+
+    Computed on the CPU in float32, as ``pack_scene``; the norm is the
+    square root of the sum of squares, rounded once (through float64).
+    """
+    mesh = scene.mesh
+    if not mesh.count:
+        return None, None, ()
+    if not mesh.bvh_meta:
+        raise ValueError("the mesh has no BVH: build it with "
+                         "scene.bvh.with_bvh (load_scene does)")
+    order = torch.as_tensor(np.asarray(mesh.bvh_order), dtype=torch.int64)
+    tv = _f32(mesh.tri_verts)[order]
+    v0 = tv[:, 0]
+    e1 = tv[:, 1] - tv[:, 0]
+    e2 = tv[:, 2] - tv[:, 0]
+    n = torch.stack([e1[:, 1] * e2[:, 2] - e1[:, 2] * e2[:, 1],
+                     e1[:, 2] * e2[:, 0] - e1[:, 0] * e2[:, 2],
+                     e1[:, 0] * e2[:, 1] - e1[:, 1] * e2[:, 0]], dim=1)
+    norm = n[:, 0] * n[:, 0] + n[:, 1] * n[:, 1] + n[:, 2] * n[:, 2]
+    norm = torch.sqrt(norm.double()).float()[:, None]
+    n = n / torch.clamp_min(norm, 1e-20)
+    tri = torch.cat([v0, e1, e2, n, torch.zeros((tv.shape[0], 4))], dim=1)
+    meta = tuple(tuple(int(x) for x in e) for e in mesh.bvh_meta)
+    return tri.to(device), _f32(mesh.bvh_nodes).to(device), meta
+
+
 # ----------------------------------------------------------------------------
-# plain PyTorch version of K1/K2, on flat (N,) tensors
+# plain PyTorch version of K1/K2/K3, on flat (N,) tensors
 # ----------------------------------------------------------------------------
 
 def _normalize3(x, y, z):
@@ -216,42 +264,173 @@ def _div(a, t):
     return torch.full_like(t, a) / t
 
 
-def _nearest(ox, oy, oz, dx, dy, dz, time, gmat, geom_types, shadow=False):
-    """Nearest hit over the geoms by world-space distance, the winner
-    kept on a strict ``dist < best`` (ties keep the lower index).
-    ``gmat`` is a list of rows of Python floats; ``time`` is the shutter
-    time (motion blur) or None.  Returns the winner's ``dist``,
-    ``geom`` (int64, -1 on a miss) and ``hit``; unless ``shadow``, also
-    its world point ``p*``, normal ``n*`` (before bump), object-space
-    point ``q*`` and ``outside``.  The shadow form skips the normals; its
-    distances and winners are those of the full fold."""
-    zeros = torch.zeros_like(ox)
-    best = torch.full_like(ox, NO_HIT)
-    geom = torch.full_like(ox, -1, dtype=torch.int64)
-    if not shadow:
-        px, py, pz = ox, oy, oz
-        nx = ny = nz = qbx = qby = qbz = zeros
-        outside = torch.zeros_like(ox, dtype=torch.bool)
-    for g, gtype in enumerate(geom_types):
-        if gtype not in (T.SPHERE, T.CUBE):
-            raise NotImplementedError(
-                f"K1 traces spheres and cubes; {_MESH_TODO}")
-        m = gmat[g]
-        # motion blur: the ray origin moves back by time * velocity
-        if time is not None:
-            gox, goy, goz = ox - time * m[33], oy - time * m[34], \
-                oz - time * m[35]
-        else:
-            gox, goy, goz = ox, oy, oz
-        # object-space ray (explicit mul-adds)
-        rox = m[12] * gox + m[13] * goy + m[14] * goz + m[15]
-        roy = m[16] * gox + m[17] * goy + m[18] * goz + m[19]
-        roz = m[20] * gox + m[21] * goy + m[22] * goz + m[23]
-        rdx = m[12] * dx + m[13] * dy + m[14] * dz
-        rdy = m[16] * dx + m[17] * dy + m[18] * dz
-        rdz = m[20] * dx + m[21] * dy + m[22] * dz
-        rdx, rdy, rdz = _normalize3(rdx, rdy, rdz)
+def _object_ray(m, ox, oy, oz, dx, dy, dz, time):
+    """The ray in the object space of the geom whose gmat row is ``m``:
+    (gox, goy, goz) the world origin moved back by ``time`` * velocity
+    (motion blur; None: no motion), then (rox, roy, roz, rdx, rdy, rdz)
+    with a unit direction."""
+    if time is not None:
+        gox, goy, goz = ox - time * m[33], oy - time * m[34], \
+            oz - time * m[35]
+    else:
+        gox, goy, goz = ox, oy, oz
+    # object-space ray (explicit mul-adds)
+    rox = m[12] * gox + m[13] * goy + m[14] * goz + m[15]
+    roy = m[16] * gox + m[17] * goy + m[18] * goz + m[19]
+    roz = m[20] * gox + m[21] * goy + m[22] * goz + m[23]
+    rdx = m[12] * dx + m[13] * dy + m[14] * dz
+    rdy = m[16] * dx + m[17] * dy + m[18] * dz
+    rdz = m[20] * dx + m[21] * dy + m[22] * dz
+    return (gox, goy, goz), (rox, roy, roz, *_normalize3(rdx, rdy, rdz))
 
+
+def _slab(mn, mx, o, ird):
+    """One axis of a ray/box slab test: (t entering, t leaving).  A NaN
+    (origin on the slab plane, zero direction component) frees the
+    axis: -inf / +inf."""
+    t1 = (mn - o) * ird
+    t2 = (mx - o) * ird
+    ta = torch.minimum(t1, t2)  # propagates a NaN, as the reference's
+    tb = torch.maximum(t1, t2)
+    return (torch.where(torch.isnan(ta), -float("inf"), ta),
+            torch.where(torch.isnan(tb), float("inf"), tb))
+
+
+def _moller_trumbore(ray, row):
+    """Ray (rox, roy, roz, rdx, rdy, rdz) against the triangles of
+    ``row`` (N,16) (``pack_mesh`` layout): (tt, hit)."""
+    rox, roy, roz, rdx, rdy, rdz = ray[:6]
+    v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z = row[:, :9].unbind(1)
+    pvx = rdy * e2z - rdz * e2y
+    pvy = rdz * e2x - rdx * e2z
+    pvz = rdx * e2y - rdy * e2x
+    det = pvx * e1x + pvy * e1y + pvz * e1z
+    ok = torch.abs(det) > 1e-12
+    inv_det = torch.reciprocal(torch.where(ok, det, 1.0))
+    tvx, tvy, tvz = rox - v0x, roy - v0y, roz - v0z
+    u = (tvx * pvx + tvy * pvy + tvz * pvz) * inv_det
+    qvx = tvy * e1z - tvz * e1y
+    qvy = tvz * e1x - tvx * e1z
+    qvz = tvx * e1y - tvy * e1x
+    vv = (rdx * qvx + rdy * qvy + rdz * qvz) * inv_det
+    tt = (e2x * qvx + e2y * qvy + e2z * qvz) * inv_det
+    return tt, ok & (u >= 0.0) & (vv >= 0.0) & (u + vv <= 1.0) & (tt > 0.0)
+
+
+def _mesh_walk(ray, t0, want, nodes, tri, tri_off):
+    """K3's traversal, per ray: each ray in ``want`` walks the skip-link
+    BVH ``nodes`` (one geom's (n,16) table) from node 0 with its own
+    cursor, entering a node whose box it meets before ``t_loc`` (``t0``
+    at first) and skipping it otherwise; in a leaf it tests the leaf's
+    triangles in row order, each hit nearer than ``t_loc`` becoming the
+    winner (so the first of two equal distances wins, as in the
+    reference's DFS order).  ``ray`` is (rox, roy, roz, rdx, rdy, rdz,
+    1/rdx, 1/rdy, 1/rdz) in the geom's object space; leaf starts count
+    from row ``tri_off`` of ``tri``.  The rays still walking are kept
+    compacted, one step per loop.  Returns the winner's row in ``tri``
+    per ray (int64, -1: none)."""
+    widx = torch.full_like(t0, -1, dtype=torch.int64)
+    live = torch.nonzero(want).squeeze(1)
+    rays = torch.stack(ray, dim=1)[live]
+    t_loc = t0[live]
+    win = torch.full_like(live, -1)
+    cur = torch.zeros_like(live)
+    n_nodes = nodes.shape[0]
+    while live.numel():
+        node = nodes[cur]
+        tax, tbx = _slab(node[:, 0], node[:, 3], rays[:, 0], rays[:, 6])
+        tay, tby = _slab(node[:, 1], node[:, 4], rays[:, 1], rays[:, 7])
+        taz, tbz = _slab(node[:, 2], node[:, 5], rays[:, 2], rays[:, 8])
+        tnear = torch.maximum(torch.maximum(tax, tay),
+                              torch.clamp_min(taz, 0.0))
+        tfar = torch.minimum(torch.minimum(tbx, tby), tbz)
+        box_hit = (tnear <= tfar) & (tnear < t_loc)
+        # float-coded integers, truncated as the reference's astype
+        skip, start, count = node[:, 6:9].to(torch.int64).unbind(1)
+        is_leaf = count > 0
+        leaf = torch.nonzero(box_hit & is_leaf).squeeze(1)
+        if leaf.numel():
+            first = tri_off + start[leaf]
+            cnt = count[leaf]
+            lray = rays[leaf].unbind(1)
+            lt, lw = t_loc[leaf], win[leaf]
+            for k in range(int(cnt.max())):
+                row = torch.where(k < cnt, first + k, first)
+                tt, hit = _moller_trumbore(lray, tri[row])
+                upd = (k < cnt) & hit & (tt < lt)
+                lt = torch.where(upd, tt, lt)
+                lw = torch.where(upd, row, lw)
+            t_loc[leaf], win[leaf] = lt, lw
+        cur = torch.where(is_leaf | ~box_hit, skip, cur + 1)
+        done = cur >= n_nodes
+        if bool(done.any()):
+            widx[live[done]] = win[done]
+            keep = ~done
+            live, rays, t_loc, win, cur = (
+                live[keep], rays[keep], t_loc[keep], win[keep], cur[keep])
+    return widx
+
+
+def _nearest(ox, oy, oz, dx, dy, dz, time, gmat, geom_types, shadow=False,
+             mesh=None, want=None):
+    """Nearest hit over the geoms by world-space distance, the winner
+    kept on a strict ``dist < best`` (ties keep the geom folded first):
+    the spheres and cubes in index order, then each MESH geom of
+    ``mesh`` = (tri, nodes, bvh_meta) in ``bvh_meta`` order (a BVH walk,
+    :func:`_mesh_walk`, then one fold of its winning triangle).
+    ``gmat`` is a list of rows of Python floats; ``time`` is the shutter
+    time (motion blur) or None; ``want`` (bool, optional) marks the rays
+    whose result is read: only they walk the meshes.  Returns the
+    winner's ``dist``, ``geom`` (int64, -1 on a miss) and ``hit``;
+    unless ``shadow``, also its world point ``p*``, normal ``n*``
+    (before bump), object-space point ``q*`` and ``outside``.  The shadow
+    form skips the normals; its distances and winners are those of the
+    full fold."""
+    zeros = torch.zeros_like(ox)
+    h = SimpleNamespace(dist=torch.full_like(ox, NO_HIT),
+                        geom=torch.full_like(ox, -1, dtype=torch.int64))
+    if not shadow:
+        h.px, h.py, h.pz = ox, oy, oz
+        h.nx = h.ny = h.nz = h.qx = h.qy = h.qz = zeros
+        h.outside = torch.zeros_like(ox, dtype=torch.bool)
+
+    def fold(g, m, hit, q, go, n0=None, out0=None):
+        """World point and distance of the candidate hits (object-space
+        point ``q``), folded into ``h`` where nearer."""
+        qx, qy, qz = q
+        pxw = m[0] * qx + m[1] * qy + m[2] * qz + m[3]
+        pyw = m[4] * qx + m[5] * qy + m[6] * qz + m[7]
+        pzw = m[8] * qx + m[9] * qy + m[10] * qz + m[11]
+        ddx, ddy, ddz = go[0] - pxw, go[1] - pyw, go[2] - pzw
+        if time is not None:
+            # the hit point back at shutter time t, on the moved object
+            pxw = pxw + time * m[33]
+            pyw = pyw + time * m[34]
+            pzw = pzw + time * m[35]
+        dist = torch.sqrt(ddx * ddx + ddy * ddy + ddz * ddz)
+        dist = torch.where(hit, dist, NO_HIT)
+        better = dist < h.dist
+        h.dist = torch.where(better, dist, h.dist)
+        h.geom = torch.where(better, g, h.geom)
+        if shadow:
+            return
+
+        def sel(a, b):
+            return torch.where(better, a, b)
+
+        h.px, h.py, h.pz = sel(pxw, h.px), sel(pyw, h.py), sel(pzw, h.pz)
+        h.nx, h.ny, h.nz = sel(n0[0], h.nx), sel(n0[1], h.ny), \
+            sel(n0[2], h.nz)
+        h.qx, h.qy, h.qz = sel(qx, h.qx), sel(qy, h.qy), sel(qz, h.qz)
+        h.outside = sel(out0, h.outside)
+
+    for g, gtype in enumerate(geom_types):
+        if gtype == T.MESH:
+            continue  # folded after the primitives, by bvh_meta
+        m = gmat[g]
+        go, (rox, roy, roz, rdx, rdy, rdz) = _object_ray(
+            m, ox, oy, oz, dx, dy, dz, time)
+        n0 = out0 = None
         if gtype == T.SPHERE:
             # radius 0.5 is implicit: r^2 = 0.25
             vdd = rox * rdx + roy * rdy + roz * rdz
@@ -274,7 +453,7 @@ def _nearest(ox, oy, oz, dx, dy, dz, time, gmat, geom_types, shadow=False):
                 nz0 = m[30] * qx + m[31] * qy + m[32] * qz
                 nx0, ny0, nz0 = _normalize3(nx0, ny0, nz0)
                 flip = torch.where(both_pos, 1.0, -1.0)
-                nx0, ny0, nz0 = nx0 * flip, ny0 * flip, nz0 * flip
+                n0 = (nx0 * flip, ny0 * flip, nz0 * flip)
                 out0 = both_pos
         else:  # CUBE: slab test, sequential-axis semantics
             tmin = torch.full_like(ox, -1e38)
@@ -310,42 +489,48 @@ def _nearest(ox, oy, oz, dx, dy, dz, time, gmat, geom_types, shadow=False):
                                  for k in range(3))
                 # quirk: box normal via the FORWARD transform
                 # (src/intersections.h:85)
-                nx0 = m[0] * nox + m[1] * noy + m[2] * noz
-                ny0 = m[4] * nox + m[5] * noy + m[6] * noz
-                nz0 = m[8] * nox + m[9] * noy + m[10] * noz
-                nx0, ny0, nz0 = _normalize3(nx0, ny0, nz0)
+                n0 = _normalize3(m[0] * nox + m[1] * noy + m[2] * noz,
+                                 m[4] * nox + m[5] * noy + m[6] * noz,
+                                 m[8] * nox + m[9] * noy + m[10] * noz)
                 out0 = ~inside
+        fold(g, m, hit, (qx, qy, qz), go, n0, out0)
 
-        # world point + world distance
-        pxw = m[0] * qx + m[1] * qy + m[2] * qz + m[3]
-        pyw = m[4] * qx + m[5] * qy + m[6] * qz + m[7]
-        pzw = m[8] * qx + m[9] * qy + m[10] * qz + m[11]
-        ddx, ddy, ddz = gox - pxw, goy - pyw, goz - pzw
-        if time is not None:
-            # the hit point back at shutter time t, on the moved object
-            pxw = pxw + time * m[33]
-            pyw = pyw + time * m[34]
-            pzw = pzw + time * m[35]
-        dist = torch.sqrt(ddx * ddx + ddy * ddy + ddz * ddz)
-        dist = torch.where(hit, dist, NO_HIT)
-
-        better = dist < best
-        best = torch.where(better, dist, best)
-        geom = torch.where(better, g, geom)
-        if shadow:
-            continue
-
-        def sel(a, b, better=better):
-            return torch.where(better, a, b)
-
-        px, py, pz = sel(pxw, px), sel(pyw, py), sel(pzw, pz)
-        nx, ny, nz = sel(nx0, nx), sel(ny0, ny), sel(nz0, nz)
-        qbx, qby, qbz = sel(qx, qbx), sel(qy, qby), sel(qz, qbz)
-        outside = sel(out0, outside)
-    h = SimpleNamespace(dist=best, geom=geom, hit=best < NO_HIT)
-    if not shadow:
-        h.px, h.py, h.pz, h.nx, h.ny, h.nz = px, py, pz, nx, ny, nz
-        h.qx, h.qy, h.qz, h.outside = qbx, qby, qbz, outside
+    tri, nodes, bvh_meta = mesh if mesh is not None else (None, None, ())
+    want = torch.ones_like(ox, dtype=torch.bool) if want is None else want
+    for g, node_off, n_nodes, tri_off, _ in bvh_meta:
+        m = gmat[g]
+        go, ray = _object_ray(m, ox, oy, oz, dx, dy, dz, time)
+        rox, roy, roz, rdx, rdy, rdz = ray
+        # exact object-space pruning bound from the winner so far: dist =
+        # (t - RAY_OFFSET) * |L rd| with L the linear part of the forward
+        # transform, so t_bound = dist / |L rd| + RAY_OFFSET (+ slack)
+        wdx = m[0] * rdx + m[1] * rdy + m[2] * rdz
+        wdy = m[4] * rdx + m[5] * rdy + m[6] * rdz
+        wdz = m[8] * rdx + m[9] * rdy + m[10] * rdz
+        s_ray = torch.sqrt(wdx * wdx + wdy * wdy + wdz * wdz)
+        t0 = (h.dist / torch.clamp_min(s_ray, 1e-20) * _c32(1.0 + 1e-5)
+              + RAY_OFFSET + 1e-4)
+        widx = _mesh_walk(
+            (*ray, _div(1.0, rdx), _div(1.0, rdy), _div(1.0, rdz)), t0,
+            want, nodes[node_off:node_off + n_nodes], tri, tri_off)
+        # the shading fold, once, on the winning row (a zero row for none)
+        row = _rows(tri, widx)
+        tt, hit = _moller_trumbore(ray, row)
+        hit = hit & (widx >= 0)
+        tofs = tt - RAY_OFFSET
+        qx, qy, qz = rox + tofs * rdx, roy + tofs * rdy, roz + tofs * rdz
+        n0 = out0 = None
+        if not shadow:
+            # the ray-facing geometric normal through invT
+            nox, noy, noz = row[:, 9], row[:, 10], row[:, 11]
+            face = rdx * nox + rdy * noy + rdz * noz
+            flip = torch.where(face < 0.0, 1.0, -1.0)
+            n0 = _normalize3((m[24] * nox + m[25] * noy + m[26] * noz) * flip,
+                             (m[27] * nox + m[28] * noy + m[29] * noz) * flip,
+                             (m[30] * nox + m[31] * noy + m[32] * noz) * flip)
+            out0 = hit & (face < 0.0)
+        fold(g, m, hit, (qx, qy, qz), go, n0, out0)
+    h.hit = h.dist < NO_HIT
     return h
 
 
@@ -431,11 +616,13 @@ def _imperfect_specular(m_ex, mrx, mry, mrz, u_s1, u_s2):
 
 
 def _nee_add(rad, thr, h, n, albedo, has_diffuse, time, it, pix, dep,
-             lights, gmat, geom_types):
+             lights, gmat, geom_types, mesh):
     """Direct lighting at the hit points: per light one area sample and
     one shadow ray, added where ``has_diffuse`` and the light is seen,
     with weight albedo/pi (the reference's ``_nee_add``).  ``lights``
-    is a list of table rows of Python floats."""
+    is a list of table rows of Python floats.  A light that is not a
+    sphere is sampled as a cube, as the reference does (an emissive
+    mesh too)."""
     nx, ny, nz = n
     rad = list(rad)
     for k, lr in enumerate(lights):
@@ -498,7 +685,7 @@ def _nee_add(rad, thr, h, n, albedo, has_diffuse, time, it, pix, dep,
         inv_dl = torch.reciprocal(dist_l)
         sdx, sdy, sdz = wlx * inv_dl, wly * inv_dl, wlz * inv_dl
         sh = _nearest(h.px, h.py, h.pz, sdx, sdy, sdz, time, gmat,
-                      geom_types, shadow=True)
+                      geom_types, shadow=True, mesh=mesh, want=has_diffuse)
         tol = torch.clamp_min(5e-3 * dist_l, 1e-3)
         visible = sh.hit & (sh.geom == li) & (torch.abs(sh.dist - dist_l)
                                               < tol)
@@ -517,7 +704,7 @@ def _nee_add(rad, thr, h, n, albedo, has_diffuse, time, it, pix, dep,
 
 def _trace_sample(it, pix, fx, fy, cam, mats_t, gmat_t, gmat, lights,
                   geom_types, width, height, depth, features, rr_mode,
-                  counts):
+                  counts, mesh):
     """One sample of every pixel: raygen, then ``depth`` bounces.
     Returns the sample's radiance [r, g, b]; adds the live count
     entering each bounce into ``counts``.  Every section runs on every
@@ -565,7 +752,8 @@ def _trace_sample(it, pix, fx, fy, cam, mats_t, gmat_t, gmat, lights,
 
     for d in range(depth):
         counts[d] += live.sum()
-        h = _nearest(ox, oy, oz, dx, dy, dz, time, gmat, geom_types)
+        h = _nearest(ox, oy, oz, dx, dy, dz, time, gmat, geom_types,
+                     mesh=mesh, want=live)
         row, albedo, (nx, ny, nz) = _surface(h, mats_t, gmat_t,
                                              has_checker, has_bump)
         emit = row[:, 10]
@@ -677,7 +865,7 @@ def _trace_sample(it, pix, fx, fy, cam, mats_t, gmat_t, gmat, lights,
             has_diffuse = cont & ~scatter_inside & ~(row[:, 8] > 0.0)
             rad = _nee_add(rad, thr_acc, h, (nx, ny, nz), albedo,
                            has_diffuse, time, it, pix, dep, lights, gmat,
-                           geom_types)
+                           geom_types, mesh)
 
         if has_sss:
             # isotropic scatter inside, attenuated by the medium albedo
@@ -730,12 +918,14 @@ def _trace_sample(it, pix, fx, fy, cam, mats_t, gmat_t, gmat, lights,
 
 
 def trace_plain(cam, mats, gmat, geom_types, width, height, depth, it0,
-                n_spp, pix0=0, features=NO_FEATURES, lights=None, rr=False):
+                n_spp, pix0=0, features=NO_FEATURES, lights=None, rr=False,
+                tri=None, nodes=None, bvh_meta=()):
     """Plain PyTorch K1 on the device of ``cam``: ``n_spp`` samples of
     pixels ``pix0 ..`` to the end of the image (all of it by default) at
     iterations ``it0 .. it0+n_spp-1``, with the scene ``features``
     (``scene_features``), NEE over the ``lights`` table (``pack_lights``;
-    None: no NEE) and Russian roulette if ``rr``.
+    None: no NEE), Russian roulette if ``rr`` and the triangle meshes of
+    ``tri``, ``nodes`` and ``bvh_meta`` (``pack_mesh``).
 
     Returns (rad (P - pix0, 3) f32 summed over the samples, counts
     (depth,) int64: live paths entering each bounce, summed over the
@@ -754,7 +944,8 @@ def trace_plain(cam, mats, gmat, geom_types, width, height, depth, it0,
         rad = _trace_sample(
             (it0 + s) & 0xFFFFFFFF, pixel, fx, fy, cam_l, mats, gmat,
             gmat_l, lights_l, tuple(geom_types), width, height, depth,
-            tuple(features), rr, counts)
+            tuple(features), rr, counts,
+            (tri, nodes, tuple(bvh_meta)) if bvh_meta else None)
         acc = [a + r for a, r in zip(acc, rad)]
     return torch.stack(acc, dim=-1), counts
 
@@ -763,15 +954,17 @@ def trace_plain(cam, mats, gmat, geom_types, width, height, depth, it0,
 # the CUDA kernel's wrapper
 # ----------------------------------------------------------------------------
 
-_TYPES_ON_DEVICE = {}
+_INT_TABLES = {}
 
 
-def _geom_types_tensor(geom_types, device):
-    key = (tuple(geom_types), str(device))
-    if key not in _TYPES_ON_DEVICE:
-        _TYPES_ON_DEVICE[key] = torch.tensor(key[0], dtype=torch.int32,
-                                             device=device)
-    return _TYPES_ON_DEVICE[key]
+def _int_table(rows, device):
+    """``rows`` (a static tuple: the geom types, ``bvh_meta``) as an
+    int32 tensor on ``device``, made once."""
+    key = (rows, str(device))
+    if key not in _INT_TABLES:
+        _INT_TABLES[key] = torch.tensor(rows, dtype=torch.int32,
+                                        device=device).reshape(-1)
+    return _INT_TABLES[key]
 
 
 def _check_table(name, t, shape, device):
@@ -782,10 +975,35 @@ def _check_table(name, t, shape, device):
             f"got {t.dtype} {tuple(t.shape)} on {t.device}")
 
 
+def _check_mesh(tri, nodes, bvh_meta, geom_types, device):
+    """The mesh tables must be ``pack_mesh``'s: every entry of
+    ``bvh_meta`` a MESH geom whose rows lie inside ``nodes`` and ``tri``,
+    its counts exact as float32."""
+    if not bvh_meta:
+        if tri is not None or nodes is not None:
+            raise ValueError("mesh tables given without bvh_meta")
+        return
+    _check_table("tri", tri, (tri.shape[0], TRI_COLS), device)
+    _check_table("nodes", nodes, (nodes.shape[0], 16), device)
+    if tri.data_ptr() % 16 or nodes.data_ptr() % 16:
+        raise ValueError("tri and nodes must be 16-byte aligned (the "
+                         "kernel reads their rows as float4)")
+    for g, node_off, n_nodes, tri_off, n_tris in bvh_meta:
+        if not (0 <= g < len(geom_types) and geom_types[g] == T.MESH
+                and 0 <= node_off and 0 < n_nodes <= 2 ** 24
+                and node_off + n_nodes <= nodes.shape[0]
+                and 0 <= tri_off and 0 < n_tris <= 2 ** 24
+                and tri_off + n_tris <= tri.shape[0]):
+            entry = (g, node_off, n_nodes, tri_off, n_tris)
+            raise ValueError(f"bad bvh_meta entry {entry} for tables of "
+                             f"{nodes.shape[0]} nodes, {tri.shape[0]} tris")
+
+
 def trace_k1(cam, mats, gmat, geom_types, width, height, depth, it0, n_spp,
-             pix0=0, features=NO_FEATURES, lights=None, rr=False):
-    """K1 (and K2 when ``lights`` is given): the same computation and
-    result as :func:`trace_plain`.
+             pix0=0, features=NO_FEATURES, lights=None, rr=False,
+             tri=None, nodes=None, bvh_meta=()):
+    """K1 (and K2 when ``lights`` is given, K3 when ``bvh_meta`` is): the
+    same computation and result as :func:`trace_plain`.
 
     For tensors on the CPU this is :func:`trace_plain`.  For tensors on
     a CUDA device it launches the kernel of ``csrc/megakernel.cu``
@@ -794,17 +1012,19 @@ def trace_k1(cam, mats, gmat, geom_types, width, height, depth, it0, n_spp,
     device = cam.device
     if device.type == "cpu":
         return trace_plain(cam, mats, gmat, geom_types, width, height,
-                           depth, it0, n_spp, pix0, features, lights, rr)
+                           depth, it0, n_spp, pix0, features, lights, rr,
+                           tri, nodes, bvh_meta)
     if device.type != "cuda":
         raise ValueError(f"K1 runs on cuda or cpu tensors, not {device}")
     from . import build
 
+    geom_types, bvh_meta = tuple(geom_types), tuple(bvh_meta)
     n_geoms = len(geom_types)
     n_lights = 0 if lights is None else lights.shape[0]
     n_pixels = width * height
     n_local = n_pixels - pix0
-    if any(t not in (T.SPHERE, T.CUBE) for t in geom_types):
-        raise NotImplementedError(f"K1 traces spheres and cubes; {_MESH_TODO}")
+    if any(t not in (T.SPHERE, T.CUBE, T.MESH) for t in geom_types):
+        raise ValueError(f"unknown geom types in {geom_types}")
     if len(features) != len(FEATURE_NAMES) or not (
             0 < n_geoms and 0 < depth and 0 <= n_spp and 0 <= pix0
             and 0 < n_local and n_pixels < 2 ** 31
@@ -818,19 +1038,26 @@ def trace_k1(cam, mats, gmat, geom_types, width, height, depth, it0, n_spp,
     _check_table("gmat", gmat, (n_geoms, 40), device)
     if lights is not None:
         _check_table("lights", lights, (n_lights, LIGHT_COLS), device)
-    types = _geom_types_tensor(geom_types, device)
+    _check_mesh(tri, nodes, bvh_meta, geom_types, device)
+    types = _int_table(geom_types, device)
+    meta = _int_table(bvh_meta, device) if bvh_meta else None
     rad = torch.empty((n_local, 3), dtype=torch.float32, device=device)
     # the kernel adds into these as unsigned 64-bit integers
     counts = torch.zeros(depth, dtype=torch.int64, device=device)
-    mask = feature_mask(features, lights is not None, rr)
+    mask = feature_mask(features, lights is not None, rr, T.MESH in geom_types)
     lib = build.load_k1(mask)
+
+    def ptr(t):
+        return 0 if t is None else t.data_ptr()
+
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.pt_k1_trace(
             cam.data_ptr(), mats.data_ptr(), gmat.data_ptr(),
-            types.data_ptr(), 0 if lights is None else lights.data_ptr(),
-            n_geoms, n_lights, width, height, depth, it0 & 0xFFFFFFFF,
-            n_spp, pix0, n_local, rad.data_ptr(), counts.data_ptr(), stream)
+            types.data_ptr(), ptr(lights), ptr(tri), ptr(nodes), ptr(meta),
+            n_geoms, n_lights, len(bvh_meta), width, height, depth,
+            it0 & 0xFFFFFFFF, n_spp, pix0, n_local, rad.data_ptr(),
+            counts.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(
             f"K1 launch failed: CUDA error {err} "
@@ -853,11 +1080,13 @@ def prepare(scene, device="cuda", nee=False, rr=False):
                            "available")
     cam, mats, gmat = pack_scene(scene, device)
     lights = pack_lights(scene, device)[0] if nee else None
+    tri, nodes, bvh_meta = pack_mesh(scene, device)
     width, height = scene.resolution
     return dict(cam=cam, mats=mats, gmat=gmat,
                 geom_types=tuple(scene.geoms.type), width=width,
                 height=height, depth=int(scene.trace_depth),
-                features=scene_features(scene), lights=lights, rr=rr)
+                features=scene_features(scene), lights=lights, rr=rr,
+                tri=tri, nodes=nodes, bvh_meta=bvh_meta)
 
 
 def pathtrace_batch_cuda(scene, it0, n_iters, device="cuda", nee=False,

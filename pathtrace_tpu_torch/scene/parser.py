@@ -3,12 +3,13 @@
 Counterpart of ``pathtrace_tpu/scene/parser.py`` (its Python path): the
 line-oriented format of ``src/scene.cpp`` + README.md:203-246 with the
 same extensions (CHECKER / BUMP / SSS material lines, MOTION object
-key, APERTURE / FOCAL camera keys) and the same arrays.
+key, APERTURE / FOCAL camera keys, ``mesh <path.obj>`` objects, their
+triangles read by ``scene/obj.py`` and given a BVH by ``scene/bvh.py``)
+and the same arrays.
 
-Two extensions are not ported yet and raise ``NotImplementedError``
-naming the ROADMAP item that brings them: ``mesh`` objects need the BVH
-(Queue 1 item 7) and ``TEXTURE`` / ``BUMPTEX`` material lines
-need the texture tables (Queue 1 item 8).
+``TEXTURE`` / ``BUMPTEX`` material lines are not ported yet and raise
+``NotImplementedError`` naming the ROADMAP item that brings them (Queue 1
+item 8: the texture tables).
 """
 
 from __future__ import annotations
@@ -19,14 +20,14 @@ from typing import List, Optional
 import numpy as np
 
 from ..core import types as T
+from .bvh import with_bvh
+from .obj import load_obj
 
 
 class SceneParseError(ValueError):
     pass
 
 
-MESH_TODO = ("mesh objects are not ported yet: they need scene/bvh.py "
-             "(ROADMAP Queue 1 item 7)")
 TEXTURE_TODO = ("TEXTURE/BUMPTEX maps are not ported yet "
                 "(ROADMAP Queue 1 item 8)")
 
@@ -47,14 +48,17 @@ def load_scene(path: str) -> T.Scene:
 
 
 def parse_scene(text: str, base_dir: str = ".") -> T.Scene:
-    # base_dir resolves relative OBJ and texture paths; both raise for now
-    del base_dir
+    """``base_dir`` resolves relative OBJ paths."""
     lines = _safe_lines(text)
     pos = 0
 
     materials: List[dict] = []
     geoms: List[dict] = []
     camera: Optional[dict] = None
+    mesh_tris: List[np.ndarray] = []
+    mesh_uvs: List[np.ndarray] = []
+    mesh_geom_ids: List[np.ndarray] = []
+    any_mesh_uv = False
 
     def next_line():
         nonlocal pos
@@ -133,14 +137,18 @@ def parse_scene(text: str, base_dir: str = ".") -> T.Scene:
                     f"{len(geoms)} (sequential IDs required)"
                 )
             type_line = (next_line() or "").split()
-            gtype = None
+            gtype, mesh_path = None, None
             if type_line:
                 if type_line[0] == "sphere":
                     gtype = T.SPHERE
                 elif type_line[0] == "cube":
                     gtype = T.CUBE
                 elif type_line[0] == "mesh":
-                    raise NotImplementedError(MESH_TODO)
+                    gtype = T.MESH
+                    if len(type_line) < 2:
+                        raise SceneParseError(
+                            "mesh object requires an OBJ path")
+                    mesh_path = type_line[1]
             if gtype is None:
                 raise SceneParseError(f"unknown object type: {type_line}")
             mat_line = (next_line() or "").split()
@@ -162,6 +170,14 @@ def parse_scene(text: str, base_dir: str = ".") -> T.Scene:
                     g["scale"] = _vec3(t)
                 elif t[0] == "MOTION":
                     g["velocity"] = _vec3(t)
+            if gtype == T.MESH:
+                tris, uvs = load_obj(os.path.join(base_dir, mesh_path))
+                mesh_tris.append(tris)
+                any_mesh_uv = any_mesh_uv or uvs is not None
+                mesh_uvs.append(uvs if uvs is not None else np.zeros(
+                    (tris.shape[0], 3, 2), dtype=np.float32))
+                mesh_geom_ids.append(
+                    np.full((tris.shape[0],), len(geoms), dtype=np.int32))
             geoms.append(g)
         elif toks[0] == "CAMERA":
             cam = dict(
@@ -250,6 +266,15 @@ def parse_scene(text: str, base_dir: str = ".") -> T.Scene:
             else None  # static scene: no motion-blur cost anywhere
         ),
     )
+    if mesh_tris:
+        mesh = with_bvh(T.TriMesh(
+            tri_verts=np.concatenate(mesh_tris, axis=0).astype(f32),
+            tri_geom=np.concatenate(mesh_geom_ids, axis=0),
+            tri_uv=(np.concatenate(mesh_uvs, axis=0).astype(f32)
+                    if any_mesh_uv else None),
+        ), len(geoms))
+    else:
+        mesh = T.empty_mesh()
     cam_t = T.Camera(
         position=np.asarray(camera["eye"], dtype=f32),
         view=np.asarray(camera["view"], dtype=f32),
@@ -263,7 +288,7 @@ def parse_scene(text: str, base_dir: str = ".") -> T.Scene:
         if materials[g["material_id"]]["emittance"] > 0
     )
     return T.Scene(
-        materials=mats, geoms=gs, mesh=T.empty_mesh(), camera=cam_t,
+        materials=mats, geoms=gs, mesh=mesh, camera=cam_t,
         resolution=tuple(camera["resolution"]),
         trace_depth=int(camera["depth"]),
         iterations=int(camera["iterations"]),

@@ -1,5 +1,6 @@
-"""K1 (with its NEE section K2), the CUDA kernel, against its plain
-PyTorch version on a GPU.
+"""K1 (with its NEE section K2 and its mesh section K3), the CUDA kernel,
+and the traversal probe K9, against their plain PyTorch versions on a
+GPU.
 
 Every test here needs a CUDA GPU (marker ``cuda``) and skips without
 one: the kernel has no CPU mode.  This file imports neither JAX nor the
@@ -21,6 +22,7 @@ import torch
 
 import pathtrace_tpu_torch as ptt
 from pathtrace_tpu_torch.ops.cuda import megakernel as K
+from pathtrace_tpu_torch.ops.cuda import probe as P
 import torch_scenes as S
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -129,3 +131,41 @@ def test_k1_rejects_mismatched_lights(cuda):
     job = S.job("cornell-nee", (8, 8), 2, cuda)
     with pytest.raises(ValueError, match="lights"):
         K.trace_k1(**dict(job, lights=job["lights"][:, :64]), it0=1, n_spp=1)
+
+
+@pytest.mark.parametrize("config", [
+    "cornell_mesh", "cornell_bigmesh", "cornell_mesh-nee",
+    "mesh_glass_checker_motion", "mesh_twice"])
+def test_mesh_matches_plain(cuda, config):
+    # the mesh builds of K1 (K3, and K2's shadow walk with NEE)
+    job = S.job(config, (96, 80), 8, cuda)
+    mask = K.feature_mask(job["features"], job["lights"] is not None,
+                          job["rr"], mesh=True)
+    before = K.LAUNCHES[mask]
+    rad, counts = K.trace_k1(**job, it0=1, n_spp=2)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES[mask] == before + 1
+    assert bool(torch.isfinite(rad).all())
+    assert int(counts[0]) == 2 * 96 * 80
+    ref, ref_counts = K.trace_plain(**job, it0=1, n_spp=2)
+    _assert_tie_flip_bound(rad, ref, counts, ref_counts)
+
+
+def test_k1_rejects_bad_mesh_tables(cuda):
+    job = S.job("cornell_mesh", (8, 8), 2, cuda)
+    with pytest.raises(ValueError, match="tri"):
+        K.trace_k1(**dict(job, tri=job["tri"][:, :12]), it0=1, n_spp=1)
+    with pytest.raises(ValueError, match="bvh_meta"):
+        K.trace_k1(**dict(job, nodes=job["nodes"][:3]), it0=1, n_spp=1)
+
+
+@pytest.mark.parametrize("bundle", [(32, 128), (1, 32), (3, 50)])
+def test_k9_matches_plain(cuda, bundle):
+    scene = ptt.load_scene(os.path.join(REPO, "scenes",
+                                        "cornell_bigmesh.txt"))
+    tri, nodes, meta = K.pack_mesh(scene, cuda)
+    before = P.LAUNCHES["k9_probe"]
+    got = P.probe_k9(nodes, tri, meta[0], *bundle)
+    assert P.LAUNCHES["k9_probe"] == before + 1
+    assert got == P.probe_plain(nodes, tri, meta[0], *bundle)
+    assert got[0] == meta[0][2] and got[1] > 0

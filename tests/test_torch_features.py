@@ -26,7 +26,7 @@ import torch_scenes as S
 
 _planes = jax.jit(_run_planes, static_argnames=(
     "resolution", "trace_depth", "geom_types", "n_spp", "features",
-    "nee_lights", "rr_mode"))
+    "nee_lights", "bvh_meta", "rr_mode"))
 
 
 def reference(job, n_spp, interpret=False):
@@ -34,19 +34,24 @@ def reference(job, n_spp, interpret=False):
     lights = job["lights"]
     statics = () if lights is None else tuple(
         (int(r[0]), int(r[1])) for r in lights.tolist())
+
+    def np_or_none(t):
+        return None if t is None else t.numpy()
+
     args = (job["cam"].numpy(), job["mats"].numpy(), job["gmat"].numpy(),
-            None, None if lights is None else lights.numpy(),
+            np_or_none(job["tri"]), np_or_none(lights),
             jnp.asarray(1, jnp.int32))
     res = (job["width"], job["height"])
+    mesh = dict(nodes=np_or_none(job["nodes"]), bvh_meta=job["bvh_meta"])
     if interpret:
         out = _run(*args, res, job["depth"], job["geom_types"],
                    interpret=True, n_spp=n_spp, features=job["features"],
-                   nee_lights=statics, rr_mode=job["rr"])
+                   nee_lights=statics, rr_mode=job["rr"], **mesh)
     else:
         out = _planes(*args, resolution=res, trace_depth=job["depth"],
                       geom_types=job["geom_types"], n_spp=n_spp,
                       features=job["features"], nee_lights=statics,
-                      rr_mode=job["rr"])
+                      rr_mode=job["rr"], **mesh)
     return tuple(np.asarray(x) for x in out)
 
 

@@ -90,23 +90,41 @@ def test_trace_k1_on_cpu_is_the_plain_version():
     assert K.LAUNCHES == before
 
 
+def _jax_scene(name, res=(8, 8), depth=2):
+    """A scene loaded by the reference and carried over."""
+    scene = convert.from_jax_scene(
+        pt.load_scene(os.path.join(REPO, "scenes", f"{name}.txt")))
+    return dataclasses.replace(scene, resolution=res, trace_depth=depth)
+
+
 @pytest.mark.parametrize("name,match", [
-    ("cornell_mesh", "meshes"), ("cornell_bumpmesh", "meshes"),
+    ("cornell_bumpmesh", "image textures"),
     ("cornell_tex", "image textures"),
+    ("cornell_bigmesh_tex", "image textures"),
 ])
 def test_unported_paths_raise(name, match):
     # the port's parser refuses these files; a scene carried over from
     # the reference reaches the kernel's own check
-    scene = convert.from_jax_scene(
-        pt.load_scene(os.path.join(REPO, "scenes", f"{name}.txt")))
-    scene = dataclasses.replace(scene, resolution=(8, 8))
     with pytest.raises(NotImplementedError, match=match):
-        K.pathtrace_batch_cuda(scene, 1, 1, device="cpu")
+        K.pathtrace_batch_cuda(_jax_scene(name), 1, 1, device="cpu")
+
+
+@pytest.mark.parametrize("name", ["cornell_mesh", "cornell_bigmesh"])
+def test_mesh_scenes_are_supported(name):
+    # a mesh scene carried over from the reference, with its BVH, passes
+    # the kernel's check and renders through the mesh build
+    scene = _jax_scene(name)
+    K.check_supported(scene)
+    assert K.scene_mask(scene) == K.MESH_BIT
+    rad, counts = K.pathtrace_batch_cuda(scene, 1, 2, device="cpu")
+    assert rad.shape == (64, 3) and bool(torch.isfinite(rad).all())
+    assert int(counts[0]) == 2 * 64
 
 
 @pytest.mark.parametrize("name,kw", [
     ("cornell_glass", {}), ("cornell_checker", {}),
     ("cornell", {"nee": True}), ("cornell", {"rr": True}),
+    ("cornell_mesh", {"nee": True, "rr": True}),
 ])
 def test_ported_paths_render(name, kw):
     rad, counts = K.pathtrace_batch_cuda(_scene(name, (8, 8), 4), 1, 2,

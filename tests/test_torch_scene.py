@@ -51,10 +51,11 @@ def test_from_jax_scene_matches_own_load(name):
 
 
 @pytest.mark.parametrize("name,item", [
-    ("cornell_mesh", "item 7"), ("cornell_bigmesh", "item 7"),
     ("cornell_tex", "item 8"), ("cornell_bumpmesh", "item 8"),
+    ("cornell_bigmesh_tex", "item 8"),
 ])
 def test_unported_scenes_raise(name, item):
+    # image textures; the mesh scenes load (tests/test_torch_bvh.py)
     with pytest.raises(NotImplementedError, match=item):
         ptt.load_scene(_scene_path(name))
 
