@@ -6,14 +6,15 @@
 Phases, each of which raises on failure (exit code non-zero):
 
 1. the card: ``nvidia-smi`` name and power limit;
-2. the scenes: the primitive ones, and the triangle-mesh ones with their
+2. the scenes: the primitive ones, the triangle-mesh ones with their
    load and BVH-build seconds (``scenes/gen_icosphere7.obj``, the
-   hugemesh's OBJ, is made by ``tools/gen_mesh.py 7`` when absent);
+   hugemesh's OBJ, is made by ``tools/gen_mesh.py 7`` when absent), and
+   the image-texture ones;
 3. build every variant of the CUDA kernel K1 that the phases run, one per
-   feature set (with NEE, its section K2; with meshes, its section K3),
-   and the traversal probe K9, from ``pathtrace_tpu_torch/csrc``, all
-   ``nvcc`` processes at once (timed; each build's registers and spills
-   printed);
+   feature set (with NEE, its section K2; with meshes, its section K3;
+   with image textures, its section K4), and the traversal probe K9, from
+   ``pathtrace_tpu_torch/csrc``, all ``nvcc`` processes at once (timed;
+   each build's registers and spills printed);
 4. the main path per configuration, 1 spp, through ``pathtrace_batch``
    (launch counts reset before and read after), held against the plain
    PyTorch version on the same tables.  At 800x800, depth 8: cornell.txt
@@ -22,15 +23,19 @@ Phases, each of which raises on failure (exit code non-zero):
    and a bump + SSS variant of cornell_glass.  At the mesh files' own
    1920x1080, depth 8: cornell_mesh.txt with and without NEE,
    cornell_bigmesh.txt, a glass + checker + motion variant of
-   cornell_mesh, and cornell_hugemesh.txt.  Under 0.5% of pixels may
-   differ by more than 1e-3, bounce 0 must count every pixel and the
-   other bounces must agree within 0.5%; the share of bit-equal pixels is
-   printed;
+   cornell_mesh, and cornell_hugemesh.txt.  Image textures at the files'
+   own size, depth 8: cornell_tex.txt with and without NEE, cornell_tex512
+   (cornell_tex.txt with the 512x512 pattern, as the reference's bench
+   builds it), a checker on cornell_tex's textured material and
+   cornell_bumpmesh.txt at 800x800, cornell_bigmesh_tex.txt at 1920x1080.
+   Under 0.5% of pixels may differ by more than 1e-3, bounce 0 must count
+   every pixel and the other bounces must agree within 0.5%; the share of
+   bit-equal pixels is printed;
 5. the main path through the CLI entry point (``cli.main``, default
    ``--device cuda``), launch counts reset before and read after:
-   cornell.txt and cornell_glass.txt --nee at 800x800 and cornell_mesh.txt
-   at 1920x1080, 64 spp, to PNGs, which must have a plausible mean, a red
-   left third and a green right third;
+   cornell.txt, cornell_glass.txt --nee and cornell_tex.txt at 800x800
+   and cornell_mesh.txt at 1920x1080, 64 spp, to PNGs, which must have a
+   plausible mean, a red left third and a green right third;
 6. K9: the probe's 32x128 ray bundle over the bigmesh tables, CUDA
    against plain (final cursor, steps, leaves, tsum equal), and a one-warp
    bundle of 32 rays for information;
@@ -39,8 +44,20 @@ Phases, each of which raises on failure (exit code non-zero):
    primitive variant at 800x800 depth 8 (8 spp per call); the mesh
    variants at 1920x1080 depth 8, cornell_bigmesh and cornell_hugemesh
    at 1920x1080 and cornell_bigmesh at 800x800 (8 spp per call for the
-   kernel, 1 for the plain version); K9.  Mrays/s counts live path
-   segments.
+   kernel, 1 for the plain version); cornell_tex, cornell_tex512 and
+   cornell_bumpmesh at 800x800 and cornell_bigmesh_tex at 1920x1080 (the
+   same), and for information cornell_tex's kernel with every chart off
+   (the same build) and with the build without textures; K9.  Mrays/s
+   counts live path segments.  Beside each time, its
+   bound: the least time the card could take for the same work, the larger
+   of ops / 67 TFLOP/s and bytes / 3.35 TB/s (the H100 SXM data sheet's
+   float32 and memory rates), from ``ops/cuda/bound.py``'s count of the
+   work that one sample needs.  ops: the plain version's float
+   operations, each section only on the lanes that need it (a live
+   path, the lobe it takes, a winner with a map, a leaf's triangles),
+   selects not counted; printed by section.  bytes: the scene tables once,
+   the distinct BVH nodes, triangle rows and texels read (the columns
+   needed), and 12 bytes written per pixel.
 
 The line before the last is a JSON object describing each kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Without a CUDA GPU it
@@ -65,16 +82,12 @@ SPP_PER_CALL = 8
 K1_SITE = "pathtrace_tpu/ops/pallas/megakernel.py:2424"   # _kernel
 K2_SITE = "pathtrace_tpu/ops/pallas/megakernel.py:2223"   # _nee_add
 K3_SITE = "pathtrace_tpu/ops/pallas/megakernel.py:1069"   # the bvh_meta walk
+K4_SITE = "pathtrace_tpu/ops/pallas/megakernel.py:1719"   # _bilin3
 K9_SITE = "tools/probe_trav.py:32"                        # kernel
 HUGEMESH_OBJ = os.path.join("scenes", "gen_icosphere7.obj")
-
-# bump on the diffuse white, a dense medium in the glass sphere
-BUMP = ("EMITTANCE   0\n\n// Diffuse red",
-        "EMITTANCE   0\nBUMP        2 0.6\n\n// Diffuse red")
-SSS = ("REFRIOR     1.5\nEMITTANCE   0\n",
-       "REFRIOR     1.5\nEMITTANCE   0\nSSS         6.0 .9 .6 .4\n")
-# (label, scene file, text replacements, nee, rr); the first of each
-# feature set is the one timed
+# (label, scene file, text replacements of
+# pathtrace_tpu_torch.scene.variants, nee, rr); the first of each feature
+# set is the one timed
 CONFIGS = [
     ("cornell", "cornell", (), False, False),
     ("sphere", "sphere", (), False, False),
@@ -83,22 +96,29 @@ CONFIGS = [
     ("cornell_glass", "cornell_glass", (), False, False),
     ("cornell_glass NEE", "cornell_glass", (), True, False),
     ("cornell_checker", "cornell_checker", (), False, False),
-    ("cornell_glass bump+SSS", "cornell_glass", (BUMP, SSS), False, False),
+    ("cornell_glass bump+SSS", "cornell_glass", ("BUMP", "SSS"), False,
+     False),
 ]
-# cornell_mesh's icosahedron (material 4) made glass with a checker, and
-# moving
-MESH_GLASS = ("REFR        0\nREFRIOR     0\nEMITTANCE   0\n\n// Camera",
-              "REFR        1\nREFRIOR     1.5\nEMITTANCE   0\n"
-              "CHECKER     3 .2 .4 .9\n\n// Camera")
-MESH_MOTION = ("SCALE       2 2 2", "SCALE       2 2 2\nMOTION      .6 0 .3")
 # the same, at the files' own 1920x1080 depth 8
 MESH_CONFIGS = [
     ("cornell_mesh", "cornell_mesh", (), False, False),
     ("cornell_mesh NEE", "cornell_mesh", (), True, False),
     ("cornell_bigmesh", "cornell_bigmesh", (), False, False),
     ("cornell_mesh glass+checker+motion", "cornell_mesh",
-     (MESH_GLASS, MESH_MOTION), False, False),
+     ("MESH_GLASS", "MESH_MOTION"), False, False),
     ("cornell_hugemesh", "cornell_hugemesh", (), False, False),
+]
+# the image-texture configurations, at the files' own size (800x800, and
+# 1920x1080 for cornell_bigmesh_tex), depth 8; those timed are marked.
+# cornell_tex512 is the reference bench's scene of that name.
+TEX_CONFIGS = [
+    ("cornell_tex", "cornell_tex", (), False, False, True),
+    ("cornell_tex NEE", "cornell_tex", (), True, False, False),
+    ("cornell_tex512", "cornell_tex", ("TEX512",), False, False, True),
+    ("cornell_tex checker", "cornell_tex", ("TEX_CHECKER",), False, False,
+     False),
+    ("cornell_bumpmesh", "cornell_bumpmesh", (), False, False, True),
+    ("cornell_bigmesh_tex", "cornell_bigmesh_tex", (), False, False, True),
 ]
 
 
@@ -111,12 +131,12 @@ def card_line():
 
 
 def load(ptt, name, edits):
+    """Scene file ``name`` with the variants named ``edits``."""
+    from pathtrace_tpu_torch.scene import variants
+
     with open(os.path.join(HERE, "scenes", f"{name}.txt")) as f:
-        text = f.read()
-    for old, new in edits:
-        if text.count(old) != 1:
-            raise RuntimeError(f"{name}: replacement not found: {old!r}")
-        text = text.replace(old, new)
+        text = variants.edit_text(
+            f.read(), [getattr(variants, e) for e in edits])
     return ptt.parse_scene(text, base_dir=os.path.join(HERE, "scenes"))
 
 
@@ -145,7 +165,23 @@ def kernel_name(K, mask):
     name = "k1_trace+k2_nee" if mask & K.NEE_BIT else "k1_trace"
     if mask & K.MESH_BIT:
         name += "+k3_mesh"
+    if mask & (K.TEX_BIT | K.BTEX_BIT):
+        name += "+k4_tex"
+        on += [n for bit, n in ((K.TEX_BIT, "albedo map"),
+                                (K.BTEX_BIT, "bump map")) if mask & bit]
     return f"{name}[{','.join(on)}]" if on else name
+
+
+def small_table_bytes(torch, job):
+    """The bytes of a ``prepare`` job's scene tables, each read once:
+    every tensor but the mesh tables and the texels (counted by the rows
+    read), and the int tables the wrapper makes (types, bvh_meta, the
+    texture charts)."""
+    n = sum(v.numel() * v.element_size() for k, v in job.items()
+            if isinstance(v, torch.Tensor) and k not in (
+                "tri", "nodes", "texels"))
+    return n + 4 * (len(job["geom_types"]) * (1 + 6)
+                    + 5 * len(job["bvh_meta"]))
 
 
 def compare(ptt, K, torch, label, scene, nee, rr, mask):
@@ -240,9 +276,11 @@ def probe_phase(K, P, scene):
     return launches, err, (nodes, tri, meta[0])
 
 
-def median_ms(fn, torch, k):
-    """Median over k calls of fn's CUDA-event time, after one warm call."""
-    out = fn()
+def median_ms(fn, torch, k, warm=True):
+    """Median over k calls of fn's CUDA-event time, after one warm call
+    (unless the caller made it)."""
+    if warm:
+        fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(k):
@@ -264,15 +302,29 @@ def phase_done(name):
           flush=True)
 
 
-def time_variant(K, torch, label, job, mask, card, spp_kernel, k_kernel,
+def fmt_work(work):
+    return ", ".join(f"{k} {v:.4g}" for k, v in sorted(work.items()))
+
+
+def time_variant(K, B, torch, label, job, mask, card, spp_kernel, k_kernel,
                  spp_plain, k_plain):
-    """Kernel and plain ms/iter of one configuration (runs printed)."""
+    """Kernel and plain ms/iter of one configuration (runs printed), and
+    the bound of one iteration: (ms, plain ms, bound ms, bound by)."""
     width, height = job["width"], job["height"]
     ms_k, runs_k, (_, counts) = median_ms(
         lambda: K.trace_k1(**job, it0=1, n_spp=spp_kernel), torch, k_kernel)
+    # the plain version's warm call is its first sample, counted
+    _, ops_by, bytes_by = B.count_work(
+        lambda: K.trace_plain(**job, it0=1, n_spp=1))
     ms_p, runs_p, _ = median_ms(
-        lambda: K.trace_plain(**job, it0=1, n_spp=spp_plain), torch, k_plain)
+        lambda: K.trace_plain(**job, it0=1, n_spp=spp_plain), torch, k_plain,
+        warm=False)
     segs = int(counts.sum()) / spp_kernel  # live segments per iteration
+    n_pix = width * height
+    ops = sum(ops_by.values())
+    n_bytes = (small_table_bytes(torch, job) + sum(bytes_by.values())
+               + 12 * n_pix)
+    bound_ms, bound_by = B.bound(ops, n_bytes)
     for version, ms, runs, spp in (("kernel", ms_k, runs_k, spp_kernel),
                                    ("plain", ms_p, runs_p, spp_plain)):
         print(f"time {version} {label} {width}x{height} d{job['depth']} "
@@ -281,7 +333,29 @@ def time_variant(K, torch, label, job, mask, card, spp_kernel, k_kernel,
               f"{segs / (ms / spp / 1e3) / 1e6:.1f} Mrays/s ({segs:.0f} live "
               f"segments/iter; runs {[round(t, 4) for t in runs]}) on {card}",
               flush=True)
-    return ms_k / spp_kernel, ms_p / spp_plain
+    print(f"bound {label} {width}x{height}: {bound_ms:.4f} ms/iter by "
+          f"{bound_by} ({ops:.4g} ops needed: {fmt_work(ops_by)}; "
+          f"{n_bytes} bytes, of which read rows: {fmt_work(bytes_by)}); "
+          f"kernel at {bound_ms / (ms_k / spp_kernel):.2%} of it; library "
+          f"call: none", flush=True)
+    return ms_k / spp_kernel, ms_p / spp_plain, bound_ms, bound_by
+
+
+def tex_breakdown(K, torch, scene, card):
+    """For information: cornell_tex's kernel time with the texture build
+    as it renders, with every chart off (the same build, no tap taken),
+    and with the build without textures (mask 0) on the same geometry."""
+    job = K.prepare(scene, "cuda")
+    off = tuple(K.NO_CHART for _ in job["geom_types"])
+    runs = [("maps on", job),
+            ("charts off, same build", dict(job, tex_geom=off, btex_geom=off)),
+            ("mask-0 build", dict(job, texels=None, tex_geom=(),
+                                  btex_geom=()))]
+    for what, j in runs:
+        ms, _, _ = median_ms(
+            lambda: K.trace_k1(**j, it0=1, n_spp=SPP_PER_CALL), torch, 9)
+        print(f"texture breakdown cornell_tex 800x800 d8, {what}: "
+              f"{ms / SPP_PER_CALL:.4f} ms/iter on {card}", flush=True)
 
 
 def main():
@@ -295,6 +369,7 @@ def main():
 
     sys.path.insert(0, HERE)
     import pathtrace_tpu_torch as ptt
+    from pathtrace_tpu_torch.ops.cuda import bound as B
     from pathtrace_tpu_torch.ops.cuda import build
     from pathtrace_tpu_torch.ops.cuda import megakernel as K
     from pathtrace_tpu_torch.ops.cuda import probe as P
@@ -321,7 +396,18 @@ def main():
         scene = load_mesh_scene(ptt, name, edits)
         mesh_configs.append(
             (label, scene, nee, rr, K.scene_mask(scene, nee, rr)))
-    masks = sorted({c[4] for c in configs + mesh_configs})
+    tex_configs, tex_timed = [], []
+    for label, name, edits, nee, rr, timed_here in TEX_CONFIGS:
+        t0 = time.perf_counter()
+        scene = load(ptt, name, edits)
+        print(f"load {label}: {time.perf_counter() - t0:.2f} s; maps "
+              f"{[t.shape[:2] for t in scene.textures]}, charts "
+              f"{K.tex_statics(scene)}", flush=True)
+        tex_configs.append(
+            (label, scene, nee, rr, K.scene_mask(scene, nee, rr)))
+        if timed_here:
+            tex_timed.append(tex_configs[-1])
+    masks = sorted({c[4] for c in configs + mesh_configs + tex_configs})
     phase_done("scenes")
 
     t0 = time.perf_counter()
@@ -339,14 +425,15 @@ def main():
 
     launches = dict.fromkeys(masks, 0)
     max_err = dict.fromkeys(masks, 0.0)
-    for label, scene, nee, rr, mask in configs + mesh_configs:
+    for label, scene, nee, rr, mask in configs + mesh_configs + tex_configs:
         n, err = compare(ptt, K, torch, label, scene, nee, rr, mask)
         launches[mask] += n
         max_err[mask] = max(max_err[mask], err)
         phase_done(f"compare {label}")
     for scene_file, flags in (("cornell.txt", []),
                               ("cornell_glass.txt", ["--nee"]),
-                              ("cornell_mesh.txt", [])):
+                              ("cornell_mesh.txt", []),
+                              ("cornell_tex.txt", [])):
         for mask, n in cli_main_path(K, np, scene_file, flags).items():
             launches[mask] += n
         phase_done(f"cli {scene_file}")
@@ -362,27 +449,46 @@ def main():
     for label, scene, nee, rr, mask in configs:
         if mask not in timed:
             timed[mask] = time_variant(
-                K, torch, label, K.prepare(scene, "cuda", nee=nee, rr=rr),
+                K, B, torch, label, K.prepare(scene, "cuda", nee=nee, rr=rr),
                 mask, card, SPP_PER_CALL, 9, SPP_PER_CALL, 5)
             phase_done(f"time {label}")
-    for label, scene, nee, rr, mask in mesh_configs:
+    for label, scene, nee, rr, mask in mesh_configs + tex_timed:
         job = K.prepare(scene, "cuda", nee=nee, rr=rr)
-        ms = time_variant(K, torch, label, job, mask, card, SPP_PER_CALL, 5,
-                          1, 3)
+        # the mesh scenes' plain version: 1 spp a call (up to seconds)
+        plain = (1, 3) if scene.mesh.count else (SPP_PER_CALL, 5)
+        ms = time_variant(K, B, torch, label, job, mask, card, SPP_PER_CALL,
+                          5, *plain)
         timed.setdefault(mask, ms)
         phase_done(f"time {label}")
         if label == "cornell_bigmesh":
             # the reference's bigmesh secondary metric scene, 800x800 d8,
             # here on the megakernel route
             small = dataclasses.replace(scene, resolution=(800, 800))
-            time_variant(K, torch, label, K.prepare(small, "cuda"), mask,
+            time_variant(K, B, torch, label, K.prepare(small, "cuda"), mask,
                          card, SPP_PER_CALL, 5, 1, 3)
+    tex_breakdown(K, torch, tex_timed[0][1], card)
+    phase_done("texture breakdown")
+    missing = [m for m in masks if m not in timed]
+    for label, scene, nee, rr, mask in tex_configs:
+        if mask in missing:  # a texture build no timed configuration has
+            timed[mask] = time_variant(
+                K, B, torch, label, K.prepare(scene, "cuda", nee=nee, rr=rr),
+                mask, card, SPP_PER_CALL, 5, SPP_PER_CALL, 3)
+            missing.remove(mask)
+            phase_done(f"time {label}")
     ms_k9, runs_k9, _ = median_ms(lambda: P.probe_k9(*k9_args), torch, 9)
-    ms_k9p, runs_k9p, _ = median_ms(lambda: P.probe_plain(*k9_args), torch, 3)
+    _, k9_ops, k9_bytes = B.count_work(lambda: P.probe_plain(*k9_args))
+    ms_k9p, runs_k9p, _ = median_ms(lambda: P.probe_plain(*k9_args), torch, 3,
+                                    warm=False)
+    # the nodes and triangle columns the walk reads, and its 16-byte result
+    k9_bound = B.bound(sum(k9_ops.values()), sum(k9_bytes.values()) + 16)
     print(f"time k9_probe bigmesh 32x128 rays: kernel median {ms_k9:.4f} ms "
           f"(runs {[round(t, 4) for t in runs_k9]}), plain median "
           f"{ms_k9p:.4f} ms (runs {[round(t, 4) for t in runs_k9p]}) on "
-          f"{card}", flush=True)
+          f"{card}; bound {k9_bound[0]:.6f} ms by {k9_bound[1]} "
+          f"({sum(k9_ops.values()):.4g} ops; bytes read {fmt_work(k9_bytes)}"
+          f" + 16 written), kernel at {k9_bound[0] / ms_k9:.2%} of it; "
+          f"library call: none", flush=True)
     phase_done("time k9")
 
     print(card, flush=True)
@@ -390,12 +496,16 @@ def main():
         "name": kernel_name(K, mask),
         "route": "cuda",
         "source": "pathtrace_tpu_torch/csrc/megakernel.cu",
-        "replaces": (K3_SITE if mask & K.MESH_BIT else
+        "replaces": (K4_SITE if mask & (K.TEX_BIT | K.BTEX_BIT) else
+                     K3_SITE if mask & K.MESH_BIT else
                      K2_SITE if mask & K.NEE_BIT else K1_SITE),
         "launches": launches[mask],
         "max_abs_err": max_err[mask],
         "ms": timed[mask][0],
         "plain_ms": timed[mask][1],
+        "bound_ms": timed[mask][2],
+        "bound_by": timed[mask][3],
+        "library_ms": None,
     } for mask in masks] + [{
         "name": "k9_probe",
         "route": "cuda",
@@ -405,6 +515,9 @@ def main():
         "max_abs_err": k9_err,
         "ms": ms_k9,
         "plain_ms": ms_k9p,
+        "bound_ms": k9_bound[0],
+        "bound_by": k9_bound[1],
+        "library_ms": None,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

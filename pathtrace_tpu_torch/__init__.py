@@ -4,10 +4,10 @@ The port of ``pathtrace_tpu`` (JAX on a TPU), which stays beside it as
 the reference.  Module paths follow the reference's.  Today the port
 renders every scene of spheres, cubes and triangle meshes (a BVH per
 mesh, built at load time), with every material and camera feature of
-the reference, NEE and Russian roulette, traced by the hand-written CUDA
-megakernel K1 (``csrc/megakernel.cu``) on a GPU, or by its plain PyTorch
-version on the CPU.  Image textures are not ported yet.  Every entry
-point takes an explicit ``device``.
+the reference, image textures (albedo TEXTURE and BUMPTEX height maps),
+NEE and Russian roulette, traced by the hand-written CUDA megakernel K1
+(``csrc/megakernel.cu``) on a GPU, or by its plain PyTorch version on the
+CPU.  Every entry point takes an explicit ``device``.
 """
 
 from __future__ import annotations
@@ -17,8 +17,8 @@ import torch
 from .core import types
 from .core.types import Camera, Geoms, Materials, Scene, TriMesh
 from .ops.cuda.megakernel import (
-    pack_lights, pack_mesh, pack_scene, pathtrace_batch_cuda, prepare,
-    trace_k1,
+    pack_lights, pack_mesh, pack_scene, pack_textures, pathtrace_batch_cuda,
+    prepare, trace_k1,
 )
 from .scene.parser import load_scene, parse_scene
 

@@ -7,8 +7,9 @@ JSON line with ``--stats``), and save
 ``<FILE>.<start time>.<N>samp.png``.
 
 ``--device cuda`` (the default) runs the CUDA megakernel K1 (with
-``--nee``, its NEE section K2; on a mesh scene, its BVH section K3) and
-raises when there is no GPU;
+``--nee``, its NEE section K2; on a mesh scene, its BVH section K3; on a
+scene with TEXTURE or BUMPTEX maps, its texture section K4) and raises
+when there is no GPU;
 ``--device cpu`` runs its plain PyTorch version.
 The reference's other engines and options are not ported yet: they raise
 ``NotImplementedError`` naming the ROADMAP item that brings them.

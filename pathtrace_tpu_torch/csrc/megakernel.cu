@@ -1,5 +1,6 @@
 // K1 — forward path-trace megakernel for NVIDIA Hopper (sm_90a), with its
-// NEE section K2 and its triangle-mesh section K3.
+// NEE section K2, its triangle-mesh section K3 and its image-texture
+// section K4.
 //
 // Replaces the Pallas TPU kernel `_kernel` of
 // pathtrace_tpu/ops/pallas/megakernel.py (its body is `_make_tracer`; it is
@@ -7,13 +8,15 @@
 // triangle meshes: diffuse, mirror, imperfect-specular (power cosine), glass
 // (Schlick + Snell), emissive and subsurface (random-walk medium) materials;
 // depth of field, motion blur, checker and bump; next-event estimation
-// (`_nee_add`: one area sample and one shadow ray per light and bounce) and
-// Russian roulette.  Image textures and gradients are not here.
+// (`_nee_add`: one area sample and one shadow ray per light and bounce),
+// Russian roulette, and image textures (albedo TEXTURE maps and BUMPTEX
+// height maps).  Gradients are not here.
 //
 // Like Mosaic's kernel, it is specialized at compile time on the feature
 // set: PT_FEATURES (ops/cuda/megakernel.py feature_mask) holds one bit per
-// scene feature, then NEE, Russian roulette and meshes, and each section is
-// an `if constexpr`.  With PT_FEATURES=0 it is the feature-free kernel.
+// scene feature, then NEE, Russian roulette, meshes, albedo maps and
+// BUMPTEX maps, and each section is an `if constexpr`.  With PT_FEATURES=0
+// it is the feature-free kernel.
 //
 // What bounds it on the card: ALU work and divergence.  There is no
 // device-memory traffic to speak of: the scene and light tables are a few
@@ -55,6 +58,20 @@
 // once, afterwards, on the winner's reloaded row, with the same arithmetic
 // as the walk's test, so the winner and its distance are the ones the
 // reference's winner fold finds.
+// K4, image textures (the reference's `_bilin3`, `_lum`, the UV charts of
+// its fold and the `_atan2`/`_asin` polynomials; not its row sweep or slab
+// server, which exist for the TPU's gather): once per hit, after the fold,
+// where the winner has a chart.  Its UV comes from what the fold carried
+// (a cube's face chart, a triangle's interpolated vt) or, on a sphere, from
+// its object-space point; then 4 taps for the albedo map and 16 for the
+// BUMPTEX map's central differences.  A tap is one 32-bit load of a texel
+// word (r | g << 8 | b << 16) through the read-only cache and a byte / 255
+// IEEE division, the loader's own value.  The maps are small beside the
+// 50 MB L2 (a 512x512 map is 1 MB), so what bounds the section is the
+// latency of the dependent loads and the integer wrap arithmetic, not
+// bandwidth; the weights are computed in float32 as the reference's, never
+// by texture hardware, whose 8-bit fixed-point weights would round
+// differently.
 //
 // It is built with -fmad=false and IEEE division and square root, so that
 // it rounds as its plain PyTorch version (ops/cuda/megakernel.py
@@ -62,6 +79,7 @@
 
 #include <cmath>
 #include <cstdint>
+#include <type_traits>
 
 #include <cuda_runtime.h>
 
@@ -84,6 +102,9 @@ constexpr bool kSss = kFeatures & 64u;
 constexpr bool kNee = kFeatures & 128u;
 constexpr bool kRr = kFeatures & 256u;
 constexpr bool kMesh = kFeatures & 512u;
+constexpr bool kTex = kFeatures & 1024u;   // an albedo map on some geom
+constexpr bool kBtex = kFeatures & 2048u;  // a BUMPTEX map on some geom
+constexpr bool kTexAny = kTex || kBtex;
 
 constexpr int kBlock = 128;
 constexpr int kWarps = kBlock / 32;
@@ -94,6 +115,10 @@ constexpr int kLightCols = 128;
 constexpr int kSphere = 0;
 constexpr int kMeshType = 2;
 constexpr int kMetaCols = 5;  // geom, node_off, n_nodes, tri_off, n_tris
+// float4s per triangle row: v0 e1 e2 n_obj pad, and in the texture builds
+// the vt corners and the BUMPTEX UV gradients (pack_mesh)
+constexpr int kTriF4 = kTexAny ? 6 : 4;
+constexpr int kChartCols = 6;  // albedo offset, H, W; BUMPTEX offset, H, W
 constexpr float kNoHit = 1e30f;
 constexpr float kRayOffset = 1e-4f;
 // slack of the object-space pruning bound, float32(1 + 1e-5)
@@ -104,6 +129,9 @@ constexpr float kSqrtThird = 0.5773502691896257645f;
 constexpr double kPiD = 3.14159265358979323846;
 constexpr float kPi = static_cast<float>(kPiD);
 constexpr float kInvPi = static_cast<float>(1.0 / kPiD);
+constexpr float kHalfPi = static_cast<float>(0.5 * kPiD);
+constexpr float kInvTwoPi = static_cast<float>(1.0 / (2.0 * kPiD));
+constexpr float kThird = static_cast<float>(1.0 / 3.0);
 
 // x * (1/sqrt(x.x)), never rsqrtf: the reference's rounding.
 __device__ __forceinline__ void normalize3(float& x, float& y, float& z) {
@@ -113,17 +141,40 @@ __device__ __forceinline__ void normalize3(float& x, float& y, float& z) {
   z *= inv;
 }
 
-struct Hit {
+struct HitPlain {
   float dist, px, py, pz, nx, ny, nz;
-  float qx, qy, qz;  // object-space point: checker, bump
+  float qx, qy, qz;  // object-space point: checker, bump, textures
   int geom;          // -1: no hit
   bool outside;      // entering the geom (glass, SSS)
 };
+// The texture builds also carry the winner's chart coordinates (a cube's
+// face chart, a triangle's interpolated vt; a sphere's come from q after the
+// fold) and its triangle row (-1: not a triangle).  The other builds keep
+// HitPlain, so that their code does not change.
+struct HitTex {
+  float dist, px, py, pz, nx, ny, nz;
+  float qx, qy, qz;
+  int geom;
+  bool outside;
+  float u = 0.f, v = 0.f;
+  int row = -1;
+};
+using Hit = std::conditional_t<kTexAny, HitTex, HitPlain>;
 
-// The triangle meshes.  Rows of 16 floats, 4 float4s: tri (pack_mesh) v0 e1
-// e2 n_obj pad, in BVH order; nodes (scene/bvh.py) min max skip start count
-// pad.  meta: kMetaCols ints per MESH geom.  An empty struct in the builds
-// without meshes, so that their code does not change.
+template <typename H>
+__device__ __forceinline__ void set_tex(H& h, float u, float v, int row) {
+  if constexpr (kTexAny) {
+    h.u = u;
+    h.v = v;
+    h.row = row;
+  }
+}
+
+// The triangle meshes.  Rows of kTriF4 float4s: tri (pack_mesh) v0 e1 e2
+// n_obj pad (and vt, UV gradients), in BVH order; nodes (scene/bvh.py) min
+// max skip start count pad, 4 float4s.  meta: kMetaCols ints per MESH geom.
+// An empty struct in the builds without meshes, so that their code does not
+// change.
 template <bool kOn>
 struct MeshTables {
   __device__ MeshTables(const float4* t, const float4* n, const int* m, int c)
@@ -139,6 +190,46 @@ struct MeshTables<false> {
 };
 using Mesh = MeshTables<kMesh>;
 
+// The image textures: one uint32 word per texel (pack_textures) in global
+// memory; the kChartCols chart ints per geom are staged in shared memory.
+// An empty struct in the builds without textures.
+template <bool kOn>
+struct TexTables {
+  __device__ explicit TexTables(const uint32_t* t) : texels(t) {}
+  const uint32_t* texels;
+};
+template <>
+struct TexTables<false> {
+  __device__ explicit TexTables(const uint32_t*) {}
+};
+using Tex = TexTables<kTexAny>;
+
+// The albedo: a pointer into the material (or checker) row, and in the
+// texture builds three floats, which the albedo map multiplies.
+struct Rgb {
+  __device__ Rgb(const float* p) : c{p[0], p[1], p[2]} {}
+  __device__ float operator[](int i) const { return c[i]; }
+  float c[3];
+};
+using Albedo = std::conditional_t<kTexAny, Rgb, const float*>;
+
+// A lobe's throughput: the specular colour spec or the albedo al, over
+// p_safe.
+template <typename A>
+__device__ __forceinline__ void lobe_tint(const float* spec, const A& al, bool take_spec,
+                                          float p_safe, float& r, float& g, float& b) {
+  if constexpr (std::is_pointer_v<A>) {
+    const float* tint = take_spec ? spec : al;
+    r = tint[0] / p_safe;
+    g = tint[1] / p_safe;
+    b = tint[2] / p_safe;
+  } else {
+    r = (take_spec ? spec[0] : al[0]) / p_safe;
+    g = (take_spec ? spec[1] : al[1]) / p_safe;
+    b = (take_spec ? spec[2] : al[2]) / p_safe;
+  }
+}
+
 // One axis of the ray/box slab test: t entering and leaving.  A NaN (origin
 // on the slab plane, zero direction component) frees the axis, as the
 // reference's guard does; fminf/fmaxf would drop it instead.
@@ -152,10 +243,13 @@ __device__ __forceinline__ void slab(float mn, float mx, float o, float ird,
 }
 
 // Moller-Trumbore against the triangle row at t (3 float4 loads): the hit
-// distance along the object-space ray in tt.
+// distance along the object-space ray in tt, and with kBary the
+// barycentrics of v1 and v2 in *bu, *bv.
+template <bool kBary = false>
 __device__ __forceinline__ bool tri_test(float rox, float roy, float roz,
                                          float rdx, float rdy, float rdz,
-                                         const float4* t, float& tt) {
+                                         const float4* t, float& tt,
+                                         float* bu = nullptr, float* bv = nullptr) {
   const float4 a = __ldg(t), b = __ldg(t + 1), c = __ldg(t + 2);
   const float v0x = a.x, v0y = a.y, v0z = a.z;
   const float e1x = a.w, e1y = b.x, e1z = b.y;
@@ -173,6 +267,10 @@ __device__ __forceinline__ bool tri_test(float rox, float roy, float roz,
   const float qvz = tvx * e1y - tvy * e1x;
   const float vv = (rdx * qvx + rdy * qvy + rdz * qvz) * inv_det;
   tt = (e2x * qvx + e2y * qvy + e2z * qvz) * inv_det;
+  if constexpr (kBary) {
+    *bu = u;
+    *bv = vv;
+  }
   return ok && u >= 0.f && vv >= 0.f && u + vv <= 1.f && tt > 0.f;
 }
 
@@ -210,6 +308,7 @@ __device__ Hit nearest(float ox, float oy, float oz, float dx, float dy,
 
     bool hit, outside;
     float qx, qy, qz, nx = 0.f, ny = 0.f, nz = 0.f;
+    [[maybe_unused]] float tu = 0.f, tv = 0.f;  // chart coordinates (cube)
     if (types[g] == kSphere) {
       // radius 0.5 is implicit: r^2 = 0.25
       const float vdd = rox * rdx + roy * rdy + roz * rdz;
@@ -289,6 +388,11 @@ __device__ Hit nearest(float ox, float oy, float oz, float dx, float dy,
         ny = m[4] * nox + m[5] * noy + m[6] * noz;
         nz = m[8] * nox + m[9] * noy + m[10] * noz;
         normalize3(nx, ny, nz);
+        if constexpr (kTexAny) {
+          // the face chart: planar in the two axes off the face normal
+          tu = (fabsf(nox) > 0.f ? qz : qx) + 0.5f;
+          tv = (fabsf(noy) > 0.f ? qz : qy) + 0.5f;
+        }
       }
     }
     float pxw = m[0] * qx + m[1] * qy + m[2] * qz + m[3];
@@ -302,15 +406,17 @@ __device__ Hit nearest(float ox, float oy, float oz, float dx, float dy,
       pzw = pzw + time * m[35];
     }
     const float dist = hit ? sqrtf(ddx * ddx + ddy * ddy + ddz * ddz) : kNoHit;
-    if (dist < best.dist)
+    if (dist < best.dist) {
       best = Hit{dist, pxw, pyw, pzw, nx, ny, nz, qx, qy, qz, g, outside};
+      if constexpr (kTexAny && !kShadow) set_tex(best, tu, tv, -1);
+    }
   }
   if constexpr (kMesh) {
     for (int e = 0; e < mesh.n_meta; ++e) {
       const int* me = mesh.meta + e * kMetaCols;
       const int g = me[0], n_nodes = me[2];
       const float4* nodes = mesh.nodes + 4ll * me[1];
-      const float4* tri = mesh.tri + 4ll * me[3];
+      const float4* tri = mesh.tri + static_cast<long long>(kTriF4) * me[3];
       const float* m = gmat + g * kGeomCols;
       float gox = ox, goy = oy, goz = oz;
       if constexpr (kMotion) {
@@ -354,7 +460,7 @@ __device__ Hit nearest(float ox, float oy, float oz, float dx, float dy,
           const int start = static_cast<int>(nb.w);
           for (int k = start; k < start + count; ++k) {
             float tt;
-            if (tri_test(rox, roy, roz, rdx, rdy, rdz, tri + 4 * k, tt) && tt < t_loc) {
+            if (tri_test(rox, roy, roz, rdx, rdy, rdz, tri + kTriF4 * k, tt) && tt < t_loc) {
               t_loc = tt;
               win = k;
             }
@@ -365,7 +471,13 @@ __device__ Hit nearest(float ox, float oy, float oz, float dx, float dy,
       if (win < 0) continue;
       // the shading fold, once, on the winner
       float tt;
-      if (!tri_test(rox, roy, roz, rdx, rdy, rdz, tri + 4 * win, tt)) continue;
+      [[maybe_unused]] float bu, bv;
+      if constexpr (kTexAny) {
+        if (!tri_test<true>(rox, roy, roz, rdx, rdy, rdz, tri + kTriF4 * win, tt, &bu, &bv))
+          continue;
+      } else {
+        if (!tri_test(rox, roy, roz, rdx, rdy, rdz, tri + kTriF4 * win, tt)) continue;
+      }
       const float tofs = tt - kRayOffset;
       const float qx = rox + tofs * rdx;
       const float qy = roy + tofs * rdy;
@@ -374,7 +486,7 @@ __device__ Hit nearest(float ox, float oy, float oz, float dx, float dy,
       bool outside = false;
       if constexpr (!kShadow) {
         // the ray-facing geometric normal through invT
-        const float4 c = __ldg(tri + 4 * win + 2);  // e2z, n_obj
+        const float4 c = __ldg(tri + kTriF4 * win + 2);  // e2z, n_obj
         const float face = rdx * c.y + rdy * c.z + rdz * c.w;
         const float flip = face < 0.f ? 1.f : -1.f;
         nx = (m[24] * c.y + m[25] * c.z + m[26] * c.w) * flip;
@@ -393,8 +505,17 @@ __device__ Hit nearest(float ox, float oy, float oz, float dx, float dy,
         pzw = pzw + time * m[35];
       }
       const float dist = sqrtf(ddx * ddx + ddy * ddy + ddz * ddz);
-      if (dist < best.dist)
+      if (dist < best.dist) {
         best = Hit{dist, pxw, pyw, pzw, nx, ny, nz, qx, qy, qz, g, outside};
+        if constexpr (kTexAny && !kShadow) {
+          // the vt corners, interpolated at the hit
+          const float4 d = __ldg(tri + kTriF4 * win + 3);  // u0 v0 u1 v1
+          const float4 e = __ldg(tri + kTriF4 * win + 4);  // u2 v2, grad_u xy
+          const float bw = 1.f - bu - bv;
+          set_tex(best, bw * d.x + bu * d.z + bv * e.x, bw * d.y + bu * d.w + bv * e.y,
+                  me[3] + win);
+        }
+      }
     }
   }
   return best;
@@ -426,6 +547,167 @@ __device__ __forceinline__ void bump_perturb(float& nx, float& ny, float& nz,
   nx = px;
   ny = py;
   nz = pz;
+}
+
+// K4.  The reference's degree-11 odd minimax atan on [0, 1] (`_atan_poly`):
+// its float32 coefficients (rounded from the same doubles), its Horner order.
+__device__ __forceinline__ float atan_poly(float t) {
+  constexpr float c0 = static_cast<float>(0.9999993329);
+  constexpr float c1 = static_cast<float>(-0.3332985605);
+  constexpr float c2 = static_cast<float>(0.1994653599);
+  constexpr float c3 = static_cast<float>(-0.1390853351);
+  constexpr float c4 = static_cast<float>(0.0964200441);
+  constexpr float c5 = static_cast<float>(-0.0559098861);
+  constexpr float c6 = static_cast<float>(0.0218612288);
+  constexpr float c7 = static_cast<float>(-0.0040540580);
+  const float t2 = t * t;
+  return t * (c0 + t2 * (c1 + t2 * (c2 + t2 * (c3 + t2 * (c4 + t2 * (c5 + t2 * (c6 + t2 * c7)))))));
+}
+
+// atan2 by the polynomial and quadrant selects (`_atan2`), never libm's: the
+// sphere chart's boundary texels depend on its bits.
+__device__ __forceinline__ float atan2_poly(float y, float x) {
+  const float ax = fabsf(x), ay = fabsf(y);
+  const float hi = fmaxf(ax, ay), lo = fminf(ax, ay);
+  float r = atan_poly(lo / fmaxf(hi, static_cast<float>(1e-30)));
+  if (ay > ax) r = kHalfPi - r;
+  if (x < 0.f) r = kPi - r;
+  return y < 0.f ? -r : r;
+}
+
+// The unit sphere's chart at object-space point q (`_one_sphere`'s UV).
+__device__ __forceinline__ void sphere_uv(float qx, float qy, float qz, float& u, float& v) {
+  u = 0.5f + atan2_poly(qz, qx) * kInvTwoPi;
+  const float t = fminf(fmaxf(2.f * qy, -1.f), 1.f);
+  v = 0.5f + atan2_poly(t, sqrtf(fmaxf(1.f - t * t, 0.f))) * kInvPi;  // asin
+}
+
+// A floored texel coordinate as an int: held inside +-2^24 first, so that a
+// wild UV never meets an out-of-range float-to-int cast.
+__device__ __forceinline__ int tap(float x0f) {
+  return static_cast<int>(fminf(fmaxf(x0f, -16777216.f), 16777216.f));
+}
+
+// a mod w with the sign of w (jnp.mod), for w > 0
+__device__ __forceinline__ int wrap(int a, int w) {
+  const int r = a % w;
+  return r < 0 ? r + w : r;
+}
+
+// Channel c of a texel word, as the loader's float32: byte / 255.
+__device__ __forceinline__ float texel(uint32_t w, int c) {
+  return static_cast<float>((w >> (8 * c)) & 255u) / 255.f;
+}
+
+// Bilinear rgb sample of the map (offset off, th rows, tw columns) at (u, v)
+// (`_bilin3`): repeat wrap of each tap, then the filter; texel centres at
+// integer + 0.5.
+__device__ __forceinline__ void bilin3(const uint32_t* texels, int off, int th, int tw,
+                                       float u, float v, float out[3]) {
+  const float x = u * static_cast<float>(tw) - 0.5f;
+  const float y = v * static_cast<float>(th) - 0.5f;
+  const float x0f = floorf(x), y0f = floorf(y);
+  const float fx = x - x0f, fy = y - y0f;
+  const int wi = max(tw, 1), hi = max(th, 1);
+  const int x0 = wrap(tap(x0f), wi), x1 = wrap(x0 + 1, wi);
+  const int y0 = wrap(tap(y0f), hi), y1 = wrap(y0 + 1, hi);
+  const uint32_t w00 = __ldg(texels + off + y0 * wi + x0);
+  const uint32_t w01 = __ldg(texels + off + y0 * wi + x1);
+  const uint32_t w10 = __ldg(texels + off + y1 * wi + x0);
+  const uint32_t w11 = __ldg(texels + off + y1 * wi + x1);
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    const float top = texel(w00, c) * (1.f - fx) + texel(w01, c) * fx;
+    const float bot = texel(w10, c) * (1.f - fx) + texel(w11, c) * fx;
+    out[c] = top * (1.f - fy) + bot * fy;
+  }
+}
+
+// The height map's luminance at (u, v): (r + g + b) / 3 (`_lum`).
+__device__ __forceinline__ float luminance(const uint32_t* texels, const int* ch, float u,
+                                           float v) {
+  float s[3];
+  bilin3(texels, ch[0], ch[1], ch[2], u, v, s);
+  return (s[0] + s[1] + s[2]) * kThird;
+}
+
+// K4 at the winner of a hit (kind: its geom type; ch: its kChartCols chart
+// ints; bk: its BUMPTEX strength; tinv: its inverse-transpose): the albedo
+// map multiplies the albedo, except on a checker's odd cells; then BUMPTEX
+// tilts the (already bumped) shading normal: central differences of the
+// luminance in (u, v), chained through the chart's object-space gradients
+// (sphere; cube face by the dominant |q| axis, the first of equal ones; a
+// triangle's carried (grad_u, grad_v)) and tinv, projected tangentially.
+template <typename A, typename H, typename X, typename M>
+__device__ __forceinline__ void tex_section(A& albedo, float& nx, float& ny, float& nz,
+                                            const H& h, int kind, const int* ch, float bk,
+                                            const float* tinv, bool odd, const X tex,
+                                            const M mesh) {
+  if constexpr (kTexAny) {
+    const bool a_on = kTex && ch[0] >= 0 && !odd;
+    const bool b_on = kBtex && ch[3] >= 0 && bk > 0.f;
+    if (!a_on && !b_on) return;
+    float u = h.u, v = h.v;
+    if (kind == kSphere) sphere_uv(h.qx, h.qy, h.qz, u, v);
+    if (a_on) {
+      float s[3];
+      bilin3(tex.texels, ch[0], ch[1], ch[2], u, v, s);
+#pragma unroll
+      for (int c = 0; c < 3; ++c) albedo.c[c] = albedo.c[c] * s[c];
+    }
+    if (!b_on) return;
+    const float eu = 1.f / fmaxf(static_cast<float>(ch[5]), 1.f);
+    const float ev = 1.f / fmaxf(static_cast<float>(ch[4]), 1.f);
+    const float hu = (luminance(tex.texels, ch + 3, u + eu, v) -
+                      luminance(tex.texels, ch + 3, u + -eu, v)) / (2.f * eu);
+    const float hv = (luminance(tex.texels, ch + 3, u, v + ev) -
+                      luminance(tex.texels, ch + 3, u, v + -ev)) / (2.f * ev);
+    const float qx = h.qx, qy = h.qy, qz = h.qz;
+    float gux, guy = 0.f, guz, gvx = 0.f, gvy, gvz;
+    if (kind == kSphere) {
+      const float r2s = fmaxf(qx * qx + qz * qz, static_cast<float>(1e-12));
+      const float inv2pir2 = 1.f / (kTwoPi * r2s);
+      const float den = sqrtf(fmaxf(1.f - 4.f * qy * qy, static_cast<float>(1e-12)));
+      gux = -qz * inv2pir2;
+      guz = qx * inv2pir2;
+      gvy = 2.f / (kPi * den);
+      gvz = 0.f;
+    } else if (kMesh && kind == kMeshType) {
+      if constexpr (kMesh) {
+        const float4* r = mesh.tri + static_cast<long long>(kTriF4) * h.row;
+        const float4 e = __ldg(r + 4), f = __ldg(r + 5);
+        gux = e.z;
+        guy = e.w;
+        guz = f.x;
+        gvx = f.y;
+        gvy = f.z;
+        gvz = f.w;
+      }
+    } else {
+      const float aqx = fabsf(qx), aqy = fabsf(qy), aqz = fabsf(qz);
+      const bool ax0 = aqx >= aqy && aqx >= aqz;
+      const bool ax1 = !ax0 && aqy >= aqz;
+      gux = ax0 ? 0.f : 1.f;
+      guz = ax0 ? 1.f : 0.f;
+      gvy = ax1 ? 0.f : 1.f;
+      gvz = ax1 ? 1.f : 0.f;
+    }
+    const float gox = hu * gux + hv * gvx;
+    const float goy = hu * guy + hv * gvy;
+    const float goz = hu * guz + hv * gvz;
+    const float gwx = tinv[0] * gox + tinv[1] * goy + tinv[2] * goz;
+    const float gwy = tinv[3] * gox + tinv[4] * goy + tinv[5] * goz;
+    const float gwz = tinv[6] * gox + tinv[7] * goy + tinv[8] * goz;
+    const float gdn = gwx * nx + gwy * ny + gwz * nz;
+    const float pxn = nx - bk * (gwx - gdn * nx);
+    const float pyn = ny - bk * (gwy - gdn * ny);
+    const float pzn = nz - bk * (gwz - gdn * nz);
+    const float len2 = pxn * pxn + pyn * pyn + pzn * pzn;
+    const float nrm = sqrtf(len2 > 0.f ? len2 : 1.f);
+    nx = pxn / nrm;
+    ny = pyn / nrm;
+    nz = pzn / nrm;
+  }
 }
 
 // Power-cosine sample about the mirror direction mr (GPU Gems 3 ch. 20),
@@ -465,10 +747,10 @@ __device__ __forceinline__ void imperfect_specular(float m_ex, float& mrx,
 // (pack_lights): 0 geom | 1 type | 2-4 emission | cube: 5 area, 6-11 face
 // cdf, 12-29 origins, 30-47 e_b, 48-65 e_c, 66-83 normals | sphere: 12-20
 // forward 3x3, 21-23 center, 24-32 invT 3x3, 33 |det| | 120-122 velocity.
-template <typename M>
+template <typename M, typename A>
 __device__ __forceinline__ void nee_add(
     float& rr, float& rg, float& rb, float tr, float tg, float tb,
-    const Hit& h, float nx, float ny, float nz, const float* al, float time,
+    const Hit& h, float nx, float ny, float nz, const A al, float time,
     uint32_t it, uint32_t pix, uint32_t dep, const float* lights,
     int n_lights, const float* gmat, const int* types, int n_geoms,
     const M mesh) {
@@ -552,12 +834,13 @@ k1_trace(const float* __restrict__ cam_g, const float* __restrict__ mats_g,
          const float* __restrict__ gmat_g, const int* __restrict__ types_g,
          const float* __restrict__ lights_g, const float4* __restrict__ tri_g,
          const float4* __restrict__ nodes_g, const int* __restrict__ meta_g,
+         const uint32_t* __restrict__ texels_g, const int* __restrict__ charts_g,
          int n_geoms, int n_lights, int n_meta, int width, int height,
          int depth, uint32_t it0, int n_spp, long long pix0,
          long long n_local, float* __restrict__ rad,
          unsigned long long* __restrict__ counts) {
   // shared: per-warp live counts [kWarps][depth], then cam, mats, gmat,
-  // lights (NEE), types, mesh meta (meshes)
+  // lights (NEE), types, mesh meta (meshes), texture charts (textures)
   extern __shared__ unsigned long long smem[];
   unsigned long long* s_counts = smem;
   float* s_cam = reinterpret_cast<float*>(s_counts + kWarps * depth);
@@ -577,6 +860,11 @@ k1_trace(const float* __restrict__ cam_g, const float* __restrict__ mats_g,
     for (int i = threadIdx.x; i < n_meta * kMetaCols; i += kBlock) s_meta[i] = meta_g[i];
   }
   const Mesh mesh(tri_g, nodes_g, s_meta, n_meta);
+  int* s_charts = s_meta + n_meta * kMetaCols;
+  if constexpr (kTexAny) {
+    for (int i = threadIdx.x; i < n_geoms * kChartCols; i += kBlock) s_charts[i] = charts_g[i];
+  }
+  const Tex tex(texels_g);
   for (int i = threadIdx.x; i < kWarps * depth; i += kBlock) s_counts[i] = 0ull;
   __syncthreads();
 
@@ -657,18 +945,25 @@ k1_trace(const float* __restrict__ cam_g, const float* __restrict__ mats_g,
       }
       const float* mt = s_mats + h.geom * kMatCols;
       const float* gm = s_gmat + h.geom * kGeomCols;
-      // the winner's albedo (checker) and shading normal (bump)
-      const float* albedo = mt;
+      // the winner's albedo (checker, albedo map) and shading normal (bump,
+      // BUMPTEX map)
+      Albedo albedo = mt;
       float nx = h.nx, ny = h.ny, nz = h.nz;
+      [[maybe_unused]] bool odd = false;
       if constexpr (kChecker) {
         const float cs = mt[11];
         const float ph = 0.015625f;
         const float cells = floorf(h.qx * cs - ph) + floorf(h.qy * cs - ph) +
                             floorf(h.qz * cs - ph);
         if (cs > 0.f && cells - 2.f * floorf(cells * 0.5f) >= 1.f) albedo = mt + 12;
+        if constexpr (kTexAny) odd = cs > 0.f && cells - 2.f * floorf(cells * 0.5f) >= 1.f;
       }
       if constexpr (kBump) {
         if (mt[16] > 0.f) bump_perturb(nx, ny, nz, h.qx, h.qy, h.qz, mt[15], mt[16], gm + 24);
+      }
+      if constexpr (kTexAny) {
+        tex_section(albedo, nx, ny, nz, h, s_types[h.geom], s_charts + h.geom * kChartCols,
+                    mt[21], gm + 24, odd, tex, mesh);
       }
       const float emit = mt[10];
       if (emit > 0.f) {  // emissive hit: collect and end
@@ -755,10 +1050,7 @@ k1_trace(const float* __restrict__ cam_g, const float* __restrict__ mats_g,
           ndy = up * ny + ca * over * p1y + sa * over * p2y;
           ndz = up * nz + ca * over * p1z + sa * over * p2z;
         }
-        const float* tint = take_spec ? mt + 3 : albedo;  // spec color or albedo
-        thr_r = tint[0] / p_safe;
-        thr_g = tint[1] / p_safe;
-        thr_b = tint[2] / p_safe;
+        lobe_tint(mt + 3, albedo, take_spec, p_safe, thr_r, thr_g, thr_b);
         took_diffuse = !take_spec;
       }
       float opx = h.px, opy = h.py, opz = h.pz;
@@ -866,25 +1158,31 @@ extern "C" int pt_k1_features() { return static_cast<int>(kFeatures); }
 // Launches K1 on `stream` over pixels pix0 .. pix0+n_local-1: n_spp samples
 // each, iterations it0 .. it0+n_spp-1.  `lights` (n_lights, 128) is read by
 // a library built with NEE, which needs n_lights > 0; the others need 0.
-// `tri` (T, 16), `nodes` (N, 16) (16-byte aligned) and `meta` (n_meta, 5)
-// are read by a library built for meshes; the others need n_meta = 0.
+// `tri` (T, 16; T, 24 in the texture builds), `nodes` (N, 16) (16-byte
+// aligned) and `meta` (n_meta, 5) are read by a library built for meshes;
+// the others need n_meta = 0.  `texels` (n_texels uint32 words) and
+// `charts` (n_geoms, 6) are read by a library built for textures, which
+// needs n_texels > 0; the others need 0.
 // rad (n_local,3) float32 is written; counts (depth,) must be zeroed by the
 // caller and is added into.  Returns the cudaError_t of the launch (0 =
 // success).
 extern "C" int pt_k1_trace(const float* cam, const float* mats,
                            const float* gmat, const int* geom_types,
                            const float* lights, const float* tri,
-                           const float* nodes, const int* meta, int n_geoms,
-                           int n_lights, int n_meta, int width, int height,
+                           const float* nodes, const int* meta,
+                           const unsigned int* texels, const int* charts, int n_geoms,
+                           int n_lights, int n_meta, long long n_texels, int width, int height,
                            int depth, unsigned int it0, int n_spp,
                            long long pix0, long long n_local, float* rad,
                            unsigned long long* counts, void* stream) {
-  if (kNee != (n_lights > 0) || n_lights < 0 || n_meta < 0 || (!kMesh && n_meta > 0))
+  if (kNee != (n_lights > 0) || n_lights < 0 || n_meta < 0 || (!kMesh && n_meta > 0) ||
+      kTexAny != (n_texels > 0) || n_texels < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = sizeof(unsigned long long) * kWarps * depth +
                       sizeof(float) * (kCamCols + n_geoms * (kMatCols + kGeomCols) +
                                        n_lights * kLightCols) +
-                      sizeof(int) * (n_geoms + n_meta * kMetaCols);
+                      sizeof(int) * (n_geoms + n_meta * kMetaCols +
+                                     (kTexAny ? n_geoms * kChartCols : 0));
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         k1_trace, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
@@ -895,7 +1193,8 @@ extern "C" int pt_k1_trace(const float* cam, const float* mats,
   k1_trace<<<static_cast<unsigned>(blocks), kBlock, smem,
              static_cast<cudaStream_t>(stream)>>>(
       cam, mats, gmat, geom_types, lights, reinterpret_cast<const float4*>(tri),
-      reinterpret_cast<const float4*>(nodes), meta, n_geoms, n_lights, n_meta, width,
+      reinterpret_cast<const float4*>(nodes), meta, texels, charts, n_geoms, n_lights, n_meta,
+      width,
       height, depth, it0, n_spp, pix0, n_local, rad, counts);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,0 +1,166 @@
+"""Bounds: the least time an H100 could take for a kernel's work.
+
+A bound (:func:`bound`) is the larger of two times.  One is the float32
+operations that the work needs over the card's float32 rate.  The other
+is the bytes that it must move over the card's memory rate.  The rates
+are the H100 SXM data sheet's: 67 TFLOP/s outside the tensor cores, and
+3.35 TB/s of HBM3.
+
+:func:`count_work` takes both from a plain version as it runs:
+
+- A dispatch mode counts one operation for each output element of each
+  arithmetic, comparison, min/max, clamp, floor, division, square root
+  or transcendental op on floating-point data.  It does not count
+  selects (``where``), data movement, or integer and boolean ops.
+- The plain versions compute every lane of a section and then select.
+  The kernel computes only the lanes that take the section.  So the plain
+  versions mark their sections with :func:`needed`, and the ops inside a
+  section count only for the share of lanes that need them: a live path,
+  the lobe it takes, a winner with a map.
+- The plain versions mark the table rows they read with :func:`read`.
+  Each distinct row counts once, with the columns that the work needs
+  of it.
+
+Outside :func:`count_work` the marks do nothing.
+"""
+
+from __future__ import annotations
+
+import contextlib
+from collections import Counter
+
+import torch
+
+PEAK_FLOPS = 67e12     # H100 SXM float32, outside the tensor cores
+PEAK_BYTES = 3.35e12   # H100 SXM HBM3
+# the ops counted (aten names): arithmetic, comparisons, min/max, clamp,
+# floor, division, square root, transcendentals
+COUNTED_OPS = frozenset((
+    "add", "sub", "rsub", "mul", "div", "neg", "abs", "sqrt", "reciprocal",
+    "sin", "cos", "tan", "log", "exp", "pow", "floor", "minimum", "maximum",
+    "clamp", "clamp_min", "clamp_max", "lt", "le", "gt", "ge", "eq", "ne",
+    "isnan"))
+_FLOATS = (torch.float32, torch.float64)
+
+_COUNT = None  # the count in force (inside count_work), or None
+
+
+@contextlib.contextmanager
+def needed(section=None, lanes=None, compacted=False):
+    """Marks the ops inside as the work of ``section``, needed only on
+    ``lanes``.  ``section`` is a name for the breakdown, and None keeps
+    the enclosing one.  ``lanes`` is a bool mask over the ops' lanes, or
+    a function that makes one.  A count calls the function with counting
+    paused, and outside a count it is never called.  Inside a section over
+    the same lanes, the two masks meet.  With ``lanes`` None, the
+    enclosing mask holds.  With ``compacted``, the ops run on a compacted
+    set of lanes that all need them, and the enclosing mask does not
+    apply.  ``lanes`` is then None, or a mask over that set."""
+    if _COUNT is None:
+        yield
+    else:
+        with _COUNT.section(section, lanes, compacted):
+            yield
+
+
+def read(table, key, rows, cols):
+    """Marks rows ``rows`` of ``table`` as read, with ``cols`` elements
+    of each that the work needs.  ``rows`` is an int, a sequence of ints,
+    or an int tensor over the lanes of the enclosing section, and only
+    the lanes that need the section count.  ``key`` names the table in
+    the count's sum, and tables (or slices) of one name add up.  Negative
+    rows (no row) do not count."""
+    if _COUNT is not None:
+        _COUNT.read(table, key, rows, cols)
+
+
+def bound(ops, n_bytes):
+    """(bound in ms, "operations" or "bytes"): the larger of the two
+    times, and the term that gives it."""
+    t_ops, t_bytes = ops / PEAK_FLOPS * 1e3, n_bytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def count_work(fn):
+    """Runs ``fn`` (a plain version) under a count.  Returns (``fn``'s
+    result, the ops by section, the bytes read by table): each a dict."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    global _COUNT
+
+    class Count(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = Counter()
+            # (key, table) -> (rows read: bool tensor, bytes a row)
+            self.rows = {}
+            self.stack = [("other", None, 1.0)]  # (section, mask, share)
+            self.paused = False
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if (not self.paused and isinstance(out, torch.Tensor)
+                    and func.overloadpacket.__name__ in COUNTED_OPS
+                    and (out.dtype in _FLOATS or any(
+                        isinstance(a, torch.Tensor) and a.dtype in _FLOATS
+                        for a in args))):
+                name, _, share = self.stack[-1]
+                self.ops[name] += out.numel() * share
+            return out
+
+        @contextlib.contextmanager
+        def section(self, name, lanes, compacted):
+            outer_name, outer, outer_share = self.stack[-1]
+            mask, share = (None, 1.0) if compacted else (outer, outer_share)
+            if lanes is not None:
+                self.paused = True
+                try:
+                    mask = lanes() if callable(lanes) else lanes
+                    if outer is not None and not compacted:
+                        if outer.shape != mask.shape:
+                            raise ValueError(
+                                f"section {name}: lanes {tuple(mask.shape)}"
+                                f" inside lanes {tuple(outer.shape)}")
+                        mask = mask & outer
+                    share = float(mask.sum()) / max(mask.numel(), 1)
+                finally:
+                    self.paused = False
+            self.stack.append((name or outer_name, mask, share))
+            try:
+                yield
+            finally:
+                self.stack.pop()
+
+        def read(self, table, key, rows, cols):
+            self.paused = True
+            try:
+                rows = torch.as_tensor(rows, dtype=torch.int64,
+                                       device=table.device).reshape(-1)
+                mask = self.stack[-1][1]
+                if mask is not None:
+                    if mask.shape != rows.shape:
+                        raise ValueError(
+                            f"read of {key}: rows {tuple(rows.shape)} in "
+                            f"lanes {tuple(mask.shape)}")
+                    rows = rows[mask]
+                at = (key, table.data_ptr())
+                if at not in self.rows:
+                    self.rows[at] = (
+                        torch.zeros(table.shape[0], dtype=torch.bool,
+                                    device=table.device),
+                        cols * table.element_size())
+                self.rows[at][0][rows[rows >= 0]] = True
+            finally:
+                self.paused = False
+
+    count = Count()
+    outer, _COUNT = _COUNT, count
+    try:
+        with count:
+            out = fn()
+    finally:
+        _COUNT = outer
+    n_bytes = Counter()
+    for (key, _), (seen, row_bytes) in count.rows.items():
+        n_bytes[key] += int(seen.sum()) * row_bytes
+    return out, dict(count.ops), dict(n_bytes)

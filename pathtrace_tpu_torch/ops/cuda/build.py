@@ -7,7 +7,8 @@ library in seconds.  The megakernel is built once per feature set (a
 per ``_scene_features``; the traversal probe K9 is a library of its
 own.  The build runs at first use, into ``pathtrace_tpu_torch/build/``
 (not committed), under a name keyed by the hash of the sources, flags
-and defines, so an edited source is never served from a stale library.  A failed build raises with nvcc's output.
+and defines, so an edited source is never served from a stale library.
+A failed build raises with nvcc's output.
 """
 
 from __future__ import annotations
@@ -126,7 +127,9 @@ def load_k1(mask=0):
         lib.pt_k1_trace.argtypes = [
             p, p, p, p, p,                         # cam, mats, gmat, types, lights
             p, p, p,                               # tri, nodes, meta
+            p, p,                                  # texels, charts
             i, i, i,                               # n_geoms, n_lights, n_meta
+            ctypes.c_longlong,                     # n_texels
             i, i, i,                               # width, height, depth
             ctypes.c_uint, i,                      # it0, n_spp
             ctypes.c_longlong, ctypes.c_longlong,  # pix0, n_local

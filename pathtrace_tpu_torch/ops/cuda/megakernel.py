@@ -1,23 +1,25 @@
-"""Forward path-trace megakernel (K1, with NEE: K2, with meshes: K3):
-host side, plain version, wrapper.
+"""Forward path-trace megakernel (K1, with NEE: K2, with meshes: K3,
+with image textures: K4): host side, plain version, wrapper.
 
 Counterpart of ``pathtrace_tpu/ops/pallas/megakernel.py`` for the
-forward render path: ``pack_scene``, ``pack_lights`` and ``pack_mesh``
-build the same ``cam``/``mats``/``gmat``/``lights``/``tri``/``nodes``
-tables as ``_pack_scene`` and ``_pack_lights``; ``trace_k1`` launches
-the CUDA kernel
+forward render path: ``pack_scene``, ``pack_lights``, ``pack_mesh`` and
+``pack_textures`` build the same ``cam``/``mats``/``gmat``/``lights``/
+``tri``/``nodes`` tables and texels as ``_pack_scene``, ``_pack_lights``
+and ``_pack_textures``, and ``tex_spec``/``btex_spec`` the same
+per-geom texture charts; ``trace_k1`` launches the CUDA kernel
 ``csrc/megakernel.cu`` (which replaces the Pallas ``_kernel``), built
 once per feature set as Mosaic specializes the reference's; and
 ``trace_plain`` is the same computation in plain PyTorch, one element per
 pixel, following the kernel's own math and operation order (not the
 wavefront integrator's).
 
-Every scene without image textures renders here: spheres, cubes and
-triangle meshes (one skip-link BVH walk per ray and MESH geom); diffuse,
-mirror, imperfect-specular, glass, emissive and subsurface materials;
-depth of field, motion blur, checker and bump; NEE and Russian roulette.
-Image textures raise ``NotImplementedError`` naming the ROADMAP item
-that ports them.
+Every scene file renders here: spheres, cubes and triangle meshes (one
+skip-link BVH walk per ray and MESH geom); diffuse, mirror,
+imperfect-specular, glass, emissive and subsurface materials; depth of
+field, motion blur, checker and bump; image textures (bilinear albedo
+maps and BUMPTEX height maps); NEE and Russian roulette.  A texture whose
+texels are not on the u8 grid raises ``ValueError``: the kernel reads
+texels as bytes, and the port has no other engine to send it to.
 """
 
 from __future__ import annotations
@@ -35,8 +37,12 @@ from ...core.constants import (
 )
 from ...core.rng import Draw
 from ...core.vecmath import as_f32 as _f32
-from ...render.integrator import camera_basis, geom_transforms
+from ...render.integrator import (
+    camera_basis, geom_transforms, triangle_uv_gradients,
+)
 from .. import lights as L
+from .bound import needed as _needed
+from .bound import read as _read
 
 # Launches of the CUDA kernel (``trace_k1`` on a CUDA device) by feature
 # mask (``feature_mask``), so a run can show which builds it went through.
@@ -49,9 +55,12 @@ NO_FEATURES = (False,) * len(FEATURE_NAMES)
 NEE_BIT = 1 << len(FEATURE_NAMES)
 RR_BIT = NEE_BIT << 1
 MESH_BIT = RR_BIT << 1
+TEX_BIT = MESH_BIT << 1   # an albedo TEXTURE chart on some geom
+BTEX_BIT = TEX_BIT << 1   # a BUMPTEX chart on some geom
 LIGHT_COLS = 128
 TRI_COLS = 16  # v0 (3), e1 (3), e2 (3), object-space unit normal (3), pad
-_TEX_TODO = "ROADMAP Queue 1 item 8 (image textures, kernel K4)"
+TRI_TEX_COLS = 24  # + vt corners (6), BUMPTEX UV gradients (6)
+NO_CHART = (-1, 0, 0)
 
 
 def _c32(x):
@@ -76,29 +85,110 @@ def scene_features(scene):
     )
 
 
-def feature_mask(features, nee, rr, mesh=False):
+def feature_mask(features, nee, rr, mesh=False, tex=False, btex=False):
     """The kernel's compile-time feature set as an int: bit i for
-    ``FEATURE_NAMES[i]``, then ``NEE_BIT``, ``RR_BIT`` and ``MESH_BIT``
-    (the scene has a MESH geom)."""
+    ``FEATURE_NAMES[i]``, then ``NEE_BIT``, ``RR_BIT``, ``MESH_BIT`` (the
+    scene has a MESH geom), ``TEX_BIT`` (some geom has an albedo chart)
+    and ``BTEX_BIT`` (some geom has a BUMPTEX chart)."""
     mask = sum(1 << i for i, on in enumerate(features) if on)
     return (mask | (NEE_BIT if nee else 0) | (RR_BIT if rr else 0)
-            | (MESH_BIT if mesh else 0))
+            | (MESH_BIT if mesh else 0) | (TEX_BIT if tex else 0)
+            | (BTEX_BIT if btex else 0))
 
 
 def scene_mask(scene, nee=False, rr=False):
     """``feature_mask`` of ``scene`` rendered with these options."""
+    tex_geom, btex_geom = tex_statics(scene)
     return feature_mask(scene_features(scene), nee, rr,
-                        any(t == T.MESH for t in scene.geoms.type))
+                        any(t == T.MESH for t in scene.geoms.type),
+                        bool(tex_geom), bool(btex_geom))
 
 
 def check_supported(scene):
-    """Raise ``NotImplementedError`` for what the kernel does not port
-    yet: image textures."""
-    if scene.textures or any(i >= 0 for i in scene.texture_ids) or any(
-            i >= 0 for i in scene.bump_texture_ids) or (
-            scene.materials.bumptex_strength is not None):
-        raise NotImplementedError(
-            f"image textures are not ported yet: {_TEX_TODO}")
+    """Raise ``ValueError`` for a scene the kernel cannot render as the
+    reference does: a used texture whose texels are not on the u8 grid
+    (the reference sends those to another engine; the port has none)."""
+    for t in tex_used(scene):
+        _texel_words(scene.textures[t], t)
+
+
+# ----------------------------------------------------------------------------
+# image textures (K4): the texel table and the per-geom charts
+# ----------------------------------------------------------------------------
+
+def tex_used(scene):
+    """The texture ids (albedo and bump maps) that some geom's material
+    uses, sorted: the order of the texel table (``_tex_used``)."""
+    mids = {int(m) for m in np.asarray(scene.geoms.material_id)}
+    used = {scene.texture_ids[m] for m in mids if scene.texture_ids[m] >= 0}
+    used |= {scene.bump_texture_ids[m] for m in mids
+             if scene.bump_texture_ids[m] >= 0}
+    return tuple(sorted(used))
+
+
+def tex_offsets(scene):
+    """{texture id: (offset, H, W)} of each used map in the texel table
+    (``_tex_offsets``)."""
+    offs, off = {}, 0
+    for t in tex_used(scene):
+        h, w = (int(x) for x in scene.textures[t].shape[:2])
+        offs[t] = (off, h, w)
+        off += h * w
+    return offs
+
+
+def _spec(scene, ids):
+    offs = tex_offsets(scene)
+    return tuple(offs[ids[int(m)]] if ids[int(m)] >= 0 else NO_CHART
+                 for m in np.asarray(scene.geoms.material_id))
+
+
+def tex_spec(scene):
+    """Per-geom albedo chart (offset, H, W) in the texel table;
+    ``NO_CHART`` (-1, 0, 0) for a geom without a TEXTURE (``_tex_spec``)."""
+    return _spec(scene, scene.texture_ids)
+
+
+def btex_spec(scene):
+    """Per-geom BUMPTEX chart, as :func:`tex_spec` (``_btex_spec``)."""
+    return _spec(scene, scene.bump_texture_ids)
+
+
+def tex_statics(scene):
+    """(tex_geom, btex_geom): :func:`tex_spec` and :func:`btex_spec`, each
+    () when no geom has such a chart, so that a mode with nothing to do
+    is off (the reference's ``_tex_statics``)."""
+    tg, bg = tex_spec(scene), btex_spec(scene)
+    return (tg if any(c[0] >= 0 for c in tg) else (),
+            bg if any(c[0] >= 0 for c in bg) else ())
+
+
+def _texel_words(tex, tid):
+    """(H*W,) int64 words ``r | g << 8 | b << 16`` of one map, its texels
+    rounded to bytes; raises ``ValueError`` for a texel off the u8 grid
+    (the test of the reference's ``_tex_in_kernel``)."""
+    x = np.asarray(tex, np.float32)
+    if not np.array_equal(np.round(x * 255.0) / np.float32(255.0), x):
+        raise ValueError(
+            f"texture {tid} has texels off the u8 grid (k/255): the CUDA "
+            f"kernel reads texels as bytes, and the port has no other "
+            f"engine to render such a map (the reference's _xla_fallback)")
+    q = np.round(x * 255.0).astype(np.int64).reshape(-1, 3)
+    return q[:, 0] | (q[:, 1] << 8) | (q[:, 2] << 16)
+
+
+def pack_textures(scene, device="cpu"):
+    """The texel table: the used maps (:func:`tex_used` order,
+    :func:`tex_offsets` offsets) row-major, one int32 word per texel,
+    ``r | g << 8 | b << 16`` with each channel ``round(x * 255)`` (the
+    kernel reads them as uint32); None for a scene without a used map.
+    Raises ``ValueError`` for a texel off the u8 grid."""
+    used = tex_used(scene)
+    if not used:
+        return None
+    words = np.concatenate([_texel_words(scene.textures[t], t)
+                            for t in used])
+    return torch.as_tensor(words.astype(np.int32)).to(device)
 
 
 def pack_scene(scene, device="cpu"):
@@ -211,13 +301,20 @@ def pack_lights(scene, device="cpu"):
 
 def pack_mesh(scene, device="cpu"):
     """The triangle tables of the reference's ``_pack_scene`` (its BVH
-    branch): (tri (T,16), nodes (N,16)) float32 tensors on ``device``
-    and the static ``bvh_meta``, or (None, None, ()) for a scene with no
-    triangles.
+    branch): (tri (T,16) or (T,24), nodes (N,16)) float32 tensors on
+    ``device`` and the static ``bvh_meta``, or (None, None, ()) for a
+    scene with no triangles.
 
     * tri: one row per triangle in BVH (leaf-contiguous) order: v0 (3),
       e1 = v1 - v0 (3), e2 = v2 - v0 (3), the object-space unit normal
-      cross(e1, e2) / max(|.|, 1e-20) (3), zeros (4);
+      cross(e1, e2) / max(|.|, 1e-20) (3), zeros (4).  In a scene with a
+      texture chart (:func:`tex_statics`), 24 columns: columns 12..17
+      hold the corners' vt (u0 v0 u1 v1 u2 v2; [[0,0],[1,0],[0,1]] when
+      the OBJ had none) and 18..23 the UV gradients (grad_u, grad_v,
+      :func:`triangle_uv_gradients`) when a MESH geom has a BUMPTEX
+      chart, else zeros.  The reference keeps 16 columns where the only
+      chart is a BUMPTEX chart on a sphere or cube; here the row width
+      follows the kernel build (``TEX_BIT``/``BTEX_BIT``) instead;
     * nodes: ``scene.mesh.bvh_nodes`` (``scene/bvh.py``: aabb min and
       max, skip link, leaf start and count, as float32);
     * bvh_meta: ((geom, node_off, n_nodes, tri_off, n_tris), ...), one
@@ -244,6 +341,17 @@ def pack_mesh(scene, device="cpu"):
     norm = torch.sqrt(norm.double()).float()[:, None]
     n = n / torch.clamp_min(norm, 1e-20)
     tri = torch.cat([v0, e1, e2, n, torch.zeros((tv.shape[0], 4))], dim=1)
+    tex_geom, btex_geom = tex_statics(scene)
+    if tex_geom or btex_geom:
+        uv = (_f32(mesh.tri_uv)[order] if mesh.tri_uv is not None else
+              torch.tensor([[0.0, 0.0], [1.0, 0.0], [0.0, 1.0]]).expand(
+                  tv.shape[0], 3, 2))
+        if any(c[0] >= 0 and t == T.MESH
+               for c, t in zip(btex_geom, scene.geoms.type)):
+            tail = torch.cat(triangle_uv_gradients(tv, uv), dim=1)
+        else:
+            tail = torch.zeros((tv.shape[0], 6))
+        tri = torch.cat([tri[:, :12], uv.reshape(-1, 6), tail], dim=1)
     meta = tuple(tuple(int(x) for x in e) for e in mesh.bvh_meta)
     return tri.to(device), _f32(mesh.bvh_nodes).to(device), meta
 
@@ -296,9 +404,10 @@ def _slab(mn, mx, o, ird):
             torch.where(torch.isnan(tb), float("inf"), tb))
 
 
-def _moller_trumbore(ray, row):
+def _moller_trumbore(ray, row, bary=False):
     """Ray (rox, roy, roz, rdx, rdy, rdz) against the triangles of
-    ``row`` (N,16) (``pack_mesh`` layout): (tt, hit)."""
+    ``row`` (N,16) (``pack_mesh`` layout): (tt, hit), and with ``bary``
+    also the barycentrics (u, vv) of v1 and v2."""
     rox, roy, roz, rdx, rdy, rdz = ray[:6]
     v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z = row[:, :9].unbind(1)
     pvx = rdy * e2z - rdz * e2y
@@ -314,7 +423,8 @@ def _moller_trumbore(ray, row):
     qvz = tvx * e1y - tvy * e1x
     vv = (rdx * qvx + rdy * qvy + rdz * qvz) * inv_det
     tt = (e2x * qvx + e2y * qvy + e2z * qvz) * inv_det
-    return tt, ok & (u >= 0.0) & (vv >= 0.0) & (u + vv <= 1.0) & (tt > 0.0)
+    hit = ok & (u >= 0.0) & (vv >= 0.0) & (u + vv <= 1.0) & (tt > 0.0)
+    return (tt, hit, u, vv) if bary else (tt, hit)
 
 
 def _mesh_walk(ray, t0, want, nodes, tri, tri_off):
@@ -337,14 +447,16 @@ def _mesh_walk(ray, t0, want, nodes, tri, tri_off):
     cur = torch.zeros_like(live)
     n_nodes = nodes.shape[0]
     while live.numel():
-        node = nodes[cur]
-        tax, tbx = _slab(node[:, 0], node[:, 3], rays[:, 0], rays[:, 6])
-        tay, tby = _slab(node[:, 1], node[:, 4], rays[:, 1], rays[:, 7])
-        taz, tbz = _slab(node[:, 2], node[:, 5], rays[:, 2], rays[:, 8])
-        tnear = torch.maximum(torch.maximum(tax, tay),
-                              torch.clamp_min(taz, 0.0))
-        tfar = torch.minimum(torch.minimum(tbx, tby), tbz)
-        box_hit = (tnear <= tfar) & (tnear < t_loc)
+        with _needed("walk", compacted=True):
+            node = nodes[cur]
+            _read(nodes, "nodes", cur, 9)
+            tax, tbx = _slab(node[:, 0], node[:, 3], rays[:, 0], rays[:, 6])
+            tay, tby = _slab(node[:, 1], node[:, 4], rays[:, 1], rays[:, 7])
+            taz, tbz = _slab(node[:, 2], node[:, 5], rays[:, 2], rays[:, 8])
+            tnear = torch.maximum(torch.maximum(tax, tay),
+                                  torch.clamp_min(taz, 0.0))
+            tfar = torch.minimum(torch.minimum(tbx, tby), tbz)
+            box_hit = (tnear <= tfar) & (tnear < t_loc)
         # float-coded integers, truncated as the reference's astype
         skip, start, count = node[:, 6:9].to(torch.int64).unbind(1)
         is_leaf = count > 0
@@ -356,8 +468,11 @@ def _mesh_walk(ray, t0, want, nodes, tri, tri_off):
             lt, lw = t_loc[leaf], win[leaf]
             for k in range(int(cnt.max())):
                 row = torch.where(k < cnt, first + k, first)
-                tt, hit = _moller_trumbore(lray, tri[row])
-                upd = (k < cnt) & hit & (tt < lt)
+                # the leaf's k-th triangle, on the rays whose leaf has one
+                with _needed("walk", k < cnt, compacted=True):
+                    _read(tri, "tri", row, 9)
+                    tt, hit = _moller_trumbore(lray, tri[row])
+                    upd = (k < cnt) & hit & (tt < lt)
                 lt = torch.where(upd, tt, lt)
                 lw = torch.where(upd, row, lw)
             t_loc[leaf], win[leaf] = lt, lw
@@ -372,7 +487,7 @@ def _mesh_walk(ray, t0, want, nodes, tri, tri_off):
 
 
 def _nearest(ox, oy, oz, dx, dy, dz, time, gmat, geom_types, shadow=False,
-             mesh=None, want=None):
+             mesh=None, want=None, uv=False):
     """Nearest hit over the geoms by world-space distance, the winner
     kept on a strict ``dist < best`` (ties keep the geom folded first):
     the spheres and cubes in index order, then each MESH geom of
@@ -383,9 +498,12 @@ def _nearest(ox, oy, oz, dx, dy, dz, time, gmat, geom_types, shadow=False,
     whose result is read: only they walk the meshes.  Returns the
     winner's ``dist``, ``geom`` (int64, -1 on a miss) and ``hit``;
     unless ``shadow``, also its world point ``p*``, normal ``n*``
-    (before bump), object-space point ``q*`` and ``outside``.  The shadow
-    form skips the normals; its distances and winners are those of the
-    full fold."""
+    (before bump), object-space point ``q*`` and ``outside``; with ``uv``
+    (the texture builds) also its chart coordinates ``u``, ``v`` (a
+    cube's face chart, a triangle's interpolated vt; zero on a sphere,
+    whose chart :func:`_surface` computes from ``q*``) and its triangle
+    row ``row`` (-1: not a triangle).  The shadow form skips the normals;
+    its distances and winners are those of the full fold."""
     zeros = torch.zeros_like(ox)
     h = SimpleNamespace(dist=torch.full_like(ox, NO_HIT),
                         geom=torch.full_like(ox, -1, dtype=torch.int64))
@@ -393,10 +511,15 @@ def _nearest(ox, oy, oz, dx, dy, dz, time, gmat, geom_types, shadow=False,
         h.px, h.py, h.pz = ox, oy, oz
         h.nx = h.ny = h.nz = h.qx = h.qy = h.qz = zeros
         h.outside = torch.zeros_like(ox, dtype=torch.bool)
+        if uv:
+            h.u = h.v = zeros
+            h.row = torch.full_like(ox, -1, dtype=torch.int64)
 
-    def fold(g, m, hit, q, go, n0=None, out0=None):
+    def fold(g, m, hit, q, go, shade=None, row0=-1):
         """World point and distance of the candidate hits (object-space
-        point ``q``), folded into ``h`` where nearer."""
+        point ``q``), folded into ``h`` where nearer, with the normal,
+        ``outside`` and chart coordinates that ``shade()`` makes (needed
+        only where nearer)."""
         qx, qy, qz = q
         pxw = m[0] * qx + m[1] * qy + m[2] * qz + m[3]
         pyw = m[4] * qx + m[5] * qy + m[6] * qz + m[7]
@@ -418,11 +541,16 @@ def _nearest(ox, oy, oz, dx, dy, dz, time, gmat, geom_types, shadow=False,
         def sel(a, b):
             return torch.where(better, a, b)
 
+        with _needed(lanes=better):
+            n0, out0, uv0 = shade()
         h.px, h.py, h.pz = sel(pxw, h.px), sel(pyw, h.py), sel(pzw, h.pz)
         h.nx, h.ny, h.nz = sel(n0[0], h.nx), sel(n0[1], h.ny), \
             sel(n0[2], h.nz)
         h.qx, h.qy, h.qz = sel(qx, h.qx), sel(qy, h.qy), sel(qz, h.qz)
         h.outside = sel(out0, h.outside)
+        if uv:
+            h.u, h.v = sel(uv0[0], h.u), sel(uv0[1], h.v)
+            h.row = sel(row0, h.row)
 
     for g, gtype in enumerate(geom_types):
         if gtype == T.MESH:
@@ -430,7 +558,6 @@ def _nearest(ox, oy, oz, dx, dy, dz, time, gmat, geom_types, shadow=False,
         m = gmat[g]
         go, (rox, roy, roz, rdx, rdy, rdz) = _object_ray(
             m, ox, oy, oz, dx, dy, dz, time)
-        n0 = out0 = None
         if gtype == T.SPHERE:
             # radius 0.5 is implicit: r^2 = 0.25
             vdd = rox * rdx + roy * rdy + roz * rdz
@@ -446,15 +573,16 @@ def _nearest(ox, oy, oz, dx, dy, dz, time, gmat, geom_types, shadow=False,
             hit = has_root & ~both_neg
             tofs = t_use - RAY_OFFSET
             qx, qy, qz = rox + tofs * rdx, roy + tofs * rdy, roz + tofs * rdz
-            if not shadow:
+
+            def shade():
                 # normal via invT (24..32), flipped inside
                 nx0 = m[24] * qx + m[25] * qy + m[26] * qz
                 ny0 = m[27] * qx + m[28] * qy + m[29] * qz
                 nz0 = m[30] * qx + m[31] * qy + m[32] * qz
                 nx0, ny0, nz0 = _normalize3(nx0, ny0, nz0)
                 flip = torch.where(both_pos, 1.0, -1.0)
-                n0 = (nx0 * flip, ny0 * flip, nz0 * flip)
-                out0 = both_pos
+                return ((nx0 * flip, ny0 * flip, nz0 * flip), both_pos,
+                        (zeros, zeros))
         else:  # CUBE: slab test, sequential-axis semantics
             tmin = torch.full_like(ox, -1e38)
             tmax = torch.full_like(ox, 1e38)
@@ -484,7 +612,8 @@ def _nearest(ox, oy, oz, dx, dy, dz, time, gmat, geom_types, shadow=False,
             t_use = torch.where(inside, tmax, tmin)
             tofs = t_use - RAY_OFFSET
             qx, qy, qz = rox + tofs * rdx, roy + tofs * rdy, roz + tofs * rdz
-            if not shadow:
+
+            def shade():
                 nox, noy, noz = (torch.where(inside, nmax[k], nmin[k])
                                  for k in range(3))
                 # quirk: box normal via the FORWARD transform
@@ -492,8 +621,13 @@ def _nearest(ox, oy, oz, dx, dy, dz, time, gmat, geom_types, shadow=False,
                 n0 = _normalize3(m[0] * nox + m[1] * noy + m[2] * noz,
                                  m[4] * nox + m[5] * noy + m[6] * noz,
                                  m[8] * nox + m[9] * noy + m[10] * noz)
-                out0 = ~inside
-        fold(g, m, hit, (qx, qy, qz), go, n0, out0)
+                # the face chart: planar in the two axes off the slab's
+                # object-space face normal
+                uv0 = (torch.where(torch.abs(nox) > 0.0, qz, qx) + 0.5,
+                       torch.where(torch.abs(noy) > 0.0, qz, qy) + 0.5) \
+                    if uv else None
+                return n0, ~inside, uv0
+        fold(g, m, hit, (qx, qy, qz), go, shade)
 
     tri, nodes, bvh_meta = mesh if mesh is not None else (None, None, ())
     want = torch.ones_like(ox, dtype=torch.bool) if want is None else want
@@ -514,22 +648,31 @@ def _nearest(ox, oy, oz, dx, dy, dz, time, gmat, geom_types, shadow=False,
             (*ray, _div(1.0, rdx), _div(1.0, rdy), _div(1.0, rdz)), t0,
             want, nodes[node_off:node_off + n_nodes], tri, tri_off)
         # the shading fold, once, on the winning row (a zero row for none)
-        row = _rows(tri, widx)
-        tt, hit = _moller_trumbore(ray, row)
-        hit = hit & (widx >= 0)
-        tofs = tt - RAY_OFFSET
-        qx, qy, qz = rox + tofs * rdx, roy + tofs * rdy, roz + tofs * rdz
-        n0 = out0 = None
-        if not shadow:
-            # the ray-facing geometric normal through invT
-            nox, noy, noz = row[:, 9], row[:, 10], row[:, 11]
-            face = rdx * nox + rdy * noy + rdz * noz
-            flip = torch.where(face < 0.0, 1.0, -1.0)
-            n0 = _normalize3((m[24] * nox + m[25] * noy + m[26] * noz) * flip,
-                             (m[27] * nox + m[28] * noy + m[29] * noz) * flip,
-                             (m[30] * nox + m[31] * noy + m[32] * noz) * flip)
-            out0 = hit & (face < 0.0)
-        fold(g, m, hit, (qx, qy, qz), go, n0, out0)
+        with _needed(lanes=lambda: widx >= 0):
+            row = _rows(tri, widx)
+            tt, hit, bu, bv = _moller_trumbore(ray, row, bary=True)
+            hit = hit & (widx >= 0)
+            tofs = tt - RAY_OFFSET
+            qx, qy, qz = rox + tofs * rdx, roy + tofs * rdy, roz + tofs * rdz
+
+            def shade():
+                # the ray-facing geometric normal through invT
+                _read(tri, "tri shading", widx, 9 if uv else 3)
+                nox, noy, noz = row[:, 9], row[:, 10], row[:, 11]
+                face = rdx * nox + rdy * noy + rdz * noz
+                flip = torch.where(face < 0.0, 1.0, -1.0)
+                n0 = _normalize3(
+                    (m[24] * nox + m[25] * noy + m[26] * noz) * flip,
+                    (m[27] * nox + m[28] * noy + m[29] * noz) * flip,
+                    (m[30] * nox + m[31] * noy + m[32] * noz) * flip)
+                uv0 = None
+                if uv:
+                    # the vt corners at columns 12..17, interpolated
+                    bw = 1.0 - bu - bv
+                    uv0 = (bw * row[:, 12] + bu * row[:, 14] + bv * row[:, 16],
+                           bw * row[:, 13] + bu * row[:, 15] + bv * row[:, 17])
+                return n0, hit & (face < 0.0), uv0
+            fold(g, m, hit, (qx, qy, qz), go, shade, widx)
     h.hit = h.dist < NO_HIT
     return h
 
@@ -567,26 +710,221 @@ def _bump_perturb(nx, ny, nz, qx, qy, qz, bs, bk, t):
             torch.where(on, pz, nz))
 
 
-def _surface(h, mats, gmat, checker, bump):
-    """The winner's material row (``row[:, k]``), albedo (checker) and
-    shading normal (bump), computed after the fold from its object-space
-    point: the arithmetic of the reference's per-geom fold on the same
-    inputs."""
+def _atan_poly(t):
+    """The reference's degree-11 odd minimax atan on [0, 1]: its float32
+    coefficients, its Horner order."""
+    t2 = t * t
+    p = t2 * _c32(-0.0040540580)
+    for c in (0.0218612288, -0.0559098861, 0.0964200441, -0.1390853351,
+              0.1994653599, -0.3332985605):
+        p = t2 * (_c32(c) + p)
+    return t * (_c32(0.9999993329) + p)
+
+
+def _atan2(y, x):
+    """atan2 as the reference's kernel computes it (``_atan2``: the
+    polynomial and quadrant selects, never libm's): the sphere chart's
+    boundary texels depend on its bits."""
+    ax, ay = torch.abs(x), torch.abs(y)
+    hi, lo = torch.maximum(ax, ay), torch.minimum(ax, ay)
+    r = _atan_poly(lo / torch.clamp_min(hi, _c32(1e-30)))
+    r = torch.where(ay > ax, _c32(0.5 * PI) - r, r)
+    r = torch.where(x < 0.0, _c32(PI) - r, r)
+    return torch.where(y < 0.0, -r, r)
+
+
+def _asin(t):
+    """asin(t) = atan2(t, sqrt(1 - t^2)) for t in [-1, 1] (``_asin``);
+    the square root through float64, correctly rounded on every
+    device."""
+    c = torch.clamp_min(1.0 - t * t, 0.0)
+    return _atan2(t, torch.sqrt(c.double()).float())
+
+
+def _sphere_uv(qx, qy, qz):
+    """The unit sphere's chart at object-space point q: (u, v)."""
+    return (0.5 + _atan2(qz, qx) * _c32(1.0 / TWO_PI),
+            0.5 + _asin(torch.clamp(2.0 * qy, -1.0, 1.0)) * _c32(1.0 / PI))
+
+
+def _tap(x0f):
+    """A floored texel coordinate as an integer, held inside +-2^24 first
+    (the kernel clamps the same way before its float-to-int cast)."""
+    x0f = torch.where(x0f >= -16777216.0, x0f, -16777216.0)
+    return torch.clamp_max(x0f, 16777216.0).to(torch.int64)
+
+
+def _bilin3(tex, chart, u, v):
+    """The bilinear rgb sample of each lane's map (``_bilin3``): chart
+    (N,3) int64 rows (offset, H, W) in ``tex.texels`` (offset -1: none,
+    its u, v zeroed first); wrap, then filter, texel centres at
+    integer + 0.5, the modulo floored."""
+    off, th, tw = chart.unbind(1)
+    on = off >= 0
+    u = torch.where(on, u, 0.0)
+    v = torch.where(on, v, 0.0)
+    x = u * tw.to(torch.float32) - 0.5
+    y = v * th.to(torch.float32) - 0.5
+    x0f, y0f = torch.floor(x), torch.floor(y)
+    fx, fy = x - x0f, y - y0f
+    wi, hi = torch.clamp_min(tw, 1), torch.clamp_min(th, 1)
+    x0 = torch.remainder(_tap(x0f), wi)
+    x1 = torch.remainder(x0 + 1, wi)
+    y0 = torch.remainder(_tap(y0f), hi)
+    y1 = torch.remainder(y0 + 1, hi)
+    base = torch.clamp_min(off, 0)
+    words = []
+    for yy, xx in ((y0, x0), (y0, x1), (y1, x0), (y1, x1)):
+        _read(tex.texels, "texels", base + yy * wi + xx, 1)
+        words.append(tex.texels[base + yy * wi + xx].to(torch.int64))
+    out = []
+    for c in range(3):
+        c00, c01, c10, c11 = (tex.byte[(w >> (8 * c)) & 255] for w in words)
+        top = c00 * (1.0 - fx) + c01 * fx
+        bot = c10 * (1.0 - fx) + c11 * fx
+        out.append(top * (1.0 - fy) + bot * fy)
+    return out
+
+
+def _bumptex(n, h, u, v, chart, on, k, t, kind, tang, tex):
+    """BUMPTEX (``_make_tracer``'s post-fold section): central differences
+    of the height map's luminance in (u, v), chained through the chart's
+    object-space gradients (sphere, cube face by the dominant |q| axis,
+    a triangle's carried (grad_u, grad_v) ``tang``), then the geom's
+    inverse-transpose ``t`` (9 columns), and the normal ``n`` tilted
+    tangentially by strength ``k``; where ``on`` (the lane has a chart
+    and ``k`` > 0).  ``kind`` is the winner's geom type."""
+    _, bh, bw = chart.unbind(1)
+    eu = _div(1.0, torch.clamp_min(bw.to(torch.float32), 1.0))
+    ev = _div(1.0, torch.clamp_min(bh.to(torch.float32), 1.0))
+    zero = torch.zeros_like(u)
+
+    def lum(du, dv):
+        r = _bilin3(tex, chart, u + du, v + dv)
+        return (r[0] + r[1] + r[2]) * _c32(1.0 / 3.0)
+
+    hu = (lum(eu, zero) - lum(-eu, zero)) / (2.0 * eu)
+    hv = (lum(zero, ev) - lum(zero, -ev)) / (2.0 * ev)
+    qx, qy, qz = h.qx, h.qy, h.qz
+    sph, msh = kind == T.SPHERE, kind == T.MESH
+    with _needed(lanes=sph):
+        # sphere chart
+        r2s = torch.clamp_min(qx * qx + qz * qz, 1e-12)
+        inv2pir2 = _div(1.0, _c32(TWO_PI) * r2s)
+        den = torch.sqrt(torch.clamp_min(1.0 - 4.0 * qy * qy, 1e-12))
+        s_gux, s_guz = -qz * inv2pir2, qx * inv2pir2
+        s_gvy = _div(2.0, _c32(PI) * den)
+    with _needed(lanes=lambda: ~sph & ~msh):
+        # cube face: the dominant |q| axis, the first of equal ones
+        aqx, aqy, aqz = torch.abs(qx), torch.abs(qy), torch.abs(qz)
+        ax0 = (aqx >= aqy) & (aqx >= aqz)
+        ax1 = ~ax0 & (aqy >= aqz)
+    g = [torch.where(sph, s_gux, torch.where(ax0, 0.0, 1.0)), zero,
+         torch.where(sph, s_guz, torch.where(ax0, 1.0, 0.0)), zero,
+         torch.where(sph, s_gvy, torch.where(ax1, 0.0, 1.0)),
+         torch.where(sph, 0.0, torch.where(ax1, 1.0, 0.0))]
+    if tang is not None:
+        g = [torch.where(msh, tang[:, i], g[i]) for i in range(6)]
+    gox = hu * g[0] + hv * g[3]
+    goy = hu * g[1] + hv * g[4]
+    goz = hu * g[2] + hv * g[5]
+    gwx = t[0] * gox + t[1] * goy + t[2] * goz
+    gwy = t[3] * gox + t[4] * goy + t[5] * goz
+    gwz = t[6] * gox + t[7] * goy + t[8] * goz
+    nx, ny, nz = n
+    gdn = gwx * nx + gwy * ny + gwz * nz
+    pxn = nx - k * (gwx - gdn * nx)
+    pyn = ny - k * (gwy - gdn * ny)
+    pzn = nz - k * (gwz - gdn * nz)
+    len2 = pxn * pxn + pyn * pyn + pzn * pzn
+    nrm = torch.sqrt(torch.where(on & (len2 > 0.0), len2, 1.0))
+    return (torch.where(on, pxn / nrm, nx), torch.where(on, pyn / nrm, ny),
+            torch.where(on, pzn / nrm, nz))
+
+
+def _surface(h, mats, gmat, checker, bump, tex=None):
+    """The winner's material row (``row[:, k]``), albedo (checker, then
+    the TEXTURE map) and shading normal (bump, then the BUMPTEX map),
+    computed after the fold from its object-space point and chart: the
+    arithmetic of the reference's per-geom fold and post-fold texture
+    sections on the same inputs.  ``tex`` (the texture builds): the
+    texel table and per-geom charts of :func:`_tex_planes`."""
     row = _rows(mats, h.geom)
     albedo = [row[:, 0], row[:, 1], row[:, 2]]
+    odd = None
     if checker:
         cs = row[:, 11]
-        ph = 0.015625
-        cells = (torch.floor(h.qx * cs - ph) + torch.floor(h.qy * cs - ph)
-                 + torch.floor(h.qz * cs - ph))
-        odd = (cs > 0.0) & (cells - 2.0 * torch.floor(cells * 0.5) >= 1.0)
+        with _needed(lanes=lambda: cs > 0.0):
+            ph = 0.015625
+            cells = (torch.floor(h.qx * cs - ph) + torch.floor(h.qy * cs - ph)
+                     + torch.floor(h.qz * cs - ph))
+            odd = (cs > 0.0) & (cells - 2.0 * torch.floor(cells * 0.5) >= 1.0)
         albedo = [torch.where(odd, row[:, 12 + k], albedo[k])
                   for k in range(3)]
     n = (h.nx, h.ny, h.nz)
     if bump:
-        t = _rows(gmat, h.geom)[:, 24:33].unbind(1)
-        n = _bump_perturb(*n, h.qx, h.qy, h.qz, row[:, 15], row[:, 16], t)
+        with _needed(lanes=lambda: row[:, 16] > 0.0):
+            t = _rows(gmat, h.geom)[:, 24:33].unbind(1)
+            n = _bump_perturb(*n, h.qx, h.qy, h.qz, row[:, 15], row[:, 16],
+                              t)
+    if tex is not None:
+        kind = tex.kind[h.geom]
+        # the lanes that take the albedo map (not on a checker's odd
+        # cells, which replace the albedo) and the BUMPTEX map
+        a_on = b_on = torch.zeros_like(h.hit)
+        if tex.albedo is not None:
+            chart = tex.albedo[h.geom]
+            a_on = chart[:, 0] >= 0
+            if odd is not None:
+                a_on = a_on & ~odd
+        if tex.bump is not None:
+            b_chart = tex.bump[h.geom]
+            b_on = (b_chart[:, 0] >= 0) & (row[:, 21] > 0.0)
+        with _needed("texture", lambda: (kind == T.SPHERE) & (a_on | b_on)):
+            su, sv = _sphere_uv(h.qx, h.qy, h.qz)
+        u = torch.where(kind == T.SPHERE, su, h.u)
+        v = torch.where(kind == T.SPHERE, sv, h.v)
+        if tex.albedo is not None:
+            with _needed("texture", a_on):
+                smp = _bilin3(tex, chart, u, v)
+                albedo = [torch.where(a_on, albedo[k] * smp[k], albedo[k])
+                          for k in range(3)]
+        if tex.bump is not None:
+            tang = None
+            if tex.tri is not None:
+                tang = _rows(tex.tri, h.row)[:, 18:24]
+                with _needed(lanes=b_on):
+                    _read(tex.tri, "tri tangents", h.row, 6)
+            with _needed("texture", b_on):
+                n = _bumptex(n, h, u, v, b_chart, b_on, row[:, 21],
+                             _rows(gmat, h.geom)[:, 24:33].unbind(1), kind,
+                             tang, tex)
     return row, albedo, n
+
+
+def _tex_planes(texels, tex_geom, btex_geom, geom_types, tri):
+    """What :func:`_surface` reads of the textures: the texel words
+    (int32), the byte -> float32 table k/255 (IEEE quotients, the
+    loader's), the albedo and BUMPTEX charts as (G+1,3) int64 tables
+    indexed by the winning geom (row G, a miss: no chart; None for a
+    mode without charts), the geom types (G+1,) and the triangle rows
+    (the BUMPTEX gradients of a mesh winner)."""
+    device = texels.device
+
+    def charts(spec):
+        if not spec:
+            return None
+        return torch.tensor(tuple(spec) + (NO_CHART,), dtype=torch.int64,
+                            device=device)
+
+    return SimpleNamespace(
+        texels=texels,
+        byte=torch.as_tensor(np.arange(256, dtype=np.float32)
+                             / np.float32(255.0)).to(device),
+        albedo=charts(tex_geom), bump=charts(btex_geom),
+        kind=torch.tensor(tuple(geom_types) + (-1,), dtype=torch.int64,
+                          device=device),
+        tri=tri if btex_geom and T.MESH in geom_types else None)
 
 
 def _imperfect_specular(m_ex, mrx, mry, mrz, u_s1, u_s2):
@@ -626,89 +964,96 @@ def _nee_add(rad, thr, h, n, albedo, has_diffuse, time, it, pix, dep,
     nx, ny, nz = n
     rad = list(rad)
     for k, lr in enumerate(lights):
-        li, ltype = int(lr[0]), int(lr[1])
-        base = Draw.NEE_BASE + 3 * k
-        u_sel = rng.uniform(it, pix, dep, base + 0)
-        u1 = rng.uniform(it, pix, dep, base + 1)
-        u2 = rng.uniform(it, pix, dep, base + 2)
-        if ltype == T.SPHERE:
-            # uniform direction on the unit sphere -> forward transform
-            z = 1.0 - 2.0 * u1
-            r = torch.sqrt(torch.clamp_min(1.0 - z * z, 0.0))
-            phi = u2 * _c32(TWO_PI)
-            wx, wy, wz = r * torch.cos(phi), r * torch.sin(phi), z
-            hx, hy, hz = 0.5 * wx, 0.5 * wy, 0.5 * wz
-            lpx = lr[12] * hx + lr[13] * hy + lr[14] * hz + lr[21]
-            lpy = lr[15] * hx + lr[16] * hy + lr[17] * hz + lr[22]
-            lpz = lr[18] * hx + lr[19] * hy + lr[20] * hz + lr[23]
-            lnx = lr[24] * wx + lr[25] * wy + lr[26] * wz
-            lny = lr[27] * wx + lr[28] * wy + lr[29] * wz
-            lnz = lr[30] * wx + lr[31] * wy + lr[32] * wz
-            # |M^-T w| before normalizing: the per-sample area Jacobian
-            n_len = torch.sqrt(lnx * lnx + lny * lny + lnz * lnz)
-            w_area = _c32(_c32(PI) * lr[33]) * n_len
-            inv_nl = torch.reciprocal(n_len)
-            lnx, lny, lnz = lnx * inv_nl, lny * inv_nl, lnz * inv_nl
-        else:
-            # cube: a face by the area cdf, then (s, t) on it
-            ss = u1 - 0.5
-            tt = u2 - 0.5
-            zeros = torch.zeros_like(u1)
-            lpx = lpy = lpz = lnx = lny = lnz = zeros
-            prev = 0.0
-            for f in range(6):
-                hi = lr[6 + f]
-                mface = (u_sel >= prev) & (u_sel < hi) if f < 5 \
-                    else u_sel >= prev
-                o, eb, ec, nn = 12 + 3 * f, 30 + 3 * f, 48 + 3 * f, 66 + 3 * f
-                lpx = torch.where(mface, lr[o] + ss * lr[eb] + tt * lr[ec],
-                                  lpx)
-                lpy = torch.where(mface, lr[o + 1] + ss * lr[eb + 1]
-                                  + tt * lr[ec + 1], lpy)
-                lpz = torch.where(mface, lr[o + 2] + ss * lr[eb + 2]
-                                  + tt * lr[ec + 2], lpz)
-                lnx = torch.where(mface, lr[nn], lnx)
-                lny = torch.where(mface, lr[nn + 1], lny)
-                lnz = torch.where(mface, lr[nn + 2], lnz)
-                prev = hi
-            w_area = lr[5]  # exact total area
-        if time is not None:
-            # a moving light: the sample point at the ray's time
-            lpx = lpx + time * lr[120]
-            lpy = lpy + time * lr[121]
-            lpz = lpz + time * lr[122]
+        with _needed("nee", has_diffuse):
+            li, ltype = int(lr[0]), int(lr[1])
+            base = Draw.NEE_BASE + 3 * k
+            u_sel = rng.uniform(it, pix, dep, base + 0)
+            u1 = rng.uniform(it, pix, dep, base + 1)
+            u2 = rng.uniform(it, pix, dep, base + 2)
+            if ltype == T.SPHERE:
+                # uniform direction on the unit sphere -> forward transform
+                z = 1.0 - 2.0 * u1
+                r = torch.sqrt(torch.clamp_min(1.0 - z * z, 0.0))
+                phi = u2 * _c32(TWO_PI)
+                wx, wy, wz = r * torch.cos(phi), r * torch.sin(phi), z
+                hx, hy, hz = 0.5 * wx, 0.5 * wy, 0.5 * wz
+                lpx = lr[12] * hx + lr[13] * hy + lr[14] * hz + lr[21]
+                lpy = lr[15] * hx + lr[16] * hy + lr[17] * hz + lr[22]
+                lpz = lr[18] * hx + lr[19] * hy + lr[20] * hz + lr[23]
+                lnx = lr[24] * wx + lr[25] * wy + lr[26] * wz
+                lny = lr[27] * wx + lr[28] * wy + lr[29] * wz
+                lnz = lr[30] * wx + lr[31] * wy + lr[32] * wz
+                # |M^-T w| before normalizing: the per-sample area Jacobian
+                n_len = torch.sqrt(lnx * lnx + lny * lny + lnz * lnz)
+                w_area = _c32(_c32(PI) * lr[33]) * n_len
+                inv_nl = torch.reciprocal(n_len)
+                lnx, lny, lnz = lnx * inv_nl, lny * inv_nl, lnz * inv_nl
+            else:
+                # cube: a face by the area cdf, then (s, t) on it
+                ss = u1 - 0.5
+                tt = u2 - 0.5
+                zeros = torch.zeros_like(u1)
+                lpx = lpy = lpz = lnx = lny = lnz = zeros
+                prev = 0.0
+                for f in range(6):
+                    hi = lr[6 + f]
+                    mface = (u_sel >= prev) & (u_sel < hi) if f < 5 \
+                        else u_sel >= prev
+                    o, eb, ec = 12 + 3 * f, 30 + 3 * f, 48 + 3 * f
+                    nn = 66 + 3 * f
+                    with _needed(lanes=mface):
+                        lpx = torch.where(
+                            mface, lr[o] + ss * lr[eb] + tt * lr[ec], lpx)
+                        lpy = torch.where(mface, lr[o + 1] + ss * lr[eb + 1]
+                                          + tt * lr[ec + 1], lpy)
+                        lpz = torch.where(mface, lr[o + 2] + ss * lr[eb + 2]
+                                          + tt * lr[ec + 2], lpz)
+                    lnx = torch.where(mface, lr[nn], lnx)
+                    lny = torch.where(mface, lr[nn + 1], lny)
+                    lnz = torch.where(mface, lr[nn + 2], lnz)
+                    prev = hi
+                w_area = lr[5]  # exact total area
+            if time is not None:
+                # a moving light: the sample point at the ray's time
+                lpx = lpx + time * lr[120]
+                lpy = lpy + time * lr[121]
+                lpz = lpz + time * lr[122]
 
-        wlx, wly, wlz = lpx - h.px, lpy - h.py, lpz - h.pz
-        r2 = wlx * wlx + wly * wly + wlz * wlz
-        r2_safe = torch.clamp_min(r2, 1e-8)
-        dist_l = torch.sqrt(torch.clamp_min(r2, 1e-12))
-        inv_dl = torch.reciprocal(dist_l)
-        sdx, sdy, sdz = wlx * inv_dl, wly * inv_dl, wlz * inv_dl
-        sh = _nearest(h.px, h.py, h.pz, sdx, sdy, sdz, time, gmat,
-                      geom_types, shadow=True, mesh=mesh, want=has_diffuse)
-        tol = torch.clamp_min(5e-3 * dist_l, 1e-3)
-        visible = sh.hit & (sh.geom == li) & (torch.abs(sh.dist - dist_l)
-                                              < tol)
-        cos_s = torch.clamp_min(nx * sdx + ny * sdy + nz * sdz, 0.0)
-        cos_l = torch.clamp_min(-(lnx * sdx + lny * sdy + lnz * sdz), 0.0)
-        gterm = cos_s * cos_l / r2_safe * w_area
-        w_ok = has_diffuse & visible
-        for c in range(3):
-            # (1/pi) * emission is one f32 product, as XLA folds the
-            # reference's two scalar factors
-            e_pi = _c32(_c32(1.0 / PI) * lr[2 + c])
-            rad[c] = rad[c] + torch.where(
-                w_ok, thr[c] * albedo[c] * e_pi * gterm, 0.0)
+            wlx, wly, wlz = lpx - h.px, lpy - h.py, lpz - h.pz
+            r2 = wlx * wlx + wly * wly + wlz * wlz
+            r2_safe = torch.clamp_min(r2, 1e-8)
+            dist_l = torch.sqrt(torch.clamp_min(r2, 1e-12))
+            inv_dl = torch.reciprocal(dist_l)
+            sdx, sdy, sdz = wlx * inv_dl, wly * inv_dl, wlz * inv_dl
+            sh = _nearest(h.px, h.py, h.pz, sdx, sdy, sdz, time, gmat,
+                          geom_types, shadow=True, mesh=mesh, want=has_diffuse)
+            tol = torch.clamp_min(5e-3 * dist_l, 1e-3)
+            visible = sh.hit & (sh.geom == li) & (
+                torch.abs(sh.dist - dist_l) < tol)
+            w_ok = has_diffuse & visible
+            with _needed(lanes=w_ok):
+                cos_s = torch.clamp_min(nx * sdx + ny * sdy + nz * sdz, 0.0)
+                cos_l = torch.clamp_min(
+                    -(lnx * sdx + lny * sdy + lnz * sdz), 0.0)
+                gterm = cos_s * cos_l / r2_safe * w_area
+                for c in range(3):
+                    # (1/pi) * emission is one f32 product, as XLA folds
+                    # the reference's two scalar factors
+                    e_pi = _c32(_c32(1.0 / PI) * lr[2 + c])
+                    rad[c] = rad[c] + torch.where(
+                        w_ok, thr[c] * albedo[c] * e_pi * gterm, 0.0)
     return rad
 
 
 def _trace_sample(it, pix, fx, fy, cam, mats_t, gmat_t, gmat, lights,
                   geom_types, width, height, depth, features, rr_mode,
-                  counts, mesh):
+                  counts, mesh, tex):
     """One sample of every pixel: raygen, then ``depth`` bounces.
     Returns the sample's radiance [r, g, b]; adds the live count
     entering each bounce into ``counts``.  Every section runs on every
-    lane and selects, as the reference's planes do."""
+    lane and selects, as the reference's planes do.  Each section marks
+    the lanes that need it (``bound.needed``), so that a bound counts
+    only the work that the kernel must do."""
     (has_glass, has_imperfect, has_dof, has_motion, has_checker, has_bump,
      has_sss) = features
     nee = lights is not None
@@ -752,166 +1097,202 @@ def _trace_sample(it, pix, fx, fy, cam, mats_t, gmat_t, gmat, lights,
 
     for d in range(depth):
         counts[d] += live.sum()
-        h = _nearest(ox, oy, oz, dx, dy, dz, time, gmat, geom_types,
-                     mesh=mesh, want=live)
-        row, albedo, (nx, ny, nz) = _surface(h, mats_t, gmat_t,
-                                             has_checker, has_bump)
-        emit = row[:, 10]
-        emissive = emit > 0.0
+        with _needed("trace", live):
+            h = _nearest(ox, oy, oz, dx, dy, dz, time, gmat, geom_types,
+                         mesh=mesh, want=live, uv=tex is not None)
+        with _needed("surface", lambda: live & h.hit):
+            row, albedo, (nx, ny, nz) = _surface(h, mats_t, gmat_t,
+                                                 has_checker, has_bump, tex)
+            emit = row[:, 10]
+            emissive = emit > 0.0
 
         # emission ends the path; with NEE only after a non-diffuse
         # bounce (or from the camera), so light is not counted twice
         lit = live & h.hit & emissive
         if nee:
             lit = lit & emit_ok
-        rad = [rad[c] + torch.where(lit, thr_acc[c] * albedo[c] * emit, 0.0)
-               for c in range(3)]
-
-        dep = d + 1
-        u_lobe = rng.uniform(it, pix, dep, Draw.LOBE)
-        u_d1 = rng.uniform(it, pix, dep, Draw.DIFF_U1)
-        u_d2 = rng.uniform(it, pix, dep, Draw.DIFF_U2)
-
-        # diffuse: cosine hemisphere with the Peter-Kutz frame
-        up = torch.sqrt(u_d1)
-        over = torch.sqrt(torch.clamp_min(1.0 - up * up, 0.0))
-        around = u_d2 * _c32(TWO_PI)
-        use_x = torch.abs(nx) < s3
-        use_y = ~use_x & (torch.abs(ny) < s3)
-        nn_x = torch.where(use_x, 1.0, 0.0)
-        nn_y = torch.where(use_y, 1.0, 0.0)
-        nn_z = torch.where(use_x | use_y, 0.0, 1.0)
-        p1x, p1y, p1z = _normalize3(ny * nn_z - nz * nn_y,
-                                    nz * nn_x - nx * nn_z,
-                                    nx * nn_y - ny * nn_x)
-        p2x, p2y, p2z = _normalize3(ny * p1z - nz * p1y,
-                                    nz * p1x - nx * p1z,
-                                    nx * p1y - ny * p1x)
-        ca, sa = torch.cos(around), torch.sin(around)
-        ddf = (up * nx + ca * over * p1x + sa * over * p2x,
-               up * ny + ca * over * p1y + sa * over * p2y,
-               up * nz + ca * over * p1z + sa * over * p2z)
-
-        # mirror, and the power-cosine lobe about it
-        ndoti = nx * dx + ny * dy + nz * dz
-        mr = (dx - 2.0 * ndoti * nx, dy - 2.0 * ndoti * ny,
-              dz - 2.0 * ndoti * nz)
-        sp = mr
-        if has_imperfect:
-            sp = _imperfect_specular(
-                row[:, 6], *mr, rng.uniform(it, pix, dep, Draw.SPEC_U1),
-                rng.uniform(it, pix, dep, Draw.SPEC_U2))
-
-        # spec/diffuse lobe split
-        p_spec = torch.clamp(row[:, 7], 0.0, 1.0)
-        take_spec = u_lobe < p_spec
-        p_safe = torch.clamp_min(
-            torch.where(take_spec, p_spec, 1.0 - p_spec), 1e-8)
-        ndir = [torch.where(take_spec, sp[k], ddf[k]) for k in range(3)]
-        thr = [torch.where(take_spec, row[:, 3 + k], albedo[k]) / p_safe
-               for k in range(3)]
-        took_diffuse = ~take_spec
-
-        if has_glass:
-            # Fresnel glass: Schlick's choice between the mirror and the
-            # Snell refraction (always the mirror under total internal
-            # reflection); no division by the choice's probability
-            u_fr = rng.uniform(it, pix, dep, Draw.FRESNEL)
-            cos_i = torch.clamp(-ndoti, 0.0, 1.0)
-            ior = row[:, 9]
-            r0 = (1.0 - ior) / (1.0 + ior)
-            r0 = r0 * r0
-            mm = torch.clamp_min(1.0 - cos_i, 0.0)
-            refl_p = r0 + (1.0 - r0) * mm * mm * mm * mm * mm
-            eta = torch.where(h.outside,
-                              torch.reciprocal(torch.clamp_min(ior, 1e-6)),
-                              ior)
-            kk = 1.0 - eta * eta * (1.0 - ndoti * ndoti)
-            k_ok = kk >= 0.0
-            sqk = torch.sqrt(torch.where(k_ok, kk, 1.0))
-            rf = [eta * dk - (eta * ndoti + sqk) * nk
-                  for dk, nk in ((dx, nx), (dy, ny), (dz, nz))]
-            choose_refl = (u_fr < refl_p) | ~k_ok
-            is_glass = row[:, 8] > 0.0
-            ndir = [torch.where(is_glass,
-                                torch.where(choose_refl, mr[k], rf[k]),
-                                ndir[k]) for k in range(3)]
-            thr = [torch.where(is_glass,
-                               torch.where(choose_refl, row[:, 3 + k],
-                                           albedo[k]), thr[k])
-                   for k in range(3)]
-            took_diffuse = took_diffuse & ~is_glass
-            took_refract = is_glass & ~choose_refl
+        with _needed("surface", lit):
+            rad = [rad[c] + torch.where(lit, thr_acc[c] * albedo[c] * emit,
+                                        0.0) for c in range(3)]
 
         cont = live & h.hit & ~emissive
-        scatter_inside = torch.zeros_like(cont)
-        if has_sss:
-            # inside a medium: an exponential free path; ending before
-            # the surface, the ray scatters there
-            in_med = med_s > 0.0
-            u_step = rng.uniform(it, pix, dep, Draw.SSS_STEP)
-            sss_step = -torch.log(torch.clamp_min(1.0 - u_step, 1e-7)) \
-                / torch.clamp_min(med_s, 1e-8)
-            scatter_inside = in_med & live & h.hit & (sss_step < h.dist)
+        dep = d + 1
+        # the scattering, where the path goes on: each lobe on the lanes
+        # that take it
+        with _needed("scatter", cont):
+            is_glass = (row[:, 8] > 0.0) if has_glass \
+                else torch.zeros_like(cont)
+            with _needed(lanes=lambda: ~is_glass):
+                # spec/diffuse lobe split (glass: the Fresnel choice)
+                u_lobe = rng.uniform(it, pix, dep, Draw.LOBE)
+                p_spec = torch.clamp(row[:, 7], 0.0, 1.0)
+                take_spec = u_lobe < p_spec
+                p_safe = torch.clamp_min(
+                    torch.where(take_spec, p_spec, 1.0 - p_spec), 1e-8)
+            spec = take_spec & ~is_glass
 
-        op = [h.px, h.py, h.pz]
-        if has_glass:
-            # refracted continuations start past the interface
-            push = _rows(gmat_t, h.geom)[:, 36]
-            op = [torch.where(took_refract, op[k] + push * ndir[k], op[k])
-                  for k in range(3)]
+            with _needed(lanes=lambda: ~take_spec & ~is_glass):
+                # diffuse: cosine hemisphere with the Peter-Kutz frame
+                u_d1 = rng.uniform(it, pix, dep, Draw.DIFF_U1)
+                u_d2 = rng.uniform(it, pix, dep, Draw.DIFF_U2)
+                up = torch.sqrt(u_d1)
+                over = torch.sqrt(torch.clamp_min(1.0 - up * up, 0.0))
+                around = u_d2 * _c32(TWO_PI)
+                use_x = torch.abs(nx) < s3
+                use_y = ~use_x & (torch.abs(ny) < s3)
+                nn_x = torch.where(use_x, 1.0, 0.0)
+                nn_y = torch.where(use_y, 1.0, 0.0)
+                nn_z = torch.where(use_x | use_y, 0.0, 1.0)
+                p1x, p1y, p1z = _normalize3(ny * nn_z - nz * nn_y,
+                                            nz * nn_x - nx * nn_z,
+                                            nx * nn_y - ny * nn_x)
+                p2x, p2y, p2z = _normalize3(ny * p1z - nz * p1y,
+                                            nz * p1x - nx * p1z,
+                                            nx * p1y - ny * p1x)
+                ca, sa = torch.cos(around), torch.sin(around)
+                ddf = (up * nx + ca * over * p1x + sa * over * p2x,
+                       up * ny + ca * over * p1y + sa * over * p2y,
+                       up * nz + ca * over * p1z + sa * over * p2z)
 
-        if nee:
-            has_diffuse = cont & ~scatter_inside & ~(row[:, 8] > 0.0)
-            rad = _nee_add(rad, thr_acc, h, (nx, ny, nz), albedo,
-                           has_diffuse, time, it, pix, dep, lights, gmat,
-                           geom_types, mesh)
-
-        if has_sss:
-            # isotropic scatter inside, attenuated by the medium albedo
-            zi = 1.0 - 2.0 * rng.uniform(it, pix, dep, Draw.SSS_U)
-            ri = torch.sqrt(torch.clamp_min(1.0 - zi * zi, 0.0))
-            phi = rng.uniform(it, pix, dep, Draw.SSS_V) * _c32(TWO_PI)
-            o = (ox, oy, oz)
-            dd = (dx, dy, dz)
-            op = [torch.where(scatter_inside, o[k] + sss_step * dd[k], op[k])
-                  for k in range(3)]
-            ndir = [torch.where(scatter_inside, v, ndir[k]) for k, v in
-                    enumerate((ri * torch.cos(phi), ri * torch.sin(phi),
-                               zi))]
-            thr = [torch.where(scatter_inside, med[k], thr[k])
-                   for k in range(3)]
+            with _needed(lanes=spec | is_glass):
+                ndoti = nx * dx + ny * dy + nz * dz
+            mirror = spec
             if has_glass:
-                # the medium changes only at refractions: entering a
-                # geom with sigma > 0 from outside, or leaving from inside
-                at_surface = cont & ~scatter_inside & took_refract
-                entering = at_surface & (row[:, 17] > 0.0) & h.outside
-                exiting = at_surface & in_med & ~h.outside
-                med_s = torch.where(entering, row[:, 17],
-                                    torch.where(exiting, 0.0, med_s))
-                med = [torch.where(entering, row[:, 18 + k],
-                                   torch.where(exiting, 1.0, med[k]))
+                with _needed(lanes=is_glass):
+                    # Fresnel glass: Schlick's choice between the mirror
+                    # and the Snell refraction (always the mirror under
+                    # total internal reflection); no division by the
+                    # choice's probability
+                    u_fr = rng.uniform(it, pix, dep, Draw.FRESNEL)
+                    cos_i = torch.clamp(-ndoti, 0.0, 1.0)
+                    ior = row[:, 9]
+                    r0 = (1.0 - ior) / (1.0 + ior)
+                    r0 = r0 * r0
+                    mm = torch.clamp_min(1.0 - cos_i, 0.0)
+                    refl_p = r0 + (1.0 - r0) * mm * mm * mm * mm * mm
+                    eta = torch.where(
+                        h.outside,
+                        torch.reciprocal(torch.clamp_min(ior, 1e-6)), ior)
+                    kk = 1.0 - eta * eta * (1.0 - ndoti * ndoti)
+                    k_ok = kk >= 0.0
+                    choose_refl = (u_fr < refl_p) | ~k_ok
+                took_refract = is_glass & ~choose_refl
+                mirror = spec | (is_glass & choose_refl)
+                with _needed(lanes=took_refract):
+                    sqk = torch.sqrt(torch.where(k_ok, kk, 1.0))
+                    rf = [eta * dk - (eta * ndoti + sqk) * nk
+                          for dk, nk in ((dx, nx), (dy, ny), (dz, nz))]
+
+            # mirror, and the power-cosine lobe about it
+            with _needed(lanes=mirror):
+                mr = (dx - 2.0 * ndoti * nx, dy - 2.0 * ndoti * ny,
+                      dz - 2.0 * ndoti * nz)
+            sp = mr
+            if has_imperfect:
+                with _needed(lanes=lambda: spec & (row[:, 6] > 0.0)):
+                    sp = _imperfect_specular(
+                        row[:, 6], *mr,
+                        rng.uniform(it, pix, dep, Draw.SPEC_U1),
+                        rng.uniform(it, pix, dep, Draw.SPEC_U2))
+
+            ndir = [torch.where(take_spec, sp[k], ddf[k]) for k in range(3)]
+            with _needed(lanes=lambda: ~is_glass):
+                thr = [torch.where(take_spec, row[:, 3 + k], albedo[k])
+                       / p_safe for k in range(3)]
+            took_diffuse = ~take_spec
+            if has_glass:
+                ndir = [torch.where(is_glass,
+                                    torch.where(choose_refl, mr[k], rf[k]),
+                                    ndir[k]) for k in range(3)]
+                thr = [torch.where(is_glass,
+                                   torch.where(choose_refl, row[:, 3 + k],
+                                               albedo[k]), thr[k])
                        for k in range(3)]
+                took_diffuse = took_diffuse & ~is_glass
 
-        if rr_mode and d >= 3:
-            # Russian roulette from bounce 3 on, after NEE: survive with
-            # the post-bounce throughput's largest channel, boosted by 1/p
-            nt = [thr_acc[k] * thr[k] for k in range(3)]
-            p_srv = torch.clamp(torch.maximum(nt[0], torch.maximum(nt[1],
-                                                                   nt[2])),
-                                0.05, 1.0)
-            survive = rng.uniform(it, pix, dep, Draw.RR) < p_srv
-            cont = cont & survive
-            boost = torch.where(survive, torch.reciprocal(p_srv), 1.0)
-            thr = [t * boost for t in thr]
+            scatter_inside = torch.zeros_like(cont)
+            if has_sss:
+                # inside a medium: an exponential free path; ending
+                # before the surface, the ray scatters there
+                in_med = med_s > 0.0
+                with _needed(lanes=in_med):
+                    u_step = rng.uniform(it, pix, dep, Draw.SSS_STEP)
+                    sss_step = -torch.log(
+                        torch.clamp_min(1.0 - u_step, 1e-7)) \
+                        / torch.clamp_min(med_s, 1e-8)
+                    scatter_inside = in_med & live & h.hit & (
+                        sss_step < h.dist)
 
-        # the state changes only where the path continues
-        ox, oy, oz = (torch.where(cont, op[k], v)
-                      for k, v in enumerate((ox, oy, oz)))
-        dx, dy, dz = (torch.where(cont, ndir[k], v)
-                      for k, v in enumerate((dx, dy, dz)))
-        thr_acc = [torch.where(cont, thr_acc[k] * thr[k], thr_acc[k])
-                   for k in range(3)]
+            op = [h.px, h.py, h.pz]
+            if has_glass:
+                # refracted continuations start past the interface
+                with _needed(lanes=took_refract):
+                    push = _rows(gmat_t, h.geom)[:, 36]
+                    op = [torch.where(took_refract, op[k] + push * ndir[k],
+                                      op[k]) for k in range(3)]
+
+            if nee:
+                has_diffuse = cont & ~scatter_inside & ~(row[:, 8] > 0.0)
+                rad = _nee_add(rad, thr_acc, h, (nx, ny, nz), albedo,
+                               has_diffuse, time, it, pix, dep, lights, gmat,
+                               geom_types, mesh)
+
+            if has_sss:
+                with _needed(lanes=scatter_inside):
+                    # isotropic scatter inside, attenuated by the medium
+                    # albedo
+                    zi = 1.0 - 2.0 * rng.uniform(it, pix, dep, Draw.SSS_U)
+                    ri = torch.sqrt(torch.clamp_min(1.0 - zi * zi, 0.0))
+                    phi = rng.uniform(it, pix, dep, Draw.SSS_V) \
+                        * _c32(TWO_PI)
+                    o = (ox, oy, oz)
+                    dd = (dx, dy, dz)
+                    op = [torch.where(scatter_inside,
+                                      o[k] + sss_step * dd[k], op[k])
+                          for k in range(3)]
+                    ndir = [torch.where(scatter_inside, v, ndir[k])
+                            for k, v in enumerate((ri * torch.cos(phi),
+                                                   ri * torch.sin(phi), zi))]
+                thr = [torch.where(scatter_inside, med[k], thr[k])
+                       for k in range(3)]
+                if has_glass:
+                    # the medium changes only at refractions: entering a
+                    # geom with sigma > 0 from outside, or leaving from
+                    # inside
+                    at_surface = cont & ~scatter_inside & took_refract
+                    with _needed(lanes=at_surface):
+                        entering = at_surface & (row[:, 17] > 0.0) \
+                            & h.outside
+                    exiting = at_surface & in_med & ~h.outside
+                    med_s = torch.where(entering, row[:, 17],
+                                        torch.where(exiting, 0.0, med_s))
+                    med = [torch.where(entering, row[:, 18 + k],
+                                       torch.where(exiting, 1.0, med[k]))
+                           for k in range(3)]
+
+            if rr_mode and d >= 3:
+                # Russian roulette from bounce 3 on, after NEE: survive
+                # with the post-bounce throughput's largest channel,
+                # boosted by 1/p
+                nt = [thr_acc[k] * thr[k] for k in range(3)]
+                p_srv = torch.clamp(
+                    torch.maximum(nt[0], torch.maximum(nt[1], nt[2])),
+                    0.05, 1.0)
+                survive = rng.uniform(it, pix, dep, Draw.RR) < p_srv
+                cont = cont & survive
+                with _needed(lanes=survive):
+                    boost = torch.where(survive, torch.reciprocal(p_srv),
+                                        1.0)
+                    thr = [t * boost for t in thr]
+
+            # the state changes only where the path continues
+            with _needed(lanes=cont):
+                ox, oy, oz = (torch.where(cont, op[k], v)
+                              for k, v in enumerate((ox, oy, oz)))
+                dx, dy, dz = (torch.where(cont, ndir[k], v)
+                              for k, v in enumerate((dx, dy, dz)))
+                thr_acc = [torch.where(cont, thr_acc[k] * thr[k],
+                                       thr_acc[k]) for k in range(3)]
         emit_ok = ~took_diffuse | scatter_inside
         live = cont
     return rad
@@ -919,13 +1300,16 @@ def _trace_sample(it, pix, fx, fy, cam, mats_t, gmat_t, gmat, lights,
 
 def trace_plain(cam, mats, gmat, geom_types, width, height, depth, it0,
                 n_spp, pix0=0, features=NO_FEATURES, lights=None, rr=False,
-                tri=None, nodes=None, bvh_meta=()):
+                tri=None, nodes=None, bvh_meta=(), texels=None, tex_geom=(),
+                btex_geom=()):
     """Plain PyTorch K1 on the device of ``cam``: ``n_spp`` samples of
     pixels ``pix0 ..`` to the end of the image (all of it by default) at
     iterations ``it0 .. it0+n_spp-1``, with the scene ``features``
     (``scene_features``), NEE over the ``lights`` table (``pack_lights``;
-    None: no NEE), Russian roulette if ``rr`` and the triangle meshes of
-    ``tri``, ``nodes`` and ``bvh_meta`` (``pack_mesh``).
+    None: no NEE), Russian roulette if ``rr``, the triangle meshes of
+    ``tri``, ``nodes`` and ``bvh_meta`` (``pack_mesh``) and the image
+    textures of ``texels`` (``pack_textures``) under the per-geom charts
+    ``tex_geom`` and ``btex_geom`` (``tex_statics``).
 
     Returns (rad (P - pix0, 3) f32 summed over the samples, counts
     (depth,) int64: live paths entering each bounce, summed over the
@@ -940,12 +1324,14 @@ def trace_plain(cam, mats, gmat, geom_types, width, height, depth, it0,
     fy = torch.div(pixel, width, rounding_mode="floor").to(torch.float32)
     acc = [torch.zeros_like(fx) for _ in range(3)]
     counts = torch.zeros(depth, dtype=torch.int64, device=device)
+    tex = (_tex_planes(texels, tex_geom, btex_geom, geom_types, tri)
+           if tex_geom or btex_geom else None)
     for s in range(n_spp):
         rad = _trace_sample(
             (it0 + s) & 0xFFFFFFFF, pixel, fx, fy, cam_l, mats, gmat,
             gmat_l, lights_l, tuple(geom_types), width, height, depth,
             tuple(features), rr, counts,
-            (tri, nodes, tuple(bvh_meta)) if bvh_meta else None)
+            (tri, nodes, tuple(bvh_meta)) if bvh_meta else None, tex)
         acc = [a + r for a, r in zip(acc, rad)]
     return torch.stack(acc, dim=-1), counts
 
@@ -958,8 +1344,8 @@ _INT_TABLES = {}
 
 
 def _int_table(rows, device):
-    """``rows`` (a static tuple: the geom types, ``bvh_meta``) as an
-    int32 tensor on ``device``, made once."""
+    """``rows`` (a static tuple: the geom types, ``bvh_meta``, the
+    texture charts) as an int32 tensor on ``device``, made once."""
     key = (rows, str(device))
     if key not in _INT_TABLES:
         _INT_TABLES[key] = torch.tensor(rows, dtype=torch.int32,
@@ -975,15 +1361,15 @@ def _check_table(name, t, shape, device):
             f"got {t.dtype} {tuple(t.shape)} on {t.device}")
 
 
-def _check_mesh(tri, nodes, bvh_meta, geom_types, device):
-    """The mesh tables must be ``pack_mesh``'s: every entry of
-    ``bvh_meta`` a MESH geom whose rows lie inside ``nodes`` and ``tri``,
-    its counts exact as float32."""
+def _check_mesh(tri, nodes, bvh_meta, geom_types, device, cols):
+    """The mesh tables must be ``pack_mesh``'s: rows of ``cols`` floats,
+    every entry of ``bvh_meta`` a MESH geom whose rows lie inside
+    ``nodes`` and ``tri``, its counts exact as float32."""
     if not bvh_meta:
         if tri is not None or nodes is not None:
             raise ValueError("mesh tables given without bvh_meta")
         return
-    _check_table("tri", tri, (tri.shape[0], TRI_COLS), device)
+    _check_table("tri", tri, (tri.shape[0], cols), device)
     _check_table("nodes", nodes, (nodes.shape[0], 16), device)
     if tri.data_ptr() % 16 or nodes.data_ptr() % 16:
         raise ValueError("tri and nodes must be 16-byte aligned (the "
@@ -999,11 +1385,41 @@ def _check_mesh(tri, nodes, bvh_meta, geom_types, device):
                              f"{nodes.shape[0]} nodes, {tri.shape[0]} tris")
 
 
+def _check_textures(texels, tex_geom, btex_geom, n_geoms, device):
+    """The texture tables must be ``pack_textures``' and
+    ``tex_statics``': an int32 word per texel, and each chart mode ()
+    or one (offset, H, W) per geom, ``NO_CHART`` or a map inside the
+    table."""
+    if not (tex_geom or btex_geom):
+        if texels is not None:
+            raise ValueError("texels given without tex_geom or btex_geom")
+        return
+    if texels is None or texels.device != device or \
+            texels.dtype != torch.int32 or texels.dim() != 1 or \
+            not texels.is_contiguous() or not 0 < texels.numel() < 2 ** 31:
+        raise ValueError(
+            f"texels: want a contiguous int32 (n,) tensor on {device}, got "
+            f"{None if texels is None else (texels.dtype, texels.shape)}")
+    for name, spec in (("tex_geom", tex_geom), ("btex_geom", btex_geom)):
+        if spec and len(spec) != n_geoms:
+            raise ValueError(f"{name}: {len(spec)} charts for {n_geoms} "
+                             f"geoms")
+        for off, h, w in spec:
+            if (off, h, w) != NO_CHART and not (
+                    0 <= off and 0 < h and 0 < w
+                    and off + h * w <= texels.numel()):
+                raise ValueError(
+                    f"{name}: chart {(off, h, w)} is not inside a table of "
+                    f"{texels.numel()} texels")
+
+
 def trace_k1(cam, mats, gmat, geom_types, width, height, depth, it0, n_spp,
              pix0=0, features=NO_FEATURES, lights=None, rr=False,
-             tri=None, nodes=None, bvh_meta=()):
-    """K1 (and K2 when ``lights`` is given, K3 when ``bvh_meta`` is): the
-    same computation and result as :func:`trace_plain`.
+             tri=None, nodes=None, bvh_meta=(), texels=None, tex_geom=(),
+             btex_geom=()):
+    """K1 (and K2 when ``lights`` is given, K3 when ``bvh_meta`` is, K4
+    when ``tex_geom`` or ``btex_geom`` is): the same computation and
+    result as :func:`trace_plain`.
 
     For tensors on the CPU this is :func:`trace_plain`.  For tensors on
     a CUDA device it launches the kernel of ``csrc/megakernel.cu``
@@ -1013,12 +1429,14 @@ def trace_k1(cam, mats, gmat, geom_types, width, height, depth, it0, n_spp,
     if device.type == "cpu":
         return trace_plain(cam, mats, gmat, geom_types, width, height,
                            depth, it0, n_spp, pix0, features, lights, rr,
-                           tri, nodes, bvh_meta)
+                           tri, nodes, bvh_meta, texels, tex_geom, btex_geom)
     if device.type != "cuda":
         raise ValueError(f"K1 runs on cuda or cpu tensors, not {device}")
     from . import build
 
     geom_types, bvh_meta = tuple(geom_types), tuple(bvh_meta)
+    tex_geom, btex_geom = tuple(tex_geom), tuple(btex_geom)
+    textured = bool(tex_geom or btex_geom)
     n_geoms = len(geom_types)
     n_lights = 0 if lights is None else lights.shape[0]
     n_pixels = width * height
@@ -1038,13 +1456,21 @@ def trace_k1(cam, mats, gmat, geom_types, width, height, depth, it0, n_spp,
     _check_table("gmat", gmat, (n_geoms, 40), device)
     if lights is not None:
         _check_table("lights", lights, (n_lights, LIGHT_COLS), device)
-    _check_mesh(tri, nodes, bvh_meta, geom_types, device)
+    _check_mesh(tri, nodes, bvh_meta, geom_types, device,
+                TRI_TEX_COLS if textured else TRI_COLS)
+    _check_textures(texels, tex_geom, btex_geom, n_geoms, device)
     types = _int_table(geom_types, device)
     meta = _int_table(bvh_meta, device) if bvh_meta else None
+    # one (albedo offset, H, W, bump offset, H, W) row per geom
+    charts = _int_table(tuple(
+        a + b for a, b in zip(tex_geom or (NO_CHART,) * n_geoms,
+                              btex_geom or (NO_CHART,) * n_geoms)),
+        device) if textured else None
     rad = torch.empty((n_local, 3), dtype=torch.float32, device=device)
     # the kernel adds into these as unsigned 64-bit integers
     counts = torch.zeros(depth, dtype=torch.int64, device=device)
-    mask = feature_mask(features, lights is not None, rr, T.MESH in geom_types)
+    mask = feature_mask(features, lights is not None, rr,
+                        T.MESH in geom_types, bool(tex_geom), bool(btex_geom))
     lib = build.load_k1(mask)
 
     def ptr(t):
@@ -1055,7 +1481,8 @@ def trace_k1(cam, mats, gmat, geom_types, width, height, depth, it0, n_spp,
         err = lib.pt_k1_trace(
             cam.data_ptr(), mats.data_ptr(), gmat.data_ptr(),
             types.data_ptr(), ptr(lights), ptr(tri), ptr(nodes), ptr(meta),
-            n_geoms, n_lights, len(bvh_meta), width, height, depth,
+            ptr(texels), ptr(charts), n_geoms, n_lights, len(bvh_meta),
+            0 if texels is None else texels.numel(), width, height, depth,
             it0 & 0xFFFFFFFF, n_spp, pix0, n_local, rad.data_ptr(),
             counts.data_ptr(), stream)
     if err != 0:
@@ -1071,7 +1498,7 @@ def prepare(scene, device="cuda", nee=False, rr=False):
     keyword arguments of :func:`trace_k1` (and :func:`trace_plain`) but
     ``it0`` and ``n_spp``: the packed tables on ``device``, resident for
     the whole render, and the static facts the kernel is compiled for.
-    Raises ``NotImplementedError`` for what is not ported and
+    Raises ``ValueError`` for a texture off the u8 grid and
     ``RuntimeError`` for a CUDA device without a GPU."""
     check_supported(scene)
     device = torch.device(device)
@@ -1081,12 +1508,15 @@ def prepare(scene, device="cuda", nee=False, rr=False):
     cam, mats, gmat = pack_scene(scene, device)
     lights = pack_lights(scene, device)[0] if nee else None
     tri, nodes, bvh_meta = pack_mesh(scene, device)
+    tex_geom, btex_geom = tex_statics(scene)
     width, height = scene.resolution
     return dict(cam=cam, mats=mats, gmat=gmat,
                 geom_types=tuple(scene.geoms.type), width=width,
                 height=height, depth=int(scene.trace_depth),
                 features=scene_features(scene), lights=lights, rr=rr,
-                tri=tri, nodes=nodes, bvh_meta=bvh_meta)
+                tri=tri, nodes=nodes, bvh_meta=bvh_meta,
+                texels=pack_textures(scene, device) if tex_geom or btex_geom
+                else None, tex_geom=tex_geom, btex_geom=btex_geom)
 
 
 def pathtrace_batch_cuda(scene, it0, n_iters, device="cuda", nee=False,

@@ -18,6 +18,7 @@ from collections import Counter
 import numpy as np
 import torch
 
+from .bound import read as _read
 from .megakernel import _slab
 
 # Launches of the CUDA kernel (``probe_k9`` on a CUDA device).
@@ -60,6 +61,7 @@ def probe_plain(nodes, tri, entry, rows=BUNDLE[0], lanes=BUNDLE[1],
     tsum = np.float32(0.0)
     while n < n_nodes and steps < max_steps:
         node = table[n]
+        _read(nodes, "k9 nodes", node_off + n, 9)
         tnear = torch.zeros_like(o[0])  # the max with 0
         tfar = torch.full_like(o[0], float("inf"))
         for ax in range(3):
@@ -69,6 +71,8 @@ def probe_plain(nodes, tri, entry, rows=BUNDLE[0], lanes=BUNDLE[1],
         skip, start, count = (int(x) for x in node[6:9])
         if count > 0 and any_hit:
             leaves += 1
+            _read(tri, "k9 tri", range(tri_off + start,
+                                       tri_off + start + count), 1)
             for j in range(start, start + count):
                 tsum = np.float32(tsum + col0[j])
         n = skip if count > 0 or not any_hit else n + 1

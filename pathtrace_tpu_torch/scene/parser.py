@@ -5,11 +5,9 @@ line-oriented format of ``src/scene.cpp`` + README.md:203-246 with the
 same extensions (CHECKER / BUMP / SSS material lines, MOTION object
 key, APERTURE / FOCAL camera keys, ``mesh <path.obj>`` objects, their
 triangles read by ``scene/obj.py`` and given a BVH by ``scene/bvh.py``)
-and the same arrays.
-
-``TEXTURE`` / ``BUMPTEX`` material lines are not ported yet and raise
-``NotImplementedError`` naming the ROADMAP item that brings them (Queue 1
-item 8: the texture tables).
+and the same arrays.  ``TEXTURE`` / ``BUMPTEX`` material lines are
+consumed by the material block and loaded afterwards by
+``scene/textures.attach_textures``.
 """
 
 from __future__ import annotations
@@ -22,14 +20,11 @@ import numpy as np
 from ..core import types as T
 from .bvh import with_bvh
 from .obj import load_obj
+from .textures import attach_textures
 
 
 class SceneParseError(ValueError):
     pass
-
-
-TEXTURE_TODO = ("TEXTURE/BUMPTEX maps are not ported yet "
-                "(ROADMAP Queue 1 item 8)")
 
 
 def _safe_lines(text: str) -> List[str]:
@@ -48,7 +43,7 @@ def load_scene(path: str) -> T.Scene:
 
 
 def parse_scene(text: str, base_dir: str = ".") -> T.Scene:
-    """``base_dir`` resolves relative OBJ paths."""
+    """``base_dir`` resolves relative OBJ and texture paths."""
     lines = _safe_lines(text)
     pos = 0
 
@@ -125,7 +120,9 @@ def parse_scene(text: str, base_dir: str = ".") -> T.Scene:
                     m["sss_sigma"] = float(peek[1])
                     m["sss_albedo"] = _vec3(peek[1:])
                 elif peek and peek[0] in ("TEXTURE", "BUMPTEX"):
-                    raise NotImplementedError(TEXTURE_TODO)
+                    # consumed here so the block reader stays aligned;
+                    # attach_textures reads them from the text below
+                    pos += 1
                 else:
                     break
             materials.append(m)
@@ -287,13 +284,12 @@ def parse_scene(text: str, base_dir: str = ".") -> T.Scene:
         i for i, g in enumerate(geoms)
         if materials[g["material_id"]]["emittance"] > 0
     )
-    return T.Scene(
+    scene = T.Scene(
         materials=mats, geoms=gs, mesh=mesh, camera=cam_t,
         resolution=tuple(camera["resolution"]),
         trace_depth=int(camera["depth"]),
         iterations=int(camera["iterations"]),
         image_name=camera["file"],
         light_indices=light_indices,
-        texture_ids=(-1,) * len(materials),
-        bump_texture_ids=(-1,) * len(materials),
     )
+    return attach_textures(scene, text, base_dir=base_dir)

@@ -26,7 +26,28 @@ import torch_scenes as S
 
 _planes = jax.jit(_run_planes, static_argnames=(
     "resolution", "trace_depth", "geom_types", "n_spp", "features",
-    "nee_lights", "bvh_meta", "rr_mode"))
+    "nee_lights", "bvh_meta", "rr_mode", "tex_geom", "btex_geom"))
+
+
+def texel_tables(texels, packed):
+    """The port's texel words in the reference's layouts: per channel a
+    (rows, 128) float32 table of k/255 (``_pack_textures``, the planes
+    engine), or with ``packed`` an int32 table of four u8 texels a word
+    (the kernel's)."""
+    w = texels.numpy().astype(np.int64)
+    out = []
+    for c in range(3):
+        q = (w >> (8 * c)) & 255
+        if packed:
+            q = np.concatenate([q, np.zeros(-len(q) % 4, np.int64)])
+            q = q.reshape(-1, 4)
+            q = q[:, 0] | (q[:, 1] << 8) | (q[:, 2] << 16) | (q[:, 3] << 24)
+            q = q.astype(np.uint32).view(np.int32)
+        else:
+            q = q.astype(np.float32) / np.float32(255.0)
+        out.append(np.concatenate([q, np.zeros(-len(q) % 128, q.dtype)])
+                   .reshape(-1, 128))
+    return tuple(out)
 
 
 def reference(job, n_spp, interpret=False):
@@ -43,6 +64,9 @@ def reference(job, n_spp, interpret=False):
             jnp.asarray(1, jnp.int32))
     res = (job["width"], job["height"])
     mesh = dict(nodes=np_or_none(job["nodes"]), bvh_meta=job["bvh_meta"])
+    if job.get("texels") is not None:
+        mesh.update(tex_geom=job["tex_geom"], btex_geom=job["btex_geom"],
+                    texs=texel_tables(job["texels"], interpret))
     if interpret:
         out = _run(*args, res, job["depth"], job["geom_types"],
                    interpret=True, n_spp=n_spp, features=job["features"],
@@ -56,6 +80,8 @@ def reference(job, n_spp, interpret=False):
 
 
 def check_against_reference(config, res, depth, n_spp, interpret=False):
+    """trace_plain against the reference on ``config``'s tables; returns
+    the share of bit-equal pixels."""
     job = S.job(config, res, depth)
     rad, counts = K.trace_plain(**job, it0=1, n_spp=n_spp)
     assert rad.shape == (res[0] * res[1], 3) and rad.dtype == torch.float32
@@ -64,6 +90,11 @@ def check_against_reference(config, res, depth, n_spp, interpret=False):
     ref_rad, ref_counts = reference(job, n_spp, interpret)
     assert int(ref_counts[0]) == int(counts[0])
     assert_tie_flip_bound(rad, ref_rad, counts, ref_counts)
+    share = float((rad.numpy() == ref_rad).all(axis=-1).mean())
+    print(f"{config} {res[0]}x{res[1]} d{depth} {n_spp}spp "
+          f"{'interpret' if interpret else 'planes'}: bit-equal share "
+          f"{share:.4f}, max abs diff {np.abs(rad.numpy() - ref_rad).max():.3g}")
+    return share
 
 
 @pytest.mark.parametrize("config", [

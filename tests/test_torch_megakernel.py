@@ -97,16 +97,25 @@ def _jax_scene(name, res=(8, 8), depth=2):
     return dataclasses.replace(scene, resolution=res, trace_depth=depth)
 
 
-@pytest.mark.parametrize("name,match", [
-    ("cornell_bumpmesh", "image textures"),
-    ("cornell_tex", "image textures"),
-    ("cornell_bigmesh_tex", "image textures"),
-])
-def test_unported_paths_raise(name, match):
-    # the port's parser refuses these files; a scene carried over from
-    # the reference reaches the kernel's own check
-    with pytest.raises(NotImplementedError, match=match):
-        K.pathtrace_batch_cuda(_jax_scene(name), 1, 1, device="cpu")
+@pytest.mark.parametrize("name", [
+    "cornell_bumpmesh", "cornell_tex", "cornell_bigmesh_tex"])
+def test_off_grid_textures_raise(name):
+    # a texture scene carried over from the reference passes the kernel's
+    # check; the same scene with a map off the u8 grid is refused with a
+    # ValueError (the reference sends such a map to another engine, which
+    # the port does not have)
+    scene = _jax_scene(name)
+    K.check_supported(scene)
+    rad, _ = K.pathtrace_batch_cuda(scene, 1, 1, device="cpu")
+    assert bool(torch.isfinite(rad).all())
+    used = K.tex_used(scene)[-1]
+    off = list(scene.textures)
+    off[used] = off[used] * np.float32(0.999)
+    off_grid = dataclasses.replace(scene, textures=tuple(off))
+    with pytest.raises(ValueError, match="u8 grid"):
+        K.check_supported(off_grid)
+    with pytest.raises(ValueError, match="u8 grid"):
+        K.pathtrace_batch_cuda(off_grid, 1, 1, device="cpu")
 
 
 @pytest.mark.parametrize("name", ["cornell_mesh", "cornell_bigmesh"])

@@ -32,6 +32,10 @@ def assert_same(ref, got, path="scene"):
     elif isinstance(ref, tuple) and not (
             ref and isinstance(ref[0], np.ndarray)):
         assert tuple(ref) == tuple(got), path
+    elif isinstance(ref, tuple):  # arrays of their own shapes (textures)
+        assert isinstance(got, tuple) and len(ref) == len(got), path
+        for i, (r, g) in enumerate(zip(ref, got)):
+            assert_same(r, g, f"{path}[{i}]")
     else:
         r, g = np.asarray(ref), np.asarray(got)
         assert r.dtype == g.dtype and r.shape == g.shape, path
@@ -50,14 +54,14 @@ def test_from_jax_scene_matches_own_load(name):
                 convert.from_jax_scene(pt.load_scene(_scene_path(name))))
 
 
-@pytest.mark.parametrize("name,item", [
-    ("cornell_tex", "item 8"), ("cornell_bumpmesh", "item 8"),
-    ("cornell_bigmesh_tex", "item 8"),
-])
-def test_unported_scenes_raise(name, item):
-    # image textures; the mesh scenes load (tests/test_torch_bvh.py)
-    with pytest.raises(NotImplementedError, match=item):
-        ptt.load_scene(_scene_path(name))
+@pytest.mark.parametrize("name", [
+    "cornell_tex", "cornell_bumpmesh", "cornell_bigmesh_tex"])
+def test_texture_scenes_match_reference(name):
+    # the maps, their ids per material and the BUMPTEX strengths (the
+    # mesh scenes' BVHs: tests/test_torch_bvh.py)
+    scene = ptt.load_scene(_scene_path(name))
+    assert scene.textures
+    assert_same(pt.load_scene(_scene_path(name)), scene)
 
 
 def test_parse_every_primitive_keyword():

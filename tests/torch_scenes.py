@@ -1,8 +1,8 @@
 """Scene configurations for the port's feature tests (CPU and GPU).
 
-The shipped scene files, and variants built from their text with
-asserted replacements.  Imports no JAX, so the GPU-only tests can use it
-where JAX is not installed.
+The shipped scene files, and the variants of
+``pathtrace_tpu_torch.scene.variants`` built from their text.  Imports no
+JAX, so the GPU-only tests can use it where JAX is not installed.
 """
 
 import dataclasses
@@ -10,31 +10,12 @@ import os
 
 import pathtrace_tpu_torch as ptt
 from pathtrace_tpu_torch.ops.cuda import megakernel as K
+from pathtrace_tpu_torch.scene.variants import (  # noqa: F401
+    BUMP, MESH_BUMP, MESH_GLASS, MESH_MOTION, MESH_TEX, MESH_TWICE,
+    SPHERE_LIGHT, SSS, TEX512, TEX_CHECKER, edit_text,
+)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-
-# BUMP on cornell_glass's diffuse white (floor, ceiling, back wall)
-BUMP = ("EMITTANCE   0\n\n// Diffuse red",
-        "EMITTANCE   0\nBUMP        2 0.6\n\n// Diffuse red")
-# a dense medium in cornell_glass's glass sphere: SSS acts only on paths
-# that refracted into a medium
-SSS = ("REFRIOR     1.5\nEMITTANCE   0\n",
-       "REFRIOR     1.5\nEMITTANCE   0\nSSS         6.0 .9 .6 .4\n")
-# cornell.txt with a sphere for its ceiling light (NEE's sphere branch)
-SPHERE_LIGHT = ("OBJECT 0\ncube\nmaterial 0", "OBJECT 0\nsphere\nmaterial 0")
-# cornell_mesh.txt: its icosahedron (material 4) made glass with a checker,
-# and moving (glass, checker and motion sections on a MESH geom)
-MESH_GLASS = ("REFR        0\nREFRIOR     0\nEMITTANCE   0\n\n// Camera",
-              "REFR        1\nREFRIOR     1.5\nEMITTANCE   0\n"
-              "CHECKER     3 .2 .4 .9\n\n// Camera")
-MESH_MOTION = ("SCALE       2 2 2", "SCALE       2 2 2\nMOTION      .6 0 .3")
-# BUMP on the icosahedron
-MESH_BUMP = ("EMITTANCE   0\n\n// Camera",
-             "EMITTANCE   0\nBUMP        3 0.5\n\n// Camera")
-# a second instance of the icosahedron, white, tilted and squashed
-MESH_TWICE = ("SCALE       2 2 2", "SCALE       2 2 2\n\nOBJECT 7\n"
-              "mesh icosahedron.obj\nmaterial 1\nTRANS       -2.5 6 0.5\n"
-              "ROTAT       10 0 45\nSCALE       1.5 .8 1.5")
 
 # name -> (scene file, text replacements, nee, rr)
 CONFIGS = {
@@ -59,15 +40,21 @@ MESH_CONFIGS = {
     "mesh_bump": ("cornell_mesh", (MESH_BUMP,), False, False),
     "mesh_twice": ("cornell_mesh", (MESH_TWICE,), False, False),
 }
+# the image-texture configurations (K4), same layout
+TEX_CONFIGS = {
+    "cornell_tex": ("cornell_tex", (), False, False),
+    "cornell_tex-nee": ("cornell_tex", (), True, False),
+    "cornell_tex512": ("cornell_tex", (TEX512,), False, False),
+    "tex_checker": ("cornell_tex", (TEX_CHECKER,), False, False),
+    "cornell_bumpmesh": ("cornell_bumpmesh", (), False, False),
+    "cornell_bigmesh_tex": ("cornell_bigmesh_tex", (), False, False),
+    "mesh_tex": ("cornell_bumpmesh", (MESH_TEX,), False, False),
+}
 
 
 def scene_text(name, edits=()):
     with open(os.path.join(REPO, "scenes", f"{name}.txt")) as f:
-        text = f.read()
-    for old, new in edits:
-        assert text.count(old) == 1, old
-        text = text.replace(old, new)
-    return text
+        return edit_text(f.read(), edits)
 
 
 def load(name, edits=(), res=None, depth=None):
@@ -79,6 +66,6 @@ def load(name, edits=(), res=None, depth=None):
 
 def job(config, res, depth, device="cpu"):
     """``trace_k1``/``trace_plain`` keyword arguments for ``config`` (of
-    ``CONFIGS`` or ``MESH_CONFIGS``)."""
-    name, edits, nee, rr = {**CONFIGS, **MESH_CONFIGS}[config]
+    ``CONFIGS``, ``MESH_CONFIGS`` or ``TEX_CONFIGS``)."""
+    name, edits, nee, rr = {**CONFIGS, **MESH_CONFIGS, **TEX_CONFIGS}[config]
     return K.prepare(load(name, edits, res, depth), device, nee=nee, rr=rr)
