@@ -59,6 +59,41 @@ Phases, each of which raises on failure (exit code non-zero):
    the distinct BVH nodes, triangle rows and texels read (the columns
    needed), and 12 bytes written per pixel.
 
+8. the split and sorted engines, on the span kernel K5 (and the split
+   engine's tile table on the scan K6), through ``pathtrace_batch_split``
+   and ``pathtrace_batch_sorted`` (launch counts reset before and read
+   after), 1 spp, depth 8, at the files' own size: **bit-equal to K1**,
+   every pixel and every live count.  Split: sphere.txt at split 1 (every
+   tile dies at bounce 0), cornell.txt at split 3, with NEE, the
+   cornell_glass bump + SSS variant, cornell_tex.txt, cornell_bigmesh.txt.
+   Sorted: cornell.txt, cornell_mesh.txt with NEE, its glass + checker +
+   motion variant, cornell_bigmesh.txt at 800x800 and at its 1920x1080,
+   cornell_hugemesh.txt and cornell_bigmesh_tex.txt;
+9. K5 against its plain version (the engines' plain versions on the same
+   tables) within the tie-flip bound: split on the primitive and texture
+   configurations above at 800x800 and on cornell_mesh.txt, sorted on
+   cornell.txt, the cornell_mesh configurations and cornell_bigmesh_tex;
+   each engine's K5 time per iteration (CUDA events around each launch),
+   its plain version's, and K5's bound: K1's counted work on the same
+   scene, plus the state the spans must read and write for this run's
+   paths, by where each ray is at the end of each span
+   (``bound.span_state_bytes``; the sorted engine's gather is a torch op,
+   not K5's work);
+10. K6 against its plain version and ``torch.cumsum(x) - x``, exactly
+   equal, at 640,000 and 2,073,600 random 0/1 masks and at the tile-table
+   sizes 5,000 (800x800) and 16,200 (1920x1080); its time beside the
+   plain version's, that of ``torch.cumsum(x, dtype=int32) - x`` (the
+   same function) and its bound (``bound.scan_bytes``);
+11. ``cli.main`` with ``--split-depth 1`` on sphere.txt (its PNG must be
+   K1's) and ``--engine sorted`` on cornell_mesh.txt (orientation), 64
+   spp, launch counts checked;
+12. the engines' time, warm, CUDA events, median of k calls, each beside
+   K1's on the same scene in the same call: split sphere 800x800 at
+   split 1, split cornell 800x800 at split 3, sorted cornell 800x800,
+   sorted cornell_bigmesh 800x800 and sorted cornell_hugemesh 1920x1080;
+   the sorted engine's breakdown into spans, ``sort_perm``, ``permute``
+   and the un-permute.
+
 The line before the last is a JSON object describing each kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Without a CUDA GPU it
 prints no result and exits non-zero.  It imports nothing of JAX.
@@ -84,6 +119,8 @@ K2_SITE = "pathtrace_tpu/ops/pallas/megakernel.py:2223"   # _nee_add
 K3_SITE = "pathtrace_tpu/ops/pallas/megakernel.py:1069"   # the bvh_meta walk
 K4_SITE = "pathtrace_tpu/ops/pallas/megakernel.py:1719"   # _bilin3
 K9_SITE = "tools/probe_trav.py:32"                        # kernel
+K5_SITE = "pathtrace_tpu/ops/pallas/megakernel.py:3923"   # _span_kernel
+K6_SITE = "pathtrace_tpu/ops/scan.py:43"                  # _scan_kernel
 HUGEMESH_OBJ = os.path.join("scenes", "gen_icosphere7.obj")
 # (label, scene file, text replacements of
 # pathtrace_tpu_torch.scene.variants, nee, rr); the first of each feature
@@ -120,6 +157,54 @@ TEX_CONFIGS = [
     ("cornell_bumpmesh", "cornell_bumpmesh", (), False, False, True),
     ("cornell_bigmesh_tex", "cornell_bigmesh_tex", (), False, False, True),
 ]
+
+
+# (label, configuration label above, resolution or None for the file's,
+# split or None for the sorted engine): held bit-equal to K1
+ENGINE_CONFIGS = [
+    ("split sphere s1", "sphere", None, 1),
+    ("split cornell s3", "cornell", None, 3),
+    ("split cornell NEE s3", "cornell NEE", None, 3),
+    ("split cornell_glass bump+SSS s3", "cornell_glass bump+SSS", None, 3),
+    ("split cornell_tex s3", "cornell_tex", None, 3),
+    ("split cornell_bigmesh s3", "cornell_bigmesh", None, 3),
+    ("sorted cornell", "cornell", None, None),
+    ("sorted cornell_mesh NEE", "cornell_mesh NEE", None, None),
+    ("sorted cornell_mesh glass+checker+motion",
+     "cornell_mesh glass+checker+motion", None, None),
+    ("sorted cornell_bigmesh 800", "cornell_bigmesh", (800, 800), None),
+    ("sorted cornell_bigmesh", "cornell_bigmesh", None, None),
+    ("sorted cornell_hugemesh", "cornell_hugemesh", None, None),
+    ("sorted cornell_bigmesh_tex", "cornell_bigmesh_tex", None, None),
+]
+# held within the tie-flip bound of the plain version; the first of each
+# feature mask gives K5's numbers in the kernels line (its scene is the
+# one K1 is timed on, so the count of its work is made once)
+PLAIN_ENGINE_CONFIGS = [
+    ("split cornell s3", "cornell", None, 3),
+    ("split sphere s1", "sphere", None, 1),
+    ("split cornell NEE s3", "cornell NEE", None, 3),
+    ("split cornell_glass bump+SSS s3", "cornell_glass bump+SSS", None, 3),
+    ("split cornell_tex s3", "cornell_tex", None, 3),
+    ("split cornell_mesh s3", "cornell_mesh", None, 3),
+    ("sorted cornell", "cornell", None, None),
+    ("sorted cornell_mesh", "cornell_mesh", None, None),
+    ("sorted cornell_mesh NEE", "cornell_mesh NEE", None, None),
+    ("sorted cornell_mesh glass+checker+motion",
+     "cornell_mesh glass+checker+motion", None, None),
+    ("sorted cornell_bigmesh_tex", "cornell_bigmesh_tex", None, None),
+]
+# timed beside K1
+TIMED_ENGINE_CONFIGS = [
+    ("split sphere s1", "sphere", None, 1),
+    ("split cornell s3", "cornell", None, 3),
+    ("sorted cornell", "cornell", None, None),
+    ("sorted cornell_bigmesh 800", "cornell_bigmesh", (800, 800), None),
+    ("sorted cornell_hugemesh", "cornell_hugemesh", None, None),
+]
+K5_RUNS = 5  # engine runs of 1 spp whose span times give K5's median
+SCAN_SIZES = (640000, 2073600, 5000, 16200)
+SCAN_TIMED = 5000  # the tile table of an 800x800 image: the kernels line
 
 
 def card_line():
@@ -220,8 +305,9 @@ def compare(ptt, K, torch, label, scene, nee, rr, mask):
     return launches, max_err
 
 
-def cli_main_path(K, np, scene_file, flags):
-    """The main path as a user runs it; returns the launches by mask."""
+def cli_main_path(K, np, scene_file, flags, orient=True):
+    """The main path as a user runs it; returns K1's launches by mask.
+    With ``orient``, the left third must be red and the right green."""
     from PIL import Image
 
     from pathtrace_tpu_torch import cli
@@ -243,12 +329,11 @@ def cli_main_path(K, np, scene_file, flags):
           f"{mean:.4f} left rgb {left.round(4).tolist()} right rgb "
           f"{right.round(4).tolist()} launches by mask {launches}",
           flush=True)
-    if not (np.isfinite(mean) and 0.02 < mean < 0.6):
+    # (sphere.txt, without orientation, is a lit disk on black)
+    if not (np.isfinite(mean) and (0.02 if orient else 0.005) < mean < 0.6):
         raise RuntimeError(f"implausible image mean {mean}")
-    if not (left[0] > left[1] and right[1] > right[0]):
+    if orient and not (left[0] > left[1] and right[1] > right[0]):
         raise RuntimeError("orientation: left third must be red, right green")
-    if not launches:
-        raise RuntimeError(f"the CLI on {scene_file} launched no kernel")
     return launches
 
 
@@ -295,6 +380,9 @@ def median_ms(fn, torch, k, warm=True):
 
 
 T_START = time.perf_counter()
+# (label, width, height) -> (ops by section, bytes read by table, table
+# bytes) of one iteration, counted by time_variant
+WORK = {}
 
 
 def phase_done(name):
@@ -316,6 +404,8 @@ def time_variant(K, B, torch, label, job, mask, card, spp_kernel, k_kernel,
     # the plain version's warm call is its first sample, counted
     _, ops_by, bytes_by = B.count_work(
         lambda: K.trace_plain(**job, it0=1, n_spp=1))
+    WORK[label, width, height] = (ops_by, bytes_by,
+                                  small_table_bytes(torch, job))
     ms_p, runs_p, _ = median_ms(
         lambda: K.trace_plain(**job, it0=1, n_spp=spp_plain), torch, k_plain,
         warm=False)
@@ -358,6 +448,254 @@ def tex_breakdown(K, torch, scene, card):
               f"{ms / SPP_PER_CALL:.4f} ms/iter on {card}", flush=True)
 
 
+def engine_scene(scenes, config, res):
+    """The scene of configuration ``config`` (its nee, rr), at ``res``."""
+    scene, nee, rr = scenes[config]
+    if res is not None:
+        scene = dataclasses.replace(scene, resolution=res)
+    return scene, nee, rr
+
+
+def run_engine(ptt, scene, nee, rr, split, it0=1, n=1, device="cuda"):
+    """One call of the split (``split``) or sorted (None) engine."""
+    if split is None:
+        return ptt.pathtrace_batch_sorted(scene, it0, n, device=device,
+                                          nee=nee, rr=rr)
+    return ptt.pathtrace_batch_split(scene, it0, n, split=split,
+                                     device=device, nee=nee, rr=rr)
+
+
+def engine_equal(ptt, K, SP, SC, torch, label, scene, nee, rr, split):
+    """The main path on an engine, 1 spp, launch counts reset before and
+    read after, against K1 on the same scene: every pixel and every count
+    equal.  Returns (K5 launches by mask, K6 launches)."""
+    width, height = scene.resolution
+    want, want_counts = ptt.pathtrace_batch(scene, 1, 1, device="cuda",
+                                            nee=nee, rr=rr)
+    K.LAUNCHES.clear()
+    SP.LAUNCHES.clear()
+    SC.LAUNCHES.clear()
+    rad, counts = run_engine(ptt, scene, nee, rr, split)
+    torch.cuda.synchronize()
+    k5, k6 = dict(SP.LAUNCHES), SC.LAUNCHES["k6_scan"]
+    depth = int(scene.trace_depth)
+    mask = K.scene_mask(scene, nee, rr)
+    want_k5 = {mask: 2 if split else depth}
+    if k5 != want_k5 or k6 != (1 if split else 0) or K.LAUNCHES:
+        raise RuntimeError(f"{label}: K5 launches {k5} (want {want_k5}), "
+                           f"K6 {k6}, K1 {dict(K.LAUNCHES)}")
+    same = torch.equal(rad, want) and torch.equal(counts, want_counts)
+    n_eq = float((rad == want).all(dim=-1).float().mean())
+    print(f"engine {label} {width}x{height} d{depth} 1spp (mask {mask}): "
+          f"bit-equal to K1 {same} (pixels equal {n_eq:.6f}), counts "
+          f"{counts.tolist()} K1 {want_counts.tolist()}; launches K5 {k5} "
+          f"K6 {k6}", flush=True)
+    if not same:
+        raise RuntimeError(f"{label}: the engine is not bit-equal to K1")
+    return k5, k6
+
+
+def live_tile_rays(K, SP, torch, job, split):
+    """The rays of the tiles the split engine's resumed span runs (1 spp,
+    iteration 1): the tiles with a live path after bounce ``split``."""
+    n_pix = job["width"] * job["height"]
+    keys = K.state_keys(job["features"], job["lights"] is not None)
+    state = torch.empty((len(keys), n_pix), device="cuda")
+    counts = torch.zeros(job["depth"], dtype=torch.int64, device="cuda")
+    SP.trace_span(job, state, keys, 0, split, 1, counts)
+    live = state[SP.LIVE_KEY] != 0
+    n_tiles = -(-n_pix // SP.TILE)
+    tlive = torch.nn.functional.pad(live, (0, n_tiles * SP.TILE - n_pix))
+    tlive = tlive.view(n_tiles, SP.TILE).any(1)
+    return int(tlive.repeat_interleave(SP.TILE)[:n_pix].sum())
+
+
+def engine_vs_plain(ptt, K, B, SP, torch, label, scene, nee, rr, split,
+                    config):
+    """K5 (the engine on the card) against its plain version (the
+    engine's plain version on the card, same tables), 1 spp, within the
+    tie-flip bound; then K5's time per iteration in a second run (CUDA
+    events around each launch), the plain version's (one call, host
+    clock after a synchronize) and K5's bound.  Returns (max abs error,
+    K5 ms, plain ms, bound ms, bound by)."""
+    width, height = scene.resolution
+    n_pix = width * height
+    depth = int(scene.trace_depth)
+    rad, counts = run_engine(ptt, scene, nee, rr, split)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    job = K.prepare(scene, "cuda", nee=nee, rr=rr)
+    ref, ref_counts = SP.engine(scene, job, split, split is None,
+                                plain=True)[1](1, 1)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    diff = (rad - ref).abs().amax(dim=-1)
+    share = float((diff > 1e-3).float().mean())
+    max_err = float(diff.max())
+    print(f"k5 vs plain {label} {width}x{height} d{depth} 1spp: share>1e-3 "
+          f"{share:.6f} max_abs_err {max_err:.3g} exact "
+          f"{float((diff == 0).float().mean()):.6f} counts kernel "
+          f"{counts.tolist()} plain {ref_counts.tolist()}; plain engine "
+          f"{plain_ms:.1f} ms", flush=True)
+    if share >= TIE_SHARE or counts[0] != n_pix or ref_counts[0] != n_pix:
+        raise RuntimeError(f"{label}: K5 against its plain version: "
+                           f"{share:.4%} of pixels differ > 1e-3, or "
+                           f"bounce 0 does not count every pixel")
+    for d, (a, b) in enumerate(zip(counts.tolist(), ref_counts.tolist())):
+        if abs(a - b) > COUNT_RTOL * max(b, 1):
+            raise RuntimeError(f"{label}: bounce {d} count {a} vs {b}")
+    runs = []
+    try:
+        for _ in range(K5_RUNS):
+            SP.EVENTS = []
+            run_engine(ptt, scene, nee, rr, split)
+            torch.cuda.synchronize()
+            runs.append(sum(a.elapsed_time(b) for name, a, b in SP.EVENTS
+                            if name == "span"))
+    finally:
+        SP.EVENTS = None
+    ms = statistics.median(runs)
+    # the bound: K1's work on this scene (its count from time_variant,
+    # or made here; K1's image write is not K5's) and the state the spans
+    # must move
+    if (config, width, height) not in WORK:
+        _, ops_by, bytes_by = B.count_work(
+            lambda: K.trace_plain(**job, it0=1, n_spp=1))
+        WORK[config, width, height] = (ops_by, bytes_by,
+                                       small_table_bytes(torch, job))
+    ops_by, bytes_by, table_bytes = WORK[config, width, height]
+    # the state K5 must move, by where each ray is at the end of each
+    # span (this run's counts; the resumed span runs the live tiles' rays)
+    n_keys = len(K.state_keys(job["features"], nee, split is None))
+    if split is None:
+        spans = [(d, d + 1, n_pix) for d in range(depth)]
+    else:
+        spans = [(0, split, n_pix),
+                 (split, depth, live_tile_rays(K, SP, torch, job, split))]
+    n_state = B.span_state_bytes(n_keys, counts.tolist(), spans,
+                                 split is None)
+    n_bytes = table_bytes + sum(bytes_by.values()) + n_state
+    bound_ms, bound_by = B.bound(sum(ops_by.values()), n_bytes)
+    print(f"time k5 {label} {width}x{height} d{depth}: K5 {ms:.4f} ms/iter "
+          f"(its launches, median of {K5_RUNS} runs "
+          f"{[round(t, 4) for t in runs]}), plain engine {plain_ms:.1f} "
+          f"ms/iter; "
+          f"bound {bound_ms:.4f} ms by {bound_by} ({sum(ops_by.values()):.4g}"
+          f" ops of K1's count, {n_bytes} bytes of which state {n_state}); "
+          f"K5 at {bound_ms / ms:.2%} of it; library call: none", flush=True)
+    return max_err, ms, plain_ms, bound_ms, bound_by
+
+
+def scan_phase(B, SC, torch, card):
+    """K6 against its plain version and torch.cumsum(x) - x at each of
+    SCAN_SIZES (random 0/1 masks from a seed): exactly equal; then the
+    times of K6, the plain version and torch.cumsum(x) - x (int32), and
+    K6's bound.
+    Returns {n: (max abs error, ms, plain ms, cumsum ms, bound ms, by)}."""
+    out = {}
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for n in SCAN_SIZES:
+        x = (torch.rand(n, device="cuda", generator=gen) < 0.4).to(
+            torch.int32)
+        got, plain = SC.scan_int(x), SC.prefix_sum_plain(x)
+        lib = (torch.cumsum(x, 0, dtype=torch.int32) - x)
+        err = int((got - plain).abs().max())
+        if not (torch.equal(got, plain) and torch.equal(got, lib)):
+            raise RuntimeError(f"K6 at {n}: not equal to its plain version "
+                               f"or to torch.cumsum(x) - x")
+        ms, runs, _ = median_ms(lambda: SC.scan_int(x), torch, 21)
+        ms_p, _, _ = median_ms(lambda: SC.prefix_sum_plain(x), torch, 21)
+        ms_l, _, _ = median_ms(
+            lambda: torch.cumsum(x, 0, dtype=torch.int32) - x, torch, 21)
+        bound_ms, bound_by = B.bound(n, B.scan_bytes(n))
+        print(f"k6 scan n={n}: equal to plain and to cumsum - x; K6 median "
+              f"{ms:.4f} ms (runs {[round(t, 4) for t in runs]}), plain "
+              f"{ms_p:.4f} ms, torch.cumsum(x, dtype=int32) - x "
+              f"{ms_l:.4f} ms on {card}; bound "
+              f"{bound_ms:.6f} ms by {bound_by} ({B.scan_bytes(n)} bytes); "
+              f"K6 at {bound_ms / ms:.2%} of it", flush=True)
+        out[n] = (err, ms, ms_p, ms_l, bound_ms, bound_by)
+    return out
+
+
+def cli_engines(ptt, K, SP, SC, np, torch):
+    """The engines through the CLI, 64 spp: --split-depth 1 on sphere.txt
+    (its PNG must be the default engine's), --engine sorted on
+    cornell_mesh.txt (orientation); launch counts reset before and read
+    after.  Returns (K5 launches by mask, K6 launches)."""
+    from PIL import Image
+
+    k5, k6 = {}, 0
+    with tempfile.TemporaryDirectory() as tmp:
+        for scene_file, flags, orient in (
+                ("sphere.txt", ["--split-depth", "1"], False),
+                ("cornell_mesh.txt", ["--engine", "sorted"], True)):
+            SP.LAUNCHES.clear()
+            SC.LAUNCHES.clear()
+            launches = cli_main_path(K, np, scene_file, flags, orient)
+            n5, n6 = dict(SP.LAUNCHES), SC.LAUNCHES["k6_scan"]
+            print(f"cli {scene_file} {' '.join(flags)}: K5 launches {n5}, K6 "
+                  f"{n6}, K1 {launches}", flush=True)
+            if not n5 or launches or (flags[0] == "--split-depth") != (
+                    n6 > 0):
+                raise RuntimeError(f"the CLI with {flags} did not run on K5 "
+                                   f"(and K6 for the split engine) alone")
+            for m, n in n5.items():
+                k5[m] = k5.get(m, 0) + n
+            k6 += n6
+            if not orient:
+                # the split engine's PNG is the default engine's
+                a = os.path.join(tmp, "split.png")
+                b = os.path.join(tmp, "k1.png")
+                from pathtrace_tpu_torch import cli
+                path = os.path.join(HERE, "scenes", scene_file)
+                cli.main([path, "--spp", "64", "--out", a, *flags])
+                cli.main([path, "--spp", "64", "--out", b])
+                if not np.array_equal(np.asarray(Image.open(a)),
+                                      np.asarray(Image.open(b))):
+                    raise RuntimeError(f"{scene_file}: the split engine's "
+                                       f"PNG is not K1's")
+                print(f"cli {scene_file}: the split engine's PNG equals "
+                      f"K1's", flush=True)
+    return k5, k6
+
+
+def time_engines(ptt, K, SP, torch, scenes, card):
+    """Each engine's ms/iter beside K1's on the same scene (warm, CUDA
+    events, median of k calls of 4 spp), and the sorted engine's
+    breakdown (one call of 4 spp with events around each step)."""
+    spp = 4
+    for label, config, res, split in TIMED_ENGINE_CONFIGS:
+        scene, nee, rr = engine_scene(scenes, config, res)
+        width, height = scene.resolution
+        job = K.prepare(scene, "cuda", nee=nee, rr=rr)
+        run = SP.engine(scene, job, split, split is None)[1]
+        engine = lambda: run(1, spp)  # noqa: E731
+        k1 = lambda: K.trace_k1(**job, it0=1, n_spp=spp)  # noqa: E731
+        ms_k1a, runs_a, _ = median_ms(k1, torch, 5)
+        ms_e, runs_e, _ = median_ms(engine, torch, 5)
+        ms_k1b, runs_b, _ = median_ms(k1, torch, 5, warm=False)
+        print(f"time engine {label} {width}x{height} d{scene.trace_depth}: "
+              f"{ms_e / spp:.4f} ms/iter (runs {[round(t, 3) for t in runs_e]}"
+              f", {spp} spp a call), K1 {ms_k1a / spp:.4f} before and "
+              f"{ms_k1b / spp:.4f} after (runs {[round(t, 3) for t in runs_a]}"
+              f" {[round(t, 3) for t in runs_b]}); engine / K1 "
+              f"{ms_e / min(ms_k1a, ms_k1b):.2f} on {card}", flush=True)
+        SP.EVENTS = []
+        try:
+            engine()
+            torch.cuda.synchronize()
+            steps = {}
+            for name, a, b in SP.EVENTS:
+                steps[name] = steps.get(name, 0.0) + a.elapsed_time(b) / spp
+        finally:
+            SP.EVENTS = None
+        print(f"breakdown engine {label}: "
+              + ", ".join(f"{k} {v:.4f}" for k, v in steps.items())
+              + f" ms/iter (one call, events around each step) on {card}",
+              flush=True)
+
+
 def main():
     import torch
 
@@ -372,7 +710,11 @@ def main():
     from pathtrace_tpu_torch.ops.cuda import bound as B
     from pathtrace_tpu_torch.ops.cuda import build
     from pathtrace_tpu_torch.ops.cuda import megakernel as K
+    from pathtrace_tpu_torch.ops import scan as SC
     from pathtrace_tpu_torch.ops.cuda import probe as P
+    from pathtrace_tpu_torch.ops.cuda import span as SP
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    from torch_digest import ptxas_usage
 
     card = card_line()
     kind = torch.cuda.get_device_name(0)
@@ -416,11 +758,11 @@ def main():
           f"{time.perf_counter() - t0:.2f} s, nvcc "
           f"{' '.join(build.NVCC_FLAGS)} -DPT_FEATURES=<mask>", flush=True)
     for lib, name in ([(f"k1_m{m}", f"{kernel_name(K, m)} (mask {m})")
-                       for m in masks] + [("k9_probe", "k9_probe")]):
+                       for m in masks] + [("k6_scan", "k6_scan"),
+                                          ("k9_probe", "k9_probe")]):
         sec, log = build.BUILD_INFO.get(lib, (0.0, "(library found built)"))
-        usage = [ln.strip() for ln in log.splitlines()
-                 if "registers" in ln or "spill" in ln]
-        print(f"build {name}: {sec:.2f} s | {' | '.join(usage)}", flush=True)
+        usage = "; ".join(f"{k}: {v}" for k, v in ptxas_usage(log).items())
+        print(f"build {name}: {sec:.2f} s | {usage}", flush=True)
     phase_done("build")
 
     launches = dict.fromkeys(masks, 0)
@@ -434,7 +776,10 @@ def main():
                               ("cornell_glass.txt", ["--nee"]),
                               ("cornell_mesh.txt", []),
                               ("cornell_tex.txt", [])):
-        for mask, n in cli_main_path(K, np, scene_file, flags).items():
+        cli_launches = cli_main_path(K, np, scene_file, flags)
+        if not cli_launches:
+            raise RuntimeError(f"the CLI on {scene_file} launched no kernel")
+        for mask, n in cli_launches.items():
             launches[mask] += n
         phase_done(f"cli {scene_file}")
     missing = [m for m in masks if not launches[m]]
@@ -444,6 +789,22 @@ def main():
     bigmesh = next(c[1] for c in mesh_configs if c[0] == "cornell_bigmesh")
     k9_launches, k9_err, k9_args = probe_phase(K, P, bigmesh)
     phase_done("k9")
+
+    scenes = {c[0]: c[1:4] for c in configs + mesh_configs + tex_configs}
+    k5_launches, k6_launches = {}, 0
+    for label, config, res, split in ENGINE_CONFIGS:
+        scene, nee, rr = engine_scene(scenes, config, res)
+        k5, k6 = engine_equal(ptt, K, SP, SC, torch, label, scene, nee, rr,
+                              split)
+        for m, n in k5.items():
+            k5_launches[m] = k5_launches.get(m, 0) + n
+        k6_launches += k6
+        phase_done(f"engine {label}")
+    k5, k6 = cli_engines(ptt, K, SP, SC, np, torch)
+    for m, n in k5.items():
+        k5_launches[m] = k5_launches.get(m, 0) + n
+    k6_launches += k6
+    phase_done("cli engines")
 
     timed = {}
     for label, scene, nee, rr, mask in configs:
@@ -491,6 +852,22 @@ def main():
           f"library call: none", flush=True)
     phase_done("time k9")
 
+    k5_row = {}
+    for label, config, res, split in PLAIN_ENGINE_CONFIGS:
+        scene, nee, rr = engine_scene(scenes, config, res)
+        row = engine_vs_plain(ptt, K, B, SP, torch, label, scene, nee, rr,
+                              split, config)
+        k5_row.setdefault(K.scene_mask(scene, nee, rr), row)
+        phase_done(f"k5 vs plain {label}")
+    missing = sorted(set(k5_launches) - set(k5_row))
+    if missing:
+        raise RuntimeError(f"K5 masks {missing} ran on the main path but "
+                           f"were not measured")
+    k6_row = scan_phase(B, SC, torch, card)
+    phase_done("k6")
+    time_engines(ptt, K, SP, torch, scenes, card)
+    phase_done("time engines")
+
     print(card, flush=True)
     print(json.dumps({"kernels": [{
         "name": kernel_name(K, mask),
@@ -518,6 +895,30 @@ def main():
         "bound_ms": k9_bound[0],
         "bound_by": k9_bound[1],
         "library_ms": None,
+    }] + [{
+        "name": kernel_name(K, mask).replace("k1_trace", "k5_span"),
+        "route": "cuda",
+        "source": "pathtrace_tpu_torch/csrc/megakernel.cu",
+        "replaces": K5_SITE,
+        "launches": k5_launches[mask],
+        "max_abs_err": k5_row[mask][0],
+        "ms": k5_row[mask][1],
+        "plain_ms": k5_row[mask][2],
+        "bound_ms": k5_row[mask][3],
+        "bound_by": k5_row[mask][4],
+        "library_ms": None,
+    } for mask in sorted(k5_launches)] + [{
+        "name": "k6_scan",
+        "route": "cuda",
+        "source": "pathtrace_tpu_torch/csrc/scan.cu",
+        "replaces": K6_SITE,
+        "launches": k6_launches,
+        "max_abs_err": k6_row[SCAN_TIMED][0],
+        "ms": k6_row[SCAN_TIMED][1],
+        "plain_ms": k6_row[SCAN_TIMED][2],
+        "bound_ms": k6_row[SCAN_TIMED][4],
+        "bound_by": k6_row[SCAN_TIMED][5],
+        "library_ms": k6_row[SCAN_TIMED][3],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -7,7 +7,11 @@ mesh, built at load time), with every material and camera feature of
 the reference, image textures (albedo TEXTURE and BUMPTEX height maps),
 NEE and Russian roulette, traced by the hand-written CUDA megakernel K1
 (``csrc/megakernel.cu``) on a GPU, or by its plain PyTorch version on the
-CPU.  Every entry point takes an explicit ``device``.
+CPU.  The split and sorted engines (``pathtrace_batch_split``,
+``pathtrace_batch_sorted``) trace the same image in spans of bounces on
+the span kernel K5, the split engine's tile table on the scan K6
+(``prefix_sum``, ``compact_indices``, ``compact``).  Every entry point
+takes a ``device``, the card by default.
 """
 
 from __future__ import annotations
@@ -20,6 +24,8 @@ from .ops.cuda.megakernel import (
     pack_lights, pack_mesh, pack_scene, pack_textures, pathtrace_batch_cuda,
     prepare, trace_k1,
 )
+from .ops.cuda.span import pathtrace_batch_sorted, pathtrace_batch_split
+from .ops.scan import compact, compact_indices, prefix_sum
 from .scene.parser import load_scene, parse_scene
 
 __version__ = "0.1.0"

@@ -9,8 +9,11 @@ JSON line with ``--stats``), and save
 ``--device cuda`` (the default) runs the CUDA megakernel K1 (with
 ``--nee``, its NEE section K2; on a mesh scene, its BVH section K3; on a
 scene with TEXTURE or BUMPTEX maps, its texture section K4) and raises
-when there is no GPU;
-``--device cpu`` runs its plain PyTorch version.
+when there is no GPU; ``--split-depth N`` runs the split engine and
+``--engine sorted`` the sorted engine instead, on the span kernel K5
+(and the split engine's tile table on the scan K6), with K1's image.
+``--device cpu`` runs the plain PyTorch versions.  A chunk is one call
+of K1, or ``--chunk`` samples of an engine's per-sample loop.
 The reference's other engines and options are not ported yet: they raise
 ``NotImplementedError`` naming the ROADMAP item that brings them.
 """
@@ -28,15 +31,15 @@ import torch
 
 PREFIX = "[pathtrace_tpu_torch]"
 
-# flag -> (value that is ported, ROADMAP item that ports the others)
+# flag -> (values that are ported, ROADMAP item that ports the others)
 _NOT_PORTED = {
-    "engine": ("pallas", "Queue 1 item 9 (split/sorted engines, K5) and "
-                         "item 3 (the wavefront twin)"),
-    "compaction": ("mask", "Queue 1 item 9 (sort compaction, K6)"),
-    "split_depth": (0, "Queue 1 item 9 (split engine, K5)"),
-    "shard": (False, "Queue 1 item 11 (multi-device)"),
-    "checkpoint": (None, "Queue 1 item 12 (checkpoint/resume)"),
-    "interactive": (None, "Queue 1 item 12 (interactive camera)"),
+    "engine": (("pallas", "sorted"),
+               "Queue 1 item 3 (the wavefront twin, --engine xla)"),
+    "compaction": (("mask",), "Queue 1 item 3 (the wavefront twin, with "
+                              "--compaction sort on K6)"),
+    "shard": ((False,), "Queue 1 item 11 (multi-device)"),
+    "checkpoint": ((None,), "Queue 1 item 12 (checkpoint/resume)"),
+    "interactive": ((None,), "Queue 1 item 12 (interactive camera)"),
 }
 
 
@@ -64,15 +67,19 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--stats", action="store_true",
                    help="emit per-chunk JSON stats lines")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
-                   help="cuda = the K1 CUDA kernel (raises without a GPU); "
-                        "cpu = its plain PyTorch version")
-    # the reference's other engines and options: not ported yet
+                   help="cuda = the CUDA kernels (raises without a GPU); "
+                        "cpu = their plain PyTorch versions")
     p.add_argument("--engine", choices=["pallas", "sorted", "planes", "xla"],
                    default="pallas",
-                   help="pallas = the forward megakernel (K1); the others "
-                        "are not ported yet")
+                   help="pallas = the forward megakernel (K1); sorted = one "
+                        "span kernel (K5) per bounce, the rays re-sorted "
+                        "between bounces; planes and xla are not ported yet")
+    # --compaction sort comes with the wavefront twin: not ported yet
     p.add_argument("--compaction", choices=["mask", "sort"], default="mask")
-    p.add_argument("--split-depth", type=int, default=0)
+    p.add_argument("--split-depth", type=int, default=0,
+                   help="pallas engine: trace bounces [0, N) on every "
+                        "pixel, then [N, depth) on the tiles with a live "
+                        "path (span kernel K5, tile table by the scan K6)")
     p.add_argument("--nee", action="store_true",
                    help="next-event estimation: one light sample and shadow "
                         "ray per light at each non-refractive hit")
@@ -87,14 +94,15 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     for flag, (ported, item) in _NOT_PORTED.items():
-        if getattr(args, flag) != ported:
+        if getattr(args, flag) not in ported:
             raise NotImplementedError(
                 f"--{flag.replace('_', '-')} {getattr(args, flag)} is not "
                 f"ported yet: ROADMAP {item}")
 
     import pathtrace_tpu_torch as ptt
     from pathtrace_tpu_torch.io import image_io
-    from pathtrace_tpu_torch.ops.cuda.megakernel import prepare, trace_k1
+    from pathtrace_tpu_torch.ops.cuda import span
+    from pathtrace_tpu_torch.ops.cuda.megakernel import prepare
 
     scene = ptt.load_scene(args.scene)
     if args.res:
@@ -107,10 +115,13 @@ def main(argv=None) -> int:
     device = torch.device(args.device)
     # tables resident on the device for the whole render
     job = prepare(scene, device, nee=args.nee, rr=args.rr)
+    engine, run = span.engine(
+        scene, job, split=args.split_depth if args.split_depth > 0 else None,
+        sort=args.engine == "sorted")
 
     print(
         f"{PREFIX} {args.scene}: {width}x{height}, {n_iters} spp, "
-        f"depth {depth}, device={device}"
+        f"depth {depth}, device={device}, engine {engine}"
         f"{', nee' if args.nee else ''}{', rr' if args.rr else ''}",
         flush=True,
     )
@@ -127,7 +138,7 @@ def main(argv=None) -> int:
     while done < n_iters:
         step = min(args.chunk, n_iters - done)
         t0 = time.time()
-        rad, counts = trace_k1(**job, it0=args.seed + done + 1, n_spp=step)
+        rad, counts = run(args.seed + done + 1, step)
         accum += rad
         # the (tiny) counts copy waits for the launch, keeping dt honest
         counts = counts.cpu().numpy()

@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from .core import types as T
+from .ops.cuda.megakernel import resolve_device
 
 
 def _arr(x):
@@ -52,23 +53,25 @@ def from_jax_scene(scene) -> T.Scene:
 
 def _tensor(t, device):
     # a copy: the arrays of a JAX package are read-only
-    return torch.tensor(np.asarray(t, dtype=np.float32)).to(device)
+    return torch.tensor(np.asarray(t, dtype=np.float32)).to(
+        resolve_device(device))
 
 
-def packed_tables_from_numpy(cam, mats, gmat, device="cpu"):
+def packed_tables_from_numpy(cam, mats, gmat, device="cuda"):
     """(cam (1,16), mats (G,24), gmat (G,40)) float32 tensors on
     ``device``."""
     return tuple(_tensor(t, device) for t in (cam, mats, gmat))
 
 
-def lights_table_from_numpy(lights, device="cpu"):
+def lights_table_from_numpy(lights, device="cuda"):
     """A packed NEE light table (L,128) (numpy, e.g. from the
     reference's ``_pack_lights``) as a float32 tensor on ``device``;
     None stays None (a scene with no light)."""
+    resolve_device(device)
     return None if lights is None else _tensor(lights, device)
 
 
-def mesh_tables_from_numpy(tri, nodes, device="cpu"):
+def mesh_tables_from_numpy(tri, nodes, device="cuda"):
     """Packed mesh tables (tri (T,16), nodes (N,16), numpy, e.g. from
     the reference's ``_pack_scene`` BVH branch) as float32 tensors on
     ``device``."""

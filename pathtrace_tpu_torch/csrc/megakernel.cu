@@ -12,6 +12,11 @@
 // Russian roulette, and image textures (albedo TEXTURE maps and BUMPTEX
 // height maps).  Gradients are not here.
 //
+// The same library holds K5, the span kernel of the split and sorted
+// engines (k5_span, at the end): bounces [d0, d1) on path state kept in
+// global memory.  K1's depth loop and K5 call one init_state and one
+// bounce, as the reference's kernels share `_make_tracer`.
+//
 // Like Mosaic's kernel, it is specialized at compile time on the feature
 // set: PT_FEATURES (ops/cuda/megakernel.py feature_mask) holds one bit per
 // scene feature, then NEE, Russian roulette, meshes, albedo maps and
@@ -829,21 +834,56 @@ __device__ __forceinline__ void nee_add(
   }
 }
 
-__global__ void __launch_bounds__(kBlock)
-k1_trace(const float* __restrict__ cam_g, const float* __restrict__ mats_g,
-         const float* __restrict__ gmat_g, const int* __restrict__ types_g,
-         const float* __restrict__ lights_g, const float4* __restrict__ tri_g,
-         const float4* __restrict__ nodes_g, const int* __restrict__ meta_g,
-         const uint32_t* __restrict__ texels_g, const int* __restrict__ charts_g,
-         int n_geoms, int n_lights, int n_meta, int width, int height,
-         int depth, uint32_t it0, int n_spp, long long pix0,
-         long long n_local, float* __restrict__ rad,
-         unsigned long long* __restrict__ counts) {
-  // shared: per-warp live counts [kWarps][depth], then cam, mats, gmat,
-  // lights (NEE), types, mesh meta (meshes), texture charts (textures)
-  extern __shared__ unsigned long long smem[];
-  unsigned long long* s_counts = smem;
-  float* s_cam = reinterpret_cast<float*>(s_counts + kWarps * depth);
+// The state a path carries from one bounce to the next: the reference's
+// `init_state` planes (`_state_keys`), which K5 keeps in global memory
+// between its spans and K1 in registers.
+struct PathState {
+  float ox, oy, oz, dx, dy, dz;
+  float tr, tg, tb;  // throughput
+  float rr, rg, rb;  // radiance gathered so far
+  bool live;
+  float time;  // shutter time (motion blur)
+  // SSS: the medium the path is in (sigma 0: none) and its albedo
+  float med_s, med_r, med_g, med_b;
+  // NEE: emission found by the BSDF counts only after a non-diffuse
+  // bounce (or from the camera), so direct light is not counted twice
+  bool emit_ok;
+};
+
+// The camera row (pack_scene's cam) but aperture and focal distance, which
+// the thin lens reads from the staged row itself.
+struct Camera {
+  float pos_x, pos_y, pos_z, v_x, v_y, v_z, r_x, r_y, r_z, u_x, u_y, u_z, tan_x, tan_y;
+};
+
+__device__ __forceinline__ Camera load_camera(const float* s_cam) {
+  return Camera{s_cam[0], s_cam[1], s_cam[2],  s_cam[3],  s_cam[4],  s_cam[5],  s_cam[6],
+                s_cam[7], s_cam[8], s_cam[9], s_cam[10], s_cam[11], s_cam[12], s_cam[13]};
+}
+
+// The scene tables staged in shared memory, as the bounce reads them.
+struct Tables {
+  const float* cam;
+  const float* mats;
+  const float* gmat;
+  const float* lights;
+  const int* types;
+  const int* meta;
+  const int* charts;
+  int n_geoms;
+  int n_lights;
+};
+
+// Stages the tables in shared memory behind kWarps * n_bounces per-warp
+// live counts, which it zeroes: cam, mats, gmat, lights (NEE), types, mesh
+// meta (meshes), texture charts (textures).  The caller synchronizes.
+__device__ __forceinline__ Tables stage_tables(
+    unsigned long long* smem, int n_bounces, const float* __restrict__ cam_g,
+    const float* __restrict__ mats_g, const float* __restrict__ gmat_g,
+    const int* __restrict__ types_g, const float* __restrict__ lights_g,
+    const int* __restrict__ meta_g, const int* __restrict__ charts_g, int n_geoms,
+    int n_lights, int n_meta) {
+  float* s_cam = reinterpret_cast<float*>(smem + kWarps * n_bounces);
   float* s_mats = s_cam + kCamCols;
   float* s_gmat = s_mats + n_geoms * kMatCols;
   float* s_lights = s_gmat + n_geoms * kGeomCols;
@@ -859,13 +899,298 @@ k1_trace(const float* __restrict__ cam_g, const float* __restrict__ mats_g,
   if constexpr (kMesh) {
     for (int i = threadIdx.x; i < n_meta * kMetaCols; i += kBlock) s_meta[i] = meta_g[i];
   }
-  const Mesh mesh(tri_g, nodes_g, s_meta, n_meta);
   int* s_charts = s_meta + n_meta * kMetaCols;
   if constexpr (kTexAny) {
     for (int i = threadIdx.x; i < n_geoms * kChartCols; i += kBlock) s_charts[i] = charts_g[i];
   }
+  for (int i = threadIdx.x; i < kWarps * n_bounces; i += kBlock) smem[i] = 0ull;
+  return Tables{s_cam, s_mats, s_gmat, s_lights, s_types, s_meta, s_charts, n_geoms, n_lights};
+}
+
+// The shared memory stage_tables takes.
+inline size_t tables_smem(int n_bounces, int n_geoms, int n_lights, int n_meta) {
+  return sizeof(unsigned long long) * kWarps * n_bounces +
+         sizeof(float) * (kCamCols + n_geoms * (kMatCols + kGeomCols) + n_lights * kLightCols) +
+         sizeof(int) * (n_geoms + n_meta * kMetaCols + (kTexAny ? n_geoms * kChartCols : 0));
+}
+
+// Raygen with antialias jitter, then the thin lens: the state of pixel
+// (fx, fy) entering bounce 0 of iteration `it` (the reference's
+// `init_state`); a lane past the image (!valid) starts dead.
+__device__ __forceinline__ void init_state(PathState& p, const Camera& c, const float* s_cam,
+                                           uint32_t it, uint32_t pix_u, float fx, float fy,
+                                           float sx_scale, float sy_scale, bool valid) {
+  const float ujx = pt::uniform(it, pix_u, 0u, pt::kDrawAaX);
+  const float ujy = pt::uniform(it, pix_u, 0u, pt::kDrawAaY);
+  const float sx = (fx + ujx) * sx_scale - 1.f;
+  const float sy = (fy + ujy) * sy_scale - 1.f;
+  float dx = c.v_x - c.r_x * (c.tan_x * sx) - c.u_x * (c.tan_y * sy);
+  float dy = c.v_y - c.r_y * (c.tan_x * sx) - c.u_y * (c.tan_y * sy);
+  float dz = c.v_z - c.r_z * (c.tan_x * sx) - c.u_z * (c.tan_y * sy);
+  normalize3(dx, dy, dz);
+  float ox = c.pos_x, oy = c.pos_y, oz = c.pos_z;
+  if constexpr (kDof) {
+    // thin lens: origin on the aperture, through the focal plane
+    const float aperture = s_cam[14], focal = s_cam[15];
+    if (aperture > 0.f) {
+      const float u1 = pt::uniform(it, pix_u, 0u, pt::kDrawDofU);
+      const float u2 = pt::uniform(it, pix_u, 0u, pt::kDrawDofV);
+      const float r_lens = aperture * sqrtf(u1);
+      const float theta = u2 * kTwoPi;
+      const float lc = r_lens * cosf(theta), ls = r_lens * sinf(theta);
+      const float off_x = c.r_x * lc + c.u_x * ls;
+      const float off_y = c.r_y * lc + c.u_y * ls;
+      const float off_z = c.r_z * lc + c.u_z * ls;
+      const float cos_v = dx * c.v_x + dy * c.v_y + dz * c.v_z;
+      const float ft = focal / fmaxf(cos_v, 1e-6f);
+      const float pfx = ox + dx * ft, pfy = oy + dy * ft, pfz = oz + dz * ft;
+      ox = ox + off_x;
+      oy = oy + off_y;
+      oz = oz + off_z;
+      dx = pfx - ox;
+      dy = pfy - oy;
+      dz = pfz - oz;
+      normalize3(dx, dy, dz);
+    }
+  }
+  p.ox = ox;
+  p.oy = oy;
+  p.oz = oz;
+  p.dx = dx;
+  p.dy = dy;
+  p.dz = dz;
+  p.tr = p.tg = p.tb = 1.f;
+  p.rr = p.rg = p.rb = 0.f;
+  p.live = valid;
+  p.time = 0.f;
+  if constexpr (kMotion) p.time = pt::uniform(it, pix_u, 0u, pt::kDrawTime);
+  p.med_s = 0.f;
+  p.med_r = p.med_g = p.med_b = 1.f;
+  p.emit_ok = true;
+}
+
+// Bounce d of a path (the reference's `_make_tracer.bounce`): nearest hit,
+// surface, emission, scatter, NEE, the medium and Russian roulette, on the
+// state p.  A dead path returns at once; a path that ends is marked dead.
+// K1's depth loop and K5's span run this one body.
+template <typename M, typename X>
+__device__ __forceinline__ void bounce(PathState& p, int d, uint32_t it, uint32_t pix_u,
+                                       const Tables& s, const M mesh, const X tex) {
+  if (!p.live) return;
+  const Hit h = nearest<false>(p.ox, p.oy, p.oz, p.dx, p.dy, p.dz, p.time, s.gmat, s.types,
+                               s.n_geoms, mesh);
+  if (h.geom < 0) {  // miss: the path ends
+    p.live = false;
+    return;
+  }
+  const float* mt = s.mats + h.geom * kMatCols;
+  const float* gm = s.gmat + h.geom * kGeomCols;
+  // the winner's albedo (checker, albedo map) and shading normal (bump,
+  // BUMPTEX map)
+  Albedo albedo = mt;
+  float nx = h.nx, ny = h.ny, nz = h.nz;
+  [[maybe_unused]] bool odd = false;
+  if constexpr (kChecker) {
+    const float cs = mt[11];
+    const float ph = 0.015625f;
+    const float cells = floorf(h.qx * cs - ph) + floorf(h.qy * cs - ph) +
+                        floorf(h.qz * cs - ph);
+    if (cs > 0.f && cells - 2.f * floorf(cells * 0.5f) >= 1.f) albedo = mt + 12;
+    if constexpr (kTexAny) odd = cs > 0.f && cells - 2.f * floorf(cells * 0.5f) >= 1.f;
+  }
+  if constexpr (kBump) {
+    if (mt[16] > 0.f) bump_perturb(nx, ny, nz, h.qx, h.qy, h.qz, mt[15], mt[16], gm + 24);
+  }
+  if constexpr (kTexAny) {
+    tex_section(albedo, nx, ny, nz, h, s.types[h.geom], s.charts + h.geom * kChartCols,
+                mt[21], gm + 24, odd, tex, mesh);
+  }
+  const float emit = mt[10];
+  if (emit > 0.f) {  // emissive hit: collect and end
+    if (!kNee || p.emit_ok) {
+      p.rr = p.rr + p.tr * albedo[0] * emit;
+      p.rg = p.rg + p.tg * albedo[1] * emit;
+      p.rb = p.rb + p.tb * albedo[2] * emit;
+    }
+    p.live = false;
+    return;
+  }
+  const uint32_t dep = static_cast<uint32_t>(d) + 1u;
+  const float dx = p.dx, dy = p.dy, dz = p.dz;
+  float ndx, ndy, ndz, thr_r, thr_g, thr_b;
+  bool took_diffuse = false, took_refract = false;
+  if (kGlass && mt[8] > 0.f) {
+    // Fresnel glass: Schlick's choice between the mirror and the Snell
+    // refraction (the mirror under total internal reflection); no
+    // division by the choice's probability
+    const float ndoti = nx * dx + ny * dy + nz * dz;
+    const float cos_i = fminf(fmaxf(-ndoti, 0.f), 1.f);
+    const float ior = mt[9];
+    const float r0b = (1.f - ior) / (1.f + ior);
+    const float r0 = r0b * r0b;
+    const float mm = fmaxf(1.f - cos_i, 0.f);
+    const float refl_p = r0 + (1.f - r0) * mm * mm * mm * mm * mm;
+    const float eta = h.outside ? 1.f / fmaxf(ior, 1e-6f) : ior;
+    const float kk = 1.f - eta * eta * (1.f - ndoti * ndoti);
+    const float u_fr = pt::uniform(it, pix_u, dep, pt::kDrawFresnel);
+    if (u_fr < refl_p || !(kk >= 0.f)) {
+      ndx = dx - 2.f * ndoti * nx;
+      ndy = dy - 2.f * ndoti * ny;
+      ndz = dz - 2.f * ndoti * nz;
+      thr_r = mt[3];
+      thr_g = mt[4];
+      thr_b = mt[5];
+    } else {
+      const float sqk = sqrtf(kk);
+      ndx = eta * dx - (eta * ndoti + sqk) * nx;
+      ndy = eta * dy - (eta * ndoti + sqk) * ny;
+      ndz = eta * dz - (eta * ndoti + sqk) * nz;
+      thr_r = albedo[0];
+      thr_g = albedo[1];
+      thr_b = albedo[2];
+      took_refract = true;
+    }
+  } else {
+    const float u_lobe = pt::uniform(it, pix_u, dep, pt::kDrawLobe);
+    const float p_spec = fminf(fmaxf(mt[7], 0.f), 1.f);
+    const bool take_spec = u_lobe < p_spec;
+    const float p_safe = fmaxf(take_spec ? p_spec : 1.f - p_spec, 1e-8f);
+    if (take_spec) {  // mirror, or the power-cosine lobe about it
+      const float ndoti = nx * dx + ny * dy + nz * dz;
+      ndx = dx - 2.f * ndoti * nx;
+      ndy = dy - 2.f * ndoti * ny;
+      ndz = dz - 2.f * ndoti * nz;
+      if constexpr (kImperfect) {
+        if (mt[6] > 0.f)
+          imperfect_specular(mt[6], ndx, ndy, ndz,
+                             pt::uniform(it, pix_u, dep, pt::kDrawSpecU1),
+                             pt::uniform(it, pix_u, dep, pt::kDrawSpecU2));
+      }
+    } else {  // cosine hemisphere with the Peter-Kutz frame
+      const float u_d1 = pt::uniform(it, pix_u, dep, pt::kDrawDiffU1);
+      const float u_d2 = pt::uniform(it, pix_u, dep, pt::kDrawDiffU2);
+      const float up = sqrtf(u_d1);
+      const float over = sqrtf(fmaxf(1.f - up * up, 0.f));
+      const float around = u_d2 * kTwoPi;
+      const bool use_x = fabsf(nx) < kSqrtThird;
+      const bool use_y = !use_x && fabsf(ny) < kSqrtThird;
+      const float nn_x = use_x ? 1.f : 0.f;
+      const float nn_y = use_y ? 1.f : 0.f;
+      const float nn_z = (use_x || use_y) ? 0.f : 1.f;
+      float p1x = ny * nn_z - nz * nn_y;
+      float p1y = nz * nn_x - nx * nn_z;
+      float p1z = nx * nn_y - ny * nn_x;
+      normalize3(p1x, p1y, p1z);
+      float p2x = ny * p1z - nz * p1y;
+      float p2y = nz * p1x - nx * p1z;
+      float p2z = nx * p1y - ny * p1x;
+      normalize3(p2x, p2y, p2z);
+      const float ca = cosf(around);
+      const float sa = sinf(around);
+      ndx = up * nx + ca * over * p1x + sa * over * p2x;
+      ndy = up * ny + ca * over * p1y + sa * over * p2y;
+      ndz = up * nz + ca * over * p1z + sa * over * p2z;
+    }
+    lobe_tint(mt + 3, albedo, take_spec, p_safe, thr_r, thr_g, thr_b);
+    took_diffuse = !take_spec;
+  }
+  float opx = h.px, opy = h.py, opz = h.pz;
+  if (took_refract) {  // past the interface, so as not to hit it again
+    opx = opx + gm[36] * ndx;
+    opy = opy + gm[36] * ndy;
+    opz = opz + gm[36] * ndz;
+  }
+  // SSS: inside a medium the path samples an exponential free path;
+  // ending before the surface, it scatters there
+  bool in_med = false, scatter_inside = false;
+  float sss_step = 0.f;
+  if constexpr (kSss) {
+    in_med = p.med_s > 0.f;
+    const float u_step = pt::uniform(it, pix_u, dep, pt::kDrawSssStep);
+    sss_step = -logf(fmaxf(1.f - u_step, 1e-7f)) / fmaxf(p.med_s, 1e-8f);
+    scatter_inside = in_med && sss_step < h.dist;
+  }
+  if constexpr (kNee) {
+    // at every surface hit that is not refractive, whichever lobe was
+    // taken (the reference's rule)
+    if (!scatter_inside && !(mt[8] > 0.f))
+      nee_add(p.rr, p.rg, p.rb, p.tr, p.tg, p.tb, h, nx, ny, nz, albedo, p.time, it, pix_u,
+              dep, s.lights, s.n_lights, s.gmat, s.types, s.n_geoms, mesh);
+  }
+  if constexpr (kSss) {
+    if (scatter_inside) {
+      // isotropic, attenuated by the medium's albedo
+      const float zi = 1.f - 2.f * pt::uniform(it, pix_u, dep, pt::kDrawSssU);
+      const float ri = sqrtf(fmaxf(1.f - zi * zi, 0.f));
+      const float phi = pt::uniform(it, pix_u, dep, pt::kDrawSssV) * kTwoPi;
+      opx = p.ox + sss_step * dx;
+      opy = p.oy + sss_step * dy;
+      opz = p.oz + sss_step * dz;
+      ndx = ri * cosf(phi);
+      ndy = ri * sinf(phi);
+      ndz = zi;
+      thr_r = p.med_r;
+      thr_g = p.med_g;
+      thr_b = p.med_b;
+    } else if (took_refract) {
+      // the medium changes only at refractions: entering a geom with
+      // sigma > 0 from outside, or leaving from inside
+      if (mt[17] > 0.f && h.outside) {
+        p.med_s = mt[17];
+        p.med_r = mt[18];
+        p.med_g = mt[19];
+        p.med_b = mt[20];
+      } else if (in_med && !h.outside) {
+        p.med_s = 0.f;
+        p.med_r = p.med_g = p.med_b = 1.f;
+      }
+    }
+  }
+  if constexpr (kRr) {
+    // Russian roulette from bounce 3 on, after NEE: survive with the
+    // post-bounce throughput's largest channel, boosted by 1/p
+    if (d >= 3) {
+      const float p_srv =
+          fminf(fmaxf(fmaxf(p.tr * thr_r, fmaxf(p.tg * thr_g, p.tb * thr_b)), 0.05f), 1.f);
+      if (!(pt::uniform(it, pix_u, dep, pt::kDrawRr) < p_srv)) {
+        p.live = false;
+        return;
+      }
+      const float boost = 1.f / p_srv;
+      thr_r = thr_r * boost;
+      thr_g = thr_g * boost;
+      thr_b = thr_b * boost;
+    }
+  }
+  p.tr = p.tr * thr_r;
+  p.tg = p.tg * thr_g;
+  p.tb = p.tb * thr_b;
+  p.ox = opx;
+  p.oy = opy;
+  p.oz = opz;
+  p.dx = ndx;
+  p.dy = ndy;
+  p.dz = ndz;
+  if constexpr (kNee) p.emit_ok = !took_diffuse || scatter_inside;
+}
+
+__global__ void __launch_bounds__(kBlock)
+k1_trace(const float* __restrict__ cam_g, const float* __restrict__ mats_g,
+         const float* __restrict__ gmat_g, const int* __restrict__ types_g,
+         const float* __restrict__ lights_g, const float4* __restrict__ tri_g,
+         const float4* __restrict__ nodes_g, const int* __restrict__ meta_g,
+         const uint32_t* __restrict__ texels_g, const int* __restrict__ charts_g,
+         int n_geoms, int n_lights, int n_meta, int width, int height,
+         int depth, uint32_t it0, int n_spp, long long pix0,
+         long long n_local, float* __restrict__ rad,
+         unsigned long long* __restrict__ counts) {
+  // shared: per-warp live counts [kWarps][depth], then the tables
+  extern __shared__ unsigned long long smem[];
+  unsigned long long* s_counts = smem;
+  const Tables s = stage_tables(smem, depth, cam_g, mats_g, gmat_g, types_g, lights_g, meta_g,
+                                charts_g, n_geoms, n_lights, n_meta);
+  const Mesh mesh(tri_g, nodes_g, s.meta, n_meta);
   const Tex tex(texels_g);
-  for (int i = threadIdx.x; i < kWarps * depth; i += kBlock) s_counts[i] = 0ull;
   __syncthreads();
 
   const int warp = threadIdx.x >> 5;
@@ -879,263 +1204,21 @@ k1_trace(const float* __restrict__ cam_g, const float* __restrict__ mats_g,
   const float fy = static_cast<float>(pixel / width);
   const float sx_scale = static_cast<float>(2.0 / width);
   const float sy_scale = static_cast<float>(2.0 / height);
-  const float pos_x = s_cam[0], pos_y = s_cam[1], pos_z = s_cam[2];
-  const float v_x = s_cam[3], v_y = s_cam[4], v_z = s_cam[5];
-  const float r_x = s_cam[6], r_y = s_cam[7], r_z = s_cam[8];
-  const float u_x = s_cam[9], u_y = s_cam[10], u_z = s_cam[11];
-  const float tan_x = s_cam[12], tan_y = s_cam[13];
+  const Camera cam = load_camera(s.cam);
 
   float acc_r = 0.f, acc_g = 0.f, acc_b = 0.f;
-  for (int s = 0; s < n_spp; ++s) {
-    const uint32_t it = it0 + static_cast<uint32_t>(s);
-    // raygen with antialias jitter
-    const float ujx = pt::uniform(it, pix_u, 0u, pt::kDrawAaX);
-    const float ujy = pt::uniform(it, pix_u, 0u, pt::kDrawAaY);
-    const float sx = (fx + ujx) * sx_scale - 1.f;
-    const float sy = (fy + ujy) * sy_scale - 1.f;
-    float dx = v_x - r_x * (tan_x * sx) - u_x * (tan_y * sy);
-    float dy = v_y - r_y * (tan_x * sx) - u_y * (tan_y * sy);
-    float dz = v_z - r_z * (tan_x * sx) - u_z * (tan_y * sy);
-    normalize3(dx, dy, dz);
-    float ox = pos_x, oy = pos_y, oz = pos_z;
-    if constexpr (kDof) {
-      // thin lens: origin on the aperture, through the focal plane
-      const float aperture = s_cam[14], focal = s_cam[15];
-      if (aperture > 0.f) {
-        const float u1 = pt::uniform(it, pix_u, 0u, pt::kDrawDofU);
-        const float u2 = pt::uniform(it, pix_u, 0u, pt::kDrawDofV);
-        const float r_lens = aperture * sqrtf(u1);
-        const float theta = u2 * kTwoPi;
-        const float lc = r_lens * cosf(theta), ls = r_lens * sinf(theta);
-        const float off_x = r_x * lc + u_x * ls;
-        const float off_y = r_y * lc + u_y * ls;
-        const float off_z = r_z * lc + u_z * ls;
-        const float cos_v = dx * v_x + dy * v_y + dz * v_z;
-        const float ft = focal / fmaxf(cos_v, 1e-6f);
-        const float pfx = ox + dx * ft, pfy = oy + dy * ft, pfz = oz + dz * ft;
-        ox = ox + off_x;
-        oy = oy + off_y;
-        oz = oz + off_z;
-        dx = pfx - ox;
-        dy = pfy - oy;
-        dz = pfz - oz;
-        normalize3(dx, dy, dz);
-      }
-    }
-    float tr = 1.f, tg = 1.f, tb = 1.f;
-    float rr = 0.f, rg = 0.f, rb = 0.f;
-    bool live = valid;
-    float time = 0.f;  // shutter time (motion blur)
-    if constexpr (kMotion) time = pt::uniform(it, pix_u, 0u, pt::kDrawTime);
-    // SSS: the medium the path is in (sigma 0: none) and its albedo
-    float med_s = 0.f, med_r = 1.f, med_g = 1.f, med_b = 1.f;
-    // NEE: emission found by the BSDF counts only after a non-diffuse
-    // bounce (or from the camera), so direct light is not counted twice
-    bool emit_ok = true;
-
+  for (int sample = 0; sample < n_spp; ++sample) {
+    const uint32_t it = it0 + static_cast<uint32_t>(sample);
+    PathState p;
+    init_state(p, cam, s.cam, it, pix_u, fx, fy, sx_scale, sy_scale, valid);
     for (int d = 0; d < depth; ++d) {
-      const unsigned ballot = __ballot_sync(0xffffffffu, live);
+      const unsigned ballot = __ballot_sync(0xffffffffu, p.live);
       if (lane == 0) s_counts[warp * depth + d] += __popc(ballot);
-      if (!live) continue;
-      const Hit h = nearest<false>(ox, oy, oz, dx, dy, dz, time, s_gmat,
-                                   s_types, n_geoms, mesh);
-      if (h.geom < 0) {  // miss: the path ends
-        live = false;
-        continue;
-      }
-      const float* mt = s_mats + h.geom * kMatCols;
-      const float* gm = s_gmat + h.geom * kGeomCols;
-      // the winner's albedo (checker, albedo map) and shading normal (bump,
-      // BUMPTEX map)
-      Albedo albedo = mt;
-      float nx = h.nx, ny = h.ny, nz = h.nz;
-      [[maybe_unused]] bool odd = false;
-      if constexpr (kChecker) {
-        const float cs = mt[11];
-        const float ph = 0.015625f;
-        const float cells = floorf(h.qx * cs - ph) + floorf(h.qy * cs - ph) +
-                            floorf(h.qz * cs - ph);
-        if (cs > 0.f && cells - 2.f * floorf(cells * 0.5f) >= 1.f) albedo = mt + 12;
-        if constexpr (kTexAny) odd = cs > 0.f && cells - 2.f * floorf(cells * 0.5f) >= 1.f;
-      }
-      if constexpr (kBump) {
-        if (mt[16] > 0.f) bump_perturb(nx, ny, nz, h.qx, h.qy, h.qz, mt[15], mt[16], gm + 24);
-      }
-      if constexpr (kTexAny) {
-        tex_section(albedo, nx, ny, nz, h, s_types[h.geom], s_charts + h.geom * kChartCols,
-                    mt[21], gm + 24, odd, tex, mesh);
-      }
-      const float emit = mt[10];
-      if (emit > 0.f) {  // emissive hit: collect and end
-        if (!kNee || emit_ok) {
-          rr = rr + tr * albedo[0] * emit;
-          rg = rg + tg * albedo[1] * emit;
-          rb = rb + tb * albedo[2] * emit;
-        }
-        live = false;
-        continue;
-      }
-      const uint32_t dep = static_cast<uint32_t>(d) + 1u;
-      float ndx, ndy, ndz, thr_r, thr_g, thr_b;
-      bool took_diffuse = false, took_refract = false;
-      if (kGlass && mt[8] > 0.f) {
-        // Fresnel glass: Schlick's choice between the mirror and the Snell
-        // refraction (the mirror under total internal reflection); no
-        // division by the choice's probability
-        const float ndoti = nx * dx + ny * dy + nz * dz;
-        const float cos_i = fminf(fmaxf(-ndoti, 0.f), 1.f);
-        const float ior = mt[9];
-        const float r0b = (1.f - ior) / (1.f + ior);
-        const float r0 = r0b * r0b;
-        const float mm = fmaxf(1.f - cos_i, 0.f);
-        const float refl_p = r0 + (1.f - r0) * mm * mm * mm * mm * mm;
-        const float eta = h.outside ? 1.f / fmaxf(ior, 1e-6f) : ior;
-        const float kk = 1.f - eta * eta * (1.f - ndoti * ndoti);
-        const float u_fr = pt::uniform(it, pix_u, dep, pt::kDrawFresnel);
-        if (u_fr < refl_p || !(kk >= 0.f)) {
-          ndx = dx - 2.f * ndoti * nx;
-          ndy = dy - 2.f * ndoti * ny;
-          ndz = dz - 2.f * ndoti * nz;
-          thr_r = mt[3];
-          thr_g = mt[4];
-          thr_b = mt[5];
-        } else {
-          const float sqk = sqrtf(kk);
-          ndx = eta * dx - (eta * ndoti + sqk) * nx;
-          ndy = eta * dy - (eta * ndoti + sqk) * ny;
-          ndz = eta * dz - (eta * ndoti + sqk) * nz;
-          thr_r = albedo[0];
-          thr_g = albedo[1];
-          thr_b = albedo[2];
-          took_refract = true;
-        }
-      } else {
-        const float u_lobe = pt::uniform(it, pix_u, dep, pt::kDrawLobe);
-        const float p_spec = fminf(fmaxf(mt[7], 0.f), 1.f);
-        const bool take_spec = u_lobe < p_spec;
-        const float p_safe = fmaxf(take_spec ? p_spec : 1.f - p_spec, 1e-8f);
-        if (take_spec) {  // mirror, or the power-cosine lobe about it
-          const float ndoti = nx * dx + ny * dy + nz * dz;
-          ndx = dx - 2.f * ndoti * nx;
-          ndy = dy - 2.f * ndoti * ny;
-          ndz = dz - 2.f * ndoti * nz;
-          if constexpr (kImperfect) {
-            if (mt[6] > 0.f)
-              imperfect_specular(mt[6], ndx, ndy, ndz,
-                                 pt::uniform(it, pix_u, dep, pt::kDrawSpecU1),
-                                 pt::uniform(it, pix_u, dep, pt::kDrawSpecU2));
-          }
-        } else {  // cosine hemisphere with the Peter-Kutz frame
-          const float u_d1 = pt::uniform(it, pix_u, dep, pt::kDrawDiffU1);
-          const float u_d2 = pt::uniform(it, pix_u, dep, pt::kDrawDiffU2);
-          const float up = sqrtf(u_d1);
-          const float over = sqrtf(fmaxf(1.f - up * up, 0.f));
-          const float around = u_d2 * kTwoPi;
-          const bool use_x = fabsf(nx) < kSqrtThird;
-          const bool use_y = !use_x && fabsf(ny) < kSqrtThird;
-          const float nn_x = use_x ? 1.f : 0.f;
-          const float nn_y = use_y ? 1.f : 0.f;
-          const float nn_z = (use_x || use_y) ? 0.f : 1.f;
-          float p1x = ny * nn_z - nz * nn_y;
-          float p1y = nz * nn_x - nx * nn_z;
-          float p1z = nx * nn_y - ny * nn_x;
-          normalize3(p1x, p1y, p1z);
-          float p2x = ny * p1z - nz * p1y;
-          float p2y = nz * p1x - nx * p1z;
-          float p2z = nx * p1y - ny * p1x;
-          normalize3(p2x, p2y, p2z);
-          const float ca = cosf(around);
-          const float sa = sinf(around);
-          ndx = up * nx + ca * over * p1x + sa * over * p2x;
-          ndy = up * ny + ca * over * p1y + sa * over * p2y;
-          ndz = up * nz + ca * over * p1z + sa * over * p2z;
-        }
-        lobe_tint(mt + 3, albedo, take_spec, p_safe, thr_r, thr_g, thr_b);
-        took_diffuse = !take_spec;
-      }
-      float opx = h.px, opy = h.py, opz = h.pz;
-      if (took_refract) {  // past the interface, so as not to hit it again
-        opx = opx + gm[36] * ndx;
-        opy = opy + gm[36] * ndy;
-        opz = opz + gm[36] * ndz;
-      }
-      // SSS: inside a medium the path samples an exponential free path;
-      // ending before the surface, it scatters there
-      bool in_med = false, scatter_inside = false;
-      float sss_step = 0.f;
-      if constexpr (kSss) {
-        in_med = med_s > 0.f;
-        const float u_step = pt::uniform(it, pix_u, dep, pt::kDrawSssStep);
-        sss_step = -logf(fmaxf(1.f - u_step, 1e-7f)) / fmaxf(med_s, 1e-8f);
-        scatter_inside = in_med && sss_step < h.dist;
-      }
-      if constexpr (kNee) {
-        // at every surface hit that is not refractive, whichever lobe was
-        // taken (the reference's rule)
-        if (!scatter_inside && !(mt[8] > 0.f))
-          nee_add(rr, rg, rb, tr, tg, tb, h, nx, ny, nz, albedo, time, it,
-                  pix_u, dep, s_lights, n_lights, s_gmat, s_types, n_geoms,
-                  mesh);
-      }
-      if constexpr (kSss) {
-        if (scatter_inside) {
-          // isotropic, attenuated by the medium's albedo
-          const float zi = 1.f - 2.f * pt::uniform(it, pix_u, dep, pt::kDrawSssU);
-          const float ri = sqrtf(fmaxf(1.f - zi * zi, 0.f));
-          const float phi = pt::uniform(it, pix_u, dep, pt::kDrawSssV) * kTwoPi;
-          opx = ox + sss_step * dx;
-          opy = oy + sss_step * dy;
-          opz = oz + sss_step * dz;
-          ndx = ri * cosf(phi);
-          ndy = ri * sinf(phi);
-          ndz = zi;
-          thr_r = med_r;
-          thr_g = med_g;
-          thr_b = med_b;
-        } else if (took_refract) {
-          // the medium changes only at refractions: entering a geom with
-          // sigma > 0 from outside, or leaving from inside
-          if (mt[17] > 0.f && h.outside) {
-            med_s = mt[17];
-            med_r = mt[18];
-            med_g = mt[19];
-            med_b = mt[20];
-          } else if (in_med && !h.outside) {
-            med_s = 0.f;
-            med_r = med_g = med_b = 1.f;
-          }
-        }
-      }
-      if constexpr (kRr) {
-        // Russian roulette from bounce 3 on, after NEE: survive with the
-        // post-bounce throughput's largest channel, boosted by 1/p
-        if (d >= 3) {
-          const float p_srv =
-              fminf(fmaxf(fmaxf(tr * thr_r, fmaxf(tg * thr_g, tb * thr_b)), 0.05f), 1.f);
-          if (!(pt::uniform(it, pix_u, dep, pt::kDrawRr) < p_srv)) {
-            live = false;
-            continue;
-          }
-          const float boost = 1.f / p_srv;
-          thr_r = thr_r * boost;
-          thr_g = thr_g * boost;
-          thr_b = thr_b * boost;
-        }
-      }
-      tr = tr * thr_r;
-      tg = tg * thr_g;
-      tb = tb * thr_b;
-      ox = opx;
-      oy = opy;
-      oz = opz;
-      dx = ndx;
-      dy = ndy;
-      dz = ndz;
-      if constexpr (kNee) emit_ok = !took_diffuse || scatter_inside;
+      bounce(p, d, it, pix_u, s, mesh, tex);
     }
-    acc_r = acc_r + rr;
-    acc_g = acc_g + rg;
-    acc_b = acc_b + rb;
+    acc_r = acc_r + p.rr;
+    acc_g = acc_g + p.rg;
+    acc_b = acc_b + p.rb;
   }
   if (idx < n_local) {
     rad[3 * idx + 0] = acc_r;
@@ -1146,6 +1229,153 @@ k1_trace(const float* __restrict__ cam_g, const float* __restrict__ mats_g,
     for (int d = 0; d < depth; ++d) {
       const unsigned long long c = s_counts[warp * depth + d];
       if (c) atomicAdd(&counts[d], c);
+    }
+  }
+}
+
+// K5's state planes: the rows of a (keys, n_rays) float32 array, in the
+// order of ops/cuda/megakernel.py state_keys (the reference's `_state_keys`):
+// ox oy oz dx dy dz tr tg tb rr rg rb live, then emit_ok (NEE), time
+// (motion), med_s med_r med_g med_b (SSS).  live and emit_ok hold 1 or 0.
+// The sorted engine appends the pixel id plane (int32 bits), at pix_key.
+constexpr int kKeyRad = 9;
+constexpr int kKeyLive = 12;
+constexpr int kKeyEmitOk = kKeyLive + 1;
+constexpr int kKeyTime = kKeyEmitOk + (kNee ? 1 : 0);
+constexpr int kKeyMed = kKeyTime + (kMotion ? 1 : 0);
+constexpr int kStateKeys = kKeyMed + (kSss ? 4 : 0);
+
+__device__ __forceinline__ void load_state(PathState& p, const float* st, long long n,
+                                           long long i) {
+  p.ox = st[i];
+  p.oy = st[n + i];
+  p.oz = st[2 * n + i];
+  p.dx = st[3 * n + i];
+  p.dy = st[4 * n + i];
+  p.dz = st[5 * n + i];
+  p.tr = st[6 * n + i];
+  p.tg = st[7 * n + i];
+  p.tb = st[8 * n + i];
+  p.rr = st[kKeyRad * n + i];
+  p.rg = st[(kKeyRad + 1) * n + i];
+  p.rb = st[(kKeyRad + 2) * n + i];
+  p.live = st[kKeyLive * n + i] != 0.f;
+  p.emit_ok = true;
+  if constexpr (kNee) p.emit_ok = st[kKeyEmitOk * n + i] != 0.f;
+  p.time = 0.f;
+  if constexpr (kMotion) p.time = st[kKeyTime * n + i];
+  p.med_s = 0.f;
+  p.med_r = p.med_g = p.med_b = 1.f;
+  if constexpr (kSss) {
+    p.med_s = st[kKeyMed * n + i];
+    p.med_r = st[(kKeyMed + 1) * n + i];
+    p.med_g = st[(kKeyMed + 2) * n + i];
+    p.med_b = st[(kKeyMed + 3) * n + i];
+  }
+}
+
+__device__ __forceinline__ void store_state(const PathState& p, float* st, long long n,
+                                            long long i) {
+  st[i] = p.ox;
+  st[n + i] = p.oy;
+  st[2 * n + i] = p.oz;
+  st[3 * n + i] = p.dx;
+  st[4 * n + i] = p.dy;
+  st[5 * n + i] = p.dz;
+  st[6 * n + i] = p.tr;
+  st[7 * n + i] = p.tg;
+  st[8 * n + i] = p.tb;
+  st[kKeyRad * n + i] = p.rr;
+  st[(kKeyRad + 1) * n + i] = p.rg;
+  st[(kKeyRad + 2) * n + i] = p.rb;
+  st[kKeyLive * n + i] = p.live ? 1.f : 0.f;
+  if constexpr (kNee) st[kKeyEmitOk * n + i] = p.emit_ok ? 1.f : 0.f;
+  if constexpr (kMotion) st[kKeyTime * n + i] = p.time;
+  if constexpr (kSss) {
+    st[kKeyMed * n + i] = p.med_s;
+    st[(kKeyMed + 1) * n + i] = p.med_r;
+    st[(kKeyMed + 2) * n + i] = p.med_g;
+    st[(kKeyMed + 3) * n + i] = p.med_b;
+  }
+}
+
+// K5 — the span kernel (replaces the Pallas `_span_kernel` of
+// pathtrace_tpu/ops/pallas/megakernel.py, reached from the pallas_call in
+// `_run_span`): bounces [d0, d1) of iteration `it` for the rays of one tile
+// per block (kBlock slots of the state planes), through the same
+// init_state and bounce as K1, so a trace cut into spans is bit-equal to
+// K1's.  d0 = 0 runs raygen; a later span loads the state its ray left.
+// Each ray's pixel is its slot, or (pix_key >= 0, the sorted engine) the
+// pixel id carried in plane pix_key, written by the first span.  With a
+// table (the split engine's resumed span), block b takes tile tbl[b] while
+// b < *n_live (a count left on the card by the scan), and exits otherwise:
+// the grid covers every tile, so no count comes back to the host.  Live
+// counts at the absolute bounce, as K1's.  State in, state out, in place.
+//
+// What bounds it: as K1, the bounce's ALU work and divergence; each span
+// boundary adds one read and one write of 4 bytes per plane and ray, at
+// most 88 bytes a ray, coalesced (a warp's 32 rays are 32 neighbouring
+// floats of each plane).
+__global__ void __launch_bounds__(kBlock)
+k5_span(const float* __restrict__ cam_g, const float* __restrict__ mats_g,
+        const float* __restrict__ gmat_g, const int* __restrict__ types_g,
+        const float* __restrict__ lights_g, const float4* __restrict__ tri_g,
+        const float4* __restrict__ nodes_g, const int* __restrict__ meta_g,
+        const uint32_t* __restrict__ texels_g, const int* __restrict__ charts_g, int n_geoms,
+        int n_lights, int n_meta, int width, int height, float* __restrict__ state,
+        long long n_rays, int pix_key, const int* __restrict__ tbl,
+        const int* __restrict__ n_live, long long n_tiles, int d0, int d1, uint32_t it,
+        unsigned long long* __restrict__ counts) {
+  long long tile = blockIdx.x;
+  if (tbl != nullptr) {
+    if (static_cast<long long>(blockIdx.x) >= static_cast<long long>(__ldg(n_live))) return;
+    tile = __ldg(tbl + blockIdx.x);
+    if (tile < 0 || tile >= n_tiles) return;  // not a tile: nothing to trace
+  }
+  const int span = d1 - d0;
+  extern __shared__ unsigned long long smem[];
+  unsigned long long* s_counts = smem;
+  const Tables s = stage_tables(smem, span, cam_g, mats_g, gmat_g, types_g, lights_g, meta_g,
+                                charts_g, n_geoms, n_lights, n_meta);
+  const Mesh mesh(tri_g, nodes_g, s.meta, n_meta);
+  const Tex tex(texels_g);
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const long long slot = tile * kBlock + threadIdx.x;
+  // slots past the end still run the loop: every lane joins the ballots
+  const bool valid = slot < n_rays;
+  int* pix_plane = pix_key >= 0 ? reinterpret_cast<int*>(state + pix_key * n_rays) : nullptr;
+  long long pixel = slot;
+  if (d0 > 0 && pix_plane != nullptr && valid) pixel = pix_plane[slot];
+  const uint32_t pix_u = static_cast<uint32_t>(pixel);
+  PathState p;
+  if (d0 == 0) {
+    const float fx = static_cast<float>(pixel % width);
+    const float fy = static_cast<float>(pixel / width);
+    const float sx_scale = static_cast<float>(2.0 / width);
+    const float sy_scale = static_cast<float>(2.0 / height);
+    init_state(p, load_camera(s.cam), s.cam, it, pix_u, fx, fy, sx_scale, sy_scale, valid);
+  } else if (valid) {
+    load_state(p, state, n_rays, slot);
+  } else {
+    p = PathState{0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 1.f, 1.f, 1.f, 0.f, 0.f,
+                  0.f, false, 0.f, 0.f, 1.f, 1.f, 1.f, true};
+  }
+  for (int d = d0; d < d1; ++d) {
+    const unsigned ballot = __ballot_sync(0xffffffffu, p.live);
+    if (lane == 0) s_counts[warp * span + (d - d0)] += __popc(ballot);
+    bounce(p, d, it, pix_u, s, mesh, tex);
+  }
+  if (valid) {
+    store_state(p, state, n_rays, slot);
+    if (d0 == 0 && pix_plane != nullptr) pix_plane[slot] = static_cast<int>(slot);
+  }
+  if (lane == 0) {
+    for (int j = 0; j < span; ++j) {
+      const unsigned long long c = s_counts[warp * span + j];
+      if (c) atomicAdd(&counts[d0 + j], c);
     }
   }
 }
@@ -1178,11 +1408,7 @@ extern "C" int pt_k1_trace(const float* cam, const float* mats,
   if (kNee != (n_lights > 0) || n_lights < 0 || n_meta < 0 || (!kMesh && n_meta > 0) ||
       kTexAny != (n_texels > 0) || n_texels < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = sizeof(unsigned long long) * kWarps * depth +
-                      sizeof(float) * (kCamCols + n_geoms * (kMatCols + kGeomCols) +
-                                       n_lights * kLightCols) +
-                      sizeof(int) * (n_geoms + n_meta * kMetaCols +
-                                     (kTexAny ? n_geoms * kChartCols : 0));
+  const size_t smem = tables_smem(depth, n_geoms, n_lights, n_meta);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         k1_trace, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
@@ -1196,6 +1422,48 @@ extern "C" int pt_k1_trace(const float* cam, const float* mats,
       reinterpret_cast<const float4*>(nodes), meta, texels, charts, n_geoms, n_lights, n_meta,
       width,
       height, depth, it0, n_spp, pix0, n_local, rad, counts);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The number of state planes K5 of this build carries (state_keys).
+extern "C" int pt_k5_state_keys() { return kStateKeys; }
+
+// Launches K5 on `stream`: bounces [d0, d1) of iteration `it` on the state
+// planes `state` ((n_keys, n_rays) float32; n_keys is kStateKeys, plus the
+// pixel id plane at pix_key = kStateKeys for the sorted engine, else
+// pix_key = -1), in place.  The tables as pt_k1_trace's; n_rays is the
+// image's width * height.  Without `tbl`, one block per kBlock slots; with
+// it (n_tiles int32 tile ids, and `n_live`, one int32 on the card), n_tiles
+// blocks, block b tracing tile tbl[b] while b < *n_live.  depth bounds d1;
+// counts (depth,) is added into at the absolute bounce.  Returns the
+// cudaError_t of the launch (0 = success).
+extern "C" int pt_k5_span(const float* cam, const float* mats, const float* gmat,
+                          const int* geom_types, const float* lights, const float* tri,
+                          const float* nodes, const int* meta, const unsigned int* texels,
+                          const int* charts, int n_geoms, int n_lights, int n_meta,
+                          long long n_texels, int width, int height, float* state, int n_keys,
+                          int pix_key, long long n_rays, const int* tbl, const int* n_live,
+                          long long n_tiles, int d0, int d1, int depth, unsigned int it,
+                          unsigned long long* counts, void* stream) {
+  if (kNee != (n_lights > 0) || n_lights < 0 || n_meta < 0 || (!kMesh && n_meta > 0) ||
+      kTexAny != (n_texels > 0) || n_texels < 0 ||
+      n_keys != kStateKeys + (pix_key >= 0 ? 1 : 0) || (pix_key >= 0 && pix_key != kStateKeys) ||
+      n_rays != static_cast<long long>(width) * height || n_rays <= 0 ||
+      !(0 <= d0 && d0 < d1 && d1 <= depth) || (tbl != nullptr) != (n_live != nullptr) ||
+      (tbl != nullptr && (pix_key >= 0 || n_tiles != (n_rays + kBlock - 1) / kBlock)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = tables_smem(d1 - d0, n_geoms, n_lights, n_meta);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        k5_span, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  const long long blocks = (n_rays + kBlock - 1) / kBlock;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  k5_span<<<static_cast<unsigned>(blocks), kBlock, smem, static_cast<cudaStream_t>(stream)>>>(
+      cam, mats, gmat, geom_types, lights, reinterpret_cast<const float4*>(tri),
+      reinterpret_cast<const float4*>(nodes), meta, texels, charts, n_geoms, n_lights, n_meta,
+      width, height, state, n_rays, pix_key, tbl, n_live, blocks, d0, d1, it, counts);
   return static_cast<int>(cudaGetLastError());
 }
 

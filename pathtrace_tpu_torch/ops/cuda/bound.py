@@ -22,6 +22,10 @@ are the H100 SXM data sheet's: 67 TFLOP/s outside the tensor cores, and
   of it.
 
 Outside :func:`count_work` the marks do nothing.
+
+K5's bound is K1's for the same scene plus the state the spans must
+move (:func:`span_state_bytes`); K6's is its bytes (:func:`scan_bytes`),
+and one add per value.
 """
 
 from __future__ import annotations
@@ -79,6 +83,46 @@ def bound(ops, n_bytes):
     times, and the term that gives it."""
     t_ops, t_bytes = ops / PEAK_FLOPS * 1e3, n_bytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def span_state_bytes(n_keys, counts, spans, pix=False):
+    """The state bytes K5's spans of one sample must move besides K1's
+    work, 4 per plane value.  ``counts`` are the sample's live counts
+    entering each bounce; ``spans`` its spans as (d0, d1, rays run).  The
+    ``counts[d0]`` paths live entering a later span read every plane
+    (``n_keys`` of them), and the other rays it runs read ``live`` alone.
+    A span that is not the last writes every plane of the ``counts[d1]``
+    paths live at its end, and the radiance and ``live`` (4 planes) of
+    those that ended in it; the last writes only the radiance of the paths
+    that entered it.  With ``pix`` (the sorted engine) the last plane is
+    the pixel id, written once, at raygen.  The engines' own torch ops
+    (the sorted engine's gather, the split engine's sums) are not K5's
+    work."""
+    depth = len(counts)
+    n = 0
+    for d0, d1, n_run in spans:
+        live_in = counts[d0]
+        if d0 > 0:
+            n += n_keys * live_in + (n_run - live_in)
+        elif pix:
+            n += n_run
+        if d1 == depth:
+            n += 3 * live_in
+        else:
+            n += (n_keys - pix) * counts[d1] + 4 * (live_in - counts[d1])
+    return 4 * n
+
+
+def scan_bytes(n, tile=2048):
+    """The bytes K6 must move for an exclusive scan of ``n`` int32
+    values in tiles of ``tile``: each value read and written once, at
+    each level of tile totals the totals written and read and the offsets
+    written and read, and the last level's one total written."""
+    n_bytes, t = 8 * n, -(-n // tile)
+    while t > 1:
+        n_bytes += 16 * t
+        t = -(-t // tile)
+    return n_bytes + 4
 
 
 def count_work(fn):

@@ -4,11 +4,12 @@ The sources under ``pathtrace_tpu_torch/csrc`` have a plain C interface
 and include no PyTorch header, so one ``nvcc`` call builds each shared
 library in seconds.  The megakernel is built once per feature set (a
 ``-DPT_FEATURES=<mask>`` define), as Mosaic compiles the reference's once
-per ``_scene_features``; the traversal probe K9 is a library of its
-own.  The build runs at first use, into ``pathtrace_tpu_torch/build/``
-(not committed), under a name keyed by the hash of the sources, flags
-and defines, so an edited source is never served from a stale library.
-A failed build raises with nvcc's output.
+per ``_scene_features``; each of these libraries also holds the span
+kernel K5 of the same feature set.  The scan K6 and the traversal probe
+K9 are libraries of their own.  The build runs at first use, into
+``pathtrace_tpu_torch/build/`` (not committed), under a name keyed by
+the hash of the sources, flags and defines, so an edited source is never
+served from a stale library.  A failed build raises with nvcc's output.
 """
 
 from __future__ import annotations
@@ -108,19 +109,22 @@ def _k1_job(mask):
     return f"k1_m{mask}", ["megakernel.cu"], (f"-DPT_FEATURES={mask}",)
 
 
+K6_JOB = ("k6_scan", ["scan.cu"], ())
 K9_JOB = ("k9_probe", ["probe_trav.cu"], ())
 
 
 def build_kernels(masks):
-    """Build the K1 libraries of these feature masks and the K9 probe's
-    at once, nvcc in parallel, so that later :func:`load_k1` and
-    :func:`load_k9` calls find them built."""
-    build_many([_k1_job(m) for m in sorted(set(masks))] + [K9_JOB])
+    """Build the K1 (and K5) libraries of these feature masks, the K6
+    scan's and the K9 probe's at once, nvcc in parallel, so that later
+    :func:`load_k1`, :func:`load_k6` and :func:`load_k9` calls find them
+    built."""
+    build_many([_k1_job(m) for m in sorted(set(masks))] + [K6_JOB, K9_JOB])
 
 
 def load_k1(mask=0):
-    """The K1 library (``csrc/megakernel.cu``) compiled for the feature
-    mask ``mask`` (``megakernel.feature_mask``), built at first use."""
+    """The K1 library (``csrc/megakernel.cu``, with K5) compiled for the
+    feature mask ``mask`` (``megakernel.feature_mask``), built at first
+    use."""
     if mask not in _LIBS:
         lib = ctypes.CDLL(str(build(*_k1_job(mask))))
         p, i = ctypes.c_void_p, ctypes.c_int
@@ -136,6 +140,21 @@ def load_k1(mask=0):
             p, p, p,                               # rad, counts, stream
         ]
         lib.pt_k1_trace.restype = i
+        lib.pt_k5_span.argtypes = [
+            p, p, p, p, p,                         # cam, mats, gmat, types, lights
+            p, p, p,                               # tri, nodes, meta
+            p, p,                                  # texels, charts
+            i, i, i,                               # n_geoms, n_lights, n_meta
+            ctypes.c_longlong,                     # n_texels
+            i, i,                                  # width, height
+            p, i, i, ctypes.c_longlong,            # state, n_keys, pix_key, n_rays
+            p, p, ctypes.c_longlong,               # tbl, n_live, n_tiles
+            i, i, i, ctypes.c_uint,                # d0, d1, depth, it
+            p, p,                                  # counts, stream
+        ]
+        lib.pt_k5_span.restype = i
+        lib.pt_k5_state_keys.argtypes = []
+        lib.pt_k5_state_keys.restype = i
         lib.pt_k1_features.argtypes = []
         lib.pt_k1_features.restype = i
         lib.pt_cuda_error_string.argtypes = [i]
@@ -146,6 +165,23 @@ def load_k1(mask=0):
                 f"wanted {mask}")
         _LIBS[mask] = lib
     return _LIBS[mask]
+
+
+def load_k6():
+    """The K6 scan library (``csrc/scan.cu``), built at first use."""
+    if "k6" not in _LIBS:
+        lib = ctypes.CDLL(str(build(*K6_JOB)))
+        p, ll = ctypes.c_void_p, ctypes.c_longlong
+        lib.pt_k6_scan.argtypes = [p, p, p, ll, p]
+        lib.pt_k6_scan.restype = ctypes.c_int
+        lib.pt_k6_scratch.argtypes = [ll]
+        lib.pt_k6_scratch.restype = ll
+        lib.pt_k6_tile.argtypes = []
+        lib.pt_k6_tile.restype = ll
+        lib.pt_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.pt_cuda_error_string.restype = ctypes.c_char_p
+        _LIBS["k6"] = lib
+    return _LIBS["k6"]
 
 
 def load_k9():

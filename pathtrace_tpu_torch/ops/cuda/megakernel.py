@@ -112,6 +112,16 @@ def check_supported(scene):
         _texel_words(scene.textures[t], t)
 
 
+def resolve_device(device):
+    """``device`` as a ``torch.device``; raises ``RuntimeError`` for a
+    CUDA device when there is no GPU, rather than fall back to the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("device 'cuda' requested but no CUDA GPU is "
+                           "available")
+    return device
+
+
 # ----------------------------------------------------------------------------
 # image textures (K4): the texel table and the per-geom charts
 # ----------------------------------------------------------------------------
@@ -177,12 +187,14 @@ def _texel_words(tex, tid):
     return q[:, 0] | (q[:, 1] << 8) | (q[:, 2] << 16)
 
 
-def pack_textures(scene, device="cpu"):
+def pack_textures(scene, device="cuda"):
     """The texel table: the used maps (:func:`tex_used` order,
     :func:`tex_offsets` offsets) row-major, one int32 word per texel,
     ``r | g << 8 | b << 16`` with each channel ``round(x * 255)`` (the
     kernel reads them as uint32); None for a scene without a used map.
-    Raises ``ValueError`` for a texel off the u8 grid."""
+    Raises ``ValueError`` for a texel off the u8 grid, and (as every
+    ``pack_*``) ``RuntimeError`` for a CUDA device without a GPU."""
+    device = resolve_device(device)
     used = tex_used(scene)
     if not used:
         return None
@@ -191,7 +203,7 @@ def pack_textures(scene, device="cpu"):
     return torch.as_tensor(words.astype(np.int32)).to(device)
 
 
-def pack_scene(scene, device="cpu"):
+def pack_scene(scene, device="cuda"):
     """Scene -> (cam (1,16), mats (G,24), gmat (G,40)) float32 tensors on
     ``device``, in the layouts of the reference's ``_pack_scene``:
 
@@ -206,6 +218,7 @@ def pack_scene(scene, device="cpu"):
     Computed on the CPU in float32 and then moved, so every device
     gets the same bits.
     """
+    device = resolve_device(device)
     width, height = scene.resolution
     view, right, up, tan_x, tan_y = camera_basis(scene.camera, width, height)
     cam = torch.cat([
@@ -254,7 +267,7 @@ def pack_scene(scene, device="cpu"):
     return cam.to(device), mats.to(device), gmat.to(device)
 
 
-def pack_lights(scene, device="cpu"):
+def pack_lights(scene, device="cuda"):
     """The NEE light table of the reference's ``_pack_lights``: (lights
     (L,128) float32 on ``device``, ((geom index, type), ...) per light),
     or (None, ()) for a scene with no emissive geom, which NEE then
@@ -263,6 +276,7 @@ def pack_lights(scene, device="cpu"):
     48-65 e_c, 66-83 outward normals | sphere: 12-20 forward 3x3, 21-23
     center, 24-32 invT 3x3, 33 |det M3| | 120-122 velocity.  Computed on
     the CPU in float32, as ``pack_scene``."""
+    device = resolve_device(device)
     if not scene.light_indices:
         return None, ()
     fwd, _, inv_t = geom_transforms(scene.geoms)
@@ -299,7 +313,7 @@ def pack_lights(scene, device="cpu"):
     return torch.stack(rows).to(device), tuple(statics)
 
 
-def pack_mesh(scene, device="cpu"):
+def pack_mesh(scene, device="cuda"):
     """The triangle tables of the reference's ``_pack_scene`` (its BVH
     branch): (tri (T,16) or (T,24), nodes (N,16)) float32 tensors on
     ``device`` and the static ``bvh_meta``, or (None, None, ()) for a
@@ -323,6 +337,7 @@ def pack_mesh(scene, device="cpu"):
     Computed on the CPU in float32, as ``pack_scene``; the norm is the
     square root of the sum of squares, rounded once (through float64).
     """
+    device = resolve_device(device)
     mesh = scene.mesh
     if not mesh.count:
         return None, None, ()
@@ -1045,20 +1060,52 @@ def _nee_add(rad, thr, h, n, albedo, has_diffuse, time, it, pix, dep,
     return rad
 
 
-def _trace_sample(it, pix, fx, fy, cam, mats_t, gmat_t, gmat, lights,
-                  geom_types, width, height, depth, features, rr_mode,
-                  counts, mesh, tex):
-    """One sample of every pixel: raygen, then ``depth`` bounces.
-    Returns the sample's radiance [r, g, b]; adds the live count
-    entering each bounce into ``counts``.  Every section runs on every
-    lane and selects, as the reference's planes do.  Each section marks
-    the lanes that need it (``bound.needed``), so that a bound counts
-    only the work that the kernel must do."""
-    (has_glass, has_imperfect, has_dof, has_motion, has_checker, has_bump,
-     has_sss) = features
-    nee = lights is not None
+def state_keys(features, nee, pix=False):
+    """The state a path carries between bounces, as the names of K5's
+    planes (a copy of the reference's ``_state_keys``): origin,
+    direction, throughput, radiance and ``live``; ``emit_ok`` with NEE,
+    ``time`` with motion blur, the medium ``med_*`` with SSS; with
+    ``pix`` (the sorted engine) the pixel id last."""
+    (_, _, _, has_motion, _, _, has_sss) = features
+    keys = ["ox", "oy", "oz", "dx", "dy", "dz", "tr", "tg", "tb",
+            "rr", "rg", "rb", "live"]
+    if nee:
+        keys.append("emit_ok")
+    if has_motion:
+        keys.append("time")
+    if has_sss:
+        keys += ["med_s", "med_r", "med_g", "med_b"]
+    if pix:
+        keys.append("pix")
+    return tuple(keys)
+
+
+def plain_scene(cam, mats, gmat, geom_types, features=NO_FEATURES,
+                lights=None, rr=False, tri=None, nodes=None, bvh_meta=(),
+                texels=None, tex_geom=(), btex_geom=(), **_):
+    """What :func:`init_state` and :func:`bounces` read of a scene:
+    the tables of :func:`trace_k1`'s arguments, the small ones as Python
+    floats."""
+    return SimpleNamespace(
+        cam=cam.reshape(-1).tolist(), mats=mats, gmat_t=gmat,
+        gmat=gmat.tolist(),
+        lights=lights.tolist() if lights is not None else None,
+        geom_types=tuple(geom_types), features=tuple(features), rr=rr,
+        mesh=(tri, nodes, tuple(bvh_meta)) if bvh_meta else None,
+        tex=(_tex_planes(texels, tex_geom, btex_geom, geom_types, tri)
+             if tex_geom or btex_geom else None))
+
+
+def init_state(sc, it, pix, width, height):
+    """Raygen (antialias jitter, then the thin lens) of the pixels
+    ``pix`` (int64) at iteration ``it``: the state entering bounce 0, a
+    dict of the :func:`state_keys` but ``pix`` (``live`` and ``emit_ok``
+    bool; the reference's ``init_state``)."""
+    (_, _, has_dof, has_motion, _, _, has_sss) = sc.features
     (pos_x, pos_y, pos_z, v_x, v_y, v_z, r_x, r_y, r_z,
-     u_x, u_y, u_z, tan_x, tan_y, aperture, focal) = cam
+     u_x, u_y, u_z, tan_x, tan_y, aperture, focal) = sc.cam
+    fx = (pix % width).to(torch.float32)
+    fy = torch.div(pix, width, rounding_mode="floor").to(torch.float32)
 
     ujx = rng.uniform(it, pix, 0, Draw.AA_X)
     ujy = rng.uniform(it, pix, 0, Draw.AA_Y)
@@ -1086,16 +1133,44 @@ def _trace_sample(it, pix, fx, fy, cam, mats_t, gmat_t, gmat, lights,
         pfx, pfy, pfz = ox + dx * ft, oy + dy * ft, oz + dz * ft
         ox, oy, oz = ox + off_x, oy + off_y, oz + off_z
         dx, dy, dz = _normalize3(pfx - ox, pfy - oy, pfz - oz)
-    thr_acc = [torch.ones_like(dx) for _ in range(3)]
-    rad = [torch.zeros_like(dx) for _ in range(3)]
-    live = torch.ones_like(dx, dtype=torch.bool)
-    emit_ok = torch.ones_like(live)
-    time = rng.uniform(it, pix, 0, Draw.TIME) if has_motion else None
-    med_s = torch.zeros_like(dx)
-    med = [torch.ones_like(dx) for _ in range(3)]
+    one, zero = torch.ones_like(dx), torch.zeros_like(dx)
+    st = dict(ox=ox, oy=oy, oz=oz, dx=dx, dy=dy, dz=dz, tr=one, tg=one,
+              tb=one, rr=zero, rg=zero, rb=zero,
+              live=torch.ones_like(dx, dtype=torch.bool))
+    if sc.lights is not None:
+        st["emit_ok"] = torch.ones_like(dx, dtype=torch.bool)
+    if has_motion:
+        st["time"] = rng.uniform(it, pix, 0, Draw.TIME)
+    if has_sss:
+        st.update(med_s=zero, med_r=one, med_g=one, med_b=one)
+    return st
+
+
+def bounces(sc, st, it, pix, d0, d1, counts):
+    """Bounces [d0, d1) of iteration ``it`` on the state ``st`` of the
+    pixels ``pix`` (a dict of :func:`init_state`'s form, left as it is);
+    returns the state after them and adds the live count entering each
+    bounce into ``counts[d]``.  Every section runs on every lane and
+    selects, as the reference's planes do.  Each section marks the lanes
+    that need it (``bound.needed``), so that a bound counts only the work
+    that the kernel must do."""
+    (has_glass, has_imperfect, _, _, has_checker, has_bump,
+     has_sss) = sc.features
+    nee = sc.lights is not None
+    mats_t, gmat_t, gmat, lights = sc.mats, sc.gmat_t, sc.gmat, sc.lights
+    geom_types, rr_mode, mesh, tex = sc.geom_types, sc.rr, sc.mesh, sc.tex
+    ox, oy, oz, dx, dy, dz = (st[k] for k in ("ox", "oy", "oz", "dx", "dy",
+                                               "dz"))
+    thr_acc = [st["tr"], st["tg"], st["tb"]]
+    rad = [st["rr"], st["rg"], st["rb"]]
+    live = st["live"]
+    emit_ok = st.get("emit_ok", torch.ones_like(live))
+    time = st.get("time")
+    med_s = st.get("med_s", torch.zeros_like(dx))
+    med = [st.get(k, torch.ones_like(dx)) for k in ("med_r", "med_g", "med_b")]
     s3 = _c32(SQRT_OF_ONE_THIRD)
 
-    for d in range(depth):
+    for d in range(d0, d1):
         counts[d] += live.sum()
         with _needed("trace", live):
             h = _nearest(ox, oy, oz, dx, dy, dz, time, gmat, geom_types,
@@ -1295,7 +1370,16 @@ def _trace_sample(it, pix, fx, fy, cam, mats_t, gmat_t, gmat, lights,
                                        thr_acc[k]) for k in range(3)]
         emit_ok = ~took_diffuse | scatter_inside
         live = cont
-    return rad
+    out = dict(ox=ox, oy=oy, oz=oz, dx=dx, dy=dy, dz=dz, tr=thr_acc[0],
+               tg=thr_acc[1], tb=thr_acc[2], rr=rad[0], rg=rad[1], rb=rad[2],
+               live=live)
+    if nee:
+        out["emit_ok"] = emit_ok
+    if time is not None:
+        out["time"] = time
+    if has_sss:
+        out.update(med_s=med_s, med_r=med[0], med_g=med[1], med_b=med[2])
+    return out
 
 
 def trace_plain(cam, mats, gmat, geom_types, width, height, depth, it0,
@@ -1309,30 +1393,24 @@ def trace_plain(cam, mats, gmat, geom_types, width, height, depth, it0,
     None: no NEE), Russian roulette if ``rr``, the triangle meshes of
     ``tri``, ``nodes`` and ``bvh_meta`` (``pack_mesh``) and the image
     textures of ``texels`` (``pack_textures``) under the per-geom charts
-    ``tex_geom`` and ``btex_geom`` (``tex_statics``).
+    ``tex_geom`` and ``btex_geom`` (``tex_statics``): per sample,
+    :func:`init_state` and :func:`bounces` over every bounce.
 
     Returns (rad (P - pix0, 3) f32 summed over the samples, counts
     (depth,) int64: live paths entering each bounce, summed over the
     samples)."""
     device = cam.device
-    cam_l = cam.reshape(-1).tolist()
-    gmat_l = gmat.tolist()
-    lights_l = lights.tolist() if lights is not None else None
+    sc = plain_scene(cam, mats, gmat, geom_types, features, lights, rr, tri,
+                     nodes, bvh_meta, texels, tex_geom, btex_geom)
     pixel = torch.arange(pix0, width * height, dtype=torch.int64,
                          device=device)
-    fx = (pixel % width).to(torch.float32)
-    fy = torch.div(pixel, width, rounding_mode="floor").to(torch.float32)
-    acc = [torch.zeros_like(fx) for _ in range(3)]
+    acc = [torch.zeros(pixel.shape, device=device) for _ in range(3)]
     counts = torch.zeros(depth, dtype=torch.int64, device=device)
-    tex = (_tex_planes(texels, tex_geom, btex_geom, geom_types, tri)
-           if tex_geom or btex_geom else None)
     for s in range(n_spp):
-        rad = _trace_sample(
-            (it0 + s) & 0xFFFFFFFF, pixel, fx, fy, cam_l, mats, gmat,
-            gmat_l, lights_l, tuple(geom_types), width, height, depth,
-            tuple(features), rr, counts,
-            (tri, nodes, tuple(bvh_meta)) if bvh_meta else None, tex)
-        acc = [a + r for a, r in zip(acc, rad)]
+        it = (it0 + s) & 0xFFFFFFFF
+        st = bounces(sc, init_state(sc, it, pixel, width, height), it,
+                     pixel, 0, depth, counts)
+        acc = [a + st[k] for a, k in zip(acc, ("rr", "rg", "rb"))]
     return torch.stack(acc, dim=-1), counts
 
 
@@ -1413,6 +1491,61 @@ def _check_textures(texels, tex_geom, btex_geom, n_geoms, device):
                     f"{texels.numel()} texels")
 
 
+def kernel_tables(cam, mats, gmat, geom_types, features, lights, rr, tri,
+                  nodes, bvh_meta, texels, tex_geom, btex_geom):
+    """Checks the tables of a K1 or K5 launch on the device of ``cam``;
+    returns (the feature mask, the launch's scene arguments: pointers
+    cam, mats, gmat, types, lights, tri, nodes, meta, texels, charts,
+    then n_geoms, n_lights, n_meta, n_texels).  The int tables (types,
+    meta, charts) are made once per device."""
+    device = cam.device
+    geom_types, bvh_meta = tuple(geom_types), tuple(bvh_meta)
+    tex_geom, btex_geom = tuple(tex_geom), tuple(btex_geom)
+    textured = bool(tex_geom or btex_geom)
+    n_geoms = len(geom_types)
+    n_lights = 0 if lights is None else lights.shape[0]
+    if any(t not in (T.SPHERE, T.CUBE, T.MESH) for t in geom_types):
+        raise ValueError(f"unknown geom types in {geom_types}")
+    if len(features) != len(FEATURE_NAMES) or not (
+            0 < n_geoms and (lights is None or n_lights > 0)):
+        raise ValueError(f"bad scene: {n_geoms} geoms, features {features}, "
+                         f"{n_lights} lights")
+    _check_table("cam", cam, (1, 16), device)
+    _check_table("mats", mats, (n_geoms, 24), device)
+    _check_table("gmat", gmat, (n_geoms, 40), device)
+    if lights is not None:
+        _check_table("lights", lights, (n_lights, LIGHT_COLS), device)
+    _check_mesh(tri, nodes, bvh_meta, geom_types, device,
+                TRI_TEX_COLS if textured else TRI_COLS)
+    _check_textures(texels, tex_geom, btex_geom, n_geoms, device)
+    types = _int_table(geom_types, device)
+    meta = _int_table(bvh_meta, device) if bvh_meta else None
+    # one (albedo offset, H, W, bump offset, H, W) row per geom
+    charts = _int_table(tuple(
+        a + b for a, b in zip(tex_geom or (NO_CHART,) * n_geoms,
+                              btex_geom or (NO_CHART,) * n_geoms)),
+        device) if textured else None
+    mask = feature_mask(features, lights is not None, rr,
+                        T.MESH in geom_types, bool(tex_geom), bool(btex_geom))
+    return mask, (
+        cam.data_ptr(), mats.data_ptr(), gmat.data_ptr(), types.data_ptr(),
+        ptr(lights), ptr(tri), ptr(nodes), ptr(meta), ptr(texels),
+        ptr(charts), n_geoms, n_lights, len(bvh_meta),
+        0 if texels is None else texels.numel())
+
+
+def ptr(t):
+    """The device address of tensor ``t``; 0 for None."""
+    return 0 if t is None else t.data_ptr()
+
+
+def launch_error(name, lib, err):
+    """Raises for the CUDA error ``err`` of a launch (0: none)."""
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err} "
+                           f"({lib.pt_cuda_error_string(err).decode()})")
+
+
 def trace_k1(cam, mats, gmat, geom_types, width, height, depth, it0, n_spp,
              pix0=0, features=NO_FEATURES, lights=None, rr=False,
              tri=None, nodes=None, bvh_meta=(), texels=None, tex_geom=(),
@@ -1434,61 +1567,26 @@ def trace_k1(cam, mats, gmat, geom_types, width, height, depth, it0, n_spp,
         raise ValueError(f"K1 runs on cuda or cpu tensors, not {device}")
     from . import build
 
-    geom_types, bvh_meta = tuple(geom_types), tuple(bvh_meta)
-    tex_geom, btex_geom = tuple(tex_geom), tuple(btex_geom)
-    textured = bool(tex_geom or btex_geom)
-    n_geoms = len(geom_types)
-    n_lights = 0 if lights is None else lights.shape[0]
     n_pixels = width * height
     n_local = n_pixels - pix0
-    if any(t not in (T.SPHERE, T.CUBE, T.MESH) for t in geom_types):
-        raise ValueError(f"unknown geom types in {geom_types}")
-    if len(features) != len(FEATURE_NAMES) or not (
-            0 < n_geoms and 0 < depth and 0 <= n_spp and 0 <= pix0
-            and 0 < n_local and n_pixels < 2 ** 31
-            and (lights is None or n_lights > 0)):
+    if not (0 < depth and 0 <= n_spp and 0 <= pix0 and 0 < n_local
+            and n_pixels < 2 ** 31):
         raise ValueError(
-            f"bad K1 sizes: {n_geoms} geoms, depth {depth}, {n_spp} spp, "
-            f"pixels {pix0}+{n_local} of {n_pixels}, features {features}, "
-            f"{n_lights} lights")
-    _check_table("cam", cam, (1, 16), device)
-    _check_table("mats", mats, (n_geoms, 24), device)
-    _check_table("gmat", gmat, (n_geoms, 40), device)
-    if lights is not None:
-        _check_table("lights", lights, (n_lights, LIGHT_COLS), device)
-    _check_mesh(tri, nodes, bvh_meta, geom_types, device,
-                TRI_TEX_COLS if textured else TRI_COLS)
-    _check_textures(texels, tex_geom, btex_geom, n_geoms, device)
-    types = _int_table(geom_types, device)
-    meta = _int_table(bvh_meta, device) if bvh_meta else None
-    # one (albedo offset, H, W, bump offset, H, W) row per geom
-    charts = _int_table(tuple(
-        a + b for a, b in zip(tex_geom or (NO_CHART,) * n_geoms,
-                              btex_geom or (NO_CHART,) * n_geoms)),
-        device) if textured else None
+            f"bad K1 sizes: depth {depth}, {n_spp} spp, pixels "
+            f"{pix0}+{n_local} of {n_pixels}")
+    mask, args = kernel_tables(cam, mats, gmat, geom_types, features, lights,
+                               rr, tri, nodes, bvh_meta, texels, tex_geom,
+                               btex_geom)
     rad = torch.empty((n_local, 3), dtype=torch.float32, device=device)
     # the kernel adds into these as unsigned 64-bit integers
     counts = torch.zeros(depth, dtype=torch.int64, device=device)
-    mask = feature_mask(features, lights is not None, rr,
-                        T.MESH in geom_types, bool(tex_geom), bool(btex_geom))
     lib = build.load_k1(mask)
-
-    def ptr(t):
-        return 0 if t is None else t.data_ptr()
-
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.pt_k1_trace(
-            cam.data_ptr(), mats.data_ptr(), gmat.data_ptr(),
-            types.data_ptr(), ptr(lights), ptr(tri), ptr(nodes), ptr(meta),
-            ptr(texels), ptr(charts), n_geoms, n_lights, len(bvh_meta),
-            0 if texels is None else texels.numel(), width, height, depth,
-            it0 & 0xFFFFFFFF, n_spp, pix0, n_local, rad.data_ptr(),
-            counts.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(
-            f"K1 launch failed: CUDA error {err} "
-            f"({lib.pt_cuda_error_string(err).decode()})")
+            *args, width, height, depth, it0 & 0xFFFFFFFF, n_spp, pix0,
+            n_local, rad.data_ptr(), counts.data_ptr(), stream)
+    launch_error("K1", lib, err)
     LAUNCHES[mask] += 1
     return rad, counts
 
@@ -1501,10 +1599,7 @@ def prepare(scene, device="cuda", nee=False, rr=False):
     Raises ``ValueError`` for a texture off the u8 grid and
     ``RuntimeError`` for a CUDA device without a GPU."""
     check_supported(scene)
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("device 'cuda' requested but no CUDA GPU is "
-                           "available")
+    device = resolve_device(device)
     cam, mats, gmat = pack_scene(scene, device)
     lights = pack_lights(scene, device)[0] if nee else None
     tri, nodes, bvh_meta = pack_mesh(scene, device)

@@ -21,6 +21,40 @@ def test_bound_is_the_larger_term():
     assert B.bound(67e9, 6.7e9) == (pytest.approx(2.0), "bytes")
 
 
+def test_span_state_bytes():
+    # the split engine, 13 planes, depth 4 split at 2: span A runs 100
+    # rays, 30 live at its end write every plane, 70 that ended write
+    # radiance and live; span B runs 40 rays of the live tiles: the 30
+    # live read every plane, 10 found dead read live, the 30 write their
+    # radiance
+    counts = [100, 60, 30, 20]
+    assert B.span_state_bytes(13, counts, [(0, 2, 100), (2, 4, 40)]) == \
+        4 * (13 * 30 + 4 * 70 + 13 * 30 + 10 + 3 * 30)
+    # every ray dead after span A: 4 planes each, span B runs no ray
+    assert B.span_state_bytes(13, [100, 0, 0, 0],
+                              [(0, 2, 100), (2, 4, 0)]) == 4 * 4 * 100
+    # the sorted engine, 14 planes with the pixel id: raygen writes it
+    # once; later spans read it and never write it
+    spans = [(d, d + 1, 100) for d in range(4)]
+    assert B.span_state_bytes(14, counts, spans, True) == 4 * (
+        100 + 13 * 60 + 4 * 40                          # [0, 1)
+        + 14 * 60 + 40 + 13 * 30 + 4 * 30               # [1, 2)
+        + 14 * 30 + 70 + 13 * 20 + 4 * 10               # [2, 3)
+        + 14 * 20 + 80 + 3 * 20)                        # [3, 4)
+    # depth 1: the one span is raygen and the last
+    assert B.span_state_bytes(14, [100], [(0, 1, 100)], True) == \
+        4 * (100 + 3 * 100)
+
+
+@pytest.mark.parametrize("n,want", [
+    (1, 12), (2048, 8 * 2048 + 4), (2049, 8 * 2049 + 16 * 2 + 4),
+    (2048 ** 2 + 1, 8 * (2048 ** 2 + 1) + 16 * 2049 + 16 * 2 + 4)])
+def test_scan_bytes(n, want):
+    # values read and written once; each level of tile totals written,
+    # read, and its offsets written and read; the last total written
+    assert B.scan_bytes(n) == want
+
+
 def test_count_weights_a_section_by_its_lanes():
     x = torch.arange(8, dtype=torch.float32)
 
@@ -110,7 +144,7 @@ def test_count_of_dead_paths_is_nothing():
 
 def test_k9_reads_each_visited_node_once():
     scene = ptt.load_scene(os.path.join(REPO, "scenes", "cornell_mesh.txt"))
-    tri, nodes, meta = K.pack_mesh(scene)
+    tri, nodes, meta = K.pack_mesh(scene, "cpu")
     (n, steps, leaves, _), ops, n_bytes = B.count_work(
         lambda: P.probe_plain(nodes, tri, meta[0], 2, 16))
     assert (n, steps, leaves) == P.probe_plain(nodes, tri, meta[0], 2, 16)[:3]

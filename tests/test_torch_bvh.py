@@ -93,7 +93,7 @@ def test_load_mesh_scene_matches_reference(name):
 @pytest.mark.parametrize("name", MESH_SCENES)
 def test_pack_mesh_matches_reference(name):
     scene = ptt.load_scene(_scene_path(name))
-    tri, nodes, meta = K.pack_mesh(scene)
+    tri, nodes, meta = K.pack_mesh(scene, "cpu")
     _, _, _, ref_tri, ref_nodes = _pack_scene(pt.load_scene(_scene_path(name)))
     ref_tri, ref_nodes = np.asarray(ref_tri), np.asarray(ref_nodes)
     assert tri.shape == ref_tri.shape == (scene.mesh.count, K.TRI_COLS)
@@ -102,16 +102,17 @@ def test_pack_mesh_matches_reference(name):
     np.testing.assert_array_equal(nodes.numpy(), ref_nodes)
     assert meta == scene.mesh.bvh_meta
     # the reference's tables carried over
-    c_tri, c_nodes = convert.mesh_tables_from_numpy(ref_tri, ref_nodes)
+    c_tri, c_nodes = convert.mesh_tables_from_numpy(ref_tri, ref_nodes,
+                                                    "cpu")
     assert c_tri.dtype == tri.dtype and c_tri.shape == tri.shape
     assert (c_tri[:, :9] == tri[:, :9]).all() and (c_nodes == nodes).all()
 
 
 def test_pack_mesh_without_triangles():
     scene = ptt.load_scene(_scene_path("cornell"))
-    assert K.pack_mesh(scene) == (None, None, ())
+    assert K.pack_mesh(scene, "cpu") == (None, None, ())
     mesh = ptt.load_scene(_scene_path("cornell_mesh"))
     stripped = dataclasses.replace(mesh, mesh=dataclasses.replace(
         mesh.mesh, bvh_nodes=None, bvh_order=None, bvh_meta=()))
     with pytest.raises(ValueError, match="BVH"):
-        K.pack_mesh(stripped)
+        K.pack_mesh(stripped, "cpu")

@@ -1,6 +1,7 @@
 """K1 (with its NEE section K2, its mesh section K3 and its texture
-section K4), the CUDA kernel, and the traversal probe K9, against their
-plain PyTorch versions on a GPU.
+section K4), the CUDA kernel, the span kernel K5 of the split and sorted
+engines, the scan K6 and the traversal probe K9, against their plain
+PyTorch versions on a GPU; the engines against K1, bit for bit.
 
 Every test here needs a CUDA GPU (marker ``cuda``) and skips without
 one: the kernel has no CPU mode.  This file imports neither JAX nor the
@@ -22,7 +23,9 @@ import torch
 import pathtrace_tpu_torch as ptt
 from pathtrace_tpu_torch.core import types as T
 from pathtrace_tpu_torch.ops.cuda import megakernel as K
+from pathtrace_tpu_torch.ops import scan as SC
 from pathtrace_tpu_torch.ops.cuda import probe as P
+from pathtrace_tpu_torch.ops.cuda import span as SP
 import torch_scenes as S
 from torch_digest import digest
 
@@ -251,3 +254,135 @@ def test_k9_matches_plain(cuda, bundle):
     assert P.LAUNCHES["k9_probe"] == before + 1
     assert got == P.probe_plain(nodes, tri, meta[0], *bundle)
     assert got[0] == meta[0][2] and got[1] > 0
+
+
+# ----------------------------------------------------------------------------
+# K5 (the split and sorted engines) and K6 (the scan)
+# ----------------------------------------------------------------------------
+
+ALL_CONFIGS = sorted({**S.CONFIGS, **S.MESH_CONFIGS, **S.TEX_CONFIGS})
+
+
+def _engine_job(config, cuda, res=(96, 80), depth=8):
+    name, edits, nee, rr = {**S.CONFIGS, **S.MESH_CONFIGS,
+                            **S.TEX_CONFIGS}[config]
+    scene = S.load(name, edits, res, depth)
+    return scene, K.prepare(scene, cuda, nee=nee, rr=rr)
+
+
+@pytest.mark.parametrize("engine", ["split", "sorted"])
+@pytest.mark.parametrize("config", ALL_CONFIGS)
+def test_k5_engines_bit_equal_to_k1(cuda, config, engine):
+    # every feature build: the engine's image and live counts are K1's,
+    # bit for bit, and the engine went through K5 (and K6 when split)
+    scene, job = _engine_job(config, cuda)
+    mask = K.scene_mask(scene, job["lights"] is not None, job["rr"])
+    want = K.trace_k1(**job, it0=1, n_spp=2)
+    before, scans = SP.LAUNCHES[mask], SC.LAUNCHES["k6_scan"]
+    if engine == "split":
+        got = SP.split_batch(job, 1, 2, 3)
+    else:
+        got = SP.sorted_batch(job, 1, 2, *SP.sort_box(scene, cuda))
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert SP.LAUNCHES[mask] == before + (4 if engine == "split" else 16)
+    assert SC.LAUNCHES["k6_scan"] == scans + (2 if engine == "split" else 0)
+
+
+@pytest.mark.parametrize("split", [1, 7, 8, 20])
+def test_k5_split_clamp_and_sphere(cuda, split):
+    # sphere at split 1: every tile dies at bounce 0, so the table is
+    # empty and the resumed span's blocks all exit; split >= depth clamps
+    scene = _scene("sphere", (50, 37))
+    want = K.trace_k1(**K.prepare(scene, cuda), it0=3, n_spp=2)
+    got = ptt.pathtrace_batch_split(scene, 3, 2, split=split, device="cuda")
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def test_k5_depth_one(cuda):
+    scene = _scene("cornell", (33, 7), 1)
+    want = K.trace_k1(**K.prepare(scene, cuda), it0=1, n_spp=2)
+    before = dict(SP.LAUNCHES)
+    got = ptt.pathtrace_batch_split(scene, 1, 2, device="cuda")
+    assert dict(SP.LAUNCHES) == before  # depth 1 goes to K1
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    got = ptt.pathtrace_batch_sorted(scene, 1, 2, device="cuda")
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def test_k5_matches_its_plain_version(cuda):
+    # each engine on the card against its plain version on the card (the
+    # span and the scan plain), the same tables: within the tie-flip bound
+    scene, job = _engine_job("cornell_glass-nee", cuda)
+    for split, sort in ((2, False), (None, True)):
+        got = SP.engine(scene, job, split, sort)[1](1, 1)
+        want = SP.engine(scene, job, split, sort, plain=True)[1](1, 1)
+        _assert_tie_flip_bound(got[0], want[0], got[1], want[1])
+
+
+N_SCAN = [1, 127, 128, 129, 4097, 640000, 2 ** 21 + 3]
+
+
+@pytest.mark.parametrize("n", N_SCAN)
+def test_k6_matches_plain_and_cumsum(cuda, n):
+    g = torch.Generator().manual_seed(n)
+    for x in ((torch.rand(n, generator=g) < 0.4).to(torch.int32),
+              torch.randint(0, 1000, (n,), generator=g, dtype=torch.int32)):
+        before = SC.LAUNCHES["k6_scan"]
+        got = SC.scan_int(x.to(cuda))
+        assert SC.LAUNCHES["k6_scan"] == before + 1
+        want = SC.prefix_sum_plain(x)
+        assert torch.equal(got.cpu(), want)
+        assert torch.equal(want, (torch.cumsum(x.long(), 0) - x).int())
+        assert torch.equal(SC.prefix_sum(x.to(cuda)).cpu(), want.float())
+
+
+def test_k6_compact_indices_is_the_stable_partition(cuda):
+    g = torch.Generator().manual_seed(5)
+    mask = torch.rand(16200, generator=g) < 0.3
+    perm, n_live = SC.compact_indices(mask.to(cuda))
+    assert int(n_live) == int(mask.sum())
+    assert torch.equal(perm.cpu().long(),
+                       torch.argsort((~mask).int(), stable=True))
+    dense, n = SC.compact(mask.to(cuda), {"i": torch.arange(16200,
+                                                             device=cuda)})
+    assert torch.equal(dense["i"].cpu(), perm.cpu().long())
+
+
+def test_k5_k6_reject_bad_tables(cuda):
+    scene, job = _engine_job("cornell", cuda, (16, 8), 4)
+    keys = K.state_keys(job["features"], False)
+    state = torch.empty((len(keys), 128), device=cuda)
+    counts = torch.zeros(4, dtype=torch.int64, device=cuda)
+    n_live = torch.ones((), dtype=torch.int32, device=cuda)
+    tbl = torch.zeros(1, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="tile table"):
+        SP.trace_span(job, state, keys, 1, 4, 1, counts, tbl.long(), n_live)
+    with pytest.raises(ValueError, match="tile table"):
+        SP.trace_span(job, state, keys, 1, 4, 1, counts,
+                      torch.zeros(2, dtype=torch.int32, device=cuda), n_live)
+    with pytest.raises(ValueError, match="tile table"):
+        SP.trace_span(job, state, keys, 1, 4, 1, counts, tbl, None)
+    with pytest.raises(ValueError, match="state keys"):
+        SP.trace_span(job, state, keys[1:], 0, 1, 1, counts)
+    with pytest.raises(ValueError, match="state"):
+        SP.trace_span(job, state[:, :100], keys, 0, 1, 1, counts)
+    with pytest.raises(ValueError, match="span"):
+        SP.trace_span(job, state, keys, 3, 5, 1, counts)
+    with pytest.raises(ValueError, match="1-D"):
+        SC.scan_int(torch.zeros((2, 3), dtype=torch.int32, device=cuda))
+    with pytest.raises(ValueError, match="1-D"):
+        SC.scan_int(torch.zeros(0, dtype=torch.int32, device=cuda))
+
+
+@pytest.mark.parametrize("flags", [["--split-depth", "1"],
+                                   ["--engine", "sorted", "--nee"]])
+def test_cli_engines_on_the_card(cuda, tmp_path, flags):
+    from pathtrace_tpu_torch import cli
+
+    path = os.path.join(REPO, "scenes", "cornell_mesh.txt")
+    before = sum(SP.LAUNCHES.values())
+    out = tmp_path / "e.png"
+    assert cli.main([path, "--res", "96", "80", "--spp", "2",
+                     "--out", str(out), *flags]) == 0
+    assert out.exists() and sum(SP.LAUNCHES.values()) > before

@@ -31,20 +31,20 @@ import torch_scenes as S
 def test_pack_lights_matches_reference(name, edits):
     text = S.scene_text(name, edits)
     want, want_statics = _pack_lights(pt.parse_scene(text))
-    got, statics = K.pack_lights(S.load(name, edits))
+    got, statics = K.pack_lights(S.load(name, edits), "cpu")
     assert statics == want_statics
     assert got.dtype == torch.float32 and got.shape == (len(statics), 128)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
                                atol=1e-6)
-    back = convert.lights_table_from_numpy(np.asarray(want))
+    back = convert.lights_table_from_numpy(np.asarray(want), "cpu")
     assert back.dtype == torch.float32 and back.is_contiguous()
     assert back.shape == got.shape
 
 
 def test_no_light_no_table():
     scene = S.load("cornell", (("EMITTANCE   5", "EMITTANCE   0"),))
-    assert K.pack_lights(scene) == (None, ())
-    assert convert.lights_table_from_numpy(None) is None
+    assert K.pack_lights(scene, "cpu") == (None, ())
+    assert convert.lights_table_from_numpy(None, "cpu") is None
     # NEE without a light renders as without NEE, as the reference does
     job = K.prepare(scene, "cpu", nee=True)
     assert job["lights"] is None

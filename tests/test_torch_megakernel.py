@@ -53,7 +53,7 @@ def assert_tie_flip_bound(rad, ref_rad, counts, ref_counts):
 ])
 def test_trace_plain_matches_pallas_kernel(name, res, depth):
     scene = _scene(name, res, depth)
-    cam, mats, gmat = K.pack_scene(scene)
+    cam, mats, gmat = K.pack_scene(scene, "cpu")
     ref_rad, ref_counts = _run(
         cam.numpy(), mats.numpy(), gmat.numpy(), None, None,
         jnp.asarray(1, jnp.int32), res, depth, scene.geoms.type,
@@ -70,7 +70,7 @@ def test_trace_plain_pixel_range_and_chunks():
     # samples are keyed by the global pixel and the iteration, so a pixel
     # range starting at pix0 and chunks of samples tile the whole render
     scene = _scene("cornell", (24, 16), 3)
-    tables = K.pack_scene(scene)
+    tables = K.pack_scene(scene, "cpu")
     args = (scene.geoms.type, 24, 16, 3)
     whole, counts = K.trace_plain(*tables, *args, 5, 2)
     tail, _ = K.trace_plain(*tables, *args, 5, 2, pix0=100)
@@ -82,7 +82,7 @@ def test_trace_plain_pixel_range_and_chunks():
 
 def test_trace_k1_on_cpu_is_the_plain_version():
     scene = _scene("cornell", (16, 16), 3)
-    tables = K.pack_scene(scene)
+    tables = K.pack_scene(scene, "cpu")
     before = K.LAUNCHES.copy()
     got = K.trace_k1(*tables, scene.geoms.type, 16, 16, 3, 1, 2)
     want = K.trace_plain(*tables, scene.geoms.type, 16, 16, 3, 1, 2)

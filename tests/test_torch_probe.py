@@ -22,7 +22,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def _bigmesh_tables():
     scene = ptt.load_scene(os.path.join(REPO, "scenes",
                                         "cornell_bigmesh.txt"))
-    tri, nodes, meta = K.pack_mesh(scene)
+    tri, nodes, meta = K.pack_mesh(scene, "cpu")
     return nodes, tri, meta[0]
 
 

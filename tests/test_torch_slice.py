@@ -72,13 +72,53 @@ def test_cli_glass_nee_matches_reference(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--engine", "sorted"], ["--engine", "planes"], ["--engine", "xla"],
-    ["--split-depth", "2"], ["--shard"], ["--checkpoint", "x.ckpt"],
-    ["--interactive", "ctl"], ["--compaction", "sort"],
+    ["--engine", "planes"], ["--engine", "xla"], ["--shard"],
+    ["--checkpoint", "x.ckpt"], ["--interactive", "ctl"],
+    ["--compaction", "sort"],
 ])
 def test_cli_unported_flags_raise(flag):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         cli.main([CORNELL, "--device", "cpu", *flag])
+
+
+@pytest.mark.parametrize("flag", [["--engine", "xla"],
+                                  ["--compaction", "sort"]])
+def test_cli_wavefront_flags_name_item_3(flag):
+    with pytest.raises(NotImplementedError, match="item 3"):
+        cli.main([CORNELL, "--device", "cpu", *flag])
+
+
+def _cli_accum(monkeypatch, tmp_path, flags, scene=CORNELL):
+    seen = []
+    to_display = image_io.to_display
+
+    def spy(accum, *args):
+        seen.append(np.array(accum))
+        return to_display(accum, *args)
+
+    monkeypatch.setattr(image_io, "to_display", spy)
+    out = tmp_path / f"{len(flags)}.png"
+    assert cli.main([scene, "--device", "cpu", "--res", "20", "18",
+                     "--depth", "5", "--spp", "3", "--chunk", "2",
+                     "--out", str(out), *flags]) == 0
+    monkeypatch.undo()
+    return seen[0], np.asarray(Image.open(out))
+
+
+@pytest.mark.parametrize("flags", [
+    ["--split-depth", "2"], ["--split-depth", "1", "--rr"],
+    ["--split-depth", "9"], ["--engine", "sorted"],
+    ["--engine", "sorted", "--nee"], ["--engine", "sorted", "--split-depth",
+                                      "2"]])
+def test_cli_engines_render_the_default_engine_image(monkeypatch, tmp_path,
+                                                     flags):
+    # the split and sorted engines render K1's image, bit for bit, in
+    # chunks of --chunk samples
+    got = _cli_accum(monkeypatch, tmp_path, flags)
+    options = [f for f in flags if f in ("--nee", "--rr")]
+    want = _cli_accum(monkeypatch, tmp_path, options)
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
 
 
 @pytest.mark.parametrize("flags", [["--nee"], ["--rr"], ["--nee", "--rr"]])

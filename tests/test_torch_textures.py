@@ -161,7 +161,7 @@ def test_tex_tables_match_reference(name):
 @pytest.mark.parametrize("name", TEX_SCENES)
 def test_pack_textures_decodes_to_reference_texels(name):
     ref, scene = _scenes(name)
-    words = K.pack_textures(scene)
+    words = K.pack_textures(scene, "cpu")
     assert words.dtype == torch.int32 and words.dim() == 1
     w = words.numpy().astype(np.int64)
     assert int(w.max()) < 1 << 24
@@ -184,7 +184,7 @@ def test_pack_mesh_texture_columns_match_reference(name):
     ref, scene = _scenes(name)
     tg, _, bg = mk._tex_statics(ref)
     _, _, _, ref_tri, _ = mk._pack_scene(ref, tg, bg)
-    tri, nodes, meta = K.pack_mesh(scene)
+    tri, nodes, meta = K.pack_mesh(scene, "cpu")
     assert tuple(tri.shape) == tuple(ref_tri.shape) == (scene.mesh.count, 24)
     np.testing.assert_allclose(tri.numpy(), np.asarray(ref_tri), rtol=0,
                                atol=1e-6)
@@ -194,7 +194,7 @@ def test_pack_mesh_texture_columns_match_reference(name):
 
 
 def test_pack_mesh_without_textures_keeps_16_columns():
-    tri, _, _ = K.pack_mesh(S.load("cornell_mesh"))
+    tri, _, _ = K.pack_mesh(S.load("cornell_mesh"), "cpu")
     assert tri.shape[1] == K.TRI_COLS
 
 
@@ -224,7 +224,7 @@ def test_off_grid_texture_raises_value_error():
     bad[0] = bad[0] + np.float32(0.001)
     scene = dataclasses.replace(scene, textures=tuple(bad))
     with pytest.raises(ValueError, match="u8 grid"):
-        K.pack_textures(scene)
+        K.pack_textures(scene, "cpu")
     with pytest.raises(ValueError, match="u8 grid"):
         K.prepare(scene, "cpu")
 
@@ -241,7 +241,7 @@ def test_unused_textures_stay_out_of_the_tables():
     scene = dataclasses.replace(scene, textures=tuple(bad))
     assert K.tex_used(scene) == (0,)
     assert K.tex_statics(scene)[1] == ()
-    assert K.pack_textures(scene).numel() == 32 * 32
+    assert K.pack_textures(scene, "cpu").numel() == 32 * 32
 
 
 @pytest.mark.parametrize("name,bits", [

@@ -1,24 +1,40 @@
-"""The output bits of K1's builds without textures, to compare two
-versions of the port on one card.
+"""The output bits, time and registers of K1, to compare two versions of
+the port on one card.
 
-    python3 tests/torch_digest.py [ROOT]
+    python3 tests/torch_digest.py [ROOT] [--time] [--regs MASK,MASK,...]
 
 For cornell.txt (the build without features, mask 0) and cornell_mesh.txt
 (the mesh build, mask 512), each at 96x80, depth 8, 3 samples from
 iteration 1, it prints the sha256 of the float32 radiance that
 ``trace_k1`` returns, first 16 hex digits.  These are the jobs of the
-digests that ``test_torch_cuda.py`` pins.  ROOT is the root of a checkout
-whose ``pathtrace_tpu_torch`` and ``scenes/`` are used (default: this
-one).  Needs a CUDA GPU.  Imports no JAX.
+digests that ``test_torch_cuda.py`` pins.  With ``--time`` it prints K1's
+ms/iter on cornell.txt (800x800) and cornell_bigmesh.txt (1920x1080), the
+files' own size and depth 8: the median of 9 calls of 8 samples, CUDA
+events, after one warm call.  With ``--regs`` it first compiles ROOT's
+``megakernel.cu`` for each feature mask listed (all ``nvcc`` processes
+at once, no link, ROOT's flags) and prints each kernel's registers and
+spills as ``-Xptxas -v`` reports them; without ``--time`` it then stops
+(and needs only ``nvcc``).  ROOT is the root of a checkout whose
+``pathtrace_tpu_torch`` and ``scenes/`` are used (default: this one).
+Needs a CUDA GPU.  Imports no JAX.
 """
 
+import argparse
 import dataclasses
 import hashlib
 import os
+import statistics
+import subprocess
 import sys
+import tempfile
 
 JOBS = (("cornell", 0), ("cornell_mesh", 512))  # scene file, feature mask
 RES, DEPTH, SPP = (96, 80), 8, 3
+TIMED = ("cornell", "cornell_bigmesh")  # at the files' own size
+TIME_SPP, TIME_CALLS = 8, 9
+# the kernels of the sources, by the names ptxas reports them under
+KERNELS = ("k1_trace", "k5_span", "k6_scan_tiles", "k6_add_offsets",
+           "k9_probe")
 
 
 def digest(rad):
@@ -26,10 +42,78 @@ def digest(rad):
     return hashlib.sha256(rad.cpu().numpy().tobytes()).hexdigest()[:16]
 
 
+def ptxas_usage(log):
+    """{kernel: "registers ... | spills"} from nvcc's ``-Xptxas -v``
+    output: a kernel of KERNELS under its own name, any other under its
+    mangled one."""
+    usage, fn, spill = {}, None, ""
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            fn = next((k for k in KERNELS if k in ln), ln.split("'")[1])
+        elif "spill" in ln:
+            spill = ln.strip()
+        elif "registers" in ln and fn:
+            usage[fn] = f"{ln.split(':', 1)[1].strip()} | {spill}"
+    return usage
+
+
+def registers(root, masks):
+    """Compiles ROOT's megakernel.cu for each mask at once (no link) and
+    prints each kernel's registers and spills."""
+    from pathtrace_tpu_torch.ops.cuda import build
+
+    csrc = os.path.join(root, "pathtrace_tpu_torch", "csrc")
+    flags = [f for f in build.NVCC_FLAGS if f != "-shared"]
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = [(m, subprocess.Popen(
+            [build.nvcc_path(), *flags, f"-DPT_FEATURES={m}", "-I", csrc,
+             "-c", "-o", os.path.join(tmp, f"m{m}.o"),
+             os.path.join(csrc, "megakernel.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+            for m in masks]
+        for m, proc in procs:
+            log, _ = proc.communicate()
+            if proc.returncode:
+                raise RuntimeError(f"nvcc failed for mask {m}:\n{log}")
+            for fn, usage in ptxas_usage(log).items():
+                print(f"regs {root} mask {m} {fn}: {usage}", flush=True)
+
+
+def k1_times(root, torch, ptt, K):
+    """K1's ms/iter on the TIMED scenes, median of TIME_CALLS calls."""
+    for name in TIMED:
+        scene = ptt.load_scene(os.path.join(root, "scenes", f"{name}.txt"))
+        scene = dataclasses.replace(scene, trace_depth=DEPTH)
+        job = K.prepare(scene, "cuda")
+        K.trace_k1(**job, it0=1, n_spp=TIME_SPP)
+        runs = []
+        for _ in range(TIME_CALLS):
+            start, stop = (torch.cuda.Event(enable_timing=True)
+                           for _ in range(2))
+            start.record()
+            K.trace_k1(**job, it0=1, n_spp=TIME_SPP)
+            stop.record()
+            torch.cuda.synchronize()
+            runs.append(start.elapsed_time(stop) / TIME_SPP)
+        width, height = scene.resolution
+        print(f"k1 {name} {width}x{height} d{DEPTH} ({root}): "
+              f"{statistics.median(runs):.4f} ms/iter, runs "
+              f"{[round(t, 4) for t in runs]}", flush=True)
+
+
 def main(argv):
-    root = os.path.abspath(argv[0] if argv else os.path.dirname(
+    p = argparse.ArgumentParser()
+    p.add_argument("root", nargs="?", default=os.path.dirname(
         os.path.dirname(os.path.abspath(__file__))))
+    p.add_argument("--time", action="store_true")
+    p.add_argument("--regs", default="")
+    args = p.parse_args(argv)
+    root = os.path.abspath(args.root)
     sys.path.insert(0, root)
+    if args.regs:
+        registers(root, [int(m) for m in args.regs.split(",")])
+        if not args.time:
+            return 0
     import torch
 
     if not torch.cuda.is_available():
@@ -49,6 +133,8 @@ def main(argv):
                                f"one of mask {mask}")
         print(f"digest {name} {RES[0]}x{RES[1]} d{DEPTH} {SPP}spp mask "
               f"{mask} ({K.__file__}): {digest(rad)}", flush=True)
+    if args.time:
+        k1_times(root, torch, ptt, K)
     return 0
 
 
