@@ -92,7 +92,43 @@ Phases, each of which raises on failure (exit code non-zero):
    split 1, split cornell 800x800 at split 3, sorted cornell 800x800,
    sorted cornell_bigmesh 800x800 and sorted cornell_hugemesh 1920x1080;
    the sorted engine's breakdown into spans, ``sort_perm``, ``permute``
-   and the un-permute.
+   and the un-permute;
+13. the gradients on cornell.txt, 1 spp, with a random cotangent that is
+   zero on the pixels where K1 and its plain version differ: the reverse
+   sweep K8 (``k8_vjp``, without and with NEE) bit-equal to K1 in its
+   radiance, and every table's gradient against its plain version
+   (autograd over ``trace_plain`` on the card), at 64x64 depth 4 and at
+   800x800 depth 8, and at 64x64 depth 4 also every parameter group of
+   ``render_vjp`` against the same entry point on the plain version; the
+   material gradients K7 (``k7_grads``), its radiance and counts
+   bit-equal to K1's, the same way.  Tolerance
+   (``tests/torch_gradcheck.py``): the reference's rtol / atol (K8 2e-4
+   / 3e-4, K7 1e-5 / 1e-4), K8's cotangent split between the NEE
+   fireflies (held with a share of their part's largest gradient) and
+   the other pixels (held at the reference's tolerance as it stands, at
+   800x800 with a share of each table's largest gradient);
+14. the gradients' main path, launch counts reset before and read after:
+   ``render_vjp`` on cornell 800x800 d8, 1 spp, with NEE and a cotangent
+   of ones (the reference bench's "NEE grad-step") and without NEE,
+   ``material_grads`` on the same, and five steps of inverse rendering
+   (``render/inverse.inverse_light``: the reference's
+   ``examples/inverse_light.py`` loop, NEE, the light moved by (1.5, 0,
+   1.0), lr 150, steps capped at 0.3) on cornell 200x200 d8 at 8 spp (the
+   example's defaults: each step's error printed, and its first step
+   must land within 1e-4 of the same loop's on K8's plain version), at
+   64x64 d8 at 8 spp and at 24x24 d2 at 2 spp (the size the reference's
+   own test runs, ``tests/test_examples.py:39-45``), where the light's
+   position error must fall below its start;
+15. the gradients' times, warm, CUDA events, median of k calls: the grad
+   step through ``render_vjp`` (the packing and its backward on the host
+   included), K8 without and with NEE and K7 (1 spp a call), K1 on the
+   same tables beside them, each with its bound: K1's counted work of one
+   sample plus ``bound.k8_extra``/``bound.k7_extra`` (K7's fold, and
+   K8 without NEE, whose only gradient that is not zero is the
+   materials': the fold's ops a path and a scatter; K8 with NEE: the
+   adjoints' least ops counted from the kernel's code and the stored
+   state of each live bounce written and read once; all: the cotangent
+   and the gradient table).
 
 The line before the last is a JSON object describing each kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Without a CUDA GPU it
@@ -121,6 +157,9 @@ K4_SITE = "pathtrace_tpu/ops/pallas/megakernel.py:1719"   # _bilin3
 K9_SITE = "tools/probe_trav.py:32"                        # kernel
 K5_SITE = "pathtrace_tpu/ops/pallas/megakernel.py:3923"   # _span_kernel
 K6_SITE = "pathtrace_tpu/ops/scan.py:43"                  # _scan_kernel
+K7_SITE = "pathtrace_tpu/ops/pallas/megakernel.py:2551"   # _grad_accumulate
+K8_SITE = "pathtrace_tpu/ops/pallas/megakernel.py:3494"   # _vjp_kernel
+GRAD_SMALL = ((64, 64), 4)  # resolution, depth: the reference's tolerance
 HUGEMESH_OBJ = os.path.join("scenes", "gen_icosphere7.obj")
 # (label, scene file, text replacements of
 # pathtrace_tpu_torch.scene.variants, nee, rr); the first of each feature
@@ -696,6 +735,262 @@ def time_engines(ptt, K, SP, torch, scenes, card):
               flush=True)
 
 
+def masked_ct(torch, rad, ref, seed):
+    """A random cotangent (seeded, on the card), zero on the pixels where
+    the kernel's forward and the plain version's differ (tie flips), as
+    the reference's gradient tests mask them."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    ct = torch.rand(rad.shape, generator=gen, device="cuda")
+    return torch.where(((rad - ref).abs().amax(-1) < 1e-4)[:, None], ct, 0.0)
+
+
+def held(GC, label, got, want, tol, share=None):
+    """Each (name, gradient) of ``got`` against ``want``'s
+    (``tests/torch_gradcheck.compare``: ``tol`` the reference's (rtol,
+    atol), ``share`` a share of max|w|).  Prints each; raises on a miss
+    or on a gradient that is not finite.  Returns the largest absolute
+    difference."""
+    rows = GC.compare(got, want, *tol, share)
+    for name, scale, err, ratio, need, ok in rows:
+        print(f"  {label} {name}: max |g| {scale:.6g}, max |diff| {err:.6g}"
+              f" ({ratio:.3g} of atol + rtol |g| at worst), share of max |g|"
+              f" needed {need:.3g} (allowed {share or 0.0:.3g}) "
+              f"{'ok' if ok else 'MISS'}", flush=True)
+    missed = [row[0] for row in rows if not row[-1]]
+    if missed:
+        raise RuntimeError(f"{label}: {missed} against the plain version")
+    return max((row[2] for row in rows), default=0.0)
+
+
+def k8_vs_plain(K, VJ, GC, torch, label, scene, nee, full):
+    """K8 on the tables of ``scene``, 1 spp, against K1 (its radiance, bit
+    for bit) and against its plain version (:func:`held`), with the
+    cotangent split between the NEE fireflies and the other pixels
+    (``GC.split``): every table's gradient and, unless ``full``, every
+    parameter group of ``render_vjp`` (the entry point on K8 and on K8's
+    plain version).  Returns (max abs error of the tables on the whole
+    cotangent, plain ms)."""
+    job = K.prepare(scene, "cuda", nee=nee)
+    width, height, depth = job["width"], job["height"], job["depth"]
+    rad, _ = K.trace_k1(**job, it0=1, n_spp=1)
+    ref, _ = K.trace_plain(**job, it0=1, n_spp=1)
+    ct = masked_ct(torch, rad, ref, 0)
+
+    def args(c):
+        return (job["cam"], job["mats"], job["gmat"], job["geom_types"],
+                width, height, depth, 1, 1, job["lights"], c)
+
+    rad8, got = VJ.trace_k8(*args(ct))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, want = VJ.k8_plain(*args(ct))
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    same = torch.equal(rad8, rad)
+    ff = GC.fireflies(rad, 1, scene.materials.emittance)
+    print(f"k8 {label} {width}x{height} d{depth} 1spp: radiance bit-equal "
+          f"to K1 {same}; cotangent on "
+          f"{float((ct[:, 0] > 0).float().mean()):.6f} of the pixels; "
+          f"{int(ff.sum())} fireflies (radiance "
+          f"{[round(float(x), 4) for x in rad.amax(-1)[ff][:8]]}); plain "
+          f"version {plain_ms:.1f} ms", flush=True)
+    if not same:
+        raise RuntimeError(f"{label}: K8's radiance is not K1's")
+    names = ("cam", "mats", "gmat", "lights")
+    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    from pathtrace_tpu_torch.render import diff as D
+
+    for part, c, share in zip(("other pixels", "fireflies"), GC.split(ct, ff),
+                              (GC.FULL_SHARE if full else None,
+                               GC.FIREFLY_SHARE)):
+        if not bool(c.any()):
+            continue
+        _, g = VJ.trace_k8(*args(c))
+        _, w = VJ.k8_plain(*args(c))
+        held(GC, f"{label} {part}", zip(names, g), zip(names, w), GC.K8_TOL,
+             share)
+        if full:
+            continue
+        _, g = VJ.render_vjp(scene, c, 1, 1, nee=nee)
+        _, w = VJ.render_vjp(scene, c, 1, 1, nee=nee, plain=True)
+        held(GC, f"{label} render_vjp {part}", D.named_leaves(g),
+             D.named_leaves(w), GC.K8_TOL, share)
+    return err, plain_ms
+
+
+def k7_vs_plain(K, MG, GC, torch, label, scene):
+    """K7 on the tables of ``scene``, 1 spp, against K1 (radiance and
+    counts, bit for bit) and its plain version (the gradient table by
+    parameter, :func:`held`; without NEE there are no fireflies).
+    Returns (max abs error, plain ms, the job, the material table, the
+    geoms' materials)."""
+    job = K.prepare(scene, "cuda")
+    mtab = MG.material_table(scene, "cuda")
+    mat_of = tuple(int(m) for m in scene.geoms.material_id)
+    rad, counts = K.trace_k1(**job, it0=1, n_spp=1)
+    ref, _ = K.trace_plain(**job, it0=1, n_spp=1)
+    ct = masked_ct(torch, rad, ref, 1)
+    rad7, counts7, got = MG.trace_k7(job, mtab, mat_of, ct, 1, 1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, _, want = MG.k7_plain(job, mtab, mat_of, ct, 1, 1)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    same = torch.equal(rad7, rad) and torch.equal(counts7, counts)
+    print(f"k7 {label} {job['width']}x{job['height']} d{job['depth']} 1spp: "
+          f"radiance and counts bit-equal to K1 {same}; plain version "
+          f"{plain_ms:.1f} ms", flush=True)
+    if not same:
+        raise RuntimeError(f"{label}: K7's radiance or counts are not K1's")
+    rows = (("color", slice(0, 3)), ("spec_color", slice(3, 6)),
+            ("emittance", slice(6, 7)), ("has_reflective", slice(7, 8)))
+    err = held(GC, label, [(n, got[r]) for n, r in rows],
+               [(n, want[r]) for n, r in rows], GC.K7_TOL)
+    return err, plain_ms, job, mtab, mat_of
+
+
+def grad_main_path(ptt, K, MG, VJ, np, torch, cornell):
+    """The gradients' main path (launch counts reset before and read
+    after): the NEE grad step, ``render_vjp`` without NEE,
+    ``material_grads``, five steps of inverse rendering.  Returns the
+    launches by kernel."""
+    from pathtrace_tpu_torch.render import diff as D
+    from pathtrace_tpu_torch.render.inverse import inverse_light
+
+    n_pix = cornell.pixel_count
+    ct = torch.rand((n_pix, 3), generator=torch.Generator().manual_seed(7))
+    loops = {"200x200 d8 8spp": (dataclasses.replace(
+        cornell, resolution=(200, 200)), 8), "64x64 d8 8spp": (
+        dataclasses.replace(cornell, resolution=(64, 64)), 8),
+        "24x24 d2 2spp": (dataclasses.replace(
+            cornell, resolution=(24, 24), trace_depth=2), 2)}
+    first = {}
+
+    def show(what):
+        def callback(step, pos, err):
+            first.setdefault(what, pos)
+            print(f"inverse_light {what} step {step}: light at "
+                  f"{[float(x) for x in pos]}, position error {err}",
+                  flush=True)
+        return callback
+
+    for counter in (K.LAUNCHES, MG.LAUNCHES, VJ.LAUNCHES):
+        counter.clear()
+    rad, g_nee = ptt.render_vjp(cornell, torch.ones((n_pix, 3)), 1, 1,
+                                nee=True)
+    _, g = ptt.render_vjp(cornell, ct, 1, 1)
+    rad_m, g_m = ptt.material_grads(cornell, ct, 1, 1)
+    errors = {what: inverse_light(scene, steps=5, spp=spp, device="cuda",
+                                  callback=show(what))
+              for what, (scene, spp) in loops.items()}
+    torch.cuda.synchronize()
+    launches = {"k7_grads": MG.LAUNCHES[0], "k8_vjp": VJ.LAUNCHES[0],
+                "k8_vjp+k2_nee": VJ.LAUNCHES[K.NEE_BIT],
+                "k1_trace+k2_nee": K.LAUNCHES[K.NEE_BIT]}
+    print(f"gradients' main path: launches {launches}; inverse_light "
+          f"position errors {errors}", flush=True)
+    scene, spp = loops["200x200 d8 8spp"]
+    inverse_light(scene, steps=1, spp=spp, device="cuda", plain=True,
+                  callback=show("plain"))
+    step_err = float(np.abs(first["plain"] - first["200x200 d8 8spp"]).max())
+    print(f"inverse_light 200x200 d8 8spp, first step on K8 against its "
+          f"plain version: {step_err}", flush=True)
+    if not step_err <= 1e-4:
+        raise RuntimeError(f"inverse_light: K8's first step is {step_err} "
+                           f"from the plain version's")
+    if not all(launches.values()):
+        raise RuntimeError(f"the gradients' main path skipped a kernel: "
+                           f"{launches}")
+    for what, leaves in (("grad step", D.leaves(g_nee)),
+                         ("render_vjp", D.leaves(g)),
+                         ("material_grads", list(g_m.values()))):
+        if not all(bool(torch.isfinite(t).all()) for t in leaves):
+            raise RuntimeError(f"{what}: a gradient is not finite")
+    want, _ = ptt.pathtrace_batch(cornell, 1, 1, nee=True)
+    want_m, _ = ptt.pathtrace_batch(cornell, 1, 1)
+    if not (torch.equal(rad, want) and torch.equal(rad_m, want_m)):
+        raise RuntimeError("the gradients' radiance is not K1's")
+    if float(g_nee["translation"].abs().max()) == 0.0:
+        raise RuntimeError("the NEE grad step gave no geometry gradient")
+    for what in ("64x64 d8 8spp", "24x24 d2 2spp"):
+        err = errors[what]
+        if not err[-1] < err[0]:
+            raise RuntimeError(f"inverse_light {what}: the position error "
+                               f"went from {err[0]} to {err[-1]}")
+    return launches
+
+
+def forward_work(K, B, torch, label, job):
+    """(ops, bytes) of one sample of K1 on ``job``: the count made by
+    time_variant for ``label`` at this size, or made here."""
+    key = (label, job["width"], job["height"])
+    if key not in WORK:
+        _, ops_by, bytes_by = B.count_work(
+            lambda: K.trace_plain(**job, it0=1, n_spp=1))
+        WORK[key] = (ops_by, bytes_by, small_table_bytes(torch, job))
+    ops_by, bytes_by, table_bytes = WORK[key]
+    return (sum(ops_by.values()),
+            table_bytes + sum(bytes_by.values())
+            + 12 * job["width"] * job["height"])
+
+
+def time_gradients(ptt, K, MG, VJ, B, torch, cornell, card, k7_job):
+    """The grad step's time, and K8's (without and with NEE) and K7's
+    beside K1's on the same tables, with their bounds.  Returns {kernel:
+    (ms, bound ms, bound by)}."""
+    n_pix = cornell.pixel_count
+    ones = torch.ones((n_pix, 3), device="cuda")
+    ms, runs, _ = median_ms(
+        lambda: ptt.render_vjp(cornell, ones, 1, 1, nee=True), torch, 5)
+    print(f"time grad step cornell 800x800 d8 NEE 1spp (render_vjp, the "
+          f"packing and its backward on the host included): median "
+          f"{ms:.4f} ms (runs {[round(t, 4) for t in runs]}) on {card}",
+          flush=True)
+    out = {}
+    for name, label, nee in (("k8_vjp", "cornell", False),
+                             ("k8_vjp+k2_nee", "cornell NEE", True)):
+        job = K.prepare(cornell, "cuda", nee=nee)
+        args = (job["cam"], job["mats"], job["gmat"], job["geom_types"],
+                job["width"], job["height"], job["depth"], 1, 1,
+                job["lights"], ones)
+        ms_k8, runs_k8, (_, tabs) = median_ms(lambda: VJ.trace_k8(*args),
+                                              torch, 9)
+        ms_k1, runs_k1, (_, counts) = median_ms(
+            lambda: K.trace_k1(**job, it0=1, n_spp=1), torch, 9)
+        ops, n_bytes = forward_work(K, B, torch, label, job)
+        extra_ops, extra_bytes = B.k8_extra(
+            counts.tolist(), n_pix, sum(t.numel() for t in tabs), nee)
+        bound_ms, bound_by = B.bound(ops + extra_ops, n_bytes + extra_bytes)
+        extra = ("the adjoints", "the cotangent, the stored states and the "
+                 "table") if nee else ("the fold", "the cotangent and the "
+                                       "table")
+        print(f"time {name} cornell 800x800 d8 1spp: kernel median "
+              f"{ms_k8:.4f} ms (runs {[round(t, 4) for t in runs_k8]}), K1 "
+              f"on the same tables {ms_k1:.4f} ms (runs "
+              f"{[round(t, 4) for t in runs_k1]}) on {card}; bound "
+              f"{bound_ms:.4f} ms by {bound_by} ({ops:.4g} ops of K1's count "
+              f"+ {extra_ops:.4g} of {extra[0]}; {n_bytes + extra_bytes} "
+              f"bytes, of which {extra_bytes} {extra[1]}); kernel at "
+              f"{bound_ms / ms_k8:.2%} of it; library call: none", flush=True)
+        out[name] = (ms_k8, bound_ms, bound_by)
+    job, mtab, mat_of = k7_job
+    ct = torch.rand((n_pix, 3), device="cuda")
+    ms_k7, runs_k7, (_, counts, _) = median_ms(
+        lambda: MG.trace_k7(job, mtab, mat_of, ct, 1, 1), torch, 9)
+    ops, n_bytes = forward_work(K, B, torch, "cornell", job)
+    extra_ops, extra_bytes = B.k7_extra(counts.tolist(), n_pix,
+                                        mtab.shape[0])
+    bound_ms, bound_by = B.bound(ops + extra_ops, n_bytes + extra_bytes)
+    print(f"time k7_grads cornell 800x800 d8 1spp: kernel median "
+          f"{ms_k7:.4f} ms (runs {[round(t, 4) for t in runs_k7]}) on {card};"
+          f" bound {bound_ms:.4f} ms by {bound_by} ({ops:.4g} ops of K1's "
+          f"count + {extra_ops:.4g} of the fold; {n_bytes + extra_bytes} "
+          f"bytes); kernel at {bound_ms / ms_k7:.2%} of it; library call: "
+          f"none", flush=True)
+    out["k7_grads"] = (ms_k7, bound_ms, bound_by)
+    return out
+
+
 def main():
     import torch
 
@@ -709,12 +1004,15 @@ def main():
     import pathtrace_tpu_torch as ptt
     from pathtrace_tpu_torch.ops.cuda import bound as B
     from pathtrace_tpu_torch.ops.cuda import build
+    from pathtrace_tpu_torch.ops.cuda import matgrad as MG
     from pathtrace_tpu_torch.ops.cuda import megakernel as K
+    from pathtrace_tpu_torch.ops.cuda import vjp as VJ
     from pathtrace_tpu_torch.ops import scan as SC
     from pathtrace_tpu_torch.ops.cuda import probe as P
     from pathtrace_tpu_torch.ops.cuda import span as SP
     sys.path.insert(0, os.path.join(HERE, "tests"))
     from torch_digest import ptxas_usage
+    import torch_gradcheck as GC
 
     card = card_line()
     kind = torch.cuda.get_device_name(0)
@@ -753,13 +1051,16 @@ def main():
     phase_done("scenes")
 
     t0 = time.perf_counter()
-    build.build_kernels(masks)
-    print(f"build K1 variants {masks} and K9: "
-          f"{time.perf_counter() - t0:.2f} s, nvcc "
-          f"{' '.join(build.NVCC_FLAGS)} -DPT_FEATURES=<mask>", flush=True)
+    build.build_kernels(masks, k7_masks=(0,), k8_masks=VJ.MASKS)
+    print(f"build K1 variants {masks}, K7 (mask 0), K8 (masks {VJ.MASKS}), "
+          f"K6 and K9: {time.perf_counter() - t0:.2f} s, nvcc "
+          f"{' '.join(build.NVCC_FLAGS)} -DPT_FEATURES=<mask> (K7 "
+          f"-DPT_GRAD=1, K8 -DPT_VJP=1)", flush=True)
     for lib, name in ([(f"k1_m{m}", f"{kernel_name(K, m)} (mask {m})")
-                       for m in masks] + [("k6_scan", "k6_scan"),
-                                          ("k9_probe", "k9_probe")]):
+                       for m in masks] + [("k7_m0", "k7_grads (mask 0)")]
+                      + [(f"k8_m{m}", f"k8_vjp (mask {m})")
+                         for m in VJ.MASKS]
+                      + [("k6_scan", "k6_scan"), ("k9_probe", "k9_probe")]):
         sec, log = build.BUILD_INFO.get(lib, (0.0, "(library found built)"))
         usage = "; ".join(f"{k}: {v}" for k, v in ptxas_usage(log).items())
         print(f"build {name}: {sec:.2f} s | {usage}", flush=True)
@@ -868,6 +1169,24 @@ def main():
     time_engines(ptt, K, SP, torch, scenes, card)
     phase_done("time engines")
 
+    cornell = scenes["cornell"][0]
+    small = dataclasses.replace(cornell, resolution=GRAD_SMALL[0],
+                                trace_depth=GRAD_SMALL[1])
+    grad_rows = {}
+    for full, scene in ((False, small), (True, cornell)):
+        for name, nee in (("k8_vjp", False), ("k8_vjp+k2_nee", True)):
+            grad_rows[name] = k8_vs_plain(K, VJ, GC, torch, name, scene,
+                                          nee, full)
+            phase_done(f"{name} vs plain {scene.resolution}")
+        row = k7_vs_plain(K, MG, GC, torch, "k7_grads", scene)
+        grad_rows["k7_grads"], k7_job = row[:2], row[2:]
+        phase_done(f"k7_grads vs plain {scene.resolution}")
+    grad_launches = grad_main_path(ptt, K, MG, VJ, np, torch, cornell)
+    phase_done("gradients' main path")
+    grad_times = time_gradients(ptt, K, MG, VJ, B, torch, cornell, card,
+                                k7_job)
+    phase_done("time gradients")
+
     print(card, flush=True)
     print(json.dumps({"kernels": [{
         "name": kernel_name(K, mask),
@@ -919,7 +1238,19 @@ def main():
         "bound_ms": k6_row[SCAN_TIMED][4],
         "bound_by": k6_row[SCAN_TIMED][5],
         "library_ms": k6_row[SCAN_TIMED][3],
-    }]}), flush=True)
+    }] + [{
+        "name": name,
+        "route": "cuda",
+        "source": "pathtrace_tpu_torch/csrc/megakernel.cu",
+        "replaces": K7_SITE if name == "k7_grads" else K8_SITE,
+        "launches": grad_launches[name],
+        "max_abs_err": grad_rows[name][0],
+        "ms": grad_times[name][0],
+        "plain_ms": grad_rows[name][1],
+        "bound_ms": grad_times[name][1],
+        "bound_by": grad_times[name][2],
+        "library_ms": None,
+    } for name in ("k7_grads", "k8_vjp", "k8_vjp+k2_nee")]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -10,7 +10,10 @@ NEE and Russian roulette, traced by the hand-written CUDA megakernel K1
 CPU.  The split and sorted engines (``pathtrace_batch_split``,
 ``pathtrace_batch_sorted``) trace the same image in spans of bounces on
 the span kernel K5, the split engine's tile table on the scan K6
-(``prefix_sum``, ``compact_indices``, ``compact``).  Every entry point
+(``prefix_sum``, ``compact_indices``, ``compact``).  The gradients of a
+render: ``material_grads`` (the material-gradient kernel K7) and
+``render_vjp`` (the reverse sweep K8, chained through the packing to the
+parameters of ``split_params``/``merge_params``).  Every entry point
 takes a ``device``, the card by default.
 """
 
@@ -20,33 +23,54 @@ import torch
 
 from .core import types
 from .core.types import Camera, Geoms, Materials, Scene, TriMesh
+from .ops.cuda.matgrad import material_grads
 from .ops.cuda.megakernel import (
     pack_lights, pack_mesh, pack_scene, pack_textures, pathtrace_batch_cuda,
     prepare, trace_k1,
 )
 from .ops.cuda.span import pathtrace_batch_sorted, pathtrace_batch_split
+from .ops.cuda.vjp import render_vjp
 from .ops.scan import compact, compact_indices, prefix_sum
+from .render.diff import merge_params, split_params
 from .scene.parser import load_scene, parse_scene
 
 __version__ = "0.1.0"
 
+COMPACTIONS = ("mask", "sort")
 
-def pathtrace_batch(scene, it0, n_iters, device="cuda", nee=False,
-                    rr=False):
+
+def _check_compaction(compaction):
+    if compaction not in COMPACTIONS:
+        raise ValueError(f"compaction must be one of {COMPACTIONS}, not "
+                         f"{compaction!r}")
+
+
+def pathtrace_batch(scene, it0, n_iters, compaction="mask", remat=True,
+                    nee=False, rr=False, device="cuda"):
     """``n_iters`` samples per pixel starting at iteration ``it0``, with
     next-event estimation if ``nee`` and Russian roulette if ``rr``:
     (accumulated radiance (P,3) f32, live counts per bounce (depth,)
-    int64), both on ``device``."""
+    int64, summed over the samples), both on ``device``.
+
+    The arguments are the reference's ``pathtrace_batch``'s, but its
+    wavefront is not ported yet (ROADMAP Queue 1 item 1): K1 traces every
+    sample here.  So ``compaction="sort"`` gives the image of ``"mask"``
+    (K1 masks dead lanes, as the reference's tiled engines do), ``remat``
+    (memory under autodiff of the wavefront) changes nothing, and the
+    counts are summed over the samples, where the reference's wavefront
+    gives them per sample, (n_iters, depth)."""
+    _check_compaction(compaction)
     return pathtrace_batch_cuda(scene, it0, n_iters, device=device, nee=nee,
                                 rr=rr)
 
 
-def render(scene, n_iters=None, chunk=8, callback=None, device="cuda",
-           nee=False, rr=False):
+def render(scene, n_iters=None, chunk=8, compaction="mask", callback=None,
+           nee=False, device="cuda", rr=False):
     """Progressive render to completion, ``chunk`` samples per launch;
     returns the accumulated image (P,3) on ``device`` (divide by
     ``n_iters`` for display).  ``callback(done, accum, counts)`` runs
-    after each chunk."""
+    after each chunk.  ``compaction`` as :func:`pathtrace_batch`'s."""
+    _check_compaction(compaction)
     n_iters = n_iters if n_iters is not None else scene.iterations
     # the tables stay resident on the device across chunks
     job = prepare(scene, device, nee=nee, rr=rr)

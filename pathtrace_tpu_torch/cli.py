@@ -12,9 +12,12 @@ scene with TEXTURE or BUMPTEX maps, its texture section K4) and raises
 when there is no GPU; ``--split-depth N`` runs the split engine and
 ``--engine sorted`` the sorted engine instead, on the span kernel K5
 (and the split engine's tile table on the scan K6), with K1's image.
-``--device cpu`` runs the plain PyTorch versions.  A chunk is one call
-of K1, or ``--chunk`` samples of an engine's per-sample loop.
-The reference's other engines and options are not ported yet: they raise
+``--device cpu`` runs the plain PyTorch versions (``--interpret``, the
+reference's flag for its kernels' CPU mode, means the same).  A chunk is
+one call of K1, or ``--chunk`` samples of an engine's per-sample loop.
+``--compaction sort`` renders with masking on these engines, as the
+reference's tiled engines do, after a warning.  The reference's other
+engines and options are not ported yet: they raise
 ``NotImplementedError`` naming the ROADMAP item that brings them.
 """
 
@@ -34,12 +37,14 @@ PREFIX = "[pathtrace_tpu_torch]"
 # flag -> (values that are ported, ROADMAP item that ports the others)
 _NOT_PORTED = {
     "engine": (("pallas", "sorted"),
-               "Queue 1 item 3 (the wavefront twin, --engine xla)"),
-    "compaction": (("mask",), "Queue 1 item 3 (the wavefront twin, with "
-                              "--compaction sort on K6)"),
-    "shard": ((False,), "Queue 1 item 11 (multi-device)"),
-    "checkpoint": ((None,), "Queue 1 item 12 (checkpoint/resume)"),
-    "interactive": ((None,), "Queue 1 item 12 (interactive camera)"),
+               "Queue 1 item 1 (the wavefront twin, --engine xla, and "
+               "--engine planes)"),
+    "shard": ((False,), "Queue 1 item 4 (multi-device)"),
+    "checkpoint": ((None,), "Queue 1 item 5 (checkpoint/resume)"),
+    "checkpoint_every": ((0,), "Queue 1 item 5 (checkpoint/resume)"),
+    "resume": ((False,), "Queue 1 item 5 (checkpoint/resume)"),
+    "preview_every": ((0,), "Queue 1 item 5 (previews)"),
+    "interactive": ((None,), "Queue 1 item 5 (interactive camera)"),
 }
 
 
@@ -74,8 +79,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="pallas = the forward megakernel (K1); sorted = one "
                         "span kernel (K5) per bounce, the rays re-sorted "
                         "between bounces; planes and xla are not ported yet")
-    # --compaction sort comes with the wavefront twin: not ported yet
-    p.add_argument("--compaction", choices=["mask", "sort"], default="mask")
+    p.add_argument("--compaction", choices=["mask", "sort"], default="mask",
+                   help="sort = the wavefront's sort-densify mode; these "
+                        "engines mask dead lanes instead (same image)")
     p.add_argument("--split-depth", type=int, default=0,
                    help="pallas engine: trace bounces [0, N) on every "
                         "pixel, then [N, depth) on the tiles with a live "
@@ -85,9 +91,15 @@ def build_parser() -> argparse.ArgumentParser:
                         "ray per light at each non-refractive hit")
     p.add_argument("--rr", action="store_true",
                    help="Russian roulette from bounce 3 on")
+    p.add_argument("--preview-every", type=int, default=0, metavar="K")
     p.add_argument("--shard", action="store_true")
     p.add_argument("--checkpoint", default=None)
+    p.add_argument("--checkpoint-every", type=int, default=0, metavar="K")
+    p.add_argument("--resume", action="store_true")
     p.add_argument("--interactive", default=None, metavar="CTRL")
+    p.add_argument("--interpret", action="store_true",
+                   help="the reference's CPU mode of its kernels: here "
+                        "--device cpu, the plain versions")
     return p
 
 
@@ -98,6 +110,16 @@ def main(argv=None) -> int:
             raise NotImplementedError(
                 f"--{flag.replace('_', '-')} {getattr(args, flag)} is not "
                 f"ported yet: ROADMAP {item}")
+    if args.interpret:
+        args.device = "cpu"
+    if args.compaction == "sort":
+        engine = "sorted" if args.engine == "sorted" else "pallas"
+        print(f"{PREFIX} WARNING: --compaction sort is a wavefront-engine "
+              f"mode; the {engine} engine masks dead lanes instead (same "
+              f"image, no densify pass), so rendering proceeds on {engine} "
+              f"with masking.  The sort-densify wavefront (--engine xla) is "
+              f"not ported yet: ROADMAP {_NOT_PORTED['engine'][1]}.",
+              flush=True)
 
     import pathtrace_tpu_torch as ptt
     from pathtrace_tpu_torch.io import image_io

@@ -1,10 +1,13 @@
 """Scene data model as plain dataclasses (struct-of-arrays).
 
 Counterpart of ``pathtrace_tpu/core/types.py`` with the JAX pytree
-registration dropped: every field is a numpy array (host side) that
-``ops/cuda/megakernel.pack_scene`` turns into device tensors.  Field
-names, shapes and the static/leaf split are the reference's, so a scene
-converts field by field (``convert.from_jax_scene``).
+registration dropped: every array field is a numpy array (host side)
+that ``ops/cuda/megakernel.pack_scene`` turns into device tensors, or a
+float32 CPU tensor, which may require grad: the gradient routes
+(``render/diff.py``) put the parameters of ``split_params`` back as
+such tensors, and the packing keeps their graph.  Field names, shapes
+and the static/leaf split are the reference's, so a scene converts
+field by field (``convert.from_jax_scene``).
 """
 
 from __future__ import annotations

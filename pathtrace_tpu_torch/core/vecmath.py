@@ -17,8 +17,12 @@ from .constants import PI
 
 
 def as_f32(x):
-    """A float32 CPU tensor holding the array ``x`` (numpy or nested
-    sequences), the input of the scene-side math."""
+    """A float32 CPU tensor holding ``x``, the input of the scene-side
+    math: a tensor as it is (moved to the CPU or cast to float32 only if
+    it is not, both differentiable, so its graph carries on), an array
+    or nested sequences converted."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device="cpu", dtype=torch.float32)
     return torch.as_tensor(np.asarray(x), dtype=torch.float32)
 
 

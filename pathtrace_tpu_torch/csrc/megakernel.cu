@@ -10,7 +10,14 @@
 // depth of field, motion blur, checker and bump; next-event estimation
 // (`_nee_add`: one area sample and one shadow ray per light and bounce),
 // Russian roulette, and image textures (albedo TEXTURE maps and BUMPTEX
-// height maps).  Gradients are not here.
+// height maps).
+//
+// Built with -DPT_GRAD=1, the library also holds K7, the analytic material
+// gradients (k7_grads: the reference's grad mode of `_kernel`, with
+// `_grad_accumulate`); built with -DPT_VJP=1, K8, the reverse sweep
+// (k8_vjp: the reference's `_vjp_kernel`).  Both run the same init_state and
+// bounce as K1; the forward builds are compiled without them, and they
+// without K1 and K5.
 //
 // The same library holds K5, the span kernel of the split and sorted
 // engines (k5_span, at the end): bounces [d0, d1) on path state kept in
@@ -92,6 +99,12 @@
 
 #ifndef PT_FEATURES
 #define PT_FEATURES 0
+#endif
+#ifndef PT_GRAD
+#define PT_GRAD 0
+#endif
+#ifndef PT_VJP
+#define PT_VJP 0
 #endif
 
 namespace {
@@ -848,6 +861,12 @@ struct PathState {
   // NEE: emission found by the BSDF counts only after a non-diffuse
   // bounce (or from the camera), so direct light is not counted twice
   bool emit_ok;
+#if PT_GRAD
+  // K7: the factor each bounce multiplied into the path, as geom << 3 |
+  // kind (grad_fold); at most one a bounce
+  int n_ev;
+  uint32_t ev[64];
+#endif
 };
 
 // The camera row (pack_scene's cam) but aperture and focal distance, which
@@ -967,6 +986,9 @@ __device__ __forceinline__ void init_state(PathState& p, const Camera& c, const 
   p.med_s = 0.f;
   p.med_r = p.med_g = p.med_b = 1.f;
   p.emit_ok = true;
+#if PT_GRAD
+  p.n_ev = 0;
+#endif
 }
 
 // Bounce d of a path (the reference's `_make_tracer.bounce`): nearest hit,
@@ -1011,6 +1033,9 @@ __device__ __forceinline__ void bounce(PathState& p, int d, uint32_t it, uint32_
       p.rr = p.rr + p.tr * albedo[0] * emit;
       p.rg = p.rg + p.tg * albedo[1] * emit;
       p.rb = p.rb + p.tb * albedo[2] * emit;
+#if PT_GRAD
+      p.ev[p.n_ev++] = static_cast<uint32_t>(h.geom) << 3 | 2u;  // lit
+#endif
     }
     p.live = false;
     return;
@@ -1094,6 +1119,11 @@ __device__ __forceinline__ void bounce(PathState& p, int d, uint32_t it, uint32_
     lobe_tint(mt + 3, albedo, take_spec, p_safe, thr_r, thr_g, thr_b);
     took_diffuse = !take_spec;
   }
+#if PT_GRAD
+  // K7: diffuse 0, specular 1, glass reflection 3, refraction 4
+  p.ev[p.n_ev++] = static_cast<uint32_t>(h.geom) << 3 |
+                   (took_refract ? 4u : kGlass && mt[8] > 0.f ? 3u : took_diffuse ? 0u : 1u);
+#endif
   float opx = h.px, opy = h.py, opz = h.pz;
   if (took_refract) {  // past the interface, so as not to hit it again
     opx = opx + gm[36] * ndx;
@@ -1174,6 +1204,7 @@ __device__ __forceinline__ void bounce(PathState& p, int d, uint32_t it, uint32_
   if constexpr (kNee) p.emit_ok = !took_diffuse || scatter_inside;
 }
 
+#if !PT_GRAD && !PT_VJP  // K1 and K5: the forward builds only
 __global__ void __launch_bounds__(kBlock)
 k1_trace(const float* __restrict__ cam_g, const float* __restrict__ mats_g,
          const float* __restrict__ gmat_g, const int* __restrict__ types_g,
@@ -1380,11 +1411,762 @@ k5_span(const float* __restrict__ cam_g, const float* __restrict__ mats_g,
   }
 }
 
+#endif  // !PT_GRAD && !PT_VJP
+
+#if PT_GRAD || PT_VJP
+// K7's and K8's gradient tables are exact sums of their float32 terms, so
+// that two calls give the same bits whatever order the threads add in.
+// They are fixed point, in units of 2^-64.  A term |v| 2^64 = m 2^sh (m its
+// 24-bit significand, sh <= 102) spans at most three 12-bit digits, which
+// are added (negated for a negative term) into three of the entry's
+// kFxLimbs 32-bit limbs in the block's table in shared memory, limb k
+// weighing 2^(12 k): integer atomics, which commute, need no carry and run
+// natively on 32-bit words in shared memory (64-bit ones, integer or
+// float, are compare-and-swap loops there).  A limb takes 2^19 digits
+// before it can overflow, so after each sample the block adds its limbs,
+// as one 128-bit two's-complement integer an entry, into the one table in
+// global memory (fx_flush) and starts again from zero; a sample adds at
+// most 128 threads x depth x (n_lights + 3) digits to a limb
+// (kFxMaxLights).  A term below 2^-64 adds nothing; one that is not finite
+// or reaches 2^62 sets the entry's flag bit, and the entry comes out NaN.
+// fx_round rounds the global table to float32.  The sums are exact while
+// the absolute values of an entry's terms add up to less than 2^63.
+constexpr int kFxLimbs = 11;     // 11 x 12 bits cover the 128
+constexpr int kFxMaxLights = 64;  // 128 x 32 x (64 + 3) < 2^19
+
+struct Fx {
+  unsigned* w;  // the block's table: kFxLimbs n limbs, then flag words
+  int n;        // its entries
+  int i;        // this entry
+  __device__ __forceinline__ Fx operator+(int k) const { return Fx{w, n, i + k}; }
+};
+
+// The words of a table of n entries: a block's in shared memory (32-bit:
+// the limbs, then a flag bit an entry) and the one in global memory
+// (64-bit: low words, high words, then a flag bit an entry).
+__host__ __device__ constexpr int fx_smem_words(int n) { return kFxLimbs * n + (n + 31) / 32; }
+__host__ __device__ constexpr int fx_words(int n) { return 2 * n + (n + 63) / 64; }
+
+__device__ __forceinline__ void fx_add(const Fx& e, float v) {
+  const uint32_t b = __float_as_uint(v);
+  const int ex = static_cast<int>((b >> 23) & 0xffu);
+  const int sh = ex - 86;  // |v| 2^64 = m 2^sh
+  if (ex == 0 || sh <= -24) return;  // zero, subnormal or below 2^-64
+  if (ex == 0xff || sh > 102) {      // inf, NaN, or 2^62 and more
+    atomicOr(e.w + kFxLimbs * e.n + (e.i >> 5), 1u << (e.i & 31));
+    return;
+  }
+  const unsigned long long m = (b & 0x7fffffu) | 0x800000u;
+  const int k = sh < 0 ? 0 : sh / 12;  // the lowest limb the digits go to
+  const unsigned long long t = sh < 0 ? m >> -sh : m << (sh - 12 * k);
+  const bool neg = (b >> 31) != 0u;
+  unsigned* limb = e.w + k * e.n + e.i;
+  for (int j = 0; j < 3; ++j) {
+    const unsigned d = static_cast<unsigned>(t >> (12 * j)) & 0xfffu;
+    if (d) atomicAdd(limb + j * e.n, neg ? 0u - d : d);
+  }
+}
+
+// Adds the block's table s (fx_smem_words(n) words) into the global one g
+// (fx_words(n)) and zeroes it: each entry's limbs as one 128-bit integer,
+// added with a carry from the low word to the high one.  Every thread of
+// the block calls it, between two __syncthreads.
+__device__ __forceinline__ void fx_flush(unsigned* s, int n, unsigned long long* g) {
+  for (int i = threadIdx.x; i < n; i += kBlock) {
+    unsigned long long lo = 0ull, hi = 0ull;
+    for (int k = 0; k < kFxLimbs; ++k) {
+      const long long v = static_cast<int>(s[k * n + i]);
+      s[k * n + i] = 0u;
+      // v 2^(12 k), sign-extended to 128 bits
+      const int sk = 12 * k;
+      const unsigned long long u = static_cast<unsigned long long>(v);
+      const unsigned long long a_lo = sk < 64 ? u << sk : 0ull;
+      const unsigned long long a_hi =
+          sk == 0  ? (v < 0 ? ~0ull : 0ull)
+          : sk < 64 ? static_cast<unsigned long long>(v >> (64 - sk))
+                    : u << (sk - 64);
+      lo += a_lo;
+      hi += a_hi + (lo < a_lo ? 1ull : 0ull);
+    }
+    if (lo == 0ull && hi == 0ull) continue;
+    const unsigned long long old = atomicAdd(g + i, lo);
+    const unsigned long long h = hi + (old + lo < old ? 1ull : 0ull);
+    if (h) atomicAdd(g + n + i, h);
+  }
+  unsigned* flags = s + kFxLimbs * n;
+  const int n_flags = (n + 31) / 32;
+  for (int q = threadIdx.x; 2 * q < n_flags; q += kBlock) {
+    const unsigned long long hi_half = 2 * q + 1 < n_flags ? flags[2 * q + 1] : 0u;
+    const unsigned long long f = flags[2 * q] | hi_half << 32;
+    if (f) {
+      atomicOr(g + 2 * n + q, f);
+      flags[2 * q] = 0u;
+      if (2 * q + 1 < n_flags) flags[2 * q + 1] = 0u;
+    }
+  }
+}
+
+// The table g (fx_words(n) words) rounded to float32, one thread an
+// entry: the nearest float32 to the double nearest to each entry, NaN
+// where flagged.
+__global__ void __launch_bounds__(kBlock)
+fx_round(const unsigned long long* __restrict__ g, int n, float* __restrict__ out) {
+  const int i = blockIdx.x * kBlock + threadIdx.x;
+  if (i >= n) return;
+  unsigned long long lo = g[i], hi = g[n + i];
+  if ((g[2 * n + (i >> 6)] >> (i & 63)) & 1ull) {
+    out[i] = nanf("");
+    return;
+  }
+  const bool neg = static_cast<long long>(hi) < 0;
+  if (neg) {  // -(hi, lo)
+    lo = ~lo + 1ull;
+    hi = ~hi + (lo == 0ull ? 1ull : 0ull);
+  }
+  const double v = static_cast<double>(hi) + static_cast<double>(lo) * 0x1p-64;
+  out[i] = static_cast<float>(neg ? -v : v);
+}
+
+// The start of a block's gradient table in shared memory: past the tables,
+// aligned for its 64-bit words.
+inline size_t grad_smem_offset(size_t tables_bytes) {
+  constexpr size_t a = alignof(unsigned long long);
+  return (tables_bytes + a - 1) & ~(a - 1);
+}
+#endif
+
+#if PT_GRAD
+// K7 — the analytic material gradients (replaces the grad mode of the
+// Pallas `_kernel`, reached from `material_grads_pallas` through `_run`):
+// K1's trace, whose bounce also records the factor it multiplies into the
+// path (PathState::ev), and at the end of each sample `_grad_accumulate`'s
+// fold of the path's factors.  At fixed random draws the radiance is a
+// product of the factors, so d(ct . radiance)/d(x) is w / x for each time
+// the path met the factor x (w = ct * radiance): a diffuse bounce color and
+// 1/(1-p), a specular one spec_color and 1/p, an emissive hit color and
+// emittance, a glass reflection spec_color, a refraction color (p =
+// clip(has_reflective, 0, 1)).  The table: rows 0-2 d/d color rgb, 3-5 d/d
+// spec_color rgb, 6 d/d emittance, 7 d/d has_reflective, n_mats columns.
+//
+// The reference counts the factors per material as base-64 digits of one
+// float32 per lane; here each path keeps its list of (geom, kind), at most
+// one a bounce, in local memory.  Each thread adds its terms (float32) into
+// its block's table in shared memory, exactly (fx_add), and each block
+// adds its table into the global one after each sample (fx_flush), which
+// fx_round rounds to float32.
+//
+// What bounds it: K1's operations (the fold adds a few per scatter,
+// bound.k7_extra); the factor list costs local memory (384 bytes of stack a
+// thread).
+constexpr int kGradRows = 8;
+
+__device__ __forceinline__ void grad_fold(const PathState& p, const float* ct,
+                                          const float* mtab, const int* mat_of, int n_mats,
+                                          const Fx& tab) {
+  const float w[3] = {ct[0] * p.rr, ct[1] * p.rg, ct[2] * p.rb};
+  if (w[0] == 0.f && w[1] == 0.f && w[2] == 0.f) return;  // every term is 0
+  const float wsum = w[0] + w[1] + w[2];
+  constexpr float eps = 1e-8f;
+  for (int e = 0; e < p.n_ev; ++e) {
+    const uint32_t kind = p.ev[e] & 7u;
+    const int m = __ldg(mat_of + (p.ev[e] >> 3));
+    const float* mv = mtab + kGradRows * m;
+    // color (diffuse, lit, refraction) or spec_color (specular, reflection)
+    const int col = (kind == 1u || kind == 3u) ? 3 : 0;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      const float x = __ldg(mv + col + c);
+      if (x > eps) fx_add(tab + ((col + c) * n_mats + m), w[c] / x);
+    }
+    if (kind == 2u) {
+      const float x = __ldg(mv + 6);
+      if (x > eps) fx_add(tab + (6 * n_mats + m), wsum / x);
+    }
+    if (kind <= 1u) {
+      const float pm = fminf(fmaxf(__ldg(mv + 7), 0.f), 1.f);
+      if (kind == 1u && pm > eps) fx_add(tab + (7 * n_mats + m), -(wsum / pm));
+      if (kind == 0u && 1.f - pm > eps) fx_add(tab + (7 * n_mats + m), wsum / (1.f - pm));
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kBlock)
+k7_grads(const float* __restrict__ cam_g, const float* __restrict__ mats_g,
+         const float* __restrict__ gmat_g, const int* __restrict__ types_g,
+         const float* __restrict__ lights_g, const float4* __restrict__ tri_g,
+         const float4* __restrict__ nodes_g, const int* __restrict__ meta_g,
+         const uint32_t* __restrict__ texels_g, const int* __restrict__ charts_g, int n_geoms,
+         int n_lights, int n_meta, int width, int height, int depth, uint32_t it0, int n_spp,
+         const float* __restrict__ mtab, const int* __restrict__ mat_of, int n_mats,
+         const float* __restrict__ ct, float* __restrict__ rad,
+         unsigned long long* __restrict__ counts, unsigned long long* __restrict__ gtab,
+         size_t grad_off) {
+  // shared: per-warp live counts, the tables, and at byte grad_off
+  // (tables_smem) the block's gradient table
+  extern __shared__ unsigned long long smem[];
+  unsigned long long* s_counts = smem;
+  const Tables s = stage_tables(smem, depth, cam_g, mats_g, gmat_g, types_g, lights_g, meta_g,
+                                charts_g, n_geoms, n_lights, n_meta);
+  unsigned* s_grad = reinterpret_cast<unsigned*>(reinterpret_cast<char*>(smem) + grad_off);
+  const int n_grad = kGradRows * n_mats;
+  for (int i = threadIdx.x; i < fx_smem_words(n_grad); i += kBlock) s_grad[i] = 0u;
+  const Fx tab{s_grad, n_grad, 0};
+  const Mesh mesh(tri_g, nodes_g, s.meta, n_meta);
+  const Tex tex(texels_g);
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const long long idx = static_cast<long long>(blockIdx.x) * kBlock + threadIdx.x;
+  const long long n_pix = static_cast<long long>(width) * height;
+  const bool valid = idx < n_pix;
+  const uint32_t pix_u = static_cast<uint32_t>(idx);
+  const float fx = static_cast<float>(idx % width);
+  const float fy = static_cast<float>(idx / width);
+  const float sx_scale = static_cast<float>(2.0 / width);
+  const float sy_scale = static_cast<float>(2.0 / height);
+  const Camera cam = load_camera(s.cam);
+
+  float acc_r = 0.f, acc_g = 0.f, acc_b = 0.f;
+  for (int sample = 0; sample < n_spp; ++sample) {
+    const uint32_t it = it0 + static_cast<uint32_t>(sample);
+    PathState p;
+    init_state(p, cam, s.cam, it, pix_u, fx, fy, sx_scale, sy_scale, valid);
+    for (int d = 0; d < depth; ++d) {
+      const unsigned ballot = __ballot_sync(0xffffffffu, p.live);
+      if (lane == 0) s_counts[warp * depth + d] += __popc(ballot);
+      bounce(p, d, it, pix_u, s, mesh, tex);
+    }
+    acc_r = acc_r + p.rr;
+    acc_g = acc_g + p.rg;
+    acc_b = acc_b + p.rb;
+    if (valid) grad_fold(p, ct + 3 * idx, mtab, mat_of, n_mats, tab);
+    __syncthreads();
+    fx_flush(s_grad, n_grad, gtab);
+    __syncthreads();
+  }
+  if (valid) {
+    rad[3 * idx + 0] = acc_r;
+    rad[3 * idx + 1] = acc_g;
+    rad[3 * idx + 2] = acc_b;
+  }
+  if (lane == 0) {
+    for (int d = 0; d < depth; ++d) {
+      const unsigned long long c = s_counts[warp * depth + d];
+      if (c) atomicAdd(&counts[d], c);
+    }
+  }
+}
+#endif  // PT_GRAD
+
+#if PT_VJP
+static_assert(kFeatures == 0 || kFeatures == 128,
+              "K8 is built for the scenes without sections (mask 0), with or without NEE");
+
+// K8 — the reverse sweep (replaces the Pallas `_vjp_kernel`, reached from
+// `render_vjp_pallas` through `_run_vjp`): per sample, the forward sweep
+// through K1's init_state and bounce, keeping the state entering each bounce
+// (Saved: 40 bytes, in local memory), then the bounces' adjoints from the
+// last to the first and raygen's, which give the gradient of ct . radiance
+// with respect to every table entry.  The reference transposes its tracer
+// with jax.vjp; CUDA has none, so each step's adjoint is written here by
+// hand, beside the forward code it follows.  The estimator is the
+// reference's: the nearest hit, the lobe, the light face and visibility are
+// detached; the winner's hit point and normal, the lobe's direction and
+// throughput, the emission and NEE's cos cos' / r^2 term carry gradients.
+//
+// The cotangent of the radiance is ct at every bounce (the radiance only
+// adds up), so the sweep carries the cotangents of the ray (o, d) and of the
+// throughput.  Table gradients go into the block's table in shared memory,
+// exactly (fx_add), which each block adds into the global one after each
+// sample (fx_flush); fx_round rounds that to float32.  Table layout: cam 16 | mats
+// n_geoms x 24 | gmat n_geoms x 40 | lights n_lights x 128 (the packed
+// tables' own).
+//
+// What bounds it: K1's operations, plus K7's fold without NEE (the only
+// gradient that is not zero there is the materials') or the adjoints with
+// NEE (bound.k8_extra).  It runs far from that: the states live in local
+// memory (kVjpMaxDepth of them a thread), the
+// nearest hit is traced again in bounce_adj, and the threads of a block that
+// hit one geom serialise on its rows' shared atomics.
+constexpr int kVjpMaxDepth = 32;
+
+struct Saved {
+  float ox, oy, oz, dx, dy, dz, tr, tg, tb;
+  bool live, emit_ok;
+};
+
+// The cotangents of the ray and the throughput a bounce hands on.
+struct Cot {
+  float o[3], d[3], t[3];
+};
+
+struct GradTab {
+  Fx cam;
+  Fx mats;
+  Fx gmat;
+  Fx lights;
+};
+
+__device__ __forceinline__ void gadd(const Fx& p, float v) { fx_add(p, v); }
+
+// The adjoint of normalize3: given x (before normalizing) and the cotangent
+// g of x / |x|, writes the cotangent of x over g.
+__device__ __forceinline__ void normalize3_adj(float x, float y, float z, float* g) {
+  const float inv = 1.f / sqrtf(x * x + y * y + z * z);
+  const float nx = x * inv, ny = y * inv, nz = z * inv;
+  const float dot = g[0] * nx + g[1] * ny + g[2] * nz;
+  g[0] = inv * (g[0] - nx * dot);
+  g[1] = inv * (g[1] - ny * dot);
+  g[2] = inv * (g[2] - nz * dot);
+}
+
+// c += a x b
+__device__ __forceinline__ void cross_add(const float* a, const float* b, float* c) {
+  c[0] += a[1] * b[2] - a[2] * b[1];
+  c[1] += a[2] * b[0] - a[0] * b[2];
+  c[2] += a[0] * b[1] - a[1] * b[0];
+}
+
+// The winner's hit (nearest<false>'s sphere and cube sections, for geom row
+// m of type `type`) from the ray (o, d): recomputed, then its adjoint.  gp,
+// gn: the cotangents of the world hit point and normal; adds the ray's into
+// c.o, c.d and the row's into tg (the geom's gmat gradient row).  The slab
+// and root choices are detached, as the reference's selects are.
+__device__ void hit_adj(const float* m, int type, const float* o, const float* d,
+                        const float* gp, const float* gn, const Fx& tg, Cot& c) {
+  const float ro[3] = {m[12] * o[0] + m[13] * o[1] + m[14] * o[2] + m[15],
+                       m[16] * o[0] + m[17] * o[1] + m[18] * o[2] + m[19],
+                       m[20] * o[0] + m[21] * o[1] + m[22] * o[2] + m[23]};
+  const float rdr[3] = {m[12] * d[0] + m[13] * d[1] + m[14] * d[2],
+                        m[16] * d[0] + m[17] * d[1] + m[18] * d[2],
+                        m[20] * d[0] + m[21] * d[1] + m[22] * d[2]};
+  float rd[3] = {rdr[0], rdr[1], rdr[2]};
+  normalize3(rd[0], rd[1], rd[2]);
+  float g_ro[3], g_rd[3], q[3];
+  if (type == kSphere) {
+    const float vdd = ro[0] * rd[0] + ro[1] * rd[1] + ro[2] * rd[2];
+    const float rad2 = vdd * vdd - (ro[0] * ro[0] + ro[1] * ro[1] + ro[2] * ro[2] - 0.25f);
+    const float sq = sqrtf(rad2);  // a winner has a root
+    const float t1 = -vdd + sq;
+    const float t2 = -vdd - sq;
+    const bool both_pos = t1 > 0.f && t2 > 0.f;
+    // the nearer root in front (t2) from outside, else the far one (t1)
+    const float t_use = both_pos ? fminf(t1, t2) : fmaxf(t1, t2);
+    const float s_root = both_pos ? -1.f : 1.f;
+    const float tofs = t_use - kRayOffset;
+    for (int k = 0; k < 3; ++k) q[k] = ro[k] + tofs * rd[k];
+    float nr[3];
+    for (int i = 0; i < 3; ++i)
+      nr[i] = m[24 + 3 * i] * q[0] + m[25 + 3 * i] * q[1] + m[26 + 3 * i] * q[2];
+    const float flip = both_pos ? 1.f : -1.f;
+    // p = F q + t
+    float g_q[3];
+    for (int j = 0; j < 3; ++j) g_q[j] = m[j] * gp[0] + m[4 + j] * gp[1] + m[8 + j] * gp[2];
+    for (int i = 0; i < 3; ++i) {
+      for (int j = 0; j < 3; ++j) gadd(tg + 4 * i + j, gp[i] * q[j]);
+      gadd(tg + 4 * i + 3, gp[i]);
+    }
+    // n = flip * normalize(N q), N the inverse-transpose rows
+    float g_nr[3] = {gn[0] * flip, gn[1] * flip, gn[2] * flip};
+    normalize3_adj(nr[0], nr[1], nr[2], g_nr);
+    for (int i = 0; i < 3; ++i)
+      for (int j = 0; j < 3; ++j) {
+        gadd(tg + 24 + 3 * i + j, g_nr[i] * q[j]);
+        g_q[j] += m[24 + 3 * i + j] * g_nr[i];
+      }
+    // q = ro + (t - offset) rd
+    const float g_t = g_q[0] * rd[0] + g_q[1] * rd[1] + g_q[2] * rd[2];
+    for (int k = 0; k < 3; ++k) {
+      g_ro[k] = g_q[k];
+      g_rd[k] = tofs * g_q[k];
+    }
+    // t = -vdd + s_root sqrt(rad2)
+    const float g_rad2 = s_root * g_t * 0.5f / sq;
+    const float g_vdd = -g_t + 2.f * vdd * g_rad2;
+    for (int k = 0; k < 3; ++k) {
+      g_ro[k] += -2.f * ro[k] * g_rad2 + g_vdd * rd[k];
+      g_rd[k] += g_vdd * ro[k];
+    }
+  } else {
+    // the slab test again, keeping the axis and normal sign of the
+    // entering (tmin) and leaving (tmax) slabs
+    float tmin = -1e38f, tmax = 1e38f, nmin = 0.f, nmax = 0.f;
+    int amin = 0, amax = 0;
+    for (int ax = 0; ax < 3; ++ax) {
+      const float t1 = (-0.5f - ro[ax]) / rd[ax];
+      const float t2 = (0.5f - ro[ax]) / rd[ax];
+      const float ta = fminf(t1, t2);
+      const float tb = fmaxf(t1, t2);
+      const float sign = t2 < t1 ? 1.f : -1.f;
+      if (ta > 0.f && ta > tmin) {
+        tmin = ta;
+        amin = ax;
+        nmin = sign;
+      }
+      if (tb < tmax) {
+        tmax = tb;
+        amax = ax;
+        nmax = sign;
+      }
+    }
+    const bool inside = tmin <= 0.f;
+    const float t_use = inside ? tmax : tmin;
+    const int a = inside ? amax : amin;
+    const float sgn = inside ? nmax : nmin;
+    const float tofs = t_use - kRayOffset;
+    for (int k = 0; k < 3; ++k) q[k] = ro[k] + tofs * rd[k];
+    // p = F q + t
+    float g_q[3];
+    for (int j = 0; j < 3; ++j) g_q[j] = m[j] * gp[0] + m[4 + j] * gp[1] + m[8 + j] * gp[2];
+    for (int i = 0; i < 3; ++i) {
+      for (int j = 0; j < 3; ++j) gadd(tg + 4 * i + j, gp[i] * q[j]);
+      gadd(tg + 4 * i + 3, gp[i]);
+    }
+    // n = normalize(F n_obj), n_obj = sgn on axis a (the forward quirk)
+    float g_nr[3] = {gn[0], gn[1], gn[2]};
+    normalize3_adj(m[a] * sgn, m[4 + a] * sgn, m[8 + a] * sgn, g_nr);
+    for (int i = 0; i < 3; ++i) gadd(tg + 4 * i + a, g_nr[i] * sgn);
+    // q = ro + (t - offset) rd, t = (+-0.5 - ro_a) / rd_a
+    const float g_t = g_q[0] * rd[0] + g_q[1] * rd[1] + g_q[2] * rd[2];
+    for (int k = 0; k < 3; ++k) {
+      g_ro[k] = g_q[k];
+      g_rd[k] = tofs * g_q[k];
+    }
+    g_ro[a] += -g_t / rd[a];
+    g_rd[a] += -g_t * t_use / rd[a];
+  }
+  // rd = normalize(M^-1 d); ro = M^-1 o + the inverse's translation
+  normalize3_adj(rdr[0], rdr[1], rdr[2], g_rd);
+  for (int i = 0; i < 3; ++i) {
+    for (int j = 0; j < 3; ++j) {
+      gadd(tg + 12 + 4 * i + j, g_ro[i] * o[j] + g_rd[i] * d[j]);
+      c.o[j] += m[12 + 4 * i + j] * g_ro[i];
+      c.d[j] += m[12 + 4 * i + j] * g_rd[i];
+    }
+    gadd(tg + 12 + 4 * i + 3, g_ro[i]);
+  }
+}
+
+// The adjoint of nee_add at hit h (shading normal n, material row mt, the
+// path's throughput tr entering the bounce): for each light whose sample is
+// seen, the gradient of ct . (tr * albedo * emission / pi * cos cos' / r^2 *
+// area) to the throughput (g_t), the hit point (gp), the normal (gn), the
+// albedo (gm: the geom's mats gradient row) and the light's row.
+__device__ void nee_adj(const float* tr, const Hit& h, const float* n, const float* mt,
+                        uint32_t it, uint32_t pix, uint32_t dep, const Tables& s, const float* ct,
+                        float* g_t, float* gp, float* gn, const Fx& gm, const GradTab& G) {
+  const Mesh mesh(nullptr, nullptr, nullptr, 0);
+  for (int k = 0; k < s.n_lights; ++k) {
+    const float* lr = s.lights + k * kLightCols;
+    const Fx gl = G.lights + k * kLightCols;
+    const uint32_t base = pt::kDrawNeeBase + 3u * static_cast<uint32_t>(k);
+    const float u_sel = pt::uniform(it, pix, dep, base);
+    const float u1 = pt::uniform(it, pix, dep, base + 1u);
+    const float u2 = pt::uniform(it, pix, dep, base + 2u);
+    const bool sphere = lr[1] == static_cast<float>(kSphere);
+    float lp[3], ln[3], lnr[3] = {0.f, 0.f, 0.f}, w[3] = {0.f, 0.f, 0.f}, w_area, n_len = 0.f;
+    float ss = 0.f, tt = 0.f;
+    int f = 0;
+    if (sphere) {
+      const float z = 1.f - 2.f * u1;
+      const float r = sqrtf(fmaxf(1.f - z * z, 0.f));
+      const float phi = u2 * kTwoPi;
+      w[0] = r * cosf(phi);
+      w[1] = r * sinf(phi);
+      w[2] = z;
+      for (int i = 0; i < 3; ++i) {
+        lp[i] = lr[12 + 3 * i] * (0.5f * w[0]) + lr[13 + 3 * i] * (0.5f * w[1]) +
+                lr[14 + 3 * i] * (0.5f * w[2]) + lr[21 + i];
+        lnr[i] = lr[24 + 3 * i] * w[0] + lr[25 + 3 * i] * w[1] + lr[26 + 3 * i] * w[2];
+      }
+      n_len = sqrtf(lnr[0] * lnr[0] + lnr[1] * lnr[1] + lnr[2] * lnr[2]);
+      w_area = kPi * lr[33] * n_len;
+      const float inv_nl = 1.f / n_len;
+      for (int i = 0; i < 3; ++i) ln[i] = lnr[i] * inv_nl;
+    } else {
+      while (f < 5 && !(u_sel < lr[6 + f])) ++f;
+      ss = u1 - 0.5f;
+      tt = u2 - 0.5f;
+      for (int i = 0; i < 3; ++i) {
+        lp[i] = lr[12 + 3 * f + i] + ss * lr[30 + 3 * f + i] + tt * lr[48 + 3 * f + i];
+        ln[i] = lr[66 + 3 * f + i];
+      }
+      w_area = lr[5];
+    }
+    const float wl[3] = {lp[0] - h.px, lp[1] - h.py, lp[2] - h.pz};
+    const float r2 = wl[0] * wl[0] + wl[1] * wl[1] + wl[2] * wl[2];
+    const float r2_safe = fmaxf(r2, 1e-8f);
+    const float dist_l = sqrtf(fmaxf(r2, 1e-12f));
+    const float inv_dl = 1.f / dist_l;
+    const float sd[3] = {wl[0] * inv_dl, wl[1] * inv_dl, wl[2] * inv_dl};
+    const Hit sh = nearest<true>(h.px, h.py, h.pz, sd[0], sd[1], sd[2], 0.f, s.gmat, s.types,
+                                 s.n_geoms, mesh);
+    const float tol = fmaxf(1e-3f, 5e-3f * dist_l);
+    if (sh.geom != static_cast<int>(lr[0]) || !(fabsf(sh.dist - dist_l) < tol)) continue;
+    const float cs_raw = n[0] * sd[0] + n[1] * sd[1] + n[2] * sd[2];
+    const float cl_raw = -(ln[0] * sd[0] + ln[1] * sd[1] + ln[2] * sd[2]);
+    const float cos_s = fmaxf(cs_raw, 0.f), cos_l = fmaxf(cl_raw, 0.f);
+    const float gterm = cos_s * cos_l / r2_safe * w_area;
+    // rad_c += tr_c * albedo_c * (emission_c / pi) * gterm
+    float g_g = 0.f;
+    for (int c = 0; c < 3; ++c) {
+      const float e = kInvPi * lr[2 + c];
+      g_t[c] += ct[c] * mt[c] * e * gterm;
+      gadd(gm + c, ct[c] * tr[c] * e * gterm);
+      gadd(gl + 2 + c, ct[c] * tr[c] * mt[c] * gterm * kInvPi);
+      g_g += ct[c] * tr[c] * mt[c] * e;
+    }
+    // gterm = cos_s cos_l / r2_safe * area
+    const float g_cs = cs_raw >= 0.f ? g_g * cos_l / r2_safe * w_area : 0.f;
+    const float g_cl = cl_raw >= 0.f ? g_g * cos_s / r2_safe * w_area : 0.f;
+    const float g_r2s = -g_g * (cos_s * cos_l) / (r2_safe * r2_safe) * w_area;
+    const float g_area = g_g * (cos_s * cos_l / r2_safe);
+    float g_sd[3], g_ln[3];
+    for (int i = 0; i < 3; ++i) {
+      gn[i] += g_cs * sd[i];
+      g_sd[i] = g_cs * n[i] - g_cl * ln[i];
+      g_ln[i] = -g_cl * sd[i];
+    }
+    // sd = wl / dist_l, dist_l = sqrt(max(r2, 1e-12)), r2_safe = max(r2, 1e-8)
+    const float g_inv = g_sd[0] * wl[0] + g_sd[1] * wl[1] + g_sd[2] * wl[2];
+    const float g_dist = -g_inv * inv_dl * inv_dl;
+    float g_r2 = 0.f;
+    if (r2 >= 1e-12f) g_r2 += g_dist * 0.5f / dist_l;
+    if (r2 >= 1e-8f) g_r2 += g_r2s;
+    float g_lp[3];
+    for (int i = 0; i < 3; ++i) {
+      g_lp[i] = g_sd[i] * inv_dl + 2.f * g_r2 * wl[i];
+      gp[i] -= g_lp[i];
+    }
+    if (sphere) {
+      // lp = M (w / 2) + c; ln = normalize(N w); area = pi |det| |N w|
+      for (int i = 0; i < 3; ++i) {
+        for (int j = 0; j < 3; ++j) gadd(gl + 12 + 3 * i + j, g_lp[i] * (0.5f * w[j]));
+        gadd(gl + 21 + i, g_lp[i]);
+      }
+      gadd(gl + 33, g_area * kPi * n_len);
+      const float g_nl = g_area * (kPi * lr[33]);
+      float g_lnr[3] = {g_ln[0], g_ln[1], g_ln[2]};
+      normalize3_adj(lnr[0], lnr[1], lnr[2], g_lnr);
+      for (int i = 0; i < 3; ++i) {
+        g_lnr[i] += g_nl * ln[i];
+        for (int j = 0; j < 3; ++j) gadd(gl + 24 + 3 * i + j, g_lnr[i] * w[j]);
+      }
+    } else {
+      // face f: lp = origin + ss e_b + tt e_c, its normal, the total area
+      for (int i = 0; i < 3; ++i) {
+        gadd(gl + 12 + 3 * f + i, g_lp[i]);
+        gadd(gl + 30 + 3 * f + i, ss * g_lp[i]);
+        gadd(gl + 48 + 3 * f + i, tt * g_lp[i]);
+        gadd(gl + 66 + 3 * f + i, g_ln[i]);
+      }
+      gadd(gl + 5, g_area);
+    }
+  }
+}
+
+// The adjoint of bounce d on the state s it started from: c holds the
+// cotangents of the ray and throughput the bounce handed on, and on return
+// those of the ones it was given; table gradients go to G.  A path that was
+// dead, missed or ended on a light hands its ray and throughput on
+// unchanged.
+__device__ void bounce_adj(const Saved& sv, int d, uint32_t it, uint32_t pix, const Tables& s,
+                           const float* ct, Cot& c, const GradTab& G) {
+  if (!sv.live) return;
+  const Mesh mesh(nullptr, nullptr, nullptr, 0);
+  const Hit h = nearest<false>(sv.ox, sv.oy, sv.oz, sv.dx, sv.dy, sv.dz, 0.f, s.gmat, s.types,
+                               s.n_geoms, mesh);
+  if (h.geom < 0) return;
+  const float* mt = s.mats + h.geom * kMatCols;
+  const Fx gm = G.mats + h.geom * kMatCols;
+  const float tr[3] = {sv.tr, sv.tg, sv.tb};
+  const float emit = mt[10];
+  if (emit > 0.f) {
+    if (!kNee || sv.emit_ok) {
+      // rad += tr * albedo * emit
+      float g_e = 0.f;
+      for (int k = 0; k < 3; ++k) {
+        c.t[k] += ct[k] * mt[k] * emit;
+        gadd(gm + k, ct[k] * tr[k] * emit);
+        g_e += ct[k] * tr[k] * mt[k];
+      }
+      gadd(gm + 10, g_e);
+    }
+    return;
+  }
+  const uint32_t dep = static_cast<uint32_t>(d) + 1u;
+  const float o[3] = {sv.ox, sv.oy, sv.oz};
+  const float dd[3] = {sv.dx, sv.dy, sv.dz};
+  const float n[3] = {h.nx, h.ny, h.nz};
+  // what the bounce handed on: o' = the hit point, d' = the lobe's
+  // direction, t' = t * tint / p_safe
+  float gp[3] = {c.o[0], c.o[1], c.o[2]};
+  const float g_dn[3] = {c.d[0], c.d[1], c.d[2]};
+  float gn[3] = {0.f, 0.f, 0.f}, g_t[3];
+  for (int k = 0; k < 3; ++k) c.o[k] = c.d[k] = 0.f;
+  const float u_lobe = pt::uniform(it, pix, dep, pt::kDrawLobe);
+  const float p_spec = fminf(fmaxf(mt[7], 0.f), 1.f);
+  const bool take_spec = u_lobe < p_spec;
+  const float sel = take_spec ? p_spec : 1.f - p_spec;
+  const float p_safe = fmaxf(sel, 1e-8f);
+  const int tint = take_spec ? 3 : 0;
+  float g_ps = 0.f;
+  for (int k = 0; k < 3; ++k) {
+    const float f = mt[tint + k] / p_safe;
+    const float g_f = c.t[k] * tr[k];
+    g_t[k] = c.t[k] * f;
+    gadd(gm + tint + k, g_f / p_safe);
+    g_ps += -g_f * f / p_safe;
+  }
+  if (sel >= 1e-8f) {
+    // p = clip(REFL, 0, 1), whose gradient the reference splits in half at
+    // the ends (jnp.clip: a maximum, then a minimum)
+    const float x = mt[7];
+    const float part = (x > 0.f && x < 1.f) ? 1.f : (x == 0.f || x == 1.f) ? 0.5f : 0.f;
+    gadd(gm + 7, part * (take_spec ? g_ps : -g_ps));
+  }
+  if (take_spec) {
+    // d' = d - 2 (n . d) n
+    const float ndoti = n[0] * dd[0] + n[1] * dd[1] + n[2] * dd[2];
+    const float gdn = g_dn[0] * n[0] + g_dn[1] * n[1] + g_dn[2] * n[2];
+    for (int k = 0; k < 3; ++k) {
+      c.d[k] += g_dn[k] - 2.f * n[k] * gdn;
+      gn[k] += -2.f * dd[k] * gdn - 2.f * ndoti * g_dn[k];
+    }
+  } else {
+    // d' = up n + cos(a) over p1 + sin(a) over p2 (the Peter-Kutz frame)
+    const float u_d1 = pt::uniform(it, pix, dep, pt::kDrawDiffU1);
+    const float u_d2 = pt::uniform(it, pix, dep, pt::kDrawDiffU2);
+    const float up = sqrtf(u_d1);
+    const float over = sqrtf(fmaxf(1.f - up * up, 0.f));
+    const float around = u_d2 * kTwoPi;
+    const bool use_x = fabsf(n[0]) < kSqrtThird;
+    const bool use_y = !use_x && fabsf(n[1]) < kSqrtThird;
+    const float nn[3] = {use_x ? 1.f : 0.f, use_y ? 1.f : 0.f, (use_x || use_y) ? 0.f : 1.f};
+    float c1[3] = {0.f, 0.f, 0.f};
+    cross_add(n, nn, c1);
+    float p1[3] = {c1[0], c1[1], c1[2]};
+    normalize3(p1[0], p1[1], p1[2]);
+    float c2[3] = {0.f, 0.f, 0.f};
+    cross_add(n, p1, c2);
+    const float ca = cosf(around), sa = sinf(around);
+    float g_p1[3], g_c2[3];
+    for (int k = 0; k < 3; ++k) {
+      gn[k] += up * g_dn[k];
+      g_p1[k] = ca * over * g_dn[k];
+      g_c2[k] = sa * over * g_dn[k];
+    }
+    // p2 = normalize(n x p1), p1 = normalize(n x nn)
+    normalize3_adj(c2[0], c2[1], c2[2], g_c2);
+    cross_add(p1, g_c2, gn);
+    cross_add(g_c2, n, g_p1);
+    normalize3_adj(c1[0], c1[1], c1[2], g_p1);
+    cross_add(nn, g_p1, gn);
+  }
+  if constexpr (kNee) {
+    if (!(mt[8] > 0.f)) nee_adj(tr, h, n, mt, it, pix, dep, s, ct, g_t, gp, gn, gm, G);
+  }
+  for (int k = 0; k < 3; ++k) c.t[k] = g_t[k];
+  hit_adj(s.gmat + h.geom * kGeomCols, s.types[h.geom], o, dd, gp, gn,
+          G.gmat + h.geom * kGeomCols, c);
+}
+
+__global__ void __launch_bounds__(kBlock)
+k8_vjp(const float* __restrict__ cam_g, const float* __restrict__ mats_g,
+       const float* __restrict__ gmat_g, const int* __restrict__ types_g,
+       const float* __restrict__ lights_g, int n_geoms, int n_lights, int width, int height,
+       int depth, uint32_t it0, int n_spp, const float* __restrict__ ct,
+       float* __restrict__ rad, unsigned long long* __restrict__ gtab, size_t grad_off) {
+  // shared: the tables, and at byte grad_off (tables_smem) the block's
+  // gradient table
+  extern __shared__ unsigned long long smem[];
+  const Tables s = stage_tables(smem, 0, cam_g, mats_g, gmat_g, types_g, lights_g, nullptr,
+                                nullptr, n_geoms, n_lights, 0);
+  unsigned* s_grad = reinterpret_cast<unsigned*>(reinterpret_cast<char*>(smem) + grad_off);
+  const int n_tab = kCamCols + n_geoms * (kMatCols + kGeomCols) + n_lights * kLightCols;
+  for (int i = threadIdx.x; i < fx_smem_words(n_tab); i += kBlock) s_grad[i] = 0u;
+  const Fx tab{s_grad, n_tab, 0};
+  const GradTab G{tab, tab + kCamCols, tab + (kCamCols + n_geoms * kMatCols),
+                  tab + (kCamCols + n_geoms * (kMatCols + kGeomCols))};
+  const Mesh mesh(nullptr, nullptr, nullptr, 0);
+  const Tex tex(nullptr);
+  __syncthreads();
+
+  const long long idx = static_cast<long long>(blockIdx.x) * kBlock + threadIdx.x;
+  const bool valid = idx < static_cast<long long>(width) * height;
+  const uint32_t pix_u = static_cast<uint32_t>(idx);
+  const float fx = static_cast<float>(idx % width);
+  const float fy = static_cast<float>(idx / width);
+  const float sx_scale = static_cast<float>(2.0 / width);
+  const float sy_scale = static_cast<float>(2.0 / height);
+  const Camera cam = load_camera(s.cam);
+  float ctp[3] = {0.f, 0.f, 0.f};
+  if (valid) {
+    for (int k = 0; k < 3; ++k) ctp[k] = ct[3 * idx + k];
+  }
+  // raygen's gradient, summed over the samples: pos, view, right, up, tan
+  float g_cam[14];
+  for (int k = 0; k < 14; ++k) g_cam[k] = 0.f;
+
+  float acc_r = 0.f, acc_g = 0.f, acc_b = 0.f;
+  Saved saved[kVjpMaxDepth];
+  for (int sample = 0; sample < n_spp; ++sample) {
+    const uint32_t it = it0 + static_cast<uint32_t>(sample);
+    // the forward sweep: K1's, keeping the state entering each bounce
+    PathState p;
+    init_state(p, cam, s.cam, it, pix_u, fx, fy, sx_scale, sy_scale, valid);
+    for (int d = 0; d < depth; ++d) {
+      saved[d] = Saved{p.ox, p.oy, p.oz, p.dx, p.dy, p.dz, p.tr, p.tg, p.tb, p.live, p.emit_ok};
+      bounce(p, d, it, pix_u, s, mesh, tex);
+    }
+    acc_r = acc_r + p.rr;
+    acc_g = acc_g + p.rg;
+    acc_b = acc_b + p.rb;
+    if (valid) {
+      // the reverse sweep: the final ray and throughput reach nothing
+      Cot c{};
+      for (int d = depth - 1; d >= 0; --d) bounce_adj(saved[d], d, it, pix_u, s, ctp, c, G);
+      // raygen: o = pos, d = normalize(view - right tan_x sx - up tan_y sy)
+      const float ujx = pt::uniform(it, pix_u, 0u, pt::kDrawAaX);
+      const float ujy = pt::uniform(it, pix_u, 0u, pt::kDrawAaY);
+      const float sx = (fx + ujx) * sx_scale - 1.f;
+      const float sy = (fy + ujy) * sy_scale - 1.f;
+      const float ax = cam.tan_x * sx, ay = cam.tan_y * sy;
+      float g_d[3] = {c.d[0], c.d[1], c.d[2]};
+      normalize3_adj(cam.v_x - cam.r_x * ax - cam.u_x * ay, cam.v_y - cam.r_y * ax - cam.u_y * ay,
+                     cam.v_z - cam.r_z * ax - cam.u_z * ay, g_d);
+      const float r[3] = {cam.r_x, cam.r_y, cam.r_z}, u[3] = {cam.u_x, cam.u_y, cam.u_z};
+      for (int k = 0; k < 3; ++k) {
+        g_cam[k] += c.o[k];
+        g_cam[3 + k] += g_d[k];
+        g_cam[6 + k] += -g_d[k] * ax;
+        g_cam[9 + k] += -g_d[k] * ay;
+        g_cam[12] += -sx * (g_d[k] * r[k]);
+        g_cam[13] += -sy * (g_d[k] * u[k]);
+      }
+    }
+    __syncthreads();
+    fx_flush(s_grad, n_tab, gtab);
+    __syncthreads();
+  }
+  if (valid) {
+    rad[3 * idx + 0] = acc_r;
+    rad[3 * idx + 1] = acc_g;
+    rad[3 * idx + 2] = acc_b;
+    for (int k = 0; k < 14; ++k) gadd(G.cam + k, g_cam[k]);
+  }
+  __syncthreads();
+  fx_flush(s_grad, n_tab, gtab);
+}
+#endif  // PT_VJP
+
 }  // namespace
 
 // The compile-time feature set this library was built for (PT_FEATURES).
 extern "C" int pt_k1_features() { return static_cast<int>(kFeatures); }
 
+#if !PT_GRAD && !PT_VJP
 // Launches K1 on `stream` over pixels pix0 .. pix0+n_local-1: n_spp samples
 // each, iterations it0 .. it0+n_spp-1.  `lights` (n_lights, 128) is read by
 // a library built with NEE, which needs n_lights > 0; the others need 0.
@@ -1466,6 +2248,94 @@ extern "C" int pt_k5_span(const float* cam, const float* mats, const float* gmat
       width, height, state, n_rays, pix_key, tbl, n_live, blocks, d0, d1, it, counts);
   return static_cast<int>(cudaGetLastError());
 }
+#endif  // !PT_GRAD && !PT_VJP
+
+#if PT_GRAD || PT_VJP
+// Rounds the exact table of n entries `table` (pt_fx_words(n) 64-bit
+// words) to out (n,) float32, on `stream`.  Returns the cudaError_t of the
+// launch.
+extern "C" int pt_fx_round(const unsigned long long* table, int n, float* out, void* stream) {
+  if (n <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  fx_round<<<(n + kBlock - 1) / kBlock, kBlock, 0, static_cast<cudaStream_t>(stream)>>>(table, n,
+                                                                                       out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The 64-bit words of an exact gradient table of n entries (fx_words).
+extern "C" int pt_fx_words(int n) { return fx_words(n); }
+#endif
+
+#if PT_GRAD
+// Launches K7 on `stream` over the whole image: n_spp samples, iterations
+// it0 ..; the scene tables as pt_k1_trace's (no lights, textures or RR: the
+// build must have none), mtab (n_mats, 8) each material's color, spec_color,
+// emittance, has_reflective, mat_of (n_geoms) each geom's material, ct
+// (P, 3) the cotangent.  Writes rad (P, 3), adds the live counts into
+// counts (depth,) and the gradients into gtab, the exact (8, n_mats) table
+// (pt_fx_words(8 n_mats) words, zeroed by the caller), which pt_fx_round
+// rounds.  Returns the cudaError_t of the launch.
+extern "C" int pt_k7_grads(const float* cam, const float* mats, const float* gmat,
+                           const int* geom_types, const float* lights, const float* tri,
+                           const float* nodes, const int* meta, const unsigned int* texels,
+                           const int* charts, int n_geoms, int n_lights, int n_meta,
+                           long long n_texels, int width, int height, int depth, unsigned int it0,
+                           int n_spp, const float* mtab, const int* mat_of, int n_mats,
+                           const float* ct, float* rad, unsigned long long* counts,
+                           unsigned long long* gtab, void* stream) {
+  const long long n_pix = static_cast<long long>(width) * height;
+  const long long blocks = (n_pix + kBlock - 1) / kBlock;
+  if (kNee || kRr || kTexAny || n_lights != 0 || n_texels != 0 || n_meta < 0 ||
+      (!kMesh && n_meta > 0) || !(0 < depth && depth < 64) || !(0 < n_mats && n_mats <= 128) ||
+      blocks <= 0 || blocks > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t grad_off = grad_smem_offset(tables_smem(depth, n_geoms, n_lights, n_meta));
+  const size_t smem = grad_off + sizeof(unsigned) * fx_smem_words(kGradRows * n_mats);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        k7_grads, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  k7_grads<<<static_cast<unsigned>(blocks), kBlock, smem, static_cast<cudaStream_t>(stream)>>>(
+      cam, mats, gmat, geom_types, lights, reinterpret_cast<const float4*>(tri),
+      reinterpret_cast<const float4*>(nodes), meta, texels, charts, n_geoms, n_lights, n_meta,
+      width, height, depth, it0, n_spp, mtab, mat_of, n_mats, ct, rad, counts, gtab, grad_off);
+  return static_cast<int>(cudaGetLastError());
+}
+#endif
+
+#if PT_VJP
+// Launches K8 on `stream` over the whole image: n_spp samples, iterations
+// it0 ..; cam, mats, gmat, geom_types as pt_k1_trace's (spheres and cubes),
+// lights (n_lights <= 64, 128) with NEE (this build's), ct (P, 3) the
+// cotangent.
+// Writes rad (P, 3) and adds the gradients into gtab, the exact table of n
+// = 16 + 64 n_geoms + 128 n_lights entries (cam, mats, gmat, lights;
+// pt_fx_words(n) words, zeroed by the caller), which pt_fx_round rounds.
+// Returns the cudaError_t of the launch.
+extern "C" int pt_k8_vjp(const float* cam, const float* mats, const float* gmat,
+                         const int* geom_types, const float* lights, int n_geoms, int n_lights,
+                         int width, int height, int depth, unsigned int it0, int n_spp,
+                         const float* ct, float* rad, unsigned long long* gtab,
+                         void* stream) {
+  const long long n_pix = static_cast<long long>(width) * height;
+  const long long blocks = (n_pix + kBlock - 1) / kBlock;
+  if (kNee != (n_lights > 0) || n_lights < 0 || n_lights > kFxMaxLights || n_geoms <= 0 ||
+      !(0 < depth && depth <= kVjpMaxDepth) || blocks <= 0 || blocks > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int n_tab = kCamCols + n_geoms * (kMatCols + kGeomCols) + n_lights * kLightCols;
+  const size_t grad_off = grad_smem_offset(tables_smem(0, n_geoms, n_lights, 0));
+  const size_t smem = grad_off + sizeof(unsigned) * fx_smem_words(n_tab);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        k8_vjp, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  k8_vjp<<<static_cast<unsigned>(blocks), kBlock, smem, static_cast<cudaStream_t>(stream)>>>(
+      cam, mats, gmat, geom_types, lights, n_geoms, n_lights, width, height, depth, it0, n_spp,
+      ct, rad, gtab, grad_off);
+  return static_cast<int>(cudaGetLastError());
+}
+#endif
 
 extern "C" const char* pt_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

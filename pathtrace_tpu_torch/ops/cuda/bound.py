@@ -25,7 +25,8 @@ Outside :func:`count_work` the marks do nothing.
 
 K5's bound is K1's for the same scene plus the state the spans must
 move (:func:`span_state_bytes`); K6's is its bytes (:func:`scan_bytes`),
-and one add per value.
+and one add per value.  K7's and K8's are K1's for the same scene plus
+the work of their gradients (:func:`k7_extra`, :func:`k8_extra`).
 """
 
 from __future__ import annotations
@@ -123,6 +124,61 @@ def scan_bytes(n, tile=2048):
         n_bytes += 16 * t
         t = -(-t // tile)
     return n_bytes + 4
+
+
+# The least float ops of K8's adjoints (``csrc/megakernel.cu``), counted
+# from their code (each arithmetic op and each atomic add one op; selects,
+# comparisons and the recomputed nearest hit not counted): ``hit_adj`` of a
+# cube, the cheaper of the two primitives (a sphere's is 333), plus the
+# specular lobe's part of ``bounce_adj``, the cheaper lobe; and raygen's
+# adjoint, once a path.  NEE's adjoint (``nee_adj``) is counted as nothing:
+# the count of the lights a hit sees is not kept.
+K8_SCATTER_ADJ_OPS = 251 + 74
+K8_RAYGEN_ADJ_OPS = 106
+# K8 keeps the state entering each bounce (``Saved``: 9 floats and 2
+# flags, 40 bytes), written once and read once.
+K8_SAVED_BYTES = 40
+# K7's fold, the least of it: w = ct * rad (3 products) and its sum (2
+# adds) a path, and for each scatter a division and an add a color
+# channel (``grad_fold``).
+K7_PATH_OPS = 5
+K7_SCATTER_OPS = 6
+
+
+def scatters(counts):
+    """The least number of bounces of one sample that hit a geom and
+    scatter: each path live entering bounce d > 0 scattered at bounce
+    d - 1 (an emissive hit or a miss ends it)."""
+    return int(sum(counts[1:]))
+
+
+def k7_extra(counts, n_pix, n_mats):
+    """(ops, bytes) K7 needs for one sample beside K1's work: the fold
+    (``K7_PATH_OPS`` a path, ``K7_SCATTER_OPS`` a scatter), the cotangent
+    read (12 bytes a pixel) and the material table read and the gradient
+    table written (8 floats a material each)."""
+    ops = K7_PATH_OPS * n_pix + K7_SCATTER_OPS * scatters(counts)
+    return ops, 12 * n_pix + 2 * 32 * n_mats
+
+
+def k8_extra(counts, n_pix, n_tab, nee):
+    """(ops, bytes) K8 needs for one sample beside K1's work, and the
+    gradient table written (``n_tab`` floats) and the cotangent read (12
+    bytes a pixel).  With NEE: the adjoints (``K8_SCATTER_ADJ_OPS`` a
+    scatter, ``K8_RAYGEN_ADJ_OPS`` a path) and the state of each live
+    bounce written and read once (``K8_SAVED_BYTES`` each way).  Without
+    NEE, the materials' gradient is the only one that is not zero (at
+    fixed draws the path is piecewise constant in the camera and the
+    transforms), and it is K7's fold of each path's factors, which needs
+    no stored state: K7's ops (``K7_PATH_OPS`` a path, ``K7_SCATTER_OPS``
+    a scatter)."""
+    n_bytes = 12 * n_pix + 4 * n_tab
+    if not nee:
+        return (K7_PATH_OPS * n_pix + K7_SCATTER_OPS * scatters(counts),
+                n_bytes)
+    ops = (K8_SCATTER_ADJ_OPS * scatters(counts)
+           + K8_RAYGEN_ADJ_OPS * n_pix)
+    return ops, n_bytes + 2 * K8_SAVED_BYTES * int(sum(counts))
 
 
 def count_work(fn):

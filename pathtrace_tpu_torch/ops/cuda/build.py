@@ -5,8 +5,11 @@ and include no PyTorch header, so one ``nvcc`` call builds each shared
 library in seconds.  The megakernel is built once per feature set (a
 ``-DPT_FEATURES=<mask>`` define), as Mosaic compiles the reference's once
 per ``_scene_features``; each of these libraries also holds the span
-kernel K5 of the same feature set.  The scan K6 and the traversal probe
-K9 are libraries of their own.  The build runs at first use, into
+kernel K5 of the same feature set.  The material-gradient kernel K7 and
+the reverse sweep K8 are the same source built with ``-DPT_GRAD=1`` and
+``-DPT_VJP=1``, libraries of their own (without K1 and K5), so that the
+forward builds do not change.  The scan K6 and the traversal probe K9
+are libraries of their own.  The build runs at first use, into
 ``pathtrace_tpu_torch/build/`` (not committed), under a name keyed by
 the hash of the sources, flags and defines, so an edited source is never
 served from a stale library.  A failed build raises with nvcc's output.
@@ -109,16 +112,81 @@ def _k1_job(mask):
     return f"k1_m{mask}", ["megakernel.cu"], (f"-DPT_FEATURES={mask}",)
 
 
+def _k7_job(mask):
+    return (f"k7_m{mask}", ["megakernel.cu"],
+            (f"-DPT_FEATURES={mask}", "-DPT_GRAD=1"))
+
+
+def _k8_job(mask):
+    return (f"k8_m{mask}", ["megakernel.cu"],
+            (f"-DPT_FEATURES={mask}", "-DPT_VJP=1"))
+
+
 K6_JOB = ("k6_scan", ["scan.cu"], ())
 K9_JOB = ("k9_probe", ["probe_trav.cu"], ())
 
 
-def build_kernels(masks):
-    """Build the K1 (and K5) libraries of these feature masks, the K6
-    scan's and the K9 probe's at once, nvcc in parallel, so that later
-    :func:`load_k1`, :func:`load_k6` and :func:`load_k9` calls find them
-    built."""
-    build_many([_k1_job(m) for m in sorted(set(masks))] + [K6_JOB, K9_JOB])
+def build_kernels(masks, k7_masks=(), k8_masks=()):
+    """Build the K1 (and K5) libraries of these feature masks, the K7
+    and K8 libraries of ``k7_masks`` and ``k8_masks``, the K6 scan's and
+    the K9 probe's at once, nvcc in parallel, so that later
+    :func:`load_k1`, :func:`load_k7`, :func:`load_k8`, :func:`load_k6`
+    and :func:`load_k9` calls find them built."""
+    build_many([_k1_job(m) for m in sorted(set(masks))]
+               + [_k7_job(m) for m in sorted(set(k7_masks))]
+               + [_k8_job(m) for m in sorted(set(k8_masks))]
+               + [K6_JOB, K9_JOB])
+
+
+def _load_grad(key, job, mask, entry, argtypes):
+    """A K7 or K8 library: ``entry``, and the rounding and the size of
+    its exact gradient table, bound."""
+    if key not in _LIBS:
+        lib = ctypes.CDLL(str(build(*job)))
+        p, i = ctypes.c_void_p, ctypes.c_int
+        getattr(lib, entry).argtypes = argtypes
+        getattr(lib, entry).restype = i
+        lib.pt_fx_round.argtypes = [p, i, p, p]
+        lib.pt_fx_round.restype = i
+        lib.pt_fx_words.argtypes = [i]
+        lib.pt_fx_words.restype = i
+        lib.pt_k1_features.argtypes = []
+        lib.pt_k1_features.restype = i
+        lib.pt_cuda_error_string.argtypes = [i]
+        lib.pt_cuda_error_string.restype = ctypes.c_char_p
+        if lib.pt_k1_features() != mask:
+            raise RuntimeError(f"{job[0]} library built for mask "
+                               f"{lib.pt_k1_features()}, wanted {mask}")
+        _LIBS[key] = lib
+    return _LIBS[key]
+
+
+def load_k7(mask=0):
+    """The K7 library (``csrc/megakernel.cu`` with ``-DPT_GRAD=1``) of
+    K1 feature mask ``mask``, built at first use."""
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    return _load_grad(("k7", mask), _k7_job(mask), mask, "pt_k7_grads", [
+        p, p, p, p, p,           # cam, mats, gmat, types, lights
+        p, p, p, p, p,           # tri, nodes, meta, texels, charts
+        i, i, i, ll,             # n_geoms, n_lights, n_meta, n_texels
+        i, i, i,                 # width, height, depth
+        ctypes.c_uint, i,        # it0, n_spp
+        p, p, i,                 # mtab, mat_of, n_mats
+        p, p, p, p, p,           # ct, rad, counts, gradient table, stream
+    ])
+
+
+def load_k8(mask=0):
+    """The K8 library (``csrc/megakernel.cu`` with ``-DPT_VJP=1``) of
+    feature mask ``mask`` (0, or NEE's), built at first use."""
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    return _load_grad(("k8", mask), _k8_job(mask), mask, "pt_k8_vjp", [
+        p, p, p, p, p,           # cam, mats, gmat, types, lights
+        i, i,                    # n_geoms, n_lights
+        i, i, i,                 # width, height, depth
+        ctypes.c_uint, i,        # it0, n_spp
+        p, p, p, p,              # ct, rad, gradient table, stream
+    ])
 
 
 def load_k1(mask=0):

@@ -383,8 +383,11 @@ def _normalize3(x, y, z):
 
 def _div(a, t):
     """float32(a) / t as an IEEE division: PyTorch computes
-    ``scalar / tensor`` as a reciprocal times the scalar."""
-    return torch.full_like(t, a) / t
+    ``scalar / tensor`` as a reciprocal times the scalar.  ``a`` is a
+    Python float or a 0-d tensor (a table entry, whose graph carries
+    on)."""
+    return (a.expand_as(t) if torch.is_tensor(a)
+            else torch.full_like(t, a)) / t
 
 
 def _object_ray(m, ox, oy, oz, dx, dy, dz, time):
@@ -508,7 +511,7 @@ def _nearest(ox, oy, oz, dx, dy, dz, time, gmat, geom_types, shadow=False,
     the spheres and cubes in index order, then each MESH geom of
     ``mesh`` = (tri, nodes, bvh_meta) in ``bvh_meta`` order (a BVH walk,
     :func:`_mesh_walk`, then one fold of its winning triangle).
-    ``gmat`` is a list of rows of Python floats; ``time`` is the shutter
+    ``gmat`` is a list of rows of 0-d tensors; ``time`` is the shutter
     time (motion blur) or None; ``want`` (bool, optional) marks the rays
     whose result is read: only they walk the meshes.  Returns the
     winner's ``dist``, ``geom`` (int64, -1 on a miss) and ``hit``;
@@ -942,6 +945,13 @@ def _tex_planes(texels, tex_geom, btex_geom, geom_types, tri):
         tri=tri if btex_geom and T.MESH in geom_types else None)
 
 
+def _clip01(x):
+    """clamp(x, 0, 1) as the reference's ``jnp.clip``: a maximum, then a
+    minimum, whose gradient at a tie is split in half (``clamp``'s is
+    not): REFL 0 and 1, the probabilities of most materials, are ties."""
+    return torch.minimum(torch.maximum(x, x.new_zeros(())), x.new_ones(()))
+
+
 def _imperfect_specular(m_ex, mrx, mry, mrz, u_s1, u_s2):
     """Power-cosine sample about the mirror direction (GPU Gems 3
     ch. 20) where ``m_ex`` > 0; the mirror direction elsewhere."""
@@ -973,7 +983,7 @@ def _nee_add(rad, thr, h, n, albedo, has_diffuse, time, it, pix, dep,
     """Direct lighting at the hit points: per light one area sample and
     one shadow ray, added where ``has_diffuse`` and the light is seen,
     with weight albedo/pi (the reference's ``_nee_add``).  ``lights``
-    is a list of table rows of Python floats.  A light that is not a
+    is a list of table rows of 0-d tensors.  A light that is not a
     sphere is sampled as a cube, as the reference does (an emissive
     mesh too)."""
     nx, ny, nz = n
@@ -1000,7 +1010,7 @@ def _nee_add(rad, thr, h, n, albedo, has_diffuse, time, it, pix, dep,
                 lnz = lr[30] * wx + lr[31] * wy + lr[32] * wz
                 # |M^-T w| before normalizing: the per-sample area Jacobian
                 n_len = torch.sqrt(lnx * lnx + lny * lny + lnz * lnz)
-                w_area = _c32(_c32(PI) * lr[33]) * n_len
+                w_area = (_c32(PI) * lr[33]) * n_len
                 inv_nl = torch.reciprocal(n_len)
                 lnx, lny, lnz = lnx * inv_nl, lny * inv_nl, lnz * inv_nl
             else:
@@ -1054,10 +1064,17 @@ def _nee_add(rad, thr, h, n, albedo, has_diffuse, time, it, pix, dep,
                 for c in range(3):
                     # (1/pi) * emission is one f32 product, as XLA folds
                     # the reference's two scalar factors
-                    e_pi = _c32(_c32(1.0 / PI) * lr[2 + c])
+                    e_pi = _c32(1.0 / PI) * lr[2 + c]
                     rad[c] = rad[c] + torch.where(
                         w_ok, thr[c] * albedo[c] * e_pi * gterm, 0.0)
     return rad
+
+
+# K7's counters of a path's factors per material (``bounces``'
+# ``grad_mats``): color, spec_color, emittance, 1/p (a specular bounce),
+# 1/(1-p) (a diffuse bounce).  The reference packs the first four as
+# base-64 digits of one float32 and keeps the last apart.
+GRAD_COUNTERS = ("color", "spec_color", "emittance", "inv_p", "inv_1mp")
 
 
 def state_keys(features, nee, pix=False):
@@ -1084,12 +1101,16 @@ def plain_scene(cam, mats, gmat, geom_types, features=NO_FEATURES,
                 lights=None, rr=False, tri=None, nodes=None, bvh_meta=(),
                 texels=None, tex_geom=(), btex_geom=(), **_):
     """What :func:`init_state` and :func:`bounces` read of a scene:
-    the tables of :func:`trace_k1`'s arguments, the small ones as Python
-    floats."""
+    the tables of :func:`trace_k1`'s arguments, the small ones (cam,
+    gmat, lights) also as rows of 0-d tensors, the scalars the planes
+    meet.  A 0-d float32 tensor rounds as a Python float does in these
+    ops, and it carries the graph of a table that requires grad, so
+    that autograd over the plain version reaches every table entry."""
     return SimpleNamespace(
-        cam=cam.reshape(-1).tolist(), mats=mats, gmat_t=gmat,
-        gmat=gmat.tolist(),
-        lights=lights.tolist() if lights is not None else None,
+        cam=cam.reshape(-1).unbind(), mats=mats, gmat_t=gmat,
+        gmat=[row.unbind() for row in gmat],
+        lights=([row.unbind() for row in lights] if lights is not None
+                else None),
         geom_types=tuple(geom_types), features=tuple(features), rr=rr,
         mesh=(tri, nodes, tuple(bvh_meta)) if bvh_meta else None,
         tex=(_tex_planes(texels, tex_geom, btex_geom, geom_types, tri)
@@ -1115,9 +1136,9 @@ def init_state(sc, it, pix, width, height):
     dy = v_y - r_y * (tan_x * sx) - u_y * (tan_y * sy)
     dz = v_z - r_z * (tan_x * sx) - u_z * (tan_y * sy)
     dx, dy, dz = _normalize3(dx, dy, dz)
-    ox = torch.full_like(dx, pos_x)
-    oy = torch.full_like(dx, pos_y)
-    oz = torch.full_like(dx, pos_z)
+    ox = pos_x.expand_as(dx).contiguous()
+    oy = pos_y.expand_as(dx).contiguous()
+    oz = pos_z.expand_as(dx).contiguous()
     if has_dof and aperture > 0.0:
         # thin lens: origin on the aperture, through the focal plane
         u1 = rng.uniform(it, pix, 0, Draw.DOF_U)
@@ -1146,14 +1167,20 @@ def init_state(sc, it, pix, width, height):
     return st
 
 
-def bounces(sc, st, it, pix, d0, d1, counts):
+def bounces(sc, st, it, pix, d0, d1, counts, grad_mats=None):
     """Bounces [d0, d1) of iteration ``it`` on the state ``st`` of the
     pixels ``pix`` (a dict of :func:`init_state`'s form, left as it is);
     returns the state after them and adds the live count entering each
     bounce into ``counts[d]``.  Every section runs on every lane and
     selects, as the reference's planes do.  Each section marks the lanes
     that need it (``bound.needed``), so that a bound counts only the work
-    that the kernel must do."""
+    that the kernel must do.
+
+    ``grad_mats`` = (number of materials M, the material of each geom)
+    turns on K7's factor counters (the reference's grad mode): the state
+    carries ``grad``, (5, M, N) int32 counts of each path's factors per
+    material, in the order of :data:`GRAD_COUNTERS` (seeded at zero when
+    ``st`` has none)."""
     (has_glass, has_imperfect, _, _, has_checker, has_bump,
      has_sss) = sc.features
     nee = sc.lights is not None
@@ -1169,6 +1196,16 @@ def bounces(sc, st, it, pix, d0, d1, counts):
     med_s = st.get("med_s", torch.zeros_like(dx))
     med = [st.get(k, torch.ones_like(dx)) for k in ("med_r", "med_g", "med_b")]
     s3 = _c32(SQRT_OF_ONE_THIRD)
+    if grad_mats is not None:
+        n_mats, mat_of_geom = grad_mats
+        cnt = st.get("grad")
+        if cnt is None:
+            cnt = torch.zeros((len(GRAD_COUNTERS), n_mats, dx.shape[0]),
+                              dtype=torch.int32, device=dx.device)
+        # each geom's material, and -1 for a miss (geom -1)
+        mat_of = torch.tensor(tuple(mat_of_geom) + (-1,), dtype=torch.int64,
+                              device=dx.device)
+        mat_ids = torch.arange(n_mats, device=dx.device)[:, None]
 
     for d in range(d0, d1):
         counts[d] += live.sum()
@@ -1200,7 +1237,7 @@ def bounces(sc, st, it, pix, d0, d1, counts):
             with _needed(lanes=lambda: ~is_glass):
                 # spec/diffuse lobe split (glass: the Fresnel choice)
                 u_lobe = rng.uniform(it, pix, dep, Draw.LOBE)
-                p_spec = torch.clamp(row[:, 7], 0.0, 1.0)
+                p_spec = _clip01(row[:, 7])
                 take_spec = u_lobe < p_spec
                 p_safe = torch.clamp_min(
                     torch.where(take_spec, p_spec, 1.0 - p_spec), 1e-8)
@@ -1284,6 +1321,23 @@ def bounces(sc, st, it, pix, d0, d1, counts):
                                                albedo[k]), thr[k])
                        for k in range(3)]
                 took_diffuse = took_diffuse & ~is_glass
+
+            if grad_mats is not None:
+                # the factors this bounce multiplies into the path, by
+                # the winner's material: a diffuse bounce color and
+                # 1/(1-p), a specular one spec_color and 1/p, an emissive
+                # hit color and emittance, glass spec_color (reflected)
+                # or color (refracted)
+                sel = mat_of[h.geom][None, :] == mat_ids
+                ev_diff, ev_spec = cont & took_diffuse, cont & spec
+                ev_col, ev_spc = ev_diff | lit, ev_spec
+                if has_glass:
+                    ev_col = ev_col | (cont & took_refract)
+                    ev_spc = ev_spc | (cont & is_glass & choose_refl)
+                cnt = cnt + torch.stack([
+                    ev[None, :] & sel for ev in (ev_col, ev_spc, lit,
+                                                 ev_spec, ev_diff)]).to(
+                                                     torch.int32)
 
             scatter_inside = torch.zeros_like(cont)
             if has_sss:
@@ -1379,6 +1433,8 @@ def bounces(sc, st, it, pix, d0, d1, counts):
         out["time"] = time
     if has_sss:
         out.update(med_s=med_s, med_r=med[0], med_g=med[1], med_b=med[2])
+    if grad_mats is not None:
+        out["grad"] = cnt
     return out
 
 

@@ -2,7 +2,7 @@
 
 Counterpart of the two helpers of ``pathtrace_tpu/render/integrator.py``
 that the megakernel's table packing uses; the rest of that module (the
-wavefront integrator) is not ported yet (ROADMAP Queue 1 item 3).
+wavefront integrator) is not ported yet (ROADMAP Queue 1 item 1).
 """
 
 from __future__ import annotations

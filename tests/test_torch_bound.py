@@ -152,3 +152,18 @@ def test_k9_reads_each_visited_node_once():
     assert n_bytes["k9 nodes"] == 9 * 4 * steps
     assert 0 < n_bytes["k9 tri"] <= 4 * meta[0][4]
     assert ops["other"] > 0
+
+
+def test_gradient_kernels_extra_work():
+    # 100 pixels, depth 3: 60 paths scatter at bounce 0, 20 at bounce 1
+    counts = [100, 60, 20]
+    assert B.scatters(counts) == 80
+    assert B.k7_extra(counts, 100, 9) == (
+        B.K7_PATH_OPS * 100 + B.K7_SCATTER_OPS * 80, 12 * 100 + 64 * 9)
+    assert B.k8_extra(counts, 100, 592, nee=True) == (
+        B.K8_SCATTER_ADJ_OPS * 80 + B.K8_RAYGEN_ADJ_OPS * 100,
+        12 * 100 + 2 * B.K8_SAVED_BYTES * 180 + 4 * 592)
+    # without NEE only the materials' gradient is not zero: K7's fold,
+    # no stored state
+    assert B.k8_extra(counts, 100, 464, nee=False) == (
+        B.K7_PATH_OPS * 100 + B.K7_SCATTER_OPS * 80, 12 * 100 + 4 * 464)

@@ -1,7 +1,9 @@
 """K1 (with its NEE section K2, its mesh section K3 and its texture
 section K4), the CUDA kernel, the span kernel K5 of the split and sorted
-engines, the scan K6 and the traversal probe K9, against their plain
-PyTorch versions on a GPU; the engines against K1, bit for bit.
+engines, the scan K6, the traversal probe K9, the material gradients K7
+and the reverse sweep K8, against their plain PyTorch versions on a GPU;
+the engines against K1, and K7's and K8's radiance against K1's, bit for
+bit.
 
 Every test here needs a CUDA GPU (marker ``cuda``) and skips without
 one: the kernel has no CPU mode.  This file imports neither JAX nor the
@@ -22,10 +24,13 @@ import torch
 
 import pathtrace_tpu_torch as ptt
 from pathtrace_tpu_torch.core import types as T
+from pathtrace_tpu_torch.ops.cuda import matgrad as MG
 from pathtrace_tpu_torch.ops.cuda import megakernel as K
+from pathtrace_tpu_torch.ops.cuda import vjp as VJ
 from pathtrace_tpu_torch.ops import scan as SC
 from pathtrace_tpu_torch.ops.cuda import probe as P
 from pathtrace_tpu_torch.ops.cuda import span as SP
+import torch_gradcheck as GC
 import torch_scenes as S
 from torch_digest import digest
 
@@ -386,3 +391,181 @@ def test_cli_engines_on_the_card(cuda, tmp_path, flags):
     assert cli.main([path, "--res", "96", "80", "--spp", "2",
                      "--out", str(out), *flags]) == 0
     assert out.exists() and sum(SP.LAUNCHES.values()) > before
+
+
+# ----------------------------------------------------------------------------
+# K7 (the material gradients) and K8 (the reverse sweep)
+# ----------------------------------------------------------------------------
+
+def _k8_args(job, ct):
+    return (job["cam"], job["mats"], job["gmat"], job["geom_types"],
+            job["width"], job["height"], job["depth"], 1, 2, job["lights"],
+            ct)
+
+
+def _masked_ct(rad, ref, seed=0):
+    """A random cotangent, zero on the pixels where the kernel's forward
+    and the plain version's differ (tie flips), as the reference's tests
+    mask them."""
+    gen = torch.Generator(device=rad.device).manual_seed(seed)
+    ct = torch.rand(rad.shape, generator=gen, device=rad.device)
+    return torch.where(((rad - ref).abs().amax(-1) < 1e-4)[:, None], ct, 0.0)
+
+
+@pytest.mark.parametrize("nee", [False, True])
+def test_k8_forward_equals_k1(cuda, nee):
+    # K8's forward sweep runs K1's init_state and bounce: the same bits
+    job = K.prepare(_scene("cornell", (96, 80)), cuda, nee=nee)
+    want, _ = K.trace_k1(**job, it0=1, n_spp=2)
+    ct = torch.ones((96 * 80, 3), device=cuda)
+    got, grads = VJ.trace_k8(*_k8_args(job, ct))
+    assert torch.equal(got, want)
+    assert len(grads) == (4 if nee else 3)
+
+
+def test_k7_forward_equals_k1(cuda):
+    scene = _scene("cornell", (96, 80))
+    want, want_counts = K.trace_k1(**K.prepare(scene, cuda), it0=1, n_spp=2)
+    before = MG.LAUNCHES[0]
+    got, g = MG.material_grads(scene, torch.ones((96 * 80, 3)), 1, 2)
+    assert MG.LAUNCHES[0] == before + 1
+    assert torch.equal(got, want)
+    assert g["color"].shape == (scene.materials.count, 3)
+
+
+@pytest.mark.parametrize("nee", [False, True])
+def test_k8_matches_plain(cuda, nee):
+    # every table's gradient at 64x64 d4: the reference's rtol 2e-4 /
+    # atol 3e-4, on the NEE fireflies' part of the cotangent with
+    # GC.FIREFLY_SHARE of that part's largest entry (tests/torch_gradcheck.py)
+    scene = _scene("cornell", (64, 64), 4)
+    job = K.prepare(scene, cuda, nee=nee)
+    rad, _ = K.trace_k1(**job, it0=1, n_spp=2)
+    ref, _ = K.trace_plain(**job, it0=1, n_spp=2)
+    ct = _masked_ct(rad, ref)
+    ff = GC.fireflies(rad, 2, scene.materials.emittance)
+    assert bool(ff.any()) == nee  # cornell at 64x64 has NEE fireflies
+    names = ("cam", "mats", "gmat", "lights")
+    for c, share in zip(GC.split(ct, ff), (None, GC.FIREFLY_SHARE)):
+        if not bool(c.any()):
+            continue
+        before = VJ.LAUNCHES[K.NEE_BIT if nee else 0]
+        _, got = VJ.trace_k8(*_k8_args(job, c))
+        assert VJ.LAUNCHES[K.NEE_BIT if nee else 0] == before + 1
+        _, want = VJ.k8_plain(*_k8_args(job, c))
+        rows = GC.compare(zip(names, got), zip(names, want), *GC.K8_TOL,
+                          share)
+        assert all(row[-1] for row in rows), rows
+
+
+@pytest.mark.parametrize("nee", [False, True])
+def test_k8_two_calls_give_equal_gradients(cuda, nee):
+    # every sum is exact (128-bit integers added with integer atomics,
+    # which commute) and rounded to float32 once: the same bits every
+    # call, whatever order the threads add in
+    job = K.prepare(_scene("cornell", (64, 64), 4), cuda, nee=nee)
+    ct = torch.rand((64 * 64, 3), device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(3))
+    _, a = VJ.trace_k8(*_k8_args(job, ct))
+    _, b = VJ.trace_k8(*_k8_args(job, ct))
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+def test_k8_flags_a_term_that_is_not_finite(cuda):
+    # a NaN in one pixel's cotangent makes the entries its path reaches
+    # NaN; the sums are exact, so every other entry keeps the bits it has
+    # without that pixel
+    job = K.prepare(_scene("cornell", (64, 64), 4), cuda, nee=True)
+    ct = torch.rand((64 * 64, 3), device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(6))
+    pix = 32 * 64 + 32
+    ct[pix] = 0.0
+    _, want = VJ.trace_k8(*_k8_args(job, ct))
+    ct[pix] = float("nan")
+    _, got = VJ.trace_k8(*_k8_args(job, ct))
+    hit = torch.cat([g.isnan().flatten() for g in got])
+    assert 0 < int(hit.sum()) < hit.numel()
+    for g, w in zip(got, want):
+        assert torch.equal(g[~g.isnan()], w[~g.isnan()])
+
+
+def test_k7_two_calls_give_equal_gradients(cuda):
+    scene = _scene("cornell", (64, 64), 4)
+    ct = torch.rand((64 * 64, 3), device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(4))
+    a = MG.material_grads(scene, ct, 1, 2)[1]
+    b = MG.material_grads(scene, ct, 1, 2)[1]
+    for key in a:
+        assert torch.equal(a[key], b[key]), key
+
+
+def test_k7_matches_plain(cuda):
+    scene = _scene("cornell", (64, 64), 4)
+    job = K.prepare(scene, cuda)
+    mtab = MG.material_table(scene, cuda)
+    mat_of = tuple(int(m) for m in scene.geoms.material_id)
+    rad, _ = K.trace_k1(**job, it0=1, n_spp=2)
+    ref, _ = K.trace_plain(**job, it0=1, n_spp=2)
+    ct = _masked_ct(rad, ref)
+    before = MG.LAUNCHES[0]
+    _, got_counts, got = MG.trace_k7(job, mtab, mat_of, ct, 1, 2)
+    assert MG.LAUNCHES[0] == before + 1
+    _, want_counts, want = MG.k7_plain(job, mtab, mat_of, ct, 1, 2)
+    assert torch.equal(got_counts, want_counts)
+    # the reference's tolerance for cornell (tests/test_grad_kernel.py)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("nee", [False, True])
+def test_render_vjp_on_the_card(cuda, nee):
+    # the entry point on K8 against the same entry point on K8's plain
+    # version, on the card, every parameter group, 64x64 d4
+    scene = _scene("cornell", (64, 64), 4)
+    job = K.prepare(scene, cuda, nee=nee)
+    rad, _ = K.trace_k1(**job, it0=1, n_spp=1)
+    ref, _ = K.trace_plain(**job, it0=1, n_spp=1)
+    ct = _masked_ct(rad, ref)
+    got_rad, _ = ptt.render_vjp(scene, ct, 1, 1, nee=nee)
+    assert got_rad.device.type == "cuda" and torch.equal(got_rad, rad)
+    from pathtrace_tpu_torch.render import diff as D
+
+    # the tolerance of test_k8_matches_plain, by parameter group
+    ff = GC.fireflies(rad, 1, scene.materials.emittance)
+    for c, share in zip(GC.split(ct, ff), (None, GC.FIREFLY_SHARE)):
+        if not bool(c.any()):
+            continue
+        _, g = ptt.render_vjp(scene, c, 1, 1, nee=nee)
+        _, want = ptt.render_vjp(scene, c, 1, 1, nee=nee, plain=True)
+        rows = GC.compare(D.named_leaves(g), D.named_leaves(want),
+                          *GC.K8_TOL, share)
+        assert all(row[-1] for row in rows), rows
+
+
+def test_material_grads_on_the_card(cuda):
+    scene = _scene("cornell", (48, 40), 3)
+    ct = torch.rand((48 * 40, 3),
+                    generator=torch.Generator().manual_seed(5))
+    rad, g = ptt.material_grads(scene, ct, 1, 2)
+    assert rad.device.type == "cuda"
+    want_rad, want = ptt.material_grads(scene, ct, 1, 2, plain=True)
+    assert torch.equal(rad, want_rad)
+    for key in want:
+        torch.testing.assert_close(g[key], want[key], rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("name", ["cornell_glass", "cornell_mesh",
+                                  "cornell_tex"])
+def test_render_vjp_rejects_what_k8_does_not_trace(cuda, name):
+    scene = _scene(name, (16, 16), 2)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        VJ.render_vjp(scene, torch.ones((256, 3)), 1, 1)
+
+
+def test_k8_rejects_bad_tables(cuda):
+    job = K.prepare(_scene("cornell", (16, 16), 2), cuda)
+    ct = torch.ones((256, 3), device=cuda)
+    with pytest.raises(ValueError, match="ct"):
+        VJ.trace_k8(*_k8_args(job, ct[:100]))
+    with pytest.raises(ValueError, match="depth"):
+        VJ.trace_k8(*_k8_args(dict(job, depth=VJ.MAX_DEPTH + 1), ct))

@@ -74,7 +74,7 @@ def test_cli_glass_nee_matches_reference(tmp_path, monkeypatch):
 @pytest.mark.parametrize("flag", [
     ["--engine", "planes"], ["--engine", "xla"], ["--shard"],
     ["--checkpoint", "x.ckpt"], ["--interactive", "ctl"],
-    ["--compaction", "sort"],
+    ["--resume"], ["--preview-every", "4"], ["--checkpoint-every", "4"],
 ])
 def test_cli_unported_flags_raise(flag):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -82,10 +82,63 @@ def test_cli_unported_flags_raise(flag):
 
 
 @pytest.mark.parametrize("flag", [["--engine", "xla"],
-                                  ["--compaction", "sort"]])
+                                  ["--engine", "planes"]])
 def test_cli_wavefront_flags_name_item_3(flag):
-    with pytest.raises(NotImplementedError, match="item 3"):
+    # the wavefront twin was item 3 of the ROADMAP's Queue 1 before its
+    # re-anchoring; it is item 1 now
+    with pytest.raises(NotImplementedError, match="Queue 1 item 1 "):
         cli.main([CORNELL, "--device", "cpu", *flag])
+
+
+@pytest.mark.parametrize("flag,item", [
+    (["--shard"], "item 4"), (["--checkpoint", "x.ckpt"], "item 5"),
+    (["--resume"], "item 5"), (["--preview-every", "4"], "item 5"),
+    (["--checkpoint-every", "4"], "item 5"),
+    (["--interactive", "ctl"], "item 5")])
+def test_cli_unported_flags_name_their_item(flag, item):
+    with pytest.raises(NotImplementedError, match=f"Queue 1 {item} "):
+        cli.main([CORNELL, "--device", "cpu", *flag])
+
+
+@pytest.mark.parametrize("engine", [[], ["--engine", "sorted"]])
+def test_cli_compaction_sort_masks_with_a_warning(monkeypatch, tmp_path,
+                                                  capsys, engine):
+    # as the reference's tiled engines: a warning, then the image of
+    # --compaction mask
+    got = _cli_accum(monkeypatch, tmp_path, ["--compaction", "sort", *engine])
+    assert "WARNING: --compaction sort" in capsys.readouterr().out
+    want = _cli_accum(monkeypatch, tmp_path, engine)
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+
+
+def test_cli_interpret_is_the_cpu_device(monkeypatch, tmp_path):
+    # --interpret runs the plain versions, as --device cpu does
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    out = tmp_path / "i.png"
+    assert cli.main([CORNELL, "--interpret", "--res", "8", "8", "--depth",
+                     "3", "--spp", "1", "--out", str(out)]) == 0
+    want = tmp_path / "c.png"
+    assert cli.main([CORNELL, "--device", "cpu", "--res", "8", "8",
+                     "--depth", "3", "--spp", "1", "--out", str(want)]) == 0
+    np.testing.assert_array_equal(np.asarray(Image.open(out)),
+                                  np.asarray(Image.open(want)))
+
+
+def test_entry_points_take_compaction_and_remat():
+    scene = ptt.load_scene(CORNELL)
+    scene = dataclasses.replace(scene, resolution=(8, 6), trace_depth=3)
+    want = ptt.pathtrace_batch(scene, 1, 2, device="cpu")
+    # positionally, as the reference's (scene, it0, n_iters, compaction,
+    # remat, nee, rr)
+    got = ptt.pathtrace_batch(scene, 1, 2, "sort", False, device="cpu")
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert want[1].shape == (3,)  # summed over the samples
+    acc = ptt.render(scene, 2, 2, "sort", device="cpu")
+    assert torch.equal(acc, want[0])
+    with pytest.raises(ValueError, match="compaction"):
+        ptt.pathtrace_batch(scene, 1, 1, "dense", device="cpu")
 
 
 def _cli_accum(monkeypatch, tmp_path, flags, scene=CORNELL):

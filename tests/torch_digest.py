@@ -34,7 +34,7 @@ TIMED = ("cornell", "cornell_bigmesh")  # at the files' own size
 TIME_SPP, TIME_CALLS = 8, 9
 # the kernels of the sources, by the names ptxas reports them under
 KERNELS = ("k1_trace", "k5_span", "k6_scan_tiles", "k6_add_offsets",
-           "k9_probe")
+           "k9_probe", "k7_grads", "k8_vjp", "fx_round")
 
 
 def digest(rad):
