@@ -105,8 +105,16 @@ Phases, each of which raises on failure (exit code non-zero):
    (``tests/torch_gradcheck.py``): the reference's rtol / atol (K8 2e-4
    / 3e-4, K7 1e-5 / 1e-4), K8's cotangent split between the NEE
    fireflies (held with a share of their part's largest gradient) and
-   the other pixels (held at the reference's tolerance as it stands, at
-   800x800 with a share of each table's largest gradient);
+   the other pixels (held at the reference's tolerance as it stands; at
+   full size with the reference's tolerance plus float32's epsilon times
+   each entry's term magnitude, which the plain version's backward on
+   absolute values gives, in float64, whose gradients are printed
+   beside); two K8 calls
+   give the same bits.  The same for K8's mesh builds (masks 512 and 640,
+   the BVH walk's winner carried to the reverse sweep) and K7's mesh build
+   on cornell_mesh.txt at 64x64 d4 and at its 1920x1080 d8, and
+   ``render_vjp`` on the mesh rig of the reference's
+   ``tests/test_vjp_kernel.py`` with and without NEE (``tri_verts`` None);
 14. the gradients' main path, launch counts reset before and read after:
    ``render_vjp`` on cornell 800x800 d8, 1 spp, with NEE and a cotangent
    of ones (the reference bench's "NEE grad-step") and without NEE,
@@ -118,7 +126,13 @@ Phases, each of which raises on failure (exit code non-zero):
    must land within 1e-4 of the same loop's on K8's plain version), at
    64x64 d8 at 8 spp and at 24x24 d2 at 2 spp (the size the reference's
    own test runs, ``tests/test_examples.py:39-45``), where the light's
-   position error must fall below its start;
+   position error must fall below its start; then the mesh gradients'
+   main path, counts reset before and read after: ``render_vjp`` on
+   cornell_mesh.txt at 1920x1080 d8, 1 spp, with NEE (ones) and without,
+   ``material_grads`` on it, and one ``render_loss_and_grad(engine=
+   "planes")`` step (autograd over the plain trace on the card, no
+   kernel) on cornell_mesh at 48x48 d3 NEE 4 spp, whose ``tri_verts``
+   gradient must not be zero;
 15. the gradients' times, warm, CUDA events, median of k calls: the grad
    step through ``render_vjp`` (the packing and its backward on the host
    included), K8 without and with NEE and K7 (1 spp a call), K1 on the
@@ -128,7 +142,19 @@ Phases, each of which raises on failure (exit code non-zero):
    materials': the fold's ops a path and a scatter; K8 with NEE: the
    adjoints' least ops counted from the kernel's code and the stored
    state of each live bounce written and read once; all: the cotangent
-   and the gradient table).
+   and the gradient table); K8's mesh builds on cornell_mesh at 1920x1080
+   and cornell_bigmesh at 800x800, and K7's on cornell_mesh, the same way.
+
+K3-linear, the fold of every triangle of a mesh without a BVH, runs as
+the other K1 builds do: phase 4 on cornell_mesh.txt stripped of its BVH
+(with and without NEE, and its glass + checker + motion variant) at
+1920x1080 d8 and cornell_bumpmesh.txt stripped at 800x800 (whose BUMPTEX
+the linear fold leaves inert, as the reference's does), each also held
+against K3 on the same configuration with its BVH (the same winners but
+for ties; not bumpmesh); phase 7 times them, and for information
+K3-linear and K3 on cornell_bigmesh.txt at 128x128 d8, 1 spp (the work a
+BVH saves); phases 8-9 run the sorted engine on the stripped cornell_mesh
+with NEE.
 
 The line before the last is a JSON object describing each kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Without a CUDA GPU it
@@ -159,6 +185,7 @@ K5_SITE = "pathtrace_tpu/ops/pallas/megakernel.py:3923"   # _span_kernel
 K6_SITE = "pathtrace_tpu/ops/scan.py:43"                  # _scan_kernel
 K7_SITE = "pathtrace_tpu/ops/pallas/megakernel.py:2551"   # _grad_accumulate
 K8_SITE = "pathtrace_tpu/ops/pallas/megakernel.py:3494"   # _vjp_kernel
+K3_LINEAR_SITE = "pathtrace_tpu/ops/pallas/megakernel.py:870"  # tri_body
 GRAD_SMALL = ((64, 64), 4)  # resolution, depth: the reference's tolerance
 HUGEMESH_OBJ = os.path.join("scenes", "gen_icosphere7.obj")
 # (label, scene file, text replacements of
@@ -183,6 +210,17 @@ MESH_CONFIGS = [
     ("cornell_mesh glass+checker+motion", "cornell_mesh",
      ("MESH_GLASS", "MESH_MOTION"), False, False),
     ("cornell_hugemesh", "cornell_hugemesh", (), False, False),
+]
+# K3-linear: mesh configurations stripped of their BVH, every triangle
+# folded, at the files' own size, depth 8; each is also held against K3 on
+# the same configuration with its BVH (the label without " linear"), but
+# cornell_bumpmesh, whose BUMPTEX the linear fold leaves inert
+LINEAR_CONFIGS = [
+    ("cornell_mesh linear", "cornell_mesh", (), False, False),
+    ("cornell_mesh linear NEE", "cornell_mesh", (), True, False),
+    ("cornell_mesh linear glass+checker+motion", "cornell_mesh",
+     ("MESH_GLASS", "MESH_MOTION"), False, False),
+    ("cornell_bumpmesh linear", "cornell_bumpmesh", (), False, False),
 ]
 # the image-texture configurations, at the files' own size (800x800, and
 # 1920x1080 for cornell_bigmesh_tex), depth 8; those timed are marked.
@@ -215,6 +253,8 @@ ENGINE_CONFIGS = [
     ("sorted cornell_bigmesh", "cornell_bigmesh", None, None),
     ("sorted cornell_hugemesh", "cornell_hugemesh", None, None),
     ("sorted cornell_bigmesh_tex", "cornell_bigmesh_tex", None, None),
+    ("sorted cornell_mesh linear NEE", "cornell_mesh linear NEE", None,
+     None),
 ]
 # held within the tie-flip bound of the plain version; the first of each
 # feature mask gives K5's numbers in the kernels line (its scene is the
@@ -232,6 +272,8 @@ PLAIN_ENGINE_CONFIGS = [
     ("sorted cornell_mesh glass+checker+motion",
      "cornell_mesh glass+checker+motion", None, None),
     ("sorted cornell_bigmesh_tex", "cornell_bigmesh_tex", None, None),
+    ("sorted cornell_mesh linear NEE", "cornell_mesh linear NEE", None,
+     None),
 ]
 # timed beside K1
 TIMED_ENGINE_CONFIGS = [
@@ -288,7 +330,7 @@ def kernel_name(K, mask):
         on.append("russian roulette")
     name = "k1_trace+k2_nee" if mask & K.NEE_BIT else "k1_trace"
     if mask & K.MESH_BIT:
-        name += "+k3_mesh"
+        name += "+k3_linear" if mask & K.LINEAR_BIT else "+k3_mesh"
     if mask & (K.TEX_BIT | K.BTEX_BIT):
         name += "+k4_tex"
         on += [n for bit, n in ((K.TEX_BIT, "albedo map"),
@@ -762,14 +804,53 @@ def held(GC, label, got, want, tol, share=None):
     return max((row[2] for row in rows), default=0.0)
 
 
-def k8_vs_plain(K, VJ, GC, torch, label, scene, nee, full):
+def held_terms(GC, torch, label, names, got, plain, w64, mags, tol):
+    """At full size: each table of the kernel's gradient ``got`` against
+    the plain version's ``plain`` (``tests/torch_gradcheck.compare_terms``:
+    ``tol`` the reference's (rtol, atol), plus float32's epsilon times each
+    entry's term magnitude in ``mags``), and both against the float64
+    reading ``w64``, for information.  Prints each table and its worst
+    entry; raises on a miss or a gradient that is not finite.  Returns the
+    largest absolute difference of the kernel from the plain version."""
+    rows = GC.compare_terms(zip(names, got), zip(names, plain),
+                            zip(names, mags), *tol)
+    for (name, scale, err, ratio, need, ok), g, w, w6, m in zip(
+            rows, got, plain, w64, mags):
+        w6, m = w6.to(g.device), m.to(g.device)
+        bound = tol[1] + tol[0] * w.double().abs() + GC.EPS32 * m
+        at = ((g.double() - w.double()).abs() / bound).argmax()
+        idx = tuple(int(i) for i in torch.unravel_index(at, g.shape))
+        k64, p64 = ((x.double() - w6).abs().max() for x in (g, w))
+        print(f"  {label} {name}: max |g| {scale:.6g}; kernel max |diff| "
+              f"{err:.6g}, {ratio:.3g} of its bound at worst, over the "
+              f"bare tolerance by at most {need:.3g} x eps32 x terms; "
+              f"float64: kernel max |diff| {float(k64):.6g}, float32 plain "
+              f"{float(p64):.6g}; worst entry {idx}: kernel "
+              f"{float(g.reshape(-1)[at]):.6f} float32 plain "
+              f"{float(w.reshape(-1)[at]):.6f} float64 "
+              f"{float(w6.reshape(-1)[at]):.6f} terms "
+              f"{float(m.reshape(-1)[at]):.6g} bound "
+              f"{float(bound.reshape(-1)[at]):.6g} "
+              f"{'ok' if ok else 'MISS'}", flush=True)
+    missed = [row[0] for row in rows if not row[-1]]
+    if missed:
+        raise RuntimeError(f"{label}: {missed} against the plain version")
+    return max((row[2] for row in rows), default=0.0)
+
+
+def k8_vs_plain(K, VJ, GC, torch, label, scene, nee, full=False):
     """K8 on the tables of ``scene``, 1 spp, against K1 (its radiance, bit
-    for bit) and against its plain version (:func:`held`), with the
-    cotangent split between the NEE fireflies and the other pixels
-    (``GC.split``): every table's gradient and, unless ``full``, every
-    parameter group of ``render_vjp`` (the entry point on K8 and on K8's
-    plain version).  Returns (max abs error of the tables on the whole
-    cotangent, plain ms)."""
+    for bit) and against its plain version, with the cotangent split
+    between the NEE fireflies and the other pixels (``GC.split``): every
+    table's gradient and, at the small size, every parameter group of
+    ``render_vjp`` (the entry point on K8 and on K8's plain version), each
+    with :func:`held`.  At full size (``full``) the other pixels are held
+    entry by entry with the bound of their terms' magnitudes, which the
+    plain version in float64 gives with its own reading
+    (:func:`held_terms`), on the pixels whose float64 radiance is the
+    float32 one's.  Returns (the largest
+    abs error of the tables on either part of the cotangent, the plain
+    version's ms on the other pixels' part)."""
     job = K.prepare(scene, "cuda", nee=nee)
     width, height, depth = job["width"], job["height"], job["depth"]
     rad, _ = K.trace_k1(**job, it0=1, n_spp=1)
@@ -778,43 +859,82 @@ def k8_vs_plain(K, VJ, GC, torch, label, scene, nee, full):
 
     def args(c):
         return (job["cam"], job["mats"], job["gmat"], job["geom_types"],
-                width, height, depth, 1, 1, job["lights"], c)
+                width, height, depth, 1, 1, job["lights"], c, job["tri"],
+                job["nodes"], job["bvh_meta"])
+
+    def trace(cam, mats, gmat, lights=None):
+        return K.trace_plain(cam, mats, gmat, job["geom_types"], width,
+                             height, depth, 1, 1, lights=lights,
+                             tri=job["tri"], nodes=job["nodes"],
+                             bvh_meta=job["bvh_meta"])[0]
 
     rad8, got = VJ.trace_k8(*args(ct))
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    _, want = VJ.k8_plain(*args(ct))
-    torch.cuda.synchronize()
-    plain_ms = (time.perf_counter() - t0) * 1e3
+    twice = all(torch.equal(a, b)
+                for a, b in zip(got, VJ.trace_k8(*args(ct))[1]))
     same = torch.equal(rad8, rad)
     ff = GC.fireflies(rad, 1, scene.materials.emittance)
     print(f"k8 {label} {width}x{height} d{depth} 1spp: radiance bit-equal "
-          f"to K1 {same}; cotangent on "
-          f"{float((ct[:, 0] > 0).float().mean()):.6f} of the pixels; "
+          f"to K1 {same}; two calls give the same bits {twice}; cotangent "
+          f"on {float((ct[:, 0] > 0).float().mean()):.6f} of the pixels; "
           f"{int(ff.sum())} fireflies (radiance "
-          f"{[round(float(x), 4) for x in rad.amax(-1)[ff][:8]]}); plain "
-          f"version {plain_ms:.1f} ms", flush=True)
-    if not same:
-        raise RuntimeError(f"{label}: K8's radiance is not K1's")
+          f"{[round(float(x), 4) for x in rad.amax(-1)[ff][:8]]})",
+          flush=True)
+    if not (same and twice):
+        raise RuntimeError(f"{label}: K8's radiance is not K1's, or two "
+                           f"calls differ")
     names = ("cam", "mats", "gmat", "lights")
-    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    tables = [job["cam"], job["mats"], job["gmat"]] + (
+        [job["lights"]] if nee else [])
+    err, plain_ms = 0.0, None
     from pathtrace_tpu_torch.render import diff as D
 
-    for part, c, share in zip(("other pixels", "fireflies"), GC.split(ct, ff),
-                              (GC.FULL_SHARE if full else None,
-                               GC.FIREFLY_SHARE)):
+    for part, c in zip(("other pixels", "fireflies"), GC.split(ct, ff)):
+        judge = full and part == "other pixels"
+        if judge:
+            t0 = time.perf_counter()
+            rad64, grads64 = GC.reading64(trace, tables)
+            agree = GC.same_paths(ref, rad64)
+            del rad64
+            c = torch.where(agree[:, None], c, 0.0)
+            print(f"  {label} {part}: the float64 plain version's forward "
+                  f"{time.perf_counter() - t0:.1f} s; "
+                  f"{int((~agree).sum())} pixels take another path there "
+                  f"and leave the cotangent", flush=True)
         if not bool(c.any()):
             continue
         _, g = VJ.trace_k8(*args(c))
+        if judge:
+            t0 = time.perf_counter()
+            w64, mags = grads64(c)
+            del grads64
+            print(f"  {label} {part}: the float64 gradients and their "
+                  f"terms' magnitudes {time.perf_counter() - t0:.1f} s; "
+                  f"card memory at most "
+                  f"{torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB",
+                  flush=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         _, w = VJ.k8_plain(*args(c))
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        plain_ms = ms if plain_ms is None else plain_ms
+        print(f"  {label} {part}: plain version {ms:.1f} ms", flush=True)
+        if judge:
+            err = max(err, held_terms(GC, torch, f"{label} {part}", names,
+                                      g, w, w64, mags, GC.K8_TOL))
+            continue
+        err = max([err] + [float((a - b).abs().max()) for a, b in zip(g, w)])
         held(GC, f"{label} {part}", zip(names, g), zip(names, w), GC.K8_TOL,
-             share)
+             GC.FIREFLY_SHARE if part == "fireflies" else None)
         if full:
             continue
         _, g = VJ.render_vjp(scene, c, 1, 1, nee=nee)
         _, w = VJ.render_vjp(scene, c, 1, 1, nee=nee, plain=True)
+        if scene.mesh.count and g["tri_verts"] is not None:
+            raise RuntimeError(f"{label}: render_vjp gave tri_verts")
         held(GC, f"{label} render_vjp {part}", D.named_leaves(g),
-             D.named_leaves(w), GC.K8_TOL, share)
+             D.named_leaves(w), GC.K8_TOL,
+             GC.FIREFLY_SHARE if part == "fireflies" else None)
     return err, plain_ms
 
 
@@ -920,6 +1040,156 @@ def grad_main_path(ptt, K, MG, VJ, np, torch, cornell):
     return launches
 
 
+def linear_vs_k3(ptt, K, torch, label, scene, bvh_scene, nee, rr):
+    """K3-linear's image against K3's on the same configuration with its
+    BVH, 1 spp: the same winners but for ties (the tie-flip bound; the
+    pixels off by more than 1e-3 are counted)."""
+    rad, counts = ptt.pathtrace_batch(scene, 1, 1, nee=nee, rr=rr)
+    want, want_counts = ptt.pathtrace_batch(bvh_scene, 1, 1, nee=nee, rr=rr)
+    diff = (rad - want).abs().amax(-1)
+    share = float((diff > 1e-3).float().mean())
+    print(f"k3_linear vs k3 {label} {scene.resolution[0]}x"
+          f"{scene.resolution[1]}: {int((diff > 1e-3).sum())} pixels off by "
+          f"more than 1e-3 (share {share:.6f}), exact "
+          f"{float((diff == 0).float().mean()):.6f}, counts {counts.tolist()}"
+          f" K3 {want_counts.tolist()}", flush=True)
+    if share >= TIE_SHARE:
+        raise RuntimeError(f"{label}: K3-linear's winners are not K3's")
+    for a, b in zip(counts.tolist(), want_counts.tolist()):
+        if abs(a - b) > COUNT_RTOL * max(b, 1):
+            raise RuntimeError(f"{label}: counts {counts} vs K3's")
+
+
+def mesh_rig_phase(ptt, GC, torch):
+    """``render_vjp`` on the mesh rig of the reference's
+    ``tests/test_vjp_kernel.py`` (``tests/torch_scenes.mesh_rig``), with
+    and without NEE, on K8 against the same entry point on K8's plain
+    version (:func:`held`)."""
+    from pathtrace_tpu_torch.render import diff as D
+    from torch_scenes import mesh_rig
+
+    rig = mesh_rig()
+    ct = torch.rand((rig.pixel_count, 3),
+                    generator=torch.Generator().manual_seed(9))
+    for nee in (False, True):
+        rad, g = ptt.render_vjp(rig, ct, 1, 1, nee=nee)
+        rad_p, w = ptt.render_vjp(rig, ct, 1, 1, nee=nee, plain=True)
+        print(f"mesh rig {rig.resolution} d{rig.trace_depth} nee {nee}: "
+              f"radiance max |diff| {float((rad - rad_p).abs().max()):.3g}, "
+              f"tri_verts {g['tri_verts']}", flush=True)
+        if g["tri_verts"] is not None:
+            raise RuntimeError("mesh rig: render_vjp gave tri_verts")
+        held(GC, f"mesh rig nee {nee}", D.named_leaves(g),
+             D.named_leaves(w), GC.K8_TOL, GC.FIREFLY_SHARE)
+
+
+def mesh_grad_main_path(ptt, K, MG, VJ, torch, mesh):
+    """The mesh gradients' main path (launch counts reset before and read
+    after): ``render_vjp`` on cornell_mesh with NEE (a cotangent of ones,
+    the grad step) and without, ``material_grads`` on it, and one step of
+    ``render_loss_and_grad(engine="planes")`` (autograd over the plain
+    trace, no kernel) on cornell_mesh at 48x48 d3 NEE 4 spp, whose
+    ``tri_verts`` gradient must not be zero.  Returns the launches by
+    kernel."""
+    from pathtrace_tpu_torch.render import diff as D
+
+    n_pix = mesh.pixel_count
+    ct = torch.rand((n_pix, 3), generator=torch.Generator().manual_seed(11))
+    small = dataclasses.replace(mesh, resolution=(48, 48), trace_depth=3)
+    for counter in (K.LAUNCHES, MG.LAUNCHES, VJ.LAUNCHES):
+        counter.clear()
+    rad, g_nee = ptt.render_vjp(mesh, torch.ones((n_pix, 3)), 1, 1,
+                                nee=True)
+    _, g = ptt.render_vjp(mesh, ct, 1, 1)
+    rad_m, g_m = ptt.material_grads(mesh, ct, 1, 1)
+    t0 = time.perf_counter()
+    loss, g_p = ptt.render_loss_and_grad(
+        small, torch.zeros((small.pixel_count, 3)), 1, 4, nee=True,
+        engine="planes")
+    torch.cuda.synchronize()
+    planes_ms = (time.perf_counter() - t0) * 1e3
+    launches = {"k8_vjp+k3_mesh": VJ.LAUNCHES[K.MESH_BIT],
+                "k8_vjp+k2_nee+k3_mesh": VJ.LAUNCHES[K.MESH_BIT | K.NEE_BIT],
+                "k7_grads+k3_mesh": MG.LAUNCHES[K.MESH_BIT]}
+    tv = float(g_p["tri_verts"].abs().max())
+    print(f"mesh gradients' main path: launches {launches} (K1 "
+          f"{dict(K.LAUNCHES)}); render_loss_and_grad planes 48x48 d3 NEE "
+          f"4spp: loss {float(loss):.6g}, max |d tri_verts| {tv:.6g}, "
+          f"{planes_ms:.1f} ms (host clock)", flush=True)
+    if not all(launches.values()) or K.LAUNCHES:
+        raise RuntimeError(f"the mesh gradients' main path: launches "
+                           f"{launches}, K1 {dict(K.LAUNCHES)}")
+    if not tv > 0.0:
+        raise RuntimeError("the planes engine gave no tri_verts gradient")
+    for what, grads in (("grad step", g_nee), ("render_vjp", g)):
+        if grads["tri_verts"] is not None:
+            raise RuntimeError(f"{what}: tri_verts is not None on a mesh")
+        if not all(bool(torch.isfinite(t).all()) for t in D.leaves(grads)):
+            raise RuntimeError(f"{what}: a gradient is not finite")
+    if not all(bool(torch.isfinite(t).all()) for t in g_m.values()):
+        raise RuntimeError("material_grads: a gradient is not finite")
+    want, _ = ptt.pathtrace_batch(mesh, 1, 1, nee=True)
+    want_m, _ = ptt.pathtrace_batch(mesh, 1, 1)
+    if not (torch.equal(rad, want) and torch.equal(rad_m, want_m)):
+        raise RuntimeError("the mesh gradients' radiance is not K1's")
+    if float(g_nee["translation"].abs().max()) == 0.0:
+        raise RuntimeError("the mesh grad step gave no geometry gradient")
+    return launches
+
+
+def time_k8(K, VJ, B, torch, label, name, job, nee, card):
+    """K8's time on ``job`` beside K1's on the same tables, 1 spp a call,
+    with its bound (K1's counted work plus ``bound.k8_extra``).  Returns
+    (ms, bound ms, bound by)."""
+    width, height = job["width"], job["height"]
+    n_pix = width * height
+    ones = torch.ones((n_pix, 3), device="cuda")
+    args = (job["cam"], job["mats"], job["gmat"], job["geom_types"], width,
+            height, job["depth"], 1, 1, job["lights"], ones, job["tri"],
+            job["nodes"], job["bvh_meta"])
+    ms_k8, runs_k8, (_, tabs) = median_ms(lambda: VJ.trace_k8(*args),
+                                          torch, 9)
+    ms_k1, runs_k1, (_, counts) = median_ms(
+        lambda: K.trace_k1(**job, it0=1, n_spp=1), torch, 9)
+    ops, n_bytes = forward_work(K, B, torch, label, job)
+    extra_ops, extra_bytes = B.k8_extra(
+        counts.tolist(), n_pix, sum(t.numel() for t in tabs), nee,
+        mesh=bool(job["bvh_meta"]))
+    bound_ms, bound_by = B.bound(ops + extra_ops, n_bytes + extra_bytes)
+    print(f"time {name} {label} {width}x{height} d{job['depth']} 1spp: "
+          f"kernel median {ms_k8:.4f} ms (runs "
+          f"{[round(t, 4) for t in runs_k8]}), K1 on the same tables "
+          f"{ms_k1:.4f} ms (runs {[round(t, 4) for t in runs_k1]}) on {card};"
+          f" bound {bound_ms:.4f} ms by {bound_by} ({ops:.4g} ops of K1's "
+          f"count + {extra_ops:.4g}; {n_bytes + extra_bytes} bytes, of "
+          f"which {extra_bytes} K8's own); kernel at {bound_ms / ms_k8:.2%} "
+          f"of it; library call: none", flush=True)
+    return ms_k8, bound_ms, bound_by
+
+
+def time_k7(K, MG, B, torch, label, name, k7_job, card):
+    """K7's time on ``k7_job`` (``k7_vs_plain``'s job, material table and
+    geoms' materials), 1 spp a call, with its bound.  Returns (ms, bound
+    ms, bound by)."""
+    job, mtab, mat_of = k7_job
+    n_pix = job["width"] * job["height"]
+    ct = torch.rand((n_pix, 3), device="cuda")
+    ms_k7, runs_k7, (_, counts, _) = median_ms(
+        lambda: MG.trace_k7(job, mtab, mat_of, ct, 1, 1), torch, 9)
+    ops, n_bytes = forward_work(K, B, torch, label, job)
+    extra_ops, extra_bytes = B.k7_extra(counts.tolist(), n_pix,
+                                        mtab.shape[0])
+    bound_ms, bound_by = B.bound(ops + extra_ops, n_bytes + extra_bytes)
+    print(f"time {name} {label} {job['width']}x{job['height']} "
+          f"d{job['depth']} 1spp: kernel median {ms_k7:.4f} ms (runs "
+          f"{[round(t, 4) for t in runs_k7]}) on {card}; bound "
+          f"{bound_ms:.4f} ms by {bound_by} ({ops:.4g} ops of K1's count + "
+          f"{extra_ops:.4g} of the fold; {n_bytes + extra_bytes} bytes); "
+          f"kernel at {bound_ms / ms_k7:.2%} of it; library call: none",
+          flush=True)
+    return ms_k7, bound_ms, bound_by
+
+
 def forward_work(K, B, torch, label, job):
     """(ops, bytes) of one sample of K1 on ``job``: the count made by
     time_variant for ``label`` at this size, or made here."""
@@ -946,49 +1216,17 @@ def time_gradients(ptt, K, MG, VJ, B, torch, cornell, card, k7_job):
           f"packing and its backward on the host included): median "
           f"{ms:.4f} ms (runs {[round(t, 4) for t in runs]}) on {card}",
           flush=True)
-    out = {}
-    for name, label, nee in (("k8_vjp", "cornell", False),
-                             ("k8_vjp+k2_nee", "cornell NEE", True)):
-        job = K.prepare(cornell, "cuda", nee=nee)
-        args = (job["cam"], job["mats"], job["gmat"], job["geom_types"],
-                job["width"], job["height"], job["depth"], 1, 1,
-                job["lights"], ones)
-        ms_k8, runs_k8, (_, tabs) = median_ms(lambda: VJ.trace_k8(*args),
-                                              torch, 9)
-        ms_k1, runs_k1, (_, counts) = median_ms(
-            lambda: K.trace_k1(**job, it0=1, n_spp=1), torch, 9)
-        ops, n_bytes = forward_work(K, B, torch, label, job)
-        extra_ops, extra_bytes = B.k8_extra(
-            counts.tolist(), n_pix, sum(t.numel() for t in tabs), nee)
-        bound_ms, bound_by = B.bound(ops + extra_ops, n_bytes + extra_bytes)
-        extra = ("the adjoints", "the cotangent, the stored states and the "
-                 "table") if nee else ("the fold", "the cotangent and the "
-                                       "table")
-        print(f"time {name} cornell 800x800 d8 1spp: kernel median "
-              f"{ms_k8:.4f} ms (runs {[round(t, 4) for t in runs_k8]}), K1 "
-              f"on the same tables {ms_k1:.4f} ms (runs "
-              f"{[round(t, 4) for t in runs_k1]}) on {card}; bound "
-              f"{bound_ms:.4f} ms by {bound_by} ({ops:.4g} ops of K1's count "
-              f"+ {extra_ops:.4g} of {extra[0]}; {n_bytes + extra_bytes} "
-              f"bytes, of which {extra_bytes} {extra[1]}); kernel at "
-              f"{bound_ms / ms_k8:.2%} of it; library call: none", flush=True)
-        out[name] = (ms_k8, bound_ms, bound_by)
-    job, mtab, mat_of = k7_job
-    ct = torch.rand((n_pix, 3), device="cuda")
-    ms_k7, runs_k7, (_, counts, _) = median_ms(
-        lambda: MG.trace_k7(job, mtab, mat_of, ct, 1, 1), torch, 9)
-    ops, n_bytes = forward_work(K, B, torch, "cornell", job)
-    extra_ops, extra_bytes = B.k7_extra(counts.tolist(), n_pix,
-                                        mtab.shape[0])
-    bound_ms, bound_by = B.bound(ops + extra_ops, n_bytes + extra_bytes)
-    print(f"time k7_grads cornell 800x800 d8 1spp: kernel median "
-          f"{ms_k7:.4f} ms (runs {[round(t, 4) for t in runs_k7]}) on {card};"
-          f" bound {bound_ms:.4f} ms by {bound_by} ({ops:.4g} ops of K1's "
-          f"count + {extra_ops:.4g} of the fold; {n_bytes + extra_bytes} "
-          f"bytes); kernel at {bound_ms / ms_k7:.2%} of it; library call: "
-          f"none", flush=True)
-    out["k7_grads"] = (ms_k7, bound_ms, bound_by)
+    out = {name: time_k8(K, VJ, B, torch, label, name,
+                         K.prepare(cornell, "cuda", nee=nee), nee, card)
+           for name, label, nee in (("k8_vjp", "cornell", False),
+                                    ("k8_vjp+k2_nee", "cornell NEE", True))}
+    out["k7_grads"] = time_k7(K, MG, B, torch, "cornell", "k7_grads", k7_job,
+                              card)
     return out
+
+
+def bigmesh_scene(mesh_configs):
+    return next(c[1] for c in mesh_configs if c[0] == "cornell_bigmesh")
 
 
 def main():
@@ -1010,6 +1248,7 @@ def main():
     from pathtrace_tpu_torch.ops import scan as SC
     from pathtrace_tpu_torch.ops.cuda import probe as P
     from pathtrace_tpu_torch.ops.cuda import span as SP
+    from pathtrace_tpu_torch.scene.bvh import without_bvh
     sys.path.insert(0, os.path.join(HERE, "tests"))
     from torch_digest import ptxas_usage
     import torch_gradcheck as GC
@@ -1036,6 +1275,11 @@ def main():
         scene = load_mesh_scene(ptt, name, edits)
         mesh_configs.append(
             (label, scene, nee, rr, K.scene_mask(scene, nee, rr)))
+    linear_configs = []
+    for label, name, edits, nee, rr in LINEAR_CONFIGS:
+        scene = without_bvh(load(ptt, name, edits))
+        linear_configs.append(
+            (label, scene, nee, rr, K.scene_mask(scene, nee, rr)))
     tex_configs, tex_timed = [], []
     for label, name, edits, nee, rr, timed_here in TEX_CONFIGS:
         t0 = time.perf_counter()
@@ -1047,17 +1291,21 @@ def main():
             (label, scene, nee, rr, K.scene_mask(scene, nee, rr)))
         if timed_here:
             tex_timed.append(tex_configs[-1])
-    masks = sorted({c[4] for c in configs + mesh_configs + tex_configs})
+    forward = configs + mesh_configs + tex_configs + linear_configs
+    masks = sorted({c[4] for c in forward})
     phase_done("scenes")
 
     t0 = time.perf_counter()
-    build.build_kernels(masks, k7_masks=(0,), k8_masks=VJ.MASKS)
-    print(f"build K1 variants {masks}, K7 (mask 0), K8 (masks {VJ.MASKS}), "
-          f"K6 and K9: {time.perf_counter() - t0:.2f} s, nvcc "
+    k7_masks = (0, K.MESH_BIT)
+    build.build_kernels(masks, k7_masks=k7_masks, k8_masks=VJ.MASKS)
+    print(f"build K1 variants {masks}, K7 (masks {k7_masks}), K8 (masks "
+          f"{VJ.MASKS}), K6 and K9: {time.perf_counter() - t0:.2f} s, nvcc "
           f"{' '.join(build.NVCC_FLAGS)} -DPT_FEATURES=<mask> (K7 "
           f"-DPT_GRAD=1, K8 -DPT_VJP=1)", flush=True)
     for lib, name in ([(f"k1_m{m}", f"{kernel_name(K, m)} (mask {m})")
-                       for m in masks] + [("k7_m0", "k7_grads (mask 0)")]
+                       for m in masks]
+                      + [(f"k7_m{m}", f"k7_grads (mask {m})")
+                         for m in k7_masks]
                       + [(f"k8_m{m}", f"k8_vjp (mask {m})")
                          for m in VJ.MASKS]
                       + [("k6_scan", "k6_scan"), ("k9_probe", "k9_probe")]):
@@ -1068,7 +1316,7 @@ def main():
 
     launches = dict.fromkeys(masks, 0)
     max_err = dict.fromkeys(masks, 0.0)
-    for label, scene, nee, rr, mask in configs + mesh_configs + tex_configs:
+    for label, scene, nee, rr, mask in forward:
         n, err = compare(ptt, K, torch, label, scene, nee, rr, mask)
         launches[mask] += n
         max_err[mask] = max(max_err[mask], err)
@@ -1087,11 +1335,16 @@ def main():
     if missing:
         raise RuntimeError(f"the main path launched no kernel of masks "
                            f"{missing}")
-    bigmesh = next(c[1] for c in mesh_configs if c[0] == "cornell_bigmesh")
-    k9_launches, k9_err, k9_args = probe_phase(K, P, bigmesh)
+    k9_launches, k9_err, k9_args = probe_phase(K, P,
+                                               bigmesh_scene(mesh_configs))
     phase_done("k9")
 
-    scenes = {c[0]: c[1:4] for c in configs + mesh_configs + tex_configs}
+    scenes = {c[0]: c[1:4] for c in forward}
+    for label, scene, nee, rr, _ in linear_configs:
+        if not K.tex_statics(scene)[1]:  # no BUMPTEX map
+            linear_vs_k3(ptt, K, torch, label, scene,
+                         scenes[label.replace(" linear", "")][0], nee, rr)
+    phase_done("k3_linear vs k3")
     k5_launches, k6_launches = {}, 0
     for label, config, res, split in ENGINE_CONFIGS:
         scene, nee, rr = engine_scene(scenes, config, res)
@@ -1114,7 +1367,8 @@ def main():
                 K, B, torch, label, K.prepare(scene, "cuda", nee=nee, rr=rr),
                 mask, card, SPP_PER_CALL, 9, SPP_PER_CALL, 5)
             phase_done(f"time {label}")
-    for label, scene, nee, rr, mask in mesh_configs + tex_timed:
+    for label, scene, nee, rr, mask in (mesh_configs + tex_timed
+                                        + linear_configs):
         job = K.prepare(scene, "cuda", nee=nee, rr=rr)
         # the mesh scenes' plain version: 1 spp a call (up to seconds)
         plain = (1, 3) if scene.mesh.count else (SPP_PER_CALL, 5)
@@ -1128,6 +1382,15 @@ def main():
             small = dataclasses.replace(scene, resolution=(800, 800))
             time_variant(K, B, torch, label, K.prepare(small, "cuda"), mask,
                          card, SPP_PER_CALL, 5, 1, 3)
+    # for information, the work a BVH saves: K3-linear and K3 on
+    # cornell_bigmesh (81,920 triangles) at 128x128 d8, 1 spp a call
+    big = dataclasses.replace(bigmesh_scene(mesh_configs),
+                              resolution=(128, 128))
+    for label, scene in (("cornell_bigmesh 128", big),
+                         ("cornell_bigmesh linear 128", without_bvh(big))):
+        time_variant(K, B, torch, label, K.prepare(scene, "cuda"),
+                     K.scene_mask(scene), card, 1, 3, 1, 1)
+    phase_done("time cornell_bigmesh linear 128x128")
     tex_breakdown(K, torch, tex_timed[0][1], card)
     phase_done("texture breakdown")
     missing = [m for m in masks if m not in timed]
@@ -1181,18 +1444,50 @@ def main():
         row = k7_vs_plain(K, MG, GC, torch, "k7_grads", scene)
         grad_rows["k7_grads"], k7_job = row[:2], row[2:]
         phase_done(f"k7_grads vs plain {scene.resolution}")
+    # the mesh builds: cornell_mesh at 64x64 d4 and at its 1920x1080 d8
+    mesh = scenes["cornell_mesh"][0]
+    mesh_small = dataclasses.replace(mesh, resolution=GRAD_SMALL[0],
+                                     trace_depth=GRAD_SMALL[1])
+    for full, scene in ((False, mesh_small), (True, mesh)):
+        for name, nee in (("k8_vjp+k3_mesh", False),
+                          ("k8_vjp+k2_nee+k3_mesh", True)):
+            grad_rows[name] = k8_vs_plain(K, VJ, GC, torch, name, scene,
+                                          nee, full)
+            phase_done(f"{name} vs plain {scene.resolution}")
+        row = k7_vs_plain(K, MG, GC, torch, "k7_grads+k3_mesh", scene)
+        grad_rows["k7_grads+k3_mesh"], k7_mesh_job = row[:2], row[2:]
+        phase_done(f"k7_grads+k3_mesh vs plain {scene.resolution}")
+    mesh_rig_phase(ptt, GC, torch)
+    phase_done("mesh rig")
     grad_launches = grad_main_path(ptt, K, MG, VJ, np, torch, cornell)
     phase_done("gradients' main path")
+    grad_launches.update(mesh_grad_main_path(ptt, K, MG, VJ, torch, mesh))
+    phase_done("mesh gradients' main path")
     grad_times = time_gradients(ptt, K, MG, VJ, B, torch, cornell, card,
                                 k7_job)
     phase_done("time gradients")
+    bigmesh800 = dataclasses.replace(bigmesh_scene(mesh_configs),
+                                     resolution=(800, 800))
+    for label, scene in (("cornell_bigmesh", bigmesh800),
+                         ("cornell_mesh", mesh)):
+        for name, nee in (("k8_vjp+k3_mesh", False),
+                          ("k8_vjp+k2_nee+k3_mesh", True)):
+            # the cornell_mesh times are the kernels line's
+            grad_times[name] = time_k8(
+                K, VJ, B, torch, f"{label} NEE" if nee else label, name,
+                K.prepare(scene, "cuda", nee=nee), nee, card)
+    grad_times["k7_grads+k3_mesh"] = time_k7(
+        K, MG, B, torch, "cornell_mesh", "k7_grads+k3_mesh", k7_mesh_job,
+        card)
+    phase_done("time mesh gradients")
 
     print(card, flush=True)
     print(json.dumps({"kernels": [{
         "name": kernel_name(K, mask),
         "route": "cuda",
         "source": "pathtrace_tpu_torch/csrc/megakernel.cu",
-        "replaces": (K4_SITE if mask & (K.TEX_BIT | K.BTEX_BIT) else
+        "replaces": (K3_LINEAR_SITE if mask & K.LINEAR_BIT else
+                     K4_SITE if mask & (K.TEX_BIT | K.BTEX_BIT) else
                      K3_SITE if mask & K.MESH_BIT else
                      K2_SITE if mask & K.NEE_BIT else K1_SITE),
         "launches": launches[mask],
@@ -1242,7 +1537,7 @@ def main():
         "name": name,
         "route": "cuda",
         "source": "pathtrace_tpu_torch/csrc/megakernel.cu",
-        "replaces": K7_SITE if name == "k7_grads" else K8_SITE,
+        "replaces": K7_SITE if name.startswith("k7") else K8_SITE,
         "launches": grad_launches[name],
         "max_abs_err": grad_rows[name][0],
         "ms": grad_times[name][0],
@@ -1250,7 +1545,8 @@ def main():
         "bound_ms": grad_times[name][1],
         "bound_by": grad_times[name][2],
         "library_ms": None,
-    } for name in ("k7_grads", "k8_vjp", "k8_vjp+k2_nee")]}), flush=True)
+    } for name in ("k7_grads", "k8_vjp", "k8_vjp+k2_nee", "k7_grads+k3_mesh",
+                   "k8_vjp+k3_mesh", "k8_vjp+k2_nee+k3_mesh")]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

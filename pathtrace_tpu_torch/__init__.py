@@ -13,8 +13,12 @@ the span kernel K5, the split engine's tile table on the scan K6
 (``prefix_sum``, ``compact_indices``, ``compact``).  The gradients of a
 render: ``material_grads`` (the material-gradient kernel K7) and
 ``render_vjp`` (the reverse sweep K8, chained through the packing to the
-parameters of ``split_params``/``merge_params``).  Every entry point
-takes a ``device``, the card by default.
+parameters of ``split_params``/``merge_params``; meshes through their
+BVH winners), and ``render_loss_and_grad``/``render_mean`` with
+``engine="planes"`` (autograd over the plain trace, ``tri_verts``
+included).  A mesh stripped of its BVH renders on K3-linear, the fold of
+every triangle.  Every entry point takes a ``device``, the card by
+default.
 """
 
 from __future__ import annotations
@@ -31,7 +35,9 @@ from .ops.cuda.megakernel import (
 from .ops.cuda.span import pathtrace_batch_sorted, pathtrace_batch_split
 from .ops.cuda.vjp import render_vjp
 from .ops.scan import compact, compact_indices, prefix_sum
-from .render.diff import merge_params, split_params
+from .render.diff import (
+    merge_params, render_loss_and_grad, render_mean, split_params,
+)
 from .scene.parser import load_scene, parse_scene
 
 __version__ = "0.1.0"

@@ -70,6 +70,11 @@
 // once, afterwards, on the winner's reloaded row, with the same arithmetic
 // as the walk's test, so the winner and its distance are the ones the
 // reference's winner fold finds.
+// K3-linear, a mesh without a BVH (the reference's `tri_body`, mask bit
+// 4096 beside 512): every triangle, in index order, is one candidate of
+// the world-space fold.  It is the gradients' oracle, not a fast path: it
+// costs a ray test per triangle, and the triangle rows (read in order,
+// the same rows by every thread of a warp) come through the L1 and L2.
 // K4, image textures (the reference's `_bilin3`, `_lum`, the UV charts of
 // its fold and the `_atan2`/`_asin` polynomials; not its row sweep or slab
 // server, which exist for the TPU's gather): once per hit, after the fold,
@@ -123,6 +128,10 @@ constexpr bool kMesh = kFeatures & 512u;
 constexpr bool kTex = kFeatures & 1024u;   // an albedo map on some geom
 constexpr bool kBtex = kFeatures & 2048u;  // a BUMPTEX map on some geom
 constexpr bool kTexAny = kTex || kBtex;
+// K3-linear: the meshes have no BVH, and every triangle is folded (with
+// kMesh)
+constexpr bool kLinear = kFeatures & 4096u;
+static_assert(!kLinear || kMesh, "the linear fold is a form of the mesh section");
 
 constexpr int kBlock = 128;
 constexpr int kWarps = kBlock / 32;
@@ -164,6 +173,9 @@ struct HitPlain {
   float qx, qy, qz;  // object-space point: checker, bump, textures
   int geom;          // -1: no hit
   bool outside;      // entering the geom (glass, SSS)
+#if PT_VJP
+  int row = -1;  // K8: the winning triangle's row (-1: not a triangle)
+#endif
 };
 // The texture builds also carry the winner's chart coordinates (a cube's
 // face chart, a triangle's interpolated vt; a sphere's come from q after the
@@ -290,6 +302,69 @@ __device__ __forceinline__ bool tri_test(float rox, float roy, float roz,
     *bv = vv;
   }
   return ok && u >= 0.f && vv >= 0.f && u + vv <= 1.f && tt > 0.f;
+}
+
+// The hit of a fold's winning triangle, row `row` (at t) of geom g (gmat row
+// m), from the ray (o, d) at shutter time `time`: the object ray,
+// Moller-Trumbore's distance, the point and its world distance, the
+// ray-facing normal through invT (not in the shadow form) and, in the
+// texture builds, the interpolated vt.  The arithmetic of the folds' tests,
+// so the distance is the bits they compared.  K3-linear's shading and K8's
+// recomputed winner.
+template <bool kShadow>
+__device__ __forceinline__ Hit tri_hit(const float* m, int g, const float4* t, int row,
+                                       float ox, float oy, float oz, float dx, float dy,
+                                       float dz, float time) {
+  float gox = ox, goy = oy, goz = oz;
+  if constexpr (kMotion) {
+    gox = ox - time * m[33];
+    goy = oy - time * m[34];
+    goz = oz - time * m[35];
+  }
+  const float rox = m[12] * gox + m[13] * goy + m[14] * goz + m[15];
+  const float roy = m[16] * gox + m[17] * goy + m[18] * goz + m[19];
+  const float roz = m[20] * gox + m[21] * goy + m[22] * goz + m[23];
+  float rdx = m[12] * dx + m[13] * dy + m[14] * dz;
+  float rdy = m[16] * dx + m[17] * dy + m[18] * dz;
+  float rdz = m[20] * dx + m[21] * dy + m[22] * dz;
+  normalize3(rdx, rdy, rdz);
+  float tt;
+  [[maybe_unused]] float bu = 0.f, bv = 0.f;
+  tri_test<kTexAny>(rox, roy, roz, rdx, rdy, rdz, t, tt, &bu, &bv);
+  const float tofs = tt - kRayOffset;
+  const float qx = rox + tofs * rdx;
+  const float qy = roy + tofs * rdy;
+  const float qz = roz + tofs * rdz;
+  float nx = 0.f, ny = 0.f, nz = 0.f;
+  bool outside = false;
+  if constexpr (!kShadow) {
+    const float4 c = __ldg(t + 2);  // e2z, n_obj
+    const float face = rdx * c.y + rdy * c.z + rdz * c.w;
+    const float flip = face < 0.f ? 1.f : -1.f;
+    nx = (m[24] * c.y + m[25] * c.z + m[26] * c.w) * flip;
+    ny = (m[27] * c.y + m[28] * c.z + m[29] * c.w) * flip;
+    nz = (m[30] * c.y + m[31] * c.z + m[32] * c.w) * flip;
+    normalize3(nx, ny, nz);
+    outside = face < 0.f;
+  }
+  float pxw = m[0] * qx + m[1] * qy + m[2] * qz + m[3];
+  float pyw = m[4] * qx + m[5] * qy + m[6] * qz + m[7];
+  float pzw = m[8] * qx + m[9] * qy + m[10] * qz + m[11];
+  const float ddx = gox - pxw, ddy = goy - pyw, ddz = goz - pzw;
+  if constexpr (kMotion) {
+    pxw = pxw + time * m[33];
+    pyw = pyw + time * m[34];
+    pzw = pzw + time * m[35];
+  }
+  const float dist = sqrtf(ddx * ddx + ddy * ddy + ddz * ddz);
+  Hit h{dist, pxw, pyw, pzw, nx, ny, nz, qx, qy, qz, g, outside};
+  if constexpr (kTexAny && !kShadow) {
+    const float4 d = __ldg(t + 3);  // u0 v0 u1 v1
+    const float4 e = __ldg(t + 4);  // u2 v2, grad_u xy
+    const float bw = 1.f - bu - bv;
+    set_tex(h, bw * d.x + bu * d.z + bv * e.x, bw * d.y + bu * d.w + bv * e.y, row);
+  }
+  return h;
 }
 
 // Nearest hit by world-space distance: the spheres and cubes in index
@@ -429,7 +504,7 @@ __device__ Hit nearest(float ox, float oy, float oz, float dx, float dy,
       if constexpr (kTexAny && !kShadow) set_tex(best, tu, tv, -1);
     }
   }
-  if constexpr (kMesh) {
+  if constexpr (kMesh && !kLinear) {
     for (int e = 0; e < mesh.n_meta; ++e) {
       const int* me = mesh.meta + e * kMetaCols;
       const int g = me[0], n_nodes = me[2];
@@ -533,7 +608,63 @@ __device__ Hit nearest(float ox, float oy, float oz, float dx, float dy,
           set_tex(best, bw * d.x + bu * d.z + bv * e.x, bw * d.y + bu * d.w + bv * e.y,
                   me[3] + win);
         }
+#if PT_VJP
+        best.row = me[3] + win;  // K8 carries the winner to the reverse sweep
+#endif
       }
+    }
+  }
+  if constexpr (kLinear) {
+    // K3-linear (the reference's `tri_body`, a mesh without a BVH): every
+    // triangle in index order is a candidate of the world-space fold,
+    // after the primitives, with the strict `<`.  A meta entry is a run of
+    // triangles of one geom (geom, 0, 0, tri_off, n_tris): the object ray
+    // is made once a run.  The loop keeps the winner's row and run; its
+    // shading runs once, afterwards, with the arithmetic of the loop's
+    // test, as in K3.  The reference's linear fold leaves a mesh's BUMPTEX
+    // inert; pack_mesh writes zero UV gradients in this form, so the
+    // texture builds tilt no normal here either.
+    int win = -1, win_e = 0;
+    float win_dist = best.dist;
+    for (int e = 0; e < mesh.n_meta; ++e) {
+      const int* me = mesh.meta + e * kMetaCols;
+      const float* m = gmat + me[0] * kGeomCols;
+      float gox = ox, goy = oy, goz = oz;
+      if constexpr (kMotion) {
+        gox = ox - time * m[33];
+        goy = oy - time * m[34];
+        goz = oz - time * m[35];
+      }
+      const float rox = m[12] * gox + m[13] * goy + m[14] * goz + m[15];
+      const float roy = m[16] * gox + m[17] * goy + m[18] * goz + m[19];
+      const float roz = m[20] * gox + m[21] * goy + m[22] * goz + m[23];
+      float rdx = m[12] * dx + m[13] * dy + m[14] * dz;
+      float rdy = m[16] * dx + m[17] * dy + m[18] * dz;
+      float rdz = m[20] * dx + m[21] * dy + m[22] * dz;
+      normalize3(rdx, rdy, rdz);
+      for (int k = me[3]; k < me[3] + me[4]; ++k) {
+        float tt;
+        if (!tri_test(rox, roy, roz, rdx, rdy, rdz, mesh.tri + kTriF4 * k, tt)) continue;
+        const float tofs = tt - kRayOffset;
+        const float qx = rox + tofs * rdx;
+        const float qy = roy + tofs * rdy;
+        const float qz = roz + tofs * rdz;
+        const float ddx = gox - (m[0] * qx + m[1] * qy + m[2] * qz + m[3]);
+        const float ddy = goy - (m[4] * qx + m[5] * qy + m[6] * qz + m[7]);
+        const float ddz = goz - (m[8] * qx + m[9] * qy + m[10] * qz + m[11]);
+        const float dist = sqrtf(ddx * ddx + ddy * ddy + ddz * ddz);
+        if (dist < win_dist) {
+          win_dist = dist;
+          win = k;
+          win_e = e;
+        }
+      }
+    }
+    if (win >= 0) {
+      // the shading fold, once, on the winner
+      const int g = mesh.meta[win_e * kMetaCols];
+      best = tri_hit<kShadow>(gmat + g * kGeomCols, g, mesh.tri + kTriF4 * win, win, ox, oy, oz,
+                              dx, dy, dz, time);
     }
   }
   return best;
@@ -867,6 +998,11 @@ struct PathState {
   int n_ev;
   uint32_t ev[64];
 #endif
+#if PT_VJP
+  // K8's mesh builds: the last bounce's winning geom and triangle row
+  // (-1: not a triangle), which the reverse sweep takes as they are
+  int win_geom, win_row;
+#endif
 };
 
 // The camera row (pack_scene's cam) but aperture and focal distance, which
@@ -1001,6 +1137,12 @@ __device__ __forceinline__ void bounce(PathState& p, int d, uint32_t it, uint32_
   if (!p.live) return;
   const Hit h = nearest<false>(p.ox, p.oy, p.oz, p.dx, p.dy, p.dz, p.time, s.gmat, s.types,
                                s.n_geoms, mesh);
+#if PT_VJP
+  if constexpr (kMesh) {
+    p.win_geom = h.geom;
+    p.win_row = h.row;
+  }
+#endif
   if (h.geom < 0) {  // miss: the path ends
     p.live = false;
     return;
@@ -1660,8 +1802,9 @@ k7_grads(const float* __restrict__ cam_g, const float* __restrict__ mats_g,
 #endif  // PT_GRAD
 
 #if PT_VJP
-static_assert(kFeatures == 0 || kFeatures == 128,
-              "K8 is built for the scenes without sections (mask 0), with or without NEE");
+static_assert((kFeatures & ~(128u | 512u)) == 0,
+              "K8 is built for the scenes without sections, with or without NEE and BVH "
+              "meshes (masks 0, 128, 512, 640)");
 
 // K8 — the reverse sweep (replaces the Pallas `_vjp_kernel`, reached from
 // `render_vjp_pallas` through `_run_vjp`): per sample, the forward sweep
@@ -1683,18 +1826,45 @@ static_assert(kFeatures == 0 || kFeatures == 128,
 // n_geoms x 24 | gmat n_geoms x 40 | lights n_lights x 128 (the packed
 // tables' own).
 //
+// Meshes (masks 512, 640; the reference's "carry" form of bvh_grad): the
+// forward sweep keeps each bounce's winning geom and triangle row beside
+// its state, so bounce_adj walks no BVH: it recomputes the carried
+// triangle's hit (tri_hit) and differentiates it (tri_adj).  The row, the
+// face it shows and the winner are detached, as the reference's carried
+// row is: the triangles get no gradient (render_vjp returns tri_verts
+// None, as the reference does).  NEE's shadow rays walk the BVH again in
+// nee_adj; their visibility is detached.
+//
 // What bounds it: K1's operations, plus K7's fold without NEE (the only
 // gradient that is not zero there is the materials') or the adjoints with
 // NEE (bound.k8_extra).  It runs far from that: the states live in local
 // memory (kVjpMaxDepth of them a thread), the
-// nearest hit is traced again in bounce_adj, and the threads of a block that
-// hit one geom serialise on its rows' shared atomics.
+// nearest hit of a primitive is traced again in bounce_adj, and the threads
+// of a block that hit one geom serialise on its rows' shared atomics.
 constexpr int kVjpMaxDepth = 32;
 
-struct Saved {
+// The state entering a bounce; in the mesh builds also the winner its
+// fold found (geom; triangle row, -1: a primitive or none).
+template <bool kCarry>
+struct SavedT {
   float ox, oy, oz, dx, dy, dz, tr, tg, tb;
   bool live, emit_ok;
 };
+template <>
+struct SavedT<true> {
+  float ox, oy, oz, dx, dy, dz, tr, tg, tb;
+  bool live, emit_ok;
+  int geom, row;
+};
+using Saved = SavedT<kMesh>;
+
+template <typename S>
+__device__ __forceinline__ void keep_winner(S& sv, const PathState& p) {
+  if constexpr (kMesh) {
+    sv.geom = p.win_geom;
+    sv.row = p.win_row;
+  }
+}
 
 // The cotangents of the ray and the throughput a bounce hands on.
 struct Cot {
@@ -1726,6 +1896,24 @@ __device__ __forceinline__ void cross_add(const float* a, const float* b, float*
   c[0] += a[1] * b[2] - a[2] * b[1];
   c[1] += a[2] * b[0] - a[0] * b[2];
   c[2] += a[0] * b[1] - a[1] * b[0];
+}
+
+// The adjoint of a winner's object ray, rd = normalize(rdr), rdr = M^-1 d,
+// ro = M^-1 o + the inverse's translation (gmat row m, 12..23): from the
+// cotangents g_ro, g_rd (g_rd is overwritten), adds the ray's into c.o,
+// c.d and the inverse's into tg.
+__device__ __forceinline__ void ray_adj(const float* m, const float* o, const float* d,
+                                        const float* rdr, const float* g_ro, float* g_rd,
+                                        const Fx& tg, Cot& c) {
+  normalize3_adj(rdr[0], rdr[1], rdr[2], g_rd);
+  for (int i = 0; i < 3; ++i) {
+    for (int j = 0; j < 3; ++j) {
+      gadd(tg + 12 + 4 * i + j, g_ro[i] * o[j] + g_rd[i] * d[j]);
+      c.o[j] += m[12 + 4 * i + j] * g_ro[i];
+      c.d[j] += m[12 + 4 * i + j] * g_rd[i];
+    }
+    gadd(tg + 12 + 4 * i + 3, g_ro[i]);
+  }
 }
 
 // The winner's hit (nearest<false>'s sphere and cube sections, for geom row
@@ -1836,27 +2024,80 @@ __device__ void hit_adj(const float* m, int type, const float* o, const float* d
     g_ro[a] += -g_t / rd[a];
     g_rd[a] += -g_t * t_use / rd[a];
   }
-  // rd = normalize(M^-1 d); ro = M^-1 o + the inverse's translation
-  normalize3_adj(rdr[0], rdr[1], rdr[2], g_rd);
+  ray_adj(m, o, d, rdr, g_ro, g_rd, tg, c);
+}
+
+// The adjoint of tri_hit, beside hit_adj's: gp, gn the cotangents of the
+// world hit point and normal; adds the ray's into c.o, c.d and the geom
+// row's into tg.  The triangle's row and the face it shows are detached.
+// Moller-Trumbore's distance tt = (e2 . qv) / det, qv = (ro - v0) x e1,
+// det = (rd x e2) . e1, is differentiated step by step, as autograd
+// takes the plain version's.
+__device__ void tri_adj(const float* m, const float4* t, const float* o, const float* d,
+                        const float* gp, const float* gn, const Fx& tg, Cot& c) {
+  const float ro[3] = {m[12] * o[0] + m[13] * o[1] + m[14] * o[2] + m[15],
+                       m[16] * o[0] + m[17] * o[1] + m[18] * o[2] + m[19],
+                       m[20] * o[0] + m[21] * o[1] + m[22] * o[2] + m[23]};
+  const float rdr[3] = {m[12] * d[0] + m[13] * d[1] + m[14] * d[2],
+                        m[16] * d[0] + m[17] * d[1] + m[18] * d[2],
+                        m[20] * d[0] + m[21] * d[1] + m[22] * d[2]};
+  float rd[3] = {rdr[0], rdr[1], rdr[2]};
+  normalize3(rd[0], rd[1], rd[2]);
+  const float4 a = __ldg(t), b = __ldg(t + 1), cc = __ldg(t + 2);
+  const float v0[3] = {a.x, a.y, a.z}, e1[3] = {a.w, b.x, b.y}, e2[3] = {b.z, b.w, cc.x};
+  const float no[3] = {cc.y, cc.z, cc.w};
+  float pv[3] = {0.f, 0.f, 0.f}, qv[3] = {0.f, 0.f, 0.f};
+  cross_add(rd, e2, pv);
+  const float inv_det = 1.f / (pv[0] * e1[0] + pv[1] * e1[1] + pv[2] * e1[2]);
+  const float tv[3] = {ro[0] - v0[0], ro[1] - v0[1], ro[2] - v0[2]};
+  cross_add(tv, e1, qv);
+  const float s_qv = e2[0] * qv[0] + e2[1] * qv[1] + e2[2] * qv[2];
+  const float tofs = s_qv * inv_det - kRayOffset;
+  float q[3], nr[3];
+  for (int k = 0; k < 3; ++k) q[k] = ro[k] + tofs * rd[k];
+  const float flip = rd[0] * no[0] + rd[1] * no[1] + rd[2] * no[2] < 0.f ? 1.f : -1.f;
+  for (int i = 0; i < 3; ++i)
+    nr[i] = (m[24 + 3 * i] * no[0] + m[25 + 3 * i] * no[1] + m[26 + 3 * i] * no[2]) * flip;
+  // p = F q + t
+  float g_q[3];
+  for (int j = 0; j < 3; ++j) g_q[j] = m[j] * gp[0] + m[4 + j] * gp[1] + m[8 + j] * gp[2];
   for (int i = 0; i < 3; ++i) {
-    for (int j = 0; j < 3; ++j) {
-      gadd(tg + 12 + 4 * i + j, g_ro[i] * o[j] + g_rd[i] * d[j]);
-      c.o[j] += m[12 + 4 * i + j] * g_ro[i];
-      c.d[j] += m[12 + 4 * i + j] * g_rd[i];
-    }
-    gadd(tg + 12 + 4 * i + 3, g_ro[i]);
+    for (int j = 0; j < 3; ++j) gadd(tg + 4 * i + j, gp[i] * q[j]);
+    gadd(tg + 4 * i + 3, gp[i]);
   }
+  // n = normalize(flip N n_obj), N the inverse-transpose rows
+  float g_nr[3] = {gn[0], gn[1], gn[2]};
+  normalize3_adj(nr[0], nr[1], nr[2], g_nr);
+  for (int i = 0; i < 3; ++i)
+    for (int j = 0; j < 3; ++j) gadd(tg + 24 + 3 * i + j, g_nr[i] * flip * no[j]);
+  // q = ro + (tt - offset) rd
+  const float g_tt = g_q[0] * rd[0] + g_q[1] * rd[1] + g_q[2] * rd[2];
+  float g_ro[3], g_rd[3];
+  for (int k = 0; k < 3; ++k) {
+    g_ro[k] = g_q[k];
+    g_rd[k] = tofs * g_q[k];
+  }
+  // tt = s_qv inv_det: qv = tv x e1 (tv = ro - v0), 1 / det, det = pv . e1,
+  // pv = rd x e2
+  const float g_s = g_tt * inv_det;
+  const float g_det = -(g_tt * s_qv) * inv_det * inv_det;
+  const float g_qv[3] = {g_s * e2[0], g_s * e2[1], g_s * e2[2]};
+  const float g_pv[3] = {g_det * e1[0], g_det * e1[1], g_det * e1[2]};
+  cross_add(e1, g_qv, g_ro);
+  cross_add(e2, g_pv, g_rd);
+  ray_adj(m, o, d, rdr, g_ro, g_rd, tg, c);
 }
 
 // The adjoint of nee_add at hit h (shading normal n, material row mt, the
 // path's throughput tr entering the bounce): for each light whose sample is
 // seen, the gradient of ct . (tr * albedo * emission / pi * cos cos' / r^2 *
 // area) to the throughput (g_t), the hit point (gp), the normal (gn), the
-// albedo (gm: the geom's mats gradient row) and the light's row.
+// albedo (gm: the geom's mats gradient row) and the light's row.  The
+// shadow rays walk the mesh tables again, as the forward's did.
 __device__ void nee_adj(const float* tr, const Hit& h, const float* n, const float* mt,
-                        uint32_t it, uint32_t pix, uint32_t dep, const Tables& s, const float* ct,
-                        float* g_t, float* gp, float* gn, const Fx& gm, const GradTab& G) {
-  const Mesh mesh(nullptr, nullptr, nullptr, 0);
+                        uint32_t it, uint32_t pix, uint32_t dep, const Tables& s, const Mesh mesh,
+                        const float* ct, float* g_t, float* gp, float* gn, const Fx& gm,
+                        const GradTab& G) {
   for (int k = 0; k < s.n_lights; ++k) {
     const float* lr = s.lights + k * kLightCols;
     const Fx gl = G.lights + k * kLightCols;
@@ -1966,17 +2207,34 @@ __device__ void nee_adj(const float* tr, const Hit& h, const float* n, const flo
   }
 }
 
+// The hit of the winner of the bounce that started from sv: the carried
+// triangle's (tri_hit, whose row goes to *wt), else the primitives' fold
+// again (no mesh walked), whose winner is the forward's.
+template <typename S, typename M>
+__device__ __forceinline__ Hit winner_hit(const S& sv, const Tables& s, const M& mesh,
+                                          const float4** wt) {
+  *wt = nullptr;
+  if constexpr (kMesh) {
+    if (sv.row >= 0) {
+      *wt = mesh.tri + static_cast<long long>(kTriF4) * sv.row;
+      return tri_hit<false>(s.gmat + sv.geom * kGeomCols, sv.geom, *wt, sv.row, sv.ox, sv.oy,
+                            sv.oz, sv.dx, sv.dy, sv.dz, 0.f);
+    }
+  }
+  return nearest<false>(sv.ox, sv.oy, sv.oz, sv.dx, sv.dy, sv.dz, 0.f, s.gmat, s.types,
+                        s.n_geoms, M(nullptr, nullptr, nullptr, 0));
+}
+
 // The adjoint of bounce d on the state s it started from: c holds the
 // cotangents of the ray and throughput the bounce handed on, and on return
 // those of the ones it was given; table gradients go to G.  A path that was
 // dead, missed or ended on a light hands its ray and throughput on
 // unchanged.
 __device__ void bounce_adj(const Saved& sv, int d, uint32_t it, uint32_t pix, const Tables& s,
-                           const float* ct, Cot& c, const GradTab& G) {
+                           const Mesh mesh, const float* ct, Cot& c, const GradTab& G) {
   if (!sv.live) return;
-  const Mesh mesh(nullptr, nullptr, nullptr, 0);
-  const Hit h = nearest<false>(sv.ox, sv.oy, sv.oz, sv.dx, sv.dy, sv.dz, 0.f, s.gmat, s.types,
-                               s.n_geoms, mesh);
+  const float4* wt;
+  const Hit h = winner_hit(sv, s, mesh, &wt);
   if (h.geom < 0) return;
   const float* mt = s.mats + h.geom * kMatCols;
   const Fx gm = G.mats + h.geom * kMatCols;
@@ -2065,31 +2323,37 @@ __device__ void bounce_adj(const Saved& sv, int d, uint32_t it, uint32_t pix, co
     cross_add(nn, g_p1, gn);
   }
   if constexpr (kNee) {
-    if (!(mt[8] > 0.f)) nee_adj(tr, h, n, mt, it, pix, dep, s, ct, g_t, gp, gn, gm, G);
+    if (!(mt[8] > 0.f)) nee_adj(tr, h, n, mt, it, pix, dep, s, mesh, ct, g_t, gp, gn, gm, G);
   }
   for (int k = 0; k < 3; ++k) c.t[k] = g_t[k];
-  hit_adj(s.gmat + h.geom * kGeomCols, s.types[h.geom], o, dd, gp, gn,
-          G.gmat + h.geom * kGeomCols, c);
+  if (wt != nullptr) {
+    tri_adj(s.gmat + h.geom * kGeomCols, wt, o, dd, gp, gn, G.gmat + h.geom * kGeomCols, c);
+  } else {
+    hit_adj(s.gmat + h.geom * kGeomCols, s.types[h.geom], o, dd, gp, gn,
+            G.gmat + h.geom * kGeomCols, c);
+  }
 }
 
 __global__ void __launch_bounds__(kBlock)
 k8_vjp(const float* __restrict__ cam_g, const float* __restrict__ mats_g,
        const float* __restrict__ gmat_g, const int* __restrict__ types_g,
-       const float* __restrict__ lights_g, int n_geoms, int n_lights, int width, int height,
-       int depth, uint32_t it0, int n_spp, const float* __restrict__ ct,
-       float* __restrict__ rad, unsigned long long* __restrict__ gtab, size_t grad_off) {
+       const float* __restrict__ lights_g, const float4* __restrict__ tri_g,
+       const float4* __restrict__ nodes_g, const int* __restrict__ meta_g, int n_geoms,
+       int n_lights, int n_meta, int width, int height, int depth, uint32_t it0, int n_spp,
+       const float* __restrict__ ct, float* __restrict__ rad,
+       unsigned long long* __restrict__ gtab, size_t grad_off) {
   // shared: the tables, and at byte grad_off (tables_smem) the block's
   // gradient table
   extern __shared__ unsigned long long smem[];
-  const Tables s = stage_tables(smem, 0, cam_g, mats_g, gmat_g, types_g, lights_g, nullptr,
-                                nullptr, n_geoms, n_lights, 0);
+  const Tables s = stage_tables(smem, 0, cam_g, mats_g, gmat_g, types_g, lights_g, meta_g,
+                                nullptr, n_geoms, n_lights, n_meta);
   unsigned* s_grad = reinterpret_cast<unsigned*>(reinterpret_cast<char*>(smem) + grad_off);
   const int n_tab = kCamCols + n_geoms * (kMatCols + kGeomCols) + n_lights * kLightCols;
   for (int i = threadIdx.x; i < fx_smem_words(n_tab); i += kBlock) s_grad[i] = 0u;
   const Fx tab{s_grad, n_tab, 0};
   const GradTab G{tab, tab + kCamCols, tab + (kCamCols + n_geoms * kMatCols),
                   tab + (kCamCols + n_geoms * (kMatCols + kGeomCols))};
-  const Mesh mesh(nullptr, nullptr, nullptr, 0);
+  const Mesh mesh(tri_g, nodes_g, s.meta, n_meta);
   const Tex tex(nullptr);
   __syncthreads();
 
@@ -2119,6 +2383,7 @@ k8_vjp(const float* __restrict__ cam_g, const float* __restrict__ mats_g,
     for (int d = 0; d < depth; ++d) {
       saved[d] = Saved{p.ox, p.oy, p.oz, p.dx, p.dy, p.dz, p.tr, p.tg, p.tb, p.live, p.emit_ok};
       bounce(p, d, it, pix_u, s, mesh, tex);
+      keep_winner(saved[d], p);
     }
     acc_r = acc_r + p.rr;
     acc_g = acc_g + p.rg;
@@ -2126,7 +2391,8 @@ k8_vjp(const float* __restrict__ cam_g, const float* __restrict__ mats_g,
     if (valid) {
       // the reverse sweep: the final ray and throughput reach nothing
       Cot c{};
-      for (int d = depth - 1; d >= 0; --d) bounce_adj(saved[d], d, it, pix_u, s, ctp, c, G);
+      for (int d = depth - 1; d >= 0; --d)
+        bounce_adj(saved[d], d, it, pix_u, s, mesh, ctp, c, G);
       // raygen: o = pos, d = normalize(view - right tan_x sx - up tan_y sy)
       const float ujx = pt::uniform(it, pix_u, 0u, pt::kDrawAaX);
       const float ujy = pt::uniform(it, pix_u, 0u, pt::kDrawAaY);
@@ -2305,25 +2571,28 @@ extern "C" int pt_k7_grads(const float* cam, const float* mats, const float* gma
 
 #if PT_VJP
 // Launches K8 on `stream` over the whole image: n_spp samples, iterations
-// it0 ..; cam, mats, gmat, geom_types as pt_k1_trace's (spheres and cubes),
-// lights (n_lights <= 64, 128) with NEE (this build's), ct (P, 3) the
+// it0 ..; cam, mats, gmat, geom_types as pt_k1_trace's, lights (n_lights
+// <= 64, 128) with NEE (this build's), tri, nodes and meta (n_meta
+// entries; the BVH's) as pt_k1_trace's in the mesh builds, ct (P, 3) the
 // cotangent.
 // Writes rad (P, 3) and adds the gradients into gtab, the exact table of n
 // = 16 + 64 n_geoms + 128 n_lights entries (cam, mats, gmat, lights;
 // pt_fx_words(n) words, zeroed by the caller), which pt_fx_round rounds.
 // Returns the cudaError_t of the launch.
 extern "C" int pt_k8_vjp(const float* cam, const float* mats, const float* gmat,
-                         const int* geom_types, const float* lights, int n_geoms, int n_lights,
-                         int width, int height, int depth, unsigned int it0, int n_spp,
-                         const float* ct, float* rad, unsigned long long* gtab,
+                         const int* geom_types, const float* lights, const float* tri,
+                         const float* nodes, const int* meta, int n_geoms, int n_lights,
+                         int n_meta, int width, int height, int depth, unsigned int it0,
+                         int n_spp, const float* ct, float* rad, unsigned long long* gtab,
                          void* stream) {
   const long long n_pix = static_cast<long long>(width) * height;
   const long long blocks = (n_pix + kBlock - 1) / kBlock;
   if (kNee != (n_lights > 0) || n_lights < 0 || n_lights > kFxMaxLights || n_geoms <= 0 ||
-      !(0 < depth && depth <= kVjpMaxDepth) || blocks <= 0 || blocks > 0x7fffffffLL)
+      n_meta < 0 || (!kMesh && n_meta > 0) || !(0 < depth && depth <= kVjpMaxDepth) ||
+      blocks <= 0 || blocks > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
   const int n_tab = kCamCols + n_geoms * (kMatCols + kGeomCols) + n_lights * kLightCols;
-  const size_t grad_off = grad_smem_offset(tables_smem(0, n_geoms, n_lights, 0));
+  const size_t grad_off = grad_smem_offset(tables_smem(0, n_geoms, n_lights, n_meta));
   const size_t smem = grad_off + sizeof(unsigned) * fx_smem_words(n_tab);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -2331,8 +2600,9 @@ extern "C" int pt_k8_vjp(const float* cam, const float* mats, const float* gmat,
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   k8_vjp<<<static_cast<unsigned>(blocks), kBlock, smem, static_cast<cudaStream_t>(stream)>>>(
-      cam, mats, gmat, geom_types, lights, n_geoms, n_lights, width, height, depth, it0, n_spp,
-      ct, rad, gtab, grad_off);
+      cam, mats, gmat, geom_types, lights, reinterpret_cast<const float4*>(tri),
+      reinterpret_cast<const float4*>(nodes), meta, n_geoms, n_lights, n_meta, width, height,
+      depth, it0, n_spp, ct, rad, gtab, grad_off);
   return static_cast<int>(cudaGetLastError());
 }
 #endif

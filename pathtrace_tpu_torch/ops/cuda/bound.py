@@ -129,15 +129,18 @@ def scan_bytes(n, tile=2048):
 # The least float ops of K8's adjoints (``csrc/megakernel.cu``), counted
 # from their code (each arithmetic op and each atomic add one op; selects,
 # comparisons and the recomputed nearest hit not counted): ``hit_adj`` of a
-# cube, the cheaper of the two primitives (a sphere's is 333), plus the
-# specular lobe's part of ``bounce_adj``, the cheaper lobe; and raygen's
-# adjoint, once a path.  NEE's adjoint (``nee_adj``) is counted as nothing:
-# the count of the lights a hit sees is not kept.
+# cube, the cheapest winner (a sphere's is 333, a triangle's, ``tri_adj``
+# with the recomputed hit it needs, 341), plus the specular lobe's part of
+# ``bounce_adj``, the cheaper lobe; and raygen's adjoint, once a path.
+# NEE's adjoint (``nee_adj``) is counted as nothing: the count of the
+# lights a hit sees is not kept.
 K8_SCATTER_ADJ_OPS = 251 + 74
 K8_RAYGEN_ADJ_OPS = 106
 # K8 keeps the state entering each bounce (``Saved``: 9 floats and 2
-# flags, 40 bytes), written once and read once.
+# flags, 40 bytes), written once and read once; the mesh builds also the
+# bounce's winner (geom and triangle row, 8 bytes).
 K8_SAVED_BYTES = 40
+K8_WINNER_BYTES = 8
 # K7's fold, the least of it: w = ct * rad (3 products) and its sum (2
 # adds) a path, and for each scatter a division and an add a color
 # channel (``grad_fold``).
@@ -161,24 +164,25 @@ def k7_extra(counts, n_pix, n_mats):
     return ops, 12 * n_pix + 2 * 32 * n_mats
 
 
-def k8_extra(counts, n_pix, n_tab, nee):
+def k8_extra(counts, n_pix, n_tab, nee, mesh=False):
     """(ops, bytes) K8 needs for one sample beside K1's work, and the
     gradient table written (``n_tab`` floats) and the cotangent read (12
     bytes a pixel).  With NEE: the adjoints (``K8_SCATTER_ADJ_OPS`` a
     scatter, ``K8_RAYGEN_ADJ_OPS`` a path) and the state of each live
-    bounce written and read once (``K8_SAVED_BYTES`` each way).  Without
-    NEE, the materials' gradient is the only one that is not zero (at
-    fixed draws the path is piecewise constant in the camera and the
-    transforms), and it is K7's fold of each path's factors, which needs
-    no stored state: K7's ops (``K7_PATH_OPS`` a path, ``K7_SCATTER_OPS``
-    a scatter)."""
+    bounce written and read once (``K8_SAVED_BYTES`` each way, and with
+    ``mesh`` its winner, ``K8_WINNER_BYTES``).  Without NEE, the
+    materials' gradient is the only one that is not zero (at fixed draws
+    the path is piecewise constant in the camera and the transforms), and
+    it is K7's fold of each path's factors, which needs no stored state:
+    K7's ops (``K7_PATH_OPS`` a path, ``K7_SCATTER_OPS`` a scatter)."""
     n_bytes = 12 * n_pix + 4 * n_tab
     if not nee:
         return (K7_PATH_OPS * n_pix + K7_SCATTER_OPS * scatters(counts),
                 n_bytes)
     ops = (K8_SCATTER_ADJ_OPS * scatters(counts)
            + K8_RAYGEN_ADJ_OPS * n_pix)
-    return ops, n_bytes + 2 * K8_SAVED_BYTES * int(sum(counts))
+    saved = K8_SAVED_BYTES + (K8_WINNER_BYTES if mesh else 0)
+    return ops, n_bytes + 2 * saved * int(sum(counts))
 
 
 def count_work(fn):

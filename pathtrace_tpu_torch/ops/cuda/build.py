@@ -178,11 +178,13 @@ def load_k7(mask=0):
 
 def load_k8(mask=0):
     """The K8 library (``csrc/megakernel.cu`` with ``-DPT_VJP=1``) of
-    feature mask ``mask`` (0, or NEE's), built at first use."""
-    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    feature mask ``mask`` (0, NEE's, the mesh bit's or both), built at
+    first use."""
+    p, i = ctypes.c_void_p, ctypes.c_int
     return _load_grad(("k8", mask), _k8_job(mask), mask, "pt_k8_vjp", [
         p, p, p, p, p,           # cam, mats, gmat, types, lights
-        i, i,                    # n_geoms, n_lights
+        p, p, p,                 # tri, nodes, meta
+        i, i, i,                 # n_geoms, n_lights, n_meta
         i, i, i,                 # width, height, depth
         ctypes.c_uint, i,        # it0, n_spp
         p, p, p, p,              # ct, rad, gradient table, stream

@@ -14,7 +14,8 @@ pixel, following the kernel's own math and operation order (not the
 wavefront integrator's).
 
 Every scene file renders here: spheres, cubes and triangle meshes (one
-skip-link BVH walk per ray and MESH geom); diffuse, mirror,
+skip-link BVH walk per ray and MESH geom; a mesh stripped of its BVH,
+every triangle folded: K3-linear, the gradients' oracle); diffuse, mirror,
 imperfect-specular, glass, emissive and subsurface materials; depth of
 field, motion blur, checker and bump; image textures (bilinear albedo
 maps and BUMPTEX height maps); NEE and Russian roulette.  A texture whose
@@ -57,6 +58,7 @@ RR_BIT = NEE_BIT << 1
 MESH_BIT = RR_BIT << 1
 TEX_BIT = MESH_BIT << 1   # an albedo TEXTURE chart on some geom
 BTEX_BIT = TEX_BIT << 1   # a BUMPTEX chart on some geom
+LINEAR_BIT = BTEX_BIT << 1  # with MESH_BIT: the meshes have no BVH (K3-linear)
 LIGHT_COLS = 128
 TRI_COLS = 16  # v0 (3), e1 (3), e2 (3), object-space unit normal (3), pad
 TRI_TEX_COLS = 24  # + vt corners (6), BUMPTEX UV gradients (6)
@@ -69,15 +71,21 @@ def _c32(x):
     return float(np.float32(x))
 
 
+def _host(x):
+    """``x`` as a numpy array (a tensor detached: a leaf of
+    ``render/diff.requires_grad``)."""
+    return x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
+
+
 def scene_features(scene):
     """(has_glass, has_imperfect, has_dof, has_motion, has_checker,
     has_bump, has_sss): the static scene facts the reference specializes
     its kernel on (``_scene_features``)."""
     m = scene.materials
     return (
-        bool(np.any(np.asarray(m.has_refractive) > 0)),
-        bool(np.any(np.asarray(m.spec_exponent) > 0)),
-        bool(np.asarray(scene.camera.aperture) > 0),
+        bool(np.any(_host(m.has_refractive) > 0)),
+        bool(np.any(_host(m.spec_exponent) > 0)),
+        bool(_host(scene.camera.aperture) > 0),
         scene.geoms.velocity is not None,
         m.checker_scale is not None,
         m.bump_strength is not None,
@@ -85,23 +93,28 @@ def scene_features(scene):
     )
 
 
-def feature_mask(features, nee, rr, mesh=False, tex=False, btex=False):
+def feature_mask(features, nee, rr, mesh=False, tex=False, btex=False,
+                 linear=False):
     """The kernel's compile-time feature set as an int: bit i for
     ``FEATURE_NAMES[i]``, then ``NEE_BIT``, ``RR_BIT``, ``MESH_BIT`` (the
-    scene has a MESH geom), ``TEX_BIT`` (some geom has an albedo chart)
-    and ``BTEX_BIT`` (some geom has a BUMPTEX chart)."""
+    scene has a MESH geom), ``TEX_BIT`` (some geom has an albedo chart),
+    ``BTEX_BIT`` (some geom has a BUMPTEX chart) and ``LINEAR_BIT`` (the
+    meshes have no BVH: every triangle is folded)."""
     mask = sum(1 << i for i, on in enumerate(features) if on)
     return (mask | (NEE_BIT if nee else 0) | (RR_BIT if rr else 0)
             | (MESH_BIT if mesh else 0) | (TEX_BIT if tex else 0)
-            | (BTEX_BIT if btex else 0))
+            | (BTEX_BIT if btex else 0)
+            | (LINEAR_BIT if mesh and linear else 0))
 
 
 def scene_mask(scene, nee=False, rr=False):
     """``feature_mask`` of ``scene`` rendered with these options."""
     tex_geom, btex_geom = tex_statics(scene)
-    return feature_mask(scene_features(scene), nee, rr,
-                        any(t == T.MESH for t in scene.geoms.type),
-                        bool(tex_geom), bool(btex_geom))
+    mesh = any(t == T.MESH for t in scene.geoms.type)
+    return feature_mask(scene_features(scene), nee, rr, mesh,
+                        bool(tex_geom), bool(btex_geom),
+                        mesh and bool(scene.mesh.count)
+                        and not scene.mesh.bvh_meta)
 
 
 def check_supported(scene):
@@ -334,6 +347,14 @@ def pack_mesh(scene, device="cuda"):
     * bvh_meta: ((geom, node_off, n_nodes, tri_off, n_tris), ...), one
       entry per MESH geom that owns triangles.
 
+    A mesh without a BVH (``bvh_meta`` empty: ``scene/bvh.without_bvh``)
+    packs the form K3-linear folds, the reference's ``use_bvh=False``:
+    the same rows in the mesh's own triangle order, nodes None, and the
+    per-triangle geom index (``tri_geom``) as ``bvh_meta`` entries (geom,
+    0, 0, tri_off, n_tris), one per run of triangles of one geom.  Its UV
+    gradients are zeros: the reference's linear fold leaves a mesh's
+    BUMPTEX inert (``plane_engine.py`` warns of it), and so does this.
+
     Computed on the CPU in float32, as ``pack_scene``; the norm is the
     square root of the sum of squares, rounded once (through float64).
     """
@@ -341,10 +362,10 @@ def pack_mesh(scene, device="cuda"):
     mesh = scene.mesh
     if not mesh.count:
         return None, None, ()
-    if not mesh.bvh_meta:
-        raise ValueError("the mesh has no BVH: build it with "
-                         "scene.bvh.with_bvh (load_scene does)")
-    order = torch.as_tensor(np.asarray(mesh.bvh_order), dtype=torch.int64)
+    linear = not mesh.bvh_meta
+    # the rows in BVH (leaf-contiguous) order, or in the mesh's own
+    order = (slice(None) if linear else
+             torch.as_tensor(np.asarray(mesh.bvh_order), dtype=torch.int64))
     tv = _f32(mesh.tri_verts)[order]
     v0 = tv[:, 0]
     e1 = tv[:, 1] - tv[:, 0]
@@ -361,12 +382,19 @@ def pack_mesh(scene, device="cuda"):
         uv = (_f32(mesh.tri_uv)[order] if mesh.tri_uv is not None else
               torch.tensor([[0.0, 0.0], [1.0, 0.0], [0.0, 1.0]]).expand(
                   tv.shape[0], 3, 2))
-        if any(c[0] >= 0 and t == T.MESH
-               for c, t in zip(btex_geom, scene.geoms.type)):
+        if not linear and any(c[0] >= 0 and t == T.MESH
+                              for c, t in zip(btex_geom, scene.geoms.type)):
             tail = torch.cat(triangle_uv_gradients(tv, uv), dim=1)
         else:
             tail = torch.zeros((tv.shape[0], 6))
         tri = torch.cat([tri[:, :12], uv.reshape(-1, 6), tail], dim=1)
+    if linear:
+        geom = np.asarray(mesh.tri_geom).astype(np.int64)
+        starts = np.flatnonzero(np.r_[True, geom[1:] != geom[:-1]])
+        ends = np.r_[starts[1:], len(geom)]
+        meta = tuple((int(geom[a]), 0, 0, int(a), int(b - a))
+                     for a, b in zip(starts, ends))
+        return tri.to(device), None, meta
     meta = tuple(tuple(int(x) for x in e) for e in mesh.bvh_meta)
     return tri.to(device), _f32(mesh.bvh_nodes).to(device), meta
 
@@ -504,13 +532,72 @@ def _mesh_walk(ray, t0, want, nodes, tri, tri_off):
     return widx
 
 
+# elements (rays x triangles) of one chunk of K3-linear's plain fold
+LINEAR_CHUNK = 1 << 22
+
+
+def _linear_walk(m, go, ray, best, want, tri, tri_off, n_tris):
+    """K3-linear's fold, per ray (the reference's ``tri_body``): each ray
+    in ``want`` meets every triangle of rows ``tri_off ..
+    tri_off+n_tris`` of ``tri``, in order, each hit a candidate of the
+    world-space fold against ``best`` (the world distance of the winner
+    so far) with the strict ``<``, so the first of two equal distances
+    wins.  ``ray`` is the object-space ray of the geom whose gmat row is
+    ``m``, ``go`` its world origin (moved back by the shutter time).  The
+    rays are kept compacted and meet the triangles in chunks (the winner
+    is the first row of the smallest distance).  Returns the winner's row
+    in ``tri`` per ray (int64, -1: none)."""
+    widx = torch.full_like(best, -1, dtype=torch.int64)
+    live = torch.nonzero(want).squeeze(1)
+    if not live.numel():
+        return widx
+    rray = [c[live][:, None] for c in ray]
+    gx, gy, gz = (c[live][:, None] for c in go)
+    t_best = best[live]
+    win = torch.full_like(live, -1)
+    chunk = max(1, LINEAR_CHUNK // live.numel())
+    for c0 in range(tri_off, tri_off + n_tris, chunk):
+        c1 = min(c0 + chunk, tri_off + n_tris)
+        with _needed("linear", compacted=True):
+            _read(tri, "tri", range(c0, c1), 9)
+            tt, hit = _moller_trumbore(rray, tri[c0:c1])
+            # the world distance, needed only where the ray test hits
+            # (the kernel's `continue` on a miss)
+            with _needed(lanes=hit):
+                tofs = tt - RAY_OFFSET
+                qx = rray[0] + tofs * rray[3]
+                qy = rray[1] + tofs * rray[4]
+                qz = rray[2] + tofs * rray[5]
+                ddx = gx - (m[0] * qx + m[1] * qy + m[2] * qz + m[3])
+                ddy = gy - (m[4] * qx + m[5] * qy + m[6] * qz + m[7])
+                ddz = gz - (m[8] * qx + m[9] * qy + m[10] * qz + m[11])
+                dist = torch.sqrt(ddx * ddx + ddy * ddy + ddz * ddz)
+                # a miss, or a distance that is NaN, never wins (counted
+                # as the kernel's one comparison a candidate)
+                ok = hit & ~torch.isnan(dist)
+        # the winner so far first: argmin keeps the first of equal
+        # minima, so a candidate must be strictly nearer to win
+        k = torch.argmin(torch.cat(
+            [t_best[:, None], torch.where(ok, dist, float("inf"))], 1), 1)
+        t_best = torch.where(k > 0, dist.gather(
+            1, (k - 1).clamp_min(0)[:, None]).squeeze(1), t_best)
+        win = torch.where(k > 0, c0 + k - 1, win)
+    widx[live] = win
+    return widx
+
+
 def _nearest(ox, oy, oz, dx, dy, dz, time, gmat, geom_types, shadow=False,
              mesh=None, want=None, uv=False):
     """Nearest hit over the geoms by world-space distance, the winner
     kept on a strict ``dist < best`` (ties keep the geom folded first):
     the spheres and cubes in index order, then each MESH geom of
     ``mesh`` = (tri, nodes, bvh_meta) in ``bvh_meta`` order (a BVH walk,
-    :func:`_mesh_walk`, then one fold of its winning triangle).
+    :func:`_mesh_walk`, then one fold of its winning triangle; without
+    nodes, K3-linear's fold of every triangle, :func:`_linear_walk`).
+    The winner search runs detached, as the reference's ``bvh_grad``
+    traversal does: autograd reaches the tables through the fold of the
+    winner's row, which a lane without one takes on a unit normal and a
+    unit distance so that the gradients stay finite there.
     ``gmat`` is a list of rows of 0-d tensors; ``time`` is the shutter
     time (motion blur) or None; ``want`` (bool, optional) marks the rays
     whose result is read: only they walk the meshes.  Returns the
@@ -548,7 +635,8 @@ def _nearest(ox, oy, oz, dx, dy, dz, time, gmat, geom_types, shadow=False,
             pxw = pxw + time * m[33]
             pyw = pyw + time * m[34]
             pzw = pzw + time * m[35]
-        dist = torch.sqrt(ddx * ddx + ddy * ddy + ddz * ddz)
+        dist = torch.sqrt(torch.where(hit, ddx * ddx + ddy * ddy + ddz * ddz,
+                                      1.0))
         dist = torch.where(hit, dist, NO_HIT)
         better = dist < h.dist
         h.dist = torch.where(better, dist, h.dist)
@@ -649,22 +737,29 @@ def _nearest(ox, oy, oz, dx, dy, dz, time, gmat, geom_types, shadow=False,
 
     tri, nodes, bvh_meta = mesh if mesh is not None else (None, None, ())
     want = torch.ones_like(ox, dtype=torch.bool) if want is None else want
-    for g, node_off, n_nodes, tri_off, _ in bvh_meta:
+    for g, node_off, n_nodes, tri_off, n_tris in bvh_meta:
         m = gmat[g]
         go, ray = _object_ray(m, ox, oy, oz, dx, dy, dz, time)
         rox, roy, roz, rdx, rdy, rdz = ray
-        # exact object-space pruning bound from the winner so far: dist =
-        # (t - RAY_OFFSET) * |L rd| with L the linear part of the forward
-        # transform, so t_bound = dist / |L rd| + RAY_OFFSET (+ slack)
-        wdx = m[0] * rdx + m[1] * rdy + m[2] * rdz
-        wdy = m[4] * rdx + m[5] * rdy + m[6] * rdz
-        wdz = m[8] * rdx + m[9] * rdy + m[10] * rdz
-        s_ray = torch.sqrt(wdx * wdx + wdy * wdy + wdz * wdz)
-        t0 = (h.dist / torch.clamp_min(s_ray, 1e-20) * _c32(1.0 + 1e-5)
-              + RAY_OFFSET + 1e-4)
-        widx = _mesh_walk(
-            (*ray, _div(1.0, rdx), _div(1.0, rdy), _div(1.0, rdz)), t0,
-            want, nodes[node_off:node_off + n_nodes], tri, tri_off)
+        with torch.no_grad():
+            if nodes is None:
+                widx = _linear_walk(m, go, ray, h.dist, want, tri, tri_off,
+                                    n_tris)
+            else:
+                # exact object-space pruning bound from the winner so far:
+                # dist = (t - RAY_OFFSET) * |L rd| with L the linear part
+                # of the forward transform, so t_bound = dist / |L rd| +
+                # RAY_OFFSET (+ slack)
+                wdx = m[0] * rdx + m[1] * rdy + m[2] * rdz
+                wdy = m[4] * rdx + m[5] * rdy + m[6] * rdz
+                wdz = m[8] * rdx + m[9] * rdy + m[10] * rdz
+                s_ray = torch.sqrt(wdx * wdx + wdy * wdy + wdz * wdz)
+                t0 = (h.dist / torch.clamp_min(s_ray, 1e-20)
+                      * _c32(1.0 + 1e-5) + RAY_OFFSET + 1e-4)
+                widx = _mesh_walk(
+                    (*ray, _div(1.0, rdx), _div(1.0, rdy), _div(1.0, rdz)),
+                    t0, want, nodes[node_off:node_off + n_nodes], tri,
+                    tri_off)
         # the shading fold, once, on the winning row (a zero row for none)
         with _needed(lanes=lambda: widx >= 0):
             row = _rows(tri, widx)
@@ -676,7 +771,8 @@ def _nearest(ox, oy, oz, dx, dy, dz, time, gmat, geom_types, shadow=False,
             def shade():
                 # the ray-facing geometric normal through invT
                 _read(tri, "tri shading", widx, 9 if uv else 3)
-                nox, noy, noz = row[:, 9], row[:, 10], row[:, 11]
+                nox, noy, noz = (torch.where(hit, row[:, 9 + k], float(k == 0))
+                                 for k in range(3))
                 face = rdx * nox + rdy * noy + rdz * noz
                 flip = torch.where(face < 0.0, 1.0, -1.0)
                 n0 = _normalize3(
@@ -1447,7 +1543,8 @@ def trace_plain(cam, mats, gmat, geom_types, width, height, depth, it0,
     iterations ``it0 .. it0+n_spp-1``, with the scene ``features``
     (``scene_features``), NEE over the ``lights`` table (``pack_lights``;
     None: no NEE), Russian roulette if ``rr``, the triangle meshes of
-    ``tri``, ``nodes`` and ``bvh_meta`` (``pack_mesh``) and the image
+    ``tri``, ``nodes`` and ``bvh_meta`` (``pack_mesh``; without nodes,
+    K3-linear's fold of every triangle) and the image
     textures of ``texels`` (``pack_textures``) under the per-geom charts
     ``tex_geom`` and ``btex_geom`` (``tex_statics``): per sample,
     :func:`init_state` and :func:`bounces` over every bounce.
@@ -1498,25 +1595,30 @@ def _check_table(name, t, shape, device):
 def _check_mesh(tri, nodes, bvh_meta, geom_types, device, cols):
     """The mesh tables must be ``pack_mesh``'s: rows of ``cols`` floats,
     every entry of ``bvh_meta`` a MESH geom whose rows lie inside
-    ``nodes`` and ``tri``, its counts exact as float32."""
+    ``nodes`` and ``tri``, its counts exact as float32; without nodes
+    (the linear form), entries without nodes."""
     if not bvh_meta:
         if tri is not None or nodes is not None:
             raise ValueError("mesh tables given without bvh_meta")
         return
     _check_table("tri", tri, (tri.shape[0], cols), device)
-    _check_table("nodes", nodes, (nodes.shape[0], 16), device)
-    if tri.data_ptr() % 16 or nodes.data_ptr() % 16:
+    n_rows = 0
+    if nodes is not None:
+        _check_table("nodes", nodes, (nodes.shape[0], 16), device)
+        n_rows = nodes.shape[0]
+    if tri.data_ptr() % 16 or (nodes is not None and nodes.data_ptr() % 16):
         raise ValueError("tri and nodes must be 16-byte aligned (the "
                          "kernel reads their rows as float4)")
     for g, node_off, n_nodes, tri_off, n_tris in bvh_meta:
+        nodes_ok = (node_off == n_nodes == 0 if nodes is None else
+                    0 <= node_off and 0 < n_nodes <= 2 ** 24
+                    and node_off + n_nodes <= n_rows)
         if not (0 <= g < len(geom_types) and geom_types[g] == T.MESH
-                and 0 <= node_off and 0 < n_nodes <= 2 ** 24
-                and node_off + n_nodes <= nodes.shape[0]
-                and 0 <= tri_off and 0 < n_tris <= 2 ** 24
+                and nodes_ok and 0 <= tri_off and 0 < n_tris <= 2 ** 24
                 and tri_off + n_tris <= tri.shape[0]):
             entry = (g, node_off, n_nodes, tri_off, n_tris)
             raise ValueError(f"bad bvh_meta entry {entry} for tables of "
-                             f"{nodes.shape[0]} nodes, {tri.shape[0]} tris")
+                             f"{n_rows} nodes, {tri.shape[0]} tris")
 
 
 def _check_textures(texels, tex_geom, btex_geom, n_geoms, device):
@@ -1582,7 +1684,8 @@ def kernel_tables(cam, mats, gmat, geom_types, features, lights, rr, tri,
                               btex_geom or (NO_CHART,) * n_geoms)),
         device) if textured else None
     mask = feature_mask(features, lights is not None, rr,
-                        T.MESH in geom_types, bool(tex_geom), bool(btex_geom))
+                        T.MESH in geom_types, bool(tex_geom), bool(btex_geom),
+                        bool(bvh_meta) and nodes is None)
     return mask, (
         cam.data_ptr(), mats.data_ptr(), gmat.data_ptr(), types.data_ptr(),
         ptr(lights), ptr(tri), ptr(nodes), ptr(meta), ptr(texels),
@@ -1606,9 +1709,10 @@ def trace_k1(cam, mats, gmat, geom_types, width, height, depth, it0, n_spp,
              pix0=0, features=NO_FEATURES, lights=None, rr=False,
              tri=None, nodes=None, bvh_meta=(), texels=None, tex_geom=(),
              btex_geom=()):
-    """K1 (and K2 when ``lights`` is given, K3 when ``bvh_meta`` is, K4
-    when ``tex_geom`` or ``btex_geom`` is): the same computation and
-    result as :func:`trace_plain`.
+    """K1 (and K2 when ``lights`` is given, K3 when ``bvh_meta`` is,
+    K3-linear when it is without ``nodes``, K4 when ``tex_geom`` or
+    ``btex_geom`` is): the same computation and result as
+    :func:`trace_plain`.
 
     For tensors on the CPU this is :func:`trace_plain`.  For tensors on
     a CUDA device it launches the kernel of ``csrc/megakernel.cu``

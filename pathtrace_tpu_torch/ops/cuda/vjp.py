@@ -20,9 +20,18 @@ that into the one table in global memory, which a second kernel rounds
 to float32.  Every sum is exact (fixed point, integer atomics: csrc's
 ``fx_add``), so two calls give the same bits.
 
-Scope: scenes of spheres and cubes without the K1 sections (feature mask
-0), with or without NEE (mask 128).  Meshes, textures and the other
-sections raise ``NotImplementedError`` naming their ROADMAP item.
+Meshes with a BVH (masks 512 and 640) run the reference's "carry" form
+of ``bvh_grad``: the forward sweep keeps each bounce's winning triangle,
+and the reverse sweep differentiates that triangle's hit with the row
+detached, so the triangles get no gradient and :func:`render_vjp`
+returns ``tri_verts`` None, as the reference does (their gradient is
+``render/diff.render_loss_and_grad(engine="planes")``'s).  The plain
+version takes the mesh tables as constants.
+
+Scope: scenes of spheres, cubes and BVH meshes without the K1 sections,
+with or without NEE.  A mesh without a BVH, image textures and the other
+sections raise ``NotImplementedError``, the last two naming their
+ROADMAP item.
 """
 
 from __future__ import annotations
@@ -31,34 +40,37 @@ from collections import Counter
 
 import torch
 
-from ...core import types as T
 from ...render import diff as D
 from . import megakernel as K
 
 # Launches of K8 by feature mask.
 LAUNCHES = Counter()
-MASKS = (0, K.NEE_BIT)
+MASKS = (0, K.NEE_BIT, K.MESH_BIT, K.MESH_BIT | K.NEE_BIT)
 MAX_DEPTH = 32
 MAX_LIGHTS = 64  # the kernel's exact sums (csrc's kFxMaxLights)
 _ITEM = "ROADMAP Queue 1 item 3"
 
 
 def check_supported(scene, nee=False):
-    """Raise ``NotImplementedError`` for a scene outside K8's slice:
-    meshes (the mesh-gradient step, K8's carried BVH winners and
-    K3-linear), image textures and the K1 sections (glass, imperfect
-    specular, depth of field, motion, checker, bump, SSS: K8's sections),
-    each naming its ROADMAP item; and for depth over ``MAX_DEPTH`` (the
+    """Raise ``NotImplementedError`` for a scene outside K8's slice: a
+    mesh without a BVH (as the reference's ``render_vjp_pallas`` does),
+    image textures and the K1 sections (glass, imperfect specular, depth
+    of field, motion, checker, bump, SSS: K8's sections), the last two
+    naming their ROADMAP item; and for depth over ``MAX_DEPTH`` (the
     stored states)."""
-    if scene.mesh.count:
+    if scene.mesh.count and not scene.mesh.bvh_meta:
         raise NotImplementedError(
-            f"render_vjp on a mesh scene is not ported yet: {_ITEM}a (mesh "
-            f"gradients: K8's carried BVH winners and K3-linear)")
+            "render_vjp on a mesh without a BVH: the reverse sweep carries "
+            "the BVH walk's winners (scene/bvh.with_bvh builds one; "
+            "load_scene does); the linear fold's gradients are "
+            "render/diff.render_loss_and_grad(engine='planes', "
+            "use_bvh=False)")
     if any(t >= 0 for t in scene.texture_ids) or any(
             t >= 0 for t in scene.bump_texture_ids):
         raise NotImplementedError(
             f"render_vjp on image-textured materials is not ported yet: "
-            f"{_ITEM}a (texel gradients)")
+            f"{_ITEM}a' (texel gradients: a float texel path in the plain "
+            f"K4)")
     on = [n for n, f in zip(K.FEATURE_NAMES, K.scene_features(scene)) if f]
     if on:
         raise NotImplementedError(
@@ -77,33 +89,35 @@ def table_grad_shapes(n_geoms, n_lights):
 
 
 def k8_plain(cam, mats, gmat, geom_types, width, height, depth, it0, n_spp,
-             lights, ct):
+             lights, ct, tri=None, nodes=None, bvh_meta=()):
     """Plain PyTorch K8 on the device of the tables: autograd over
-    :func:`megakernel.trace_plain`.  Returns (rad (P,3), [d_cam, d_mats,
-    d_gmat(, d_lights)])."""
+    :func:`megakernel.trace_plain`, the mesh tables (``pack_mesh``'s)
+    constants.  Returns (rad (P,3), [d_cam, d_mats, d_gmat(,
+    d_lights)])."""
     leaf = [t.detach().requires_grad_(True) for t in (cam, mats, gmat)]
     if lights is not None:
         leaf.append(lights.detach().requires_grad_(True))
     rad, _ = K.trace_plain(*leaf[:3], geom_types, width, height, depth, it0,
                            n_spp, lights=leaf[3] if lights is not None
-                           else None)
+                           else None, tri=tri, nodes=nodes,
+                           bvh_meta=bvh_meta)
     torch.autograd.backward(rad, ct)
     return rad.detach(), [t.grad if t.grad is not None
                           else torch.zeros_like(t) for t in leaf]
 
 
 def trace_k8(cam, mats, gmat, geom_types, width, height, depth, it0, n_spp,
-             lights, ct):
+             lights, ct, tri=None, nodes=None, bvh_meta=()):
     """K8 on the packed tables (sections off; NEE when ``lights`` is
-    given): (rad (P,3), [d_cam (1,16), d_mats (G,24), d_gmat (G,40)(,
-    d_lights (L,128))]), the gradients of sum(ct * rad).  For tensors on
-    the CPU this is :func:`k8_plain`; on a CUDA device it launches the
-    kernel (built at first use) and raises if the build or the launch
-    fails."""
+    given; the BVH meshes of ``tri``, ``nodes`` and ``bvh_meta``): (rad
+    (P,3), [d_cam (1,16), d_mats (G,24), d_gmat (G,40)(, d_lights
+    (L,128))]), the gradients of sum(ct * rad).  For tensors on the CPU
+    this is :func:`k8_plain`; on a CUDA device it launches the kernel
+    (built at first use) and raises if the build or the launch fails."""
     device = cam.device
     if device.type == "cpu":
         return k8_plain(cam, mats, gmat, geom_types, width, height, depth,
-                        it0, n_spp, lights, ct)
+                        it0, n_spp, lights, ct, tri, nodes, bvh_meta)
     from . import build
 
     n_pix = width * height
@@ -112,10 +126,12 @@ def trace_k8(cam, mats, gmat, geom_types, width, height, depth, it0, n_spp,
             and n_lights <= MAX_LIGHTS):
         raise ValueError(f"bad K8 sizes: depth {depth}, {n_spp} spp, "
                          f"{n_pix} pixels, {n_lights} lights")
+    if bvh_meta and nodes is None:
+        raise ValueError("K8 carries the BVH walk's winners: a mesh without "
+                         "nodes (the linear form) has none")
     mask, args = K.kernel_tables(cam, mats, gmat, geom_types, K.NO_FEATURES,
-                                 lights, False, None, None, (), None, (), ())
-    if T.MESH in geom_types:
-        raise ValueError(f"K8 traces spheres and cubes, not {geom_types}")
+                                 lights, False, tri, nodes, bvh_meta, None,
+                                 (), ())
     K._check_table("ct", ct, (n_pix, 3), device)
     shapes = table_grad_shapes(len(geom_types), n_lights)
     n_tab = sum(a * b for a, b in filter(None, shapes))
@@ -127,11 +143,11 @@ def trace_k8(cam, mats, gmat, geom_types, width, height, depth, it0, n_spp,
     tab = torch.empty(n_tab, dtype=torch.float32, device=device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        # cam, mats, gmat, types, lights and the counts of geoms and lights
+        # cam, mats, gmat, types, lights, tri, nodes, meta and the counts
+        # of geoms, lights and meta entries
         err = lib.pt_k8_vjp(
-            *args[:5], args[10], args[11], width, height, depth,
-            it0 & 0xFFFFFFFF, n_spp, ct.data_ptr(), rad.data_ptr(),
-            exact.data_ptr(), stream)
+            *args[:8], *args[10:13], width, height, depth, it0 & 0xFFFFFFFF,
+            n_spp, ct.data_ptr(), rad.data_ptr(), exact.data_ptr(), stream)
         K.launch_error("K8", lib, err)
         err = lib.pt_fx_round(exact.data_ptr(), n_tab, tab.data_ptr(), stream)
     K.launch_error("K8's rounding", lib, err)
@@ -153,9 +169,11 @@ def render_vjp(scene, ct, it0, n_spp, nee=False, device="cuda",
     and ``torch.autograd.backward`` carries them to the parameters.
     ``ct`` is the (P,3) cotangent image.  Returns (rad (P,3) on
     ``device``, the gradients keyed as ``split_params``); a parameter
-    no path depends on gets zeros.  ``plain`` runs K8's plain version
-    (:func:`k8_plain`) on ``device`` in the kernel's place.  Raises
-    ``NotImplementedError`` outside K8's slice (:func:`check_supported`)."""
+    no path depends on gets zeros, and a mesh scene's ``tri_verts`` gets
+    None (the triangles are constants of the sweep, as the reference's).
+    ``plain`` runs K8's plain version (:func:`k8_plain`) on ``device`` in
+    the kernel's place.  Raises ``NotImplementedError`` outside K8's
+    slice (:func:`check_supported`)."""
     check_supported(scene, nee)
     device = K.resolve_device(device)
     params = D.requires_grad(D.split_params(scene))
@@ -164,12 +182,17 @@ def render_vjp(scene, ct, it0, n_spp, nee=False, device="cuda",
     lights = K.pack_lights(sc, device)[0] if nee else None
     if lights is not None:
         tables.append(lights)
+    tri, nodes, bvh_meta = K.pack_mesh(scene, device)
     ct = torch.as_tensor(ct, dtype=torch.float32).to(device).reshape(
         scene.pixel_count, 3).contiguous()
     width, height = scene.resolution
     rad, d_tables = (k8_plain if plain else trace_k8)(
         *(t.detach() for t in tables[:3]), tuple(scene.geoms.type), width,
         height, int(scene.trace_depth), it0, n_spp,
-        lights.detach() if lights is not None else None, ct)
+        lights.detach() if lights is not None else None, ct, tri, nodes,
+        bvh_meta)
     torch.autograd.backward(tables, d_tables)
-    return rad, D.grads(params)
+    grads = D.grads(params)
+    if scene.mesh.count:
+        grads["tri_verts"] = None
+    return rad, grads

@@ -1,13 +1,24 @@
-"""The differentiable parameters of a scene.
+"""Differentiable rendering: the parameters of a scene, and the loss and
+its gradients.
 
-Counterpart of ``split_params`` and ``merge_params`` of
-``pathtrace_tpu/render/diff.py``: the same dict (``materials``,
-``translation``, ``rotation``, ``scale``, ``camera``, ``tri_verts``),
-whose leaves here are numpy arrays or float32 tensors.  The gradient
-entry points (``ops/cuda/vjp.render_vjp``) turn the leaves into tensors
-that require grad (:func:`requires_grad`), pack the merged scene with
-autograd on, and read the gradients back in the same dict
-(:func:`grads`).
+Counterpart of ``pathtrace_tpu/render/diff.py``: ``split_params`` and
+``merge_params`` give the same dict (``materials``, ``translation``,
+``rotation``, ``scale``, ``camera``, ``tri_verts``), whose leaves here
+are numpy arrays or float32 tensors.  The gradient entry points
+(``ops/cuda/vjp.render_vjp``, :func:`render_loss_and_grad`) turn the
+leaves into tensors that require grad (:func:`requires_grad`), pack the
+merged scene with autograd on, and read the gradients back in the same
+dict (:func:`grads`).
+
+:func:`render_mean` and :func:`render_loss_and_grad` take the
+reference's ``engine``: ``"planes"`` is autograd over the megakernel's
+plain version (``megakernel.trace_plain``, torch ops on the device, the
+counterpart of the reference's planes engine under ``jax.grad``), with
+the mesh tables packed differentiably, so ``tri_verts`` gets its
+gradient: the BVH walk's winner is found detached and its hit
+recomputed (the reference's ``bvh_grad``), or, with ``use_bvh=False``,
+the linear fold's (its oracle).  The default ``"wavefront"`` is autograd
+over the wavefront integrator, which is not ported yet.
 
 Estimator (the reference's): detached sampling.  Every discrete event
 (the lobe taken, the nearest hit, the light face, visibility, the end of
@@ -22,6 +33,8 @@ import dataclasses
 import torch
 
 from ..core.vecmath import as_f32
+
+ENGINES = ("wavefront", "planes")
 
 KEYS = ("materials", "translation", "rotation", "scale", "camera",
         "tri_verts")
@@ -112,3 +125,62 @@ def leaves(params):
     """The float leaves of ``params`` that are on, in :func:`map_params`
     order."""
     return [v for _, v in named_leaves(params)]
+
+
+def _planes_scene(scene, engine, use_bvh):
+    """``scene`` as the planes engine traces it (without its BVH unless
+    ``use_bvh``); raises for an engine that is not ported."""
+    if engine not in ENGINES:
+        raise ValueError(f"engine must be one of {ENGINES}, not {engine!r}")
+    if engine == "wavefront":
+        raise NotImplementedError(
+            "engine='wavefront' (autograd over the wavefront integrator) is "
+            "not ported yet: ROADMAP Queue 1 item 1 (the wavefront twin) "
+            "and item 3c; engine='planes' differentiates the megakernel's "
+            "plain version")
+    if not use_bvh and scene.mesh.count:
+        from ..scene.bvh import without_bvh
+
+        scene = without_bvh(scene)
+    return scene
+
+
+def render_mean(scene, it0, n_iters, compaction="mask", remat=True,
+                nee=False, engine="wavefront", use_bvh=True, device="cuda"):
+    """Mean image (P,3) over ``n_iters`` samples from iteration ``it0``,
+    differentiable in the leaves of ``scene`` that require grad (the
+    reference's ``render_mean``).  ``engine="planes"`` traces with
+    ``megakernel.trace_plain`` on ``device`` through the differentiable
+    packing; ``use_bvh=False`` folds every triangle (K3-linear's plain
+    version).  ``compaction`` ("mask" or "sort") and ``remat`` choose how
+    the wavefront compacts its rays and recomputes under autodiff; the
+    planes engine ignores both, as the reference's does, and gives the
+    same image for every value."""
+    from .. import _check_compaction
+    from ..ops.cuda import megakernel as K
+
+    _check_compaction(compaction)
+    scene = _planes_scene(scene, engine, use_bvh)
+    job = K.prepare(scene, device, nee=nee)
+    rad, _ = K.trace_plain(**job, it0=it0, n_spp=n_iters)
+    return rad / float(n_iters)
+
+
+def render_loss_and_grad(scene, target, it0, n_iters, compaction="mask",
+                         nee=False, engine="wavefront", use_bvh=True,
+                         device="cuda"):
+    """The L2 image loss mean((render_mean - target)^2) and its gradients
+    with respect to :func:`split_params` (the reference's
+    ``render_loss_and_grad``): (loss, a 0-d tensor; the gradients keyed as
+    ``split_params``, zeros where no path depends on a parameter), on
+    ``device``.  ``engine="planes"`` only, for now (:func:`render_mean`,
+    which also says what becomes of ``compaction``); ``use_bvh=False``
+    runs the linear fold, the oracle of the BVH's gradients."""
+    scene = _planes_scene(scene, engine, use_bvh)
+    params = requires_grad(split_params(scene))
+    img = render_mean(merge_params(scene, params), it0, n_iters, compaction,
+                      nee=nee, engine=engine, device=device)
+    target = torch.as_tensor(target, dtype=torch.float32).to(img.device)
+    loss = torch.mean((img - target.reshape(img.shape)) ** 2)
+    loss.backward()
+    return loss.detach(), grads(params)

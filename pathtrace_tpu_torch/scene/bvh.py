@@ -109,3 +109,11 @@ def with_bvh(mesh, geom_count):
                                         geom_count)
     return dataclasses.replace(mesh, bvh_nodes=nodes, bvh_order=order,
                                bvh_meta=meta)
+
+
+def without_bvh(scene):
+    """``scene`` with its mesh stripped of the ``bvh_*`` fields (the
+    reference's ``use_bvh=False``): it packs the form that K3-linear folds,
+    every triangle in index order."""
+    return dataclasses.replace(scene, mesh=dataclasses.replace(
+        scene.mesh, bvh_nodes=None, bvh_order=None, bvh_meta=()))

@@ -167,3 +167,53 @@ def test_gradient_kernels_extra_work():
     # no stored state
     assert B.k8_extra(counts, 100, 464, nee=False) == (
         B.K7_PATH_OPS * 100 + B.K7_SCATTER_OPS * 80, 12 * 100 + 4 * 464)
+    # the mesh builds also keep each bounce's winner
+    assert B.k8_extra(counts, 100, 592, nee=True, mesh=True)[1] == (
+        12 * 100 + 2 * (B.K8_SAVED_BYTES + B.K8_WINNER_BYTES) * 180
+        + 4 * 592)
+
+
+@pytest.mark.parametrize("nee", [False, True])
+def test_linear_fold_counts_every_triangle(nee):
+    # K3-linear: every live ray meets every triangle, and every row is read
+    from pathtrace_tpu_torch.scene.bvh import without_bvh
+
+    scene = without_bvh(S.load("cornell_mesh", res=(12, 10), depth=3))
+    job = K.prepare(scene, "cpu", nee=nee)
+    want = K.trace_plain(**job, it0=1, n_spp=1)
+    got, ops, n_bytes = B.count_work(
+        lambda: K.trace_plain(**job, it0=1, n_spp=1))
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert "walk" not in ops and "nodes" not in n_bytes
+    n_tri = job["tri"].shape[0]
+    assert n_bytes["tri"] == 9 * 4 * n_tri
+    # the rays traced: the live paths, and with NEE the shadow rays of the
+    # diffuse hits, each through every triangle
+    rays = int(want[1].sum())
+    assert ops["linear"] >= rays * n_tri * 40
+
+
+def test_linear_fold_charges_the_distance_to_hits_only():
+    # K3-linear's ray test (Moller-Trumbore, 52 ops) on every ray and
+    # triangle; the world distance (35 ops: the offset point, the
+    # transform, the norm, the NaN test) only on the pairs that hit, as
+    # the kernel skips a miss
+    m = [torch.tensor(float(x)) for x in torch.eye(4)[:3].reshape(-1)]
+    tri = torch.zeros(3, 16)
+    for r, (v0, z) in enumerate((((-1.0, -1.0), 2.0), ((-1.0, -1.0), 3.0),
+                                 ((5.0, 5.0), 2.0))):
+        tri[r, :9] = torch.tensor([*v0, z, 2.0, 0.0, 0.0, 0.0, 2.0, 0.0])
+    d = torch.tensor([[-0.2, -0.2, 1.0], [0.0, 0.0, -1.0], [2.75, 2.75, 1.0],
+                      [0.1, -0.3, 1.0]])
+    d = d / d.norm(dim=1, keepdim=True)
+    zeros = torch.zeros(4)
+    ray = (zeros, zeros, zeros, *d.unbind(1))
+    best = torch.full((4,), 1e30)
+    want = torch.tensor([True, True, True, False])
+    (win, ops, _) = B.count_work(lambda: K._linear_walk(
+        m, ray[:3], ray, best, want, tri, 0, 3))
+    live = [c[want][:, None] for c in ray]
+    _, hit = K._moller_trumbore(live, tri)
+    assert int(hit.sum()) == 3     # ray 0 meets rows 0 and 1, ray 2 row 2
+    assert win.tolist() == [0, -1, 2, -1]
+    assert ops == {"linear": 52.0 * 3 * 3 + 35.0 * 3}

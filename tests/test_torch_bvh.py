@@ -114,5 +114,8 @@ def test_pack_mesh_without_triangles():
     mesh = ptt.load_scene(_scene_path("cornell_mesh"))
     stripped = dataclasses.replace(mesh, mesh=dataclasses.replace(
         mesh.mesh, bvh_nodes=None, bvh_order=None, bvh_meta=()))
-    with pytest.raises(ValueError, match="BVH"):
-        K.pack_mesh(stripped, "cpu")
+    # a mesh without a BVH packs K3-linear's form: no nodes, the rows in
+    # the mesh's own order (tests/test_torch_linear.py)
+    tri, nodes, meta = K.pack_mesh(stripped, "cpu")
+    assert nodes is None and meta == ((6, 0, 0, 0, mesh.mesh.count),)
+    assert tri.shape == (mesh.mesh.count, K.TRI_COLS)

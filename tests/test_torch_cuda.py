@@ -1,9 +1,9 @@
-"""K1 (with its NEE section K2, its mesh section K3 and its texture
-section K4), the CUDA kernel, the span kernel K5 of the split and sorted
-engines, the scan K6, the traversal probe K9, the material gradients K7
-and the reverse sweep K8, against their plain PyTorch versions on a GPU;
-the engines against K1, and K7's and K8's radiance against K1's, bit for
-bit.
+"""K1 (with its NEE section K2, its mesh section K3 and its linear fold
+K3-linear, and its texture section K4), the CUDA kernel, the span kernel
+K5 of the split and sorted engines, the scan K6, the traversal probe K9,
+the material gradients K7 and the reverse sweep K8 (with its mesh
+builds), against their plain PyTorch versions on a GPU; the engines
+against K1, and K7's and K8's radiance against K1's, bit for bit.
 
 Every test here needs a CUDA GPU (marker ``cuda``) and skips without
 one: the kernel has no CPU mode.  This file imports neither JAX nor the
@@ -30,6 +30,7 @@ from pathtrace_tpu_torch.ops.cuda import vjp as VJ
 from pathtrace_tpu_torch.ops import scan as SC
 from pathtrace_tpu_torch.ops.cuda import probe as P
 from pathtrace_tpu_torch.ops.cuda import span as SP
+from pathtrace_tpu_torch.scene.bvh import without_bvh
 import torch_gradcheck as GC
 import torch_scenes as S
 from torch_digest import digest
@@ -400,7 +401,7 @@ def test_cli_engines_on_the_card(cuda, tmp_path, flags):
 def _k8_args(job, ct):
     return (job["cam"], job["mats"], job["gmat"], job["geom_types"],
             job["width"], job["height"], job["depth"], 1, 2, job["lights"],
-            ct)
+            ct, job["tri"], job["nodes"], job["bvh_meta"])
 
 
 def _masked_ct(rad, ref, seed=0):
@@ -557,8 +558,13 @@ def test_material_grads_on_the_card(cuda):
 @pytest.mark.parametrize("name", ["cornell_glass", "cornell_mesh",
                                   "cornell_tex"])
 def test_render_vjp_rejects_what_k8_does_not_trace(cuda, name):
+    # cornell_mesh renders with its BVH (test_k8_mesh_matches_plain);
+    # stripped of it, it raises, as the reference's render_vjp_pallas does
     scene = _scene(name, (16, 16), 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    if scene.mesh.count:
+        scene = without_bvh(scene)
+    with pytest.raises(NotImplementedError,
+                       match="BVH" if scene.mesh.count else "ROADMAP"):
         VJ.render_vjp(scene, torch.ones((256, 3)), 1, 1)
 
 
@@ -569,3 +575,112 @@ def test_k8_rejects_bad_tables(cuda):
         VJ.trace_k8(*_k8_args(job, ct[:100]))
     with pytest.raises(ValueError, match="depth"):
         VJ.trace_k8(*_k8_args(dict(job, depth=VJ.MAX_DEPTH + 1), ct))
+
+
+@pytest.mark.parametrize("nee", [False, True])
+@pytest.mark.parametrize("config", ["cornell_mesh",
+                                    "mesh_glass_checker_motion",
+                                    "cornell_bumpmesh"])
+def test_k3_linear_matches_plain(cuda, config, nee):
+    # K3-linear (a mesh stripped of its BVH, every triangle folded) against
+    # its plain version, and, but on bumpmesh, whose BUMPTEX the linear
+    # fold leaves inert, against K3 on the same mesh with its BVH: the same
+    # winners but for ties
+    name, edits, _, _ = {**S.MESH_CONFIGS, **S.TEX_CONFIGS}[config]
+    scene = S.load(name, edits, (96, 80), 8)
+    flat = without_bvh(scene)
+    job = K.prepare(flat, cuda, nee=nee)
+    mask = K.scene_mask(flat, nee)
+    assert mask & K.LINEAR_BIT and job["nodes"] is None
+    before = K.LAUNCHES[mask]
+    rad, counts = K.trace_k1(**job, it0=1, n_spp=2)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES[mask] == before + 1
+    assert int(counts[0]) == 2 * 96 * 80
+    ref, ref_counts = K.trace_plain(**job, it0=1, n_spp=2)
+    _assert_tie_flip_bound(rad, ref, counts, ref_counts)
+    if config != "cornell_bumpmesh":
+        bvh, bvh_counts = K.trace_k1(**K.prepare(scene, cuda, nee=nee),
+                                     it0=1, n_spp=2)
+        _assert_tie_flip_bound(rad, bvh, counts, bvh_counts)
+
+
+@pytest.mark.parametrize("engine", ["split", "sorted"])
+def test_k3_linear_engines_bit_equal_to_k1(cuda, engine):
+    # K5 is in every K1 library: the engines fold every triangle as K1 does
+    scene = without_bvh(S.load("cornell_mesh", (), (96, 80), 8))
+    job = K.prepare(scene, cuda, nee=True)
+    mask = K.scene_mask(scene, True)
+    want = K.trace_k1(**job, it0=1, n_spp=2)
+    before = SP.LAUNCHES[mask]
+    if engine == "split":
+        got = SP.split_batch(job, 1, 2, 3)
+    else:
+        got = SP.sorted_batch(job, 1, 2, *SP.sort_box(scene, cuda))
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert SP.LAUNCHES[mask] > before
+
+
+@pytest.mark.parametrize("nee", [False, True])
+def test_k8_mesh_matches_plain(cuda, nee):
+    # K8's mesh builds (masks 512, 640): the radiance K1's, bit for bit,
+    # and every table's gradient against the plain version (the mesh
+    # tables constants) at 64x64 d4, tolerance as test_k8_matches_plain
+    scene = _scene("cornell_mesh", (64, 64), 4)
+    job = K.prepare(scene, cuda, nee=nee)
+    mask = K.MESH_BIT | (K.NEE_BIT if nee else 0)
+    rad, _ = K.trace_k1(**job, it0=1, n_spp=2)
+    ref, _ = K.trace_plain(**job, it0=1, n_spp=2)
+    ct = _masked_ct(rad, ref)
+    ff = GC.fireflies(rad, 2, scene.materials.emittance)
+    names = ("cam", "mats", "gmat", "lights")
+    for c, share in zip(GC.split(ct, ff), (None, GC.FIREFLY_SHARE)):
+        if not bool(c.any()):
+            continue
+        before = VJ.LAUNCHES[mask]
+        rad8, got = VJ.trace_k8(*_k8_args(job, c))
+        assert VJ.LAUNCHES[mask] == before + 1
+        assert torch.equal(rad8, rad)
+        _, want = VJ.k8_plain(*_k8_args(job, c))
+        rows = GC.compare(zip(names, got), zip(names, want), *GC.K8_TOL,
+                          share)
+        assert all(row[-1] for row in rows), rows
+    # two calls, the same bits
+    a, b = (VJ.trace_k8(*_k8_args(job, ct))[1] for _ in range(2))
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_render_vjp_on_a_mesh_on_the_card(cuda):
+    scene = _scene("cornell_mesh", (48, 40), 3)
+    ct = torch.rand((48 * 40, 3), generator=torch.Generator().manual_seed(8))
+    rad, g = ptt.render_vjp(scene, ct, 1, 1, nee=True)
+    assert rad.device.type == "cuda" and g["tri_verts"] is None
+    _, want = ptt.render_vjp(scene, ct, 1, 1, nee=True, plain=True)
+    from pathtrace_tpu_torch.render import diff as D
+
+    rows = GC.compare(D.named_leaves(g), D.named_leaves(want), *GC.K8_TOL,
+                      GC.FIREFLY_SHARE)
+    assert all(row[-1] for row in rows), rows
+
+
+def test_k8_rejects_the_linear_form(cuda):
+    job = K.prepare(without_bvh(_scene("cornell_mesh", (16, 16), 2)), cuda)
+    with pytest.raises(ValueError, match="BVH"):
+        VJ.trace_k8(*_k8_args(job, torch.ones((256, 3), device=cuda)))
+
+
+def test_k7_on_a_mesh_matches_plain(cuda):
+    scene = _scene("cornell_mesh", (64, 64), 4)
+    job = K.prepare(scene, cuda)
+    mtab = MG.material_table(scene, cuda)
+    mat_of = tuple(int(m) for m in scene.geoms.material_id)
+    rad, counts = K.trace_k1(**job, it0=1, n_spp=2)
+    ref, _ = K.trace_plain(**job, it0=1, n_spp=2)
+    ct = _masked_ct(rad, ref)
+    before = MG.LAUNCHES[K.MESH_BIT]
+    got_rad, got_counts, got = MG.trace_k7(job, mtab, mat_of, ct, 1, 2)
+    assert MG.LAUNCHES[K.MESH_BIT] == before + 1
+    assert torch.equal(got_rad, rad) and torch.equal(got_counts, counts)
+    _, _, want = MG.k7_plain(job, mtab, mat_of, ct, 1, 2)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)

@@ -2,6 +2,7 @@
 the port on one card.
 
     python3 tests/torch_digest.py [ROOT] [--time] [--regs MASK,MASK,...]
+                                  [--sass MASK,MASK,...]
 
 For cornell.txt (the build without features, mask 0) and cornell_mesh.txt
 (the mesh build, mask 512), each at 96x80, depth 8, 3 samples from
@@ -14,7 +15,11 @@ events, after one warm call.  With ``--regs`` it first compiles ROOT's
 ``megakernel.cu`` for each feature mask listed (all ``nvcc`` processes
 at once, no link, ROOT's flags) and prints each kernel's registers and
 spills as ``-Xptxas -v`` reports them; without ``--time`` it then stops
-(and needs only ``nvcc``).  ROOT is the root of a checkout whose
+(and needs only ``nvcc``).  With ``--sass`` it compiles ROOT's
+``megakernel.cu`` for each mask listed to a cubin and prints, for each
+kernel of it, the sha256 (first 16 hex digits) and the instruction count
+of its SASS as ``cuobjdump -sass`` prints it: equal digests on two
+checkouts are the same machine code.  ROOT is the root of a checkout whose
 ``pathtrace_tpu_torch`` and ``scenes/`` are used (default: this one).
 Needs a CUDA GPU.  Imports no JAX.
 """
@@ -79,6 +84,41 @@ def registers(root, masks):
                 print(f"regs {root} mask {m} {fn}: {usage}", flush=True)
 
 
+def sass(root, masks):
+    """Compiles ROOT's megakernel.cu for each mask at once to a cubin and
+    prints each kernel's SASS digest and instruction count."""
+    from pathtrace_tpu_torch.ops.cuda import build
+
+    csrc = os.path.join(root, "pathtrace_tpu_torch", "csrc")
+    flags = [f for f in build.NVCC_FLAGS
+             if f not in ("-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")]
+    dump = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = [(m, os.path.join(tmp, f"m{m}.cubin"), subprocess.Popen(
+            [build.nvcc_path(), *flags, f"-DPT_FEATURES={m}", "-I", csrc,
+             "-cubin", "-o", os.path.join(tmp, f"m{m}.cubin"),
+             os.path.join(csrc, "megakernel.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+            for m in masks]
+        for m, cubin, proc in procs:
+            log, _ = proc.communicate()
+            if proc.returncode:
+                raise RuntimeError(f"nvcc failed for mask {m}:\n{log}")
+            text = subprocess.run([dump, "-sass", cubin], check=True,
+                                  capture_output=True, text=True).stdout
+            for part in text.split("Function : ")[1:]:
+                name = part.splitlines()[0].strip()
+                fn = next((k for k in KERNELS if k in name), name)
+                # the instruction lines, "/*0010*/ OP ... ;", each
+                # followed by its encoding, "/* 0x... */"
+                code = [ln.strip() for ln in part.splitlines()
+                        if ln.strip().startswith("/*")
+                        and not ln.strip().startswith("/* 0x")]
+                h = hashlib.sha256("\n".join(code).encode()).hexdigest()[:16]
+                print(f"sass {root} mask {m} {fn}: {h} ({len(code)} "
+                      f"instructions)", flush=True)
+
+
 def k1_times(root, torch, ptt, K):
     """K1's ms/iter on the TIMED scenes, median of TIME_CALLS calls."""
     for name in TIMED:
@@ -107,13 +147,16 @@ def main(argv):
         os.path.dirname(os.path.abspath(__file__))))
     p.add_argument("--time", action="store_true")
     p.add_argument("--regs", default="")
+    p.add_argument("--sass", default="")
     args = p.parse_args(argv)
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
     if args.regs:
         registers(root, [int(m) for m in args.regs.split(",")])
-        if not args.time:
-            return 0
+    if args.sass:
+        sass(root, [int(m) for m in args.sass.split(",")])
+    if (args.regs or args.sass) and not args.time:
+        return 0
     import torch
 
     if not torch.cuda.is_available():

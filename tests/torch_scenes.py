@@ -52,6 +52,23 @@ TEX_CONFIGS = {
 }
 
 
+def mesh_rig_text():
+    """The text of the mesh rig of the reference's
+    ``tests/test_vjp_kernel.py`` (its ``MESH_RIG``: a light, a floor and
+    an icosahedron, 12x12 depth 2), read from that file; its OBJ path is
+    relative to the repo root."""
+    with open(os.path.join(REPO, "tests", "test_vjp_kernel.py")) as f:
+        return f.read().split('MESH_RIG = """\\\n')[1].split('"""')[0]
+
+
+def mesh_rig(res=None):
+    """The port's scene of the mesh rig (:func:`mesh_rig_text`), at
+    ``res`` (its own 12x12 by default)."""
+    scene = ptt.parse_scene(mesh_rig_text(), base_dir=REPO)
+    return scene if res is None else dataclasses.replace(scene,
+                                                         resolution=res)
+
+
 def scene_text(name, edits=()):
     with open(os.path.join(REPO, "scenes", f"{name}.txt")) as f:
         return edit_text(f.read(), edits)
