@@ -105,11 +105,13 @@ Phases, each of which raises on failure (exit code non-zero):
    (``tests/torch_gradcheck.py``): the reference's rtol / atol (K8 2e-4
    / 3e-4, K7 1e-5 / 1e-4), K8's cotangent split between the NEE
    fireflies (held with a share of their part's largest gradient) and
-   the other pixels (held at the reference's tolerance as it stands; at
-   full size with the reference's tolerance plus float32's epsilon times
-   each entry's term magnitude, which the plain version's backward on
-   absolute values gives, in float64, whose gradients are printed
-   beside); two K8 calls
+   the other pixels (held at the reference's tolerance as it stands;
+   with NEE at full size, where float32 rounding over millions of
+   pixels outgrows it, with the reference's tolerance plus twice the
+   plain version's own distance from its float64 reading, on the pixels
+   whose float64 radiance is the float32 one's; each table's limit
+   beyond the bare tolerance is printed as a share of its largest
+   gradient, and a share over 1 fails); two K8 calls
    give the same bits.  The same for K8's mesh builds (masks 512 and 640,
    the BVH walk's winner carried to the reverse sweep) and K7's mesh build
    on cornell_mesh.txt at 64x64 d4 and at its 1920x1080 d8, and
@@ -143,7 +145,27 @@ Phases, each of which raises on failure (exit code non-zero):
    adjoints' least ops counted from the kernel's code and the stored
    state of each live bounce written and read once; all: the cotangent
    and the gradient table); K8's mesh builds on cornell_mesh at 1920x1080
-   and cornell_bigmesh at 800x800, and K7's on cornell_mesh, the same way.
+   and cornell_bigmesh at 800x800, and K7's on cornell_mesh, the same way;
+16. K8's section builds (glass, imperfect specular, depth of field,
+   motion, checker, bump, SSS: ``K8_SECTION_CONFIGS``, masks 7, 24, 103,
+   537, 544 and each with NEE): at 64x64 d4 and at full size
+   (cornell_glass, cornell_checker and the bump + SSS variant at 800x800
+   d8, the glass + checker + motion and the bump mesh variants at
+   1920x1080 d8), with and without NEE, as in phase 13 (radiance
+   bit-equal to K1, two calls' bits equal, the tables at the reference's
+   tolerance, with NEE at full size within twice the plain version's own
+   distance from its float64 reading beside it; with bump and NEE, whose
+   float32 readings part by more than the bare tolerance at any size, on
+   both parts of the cotangent and at 64x64 d4 too; at 64x64 d4
+   ``render_vjp``'s parameter groups within the tables' tolerance
+   carried through the packing, ``torch_gradcheck.chain_bound``); their
+   main path, launch counts reset before and read after: the sections'
+   grad step (``render_vjp`` on
+   cornell_glass 800x800 d8 NEE, a cotangent of ones, which launches K8
+   mask 135 once and gives K1's radiance), then ``render_vjp`` with and
+   without NEE on each configuration at its own size; and each build's
+   time beside K1's and its bound (``bound.k8_extra`` with the sections'
+   adjoints on the lanes the plain version tallies), as phase 15.
 
 K3-linear, the fold of every triangle of a mesh without a BVH, runs as
 the other K1 builds do: phase 4 on cornell_mesh.txt stripped of its BVH
@@ -284,6 +306,18 @@ TIMED_ENGINE_CONFIGS = [
     ("sorted cornell_hugemesh", "cornell_hugemesh", None, None),
 ]
 K5_RUNS = 5  # engine runs of 1 spp whose span times give K5's median
+# K8's section builds: (label, scene file, text replacements, full): each
+# held at 64x64 d4 with and without NEE, and with NEE at its own size where
+# ``full`` (the four configurations of the sections' grad step); the label
+# is a forward configuration's where one has the scene
+K8_SECTION_CONFIGS = [
+    ("cornell_glass", "cornell_glass", ()),
+    ("cornell_checker", "cornell_checker", ()),
+    ("cornell_glass bump+SSS", "cornell_glass", ("BUMP", "SSS")),
+    ("cornell_mesh glass+checker+motion", "cornell_mesh",
+     ("MESH_GLASS", "MESH_MOTION")),
+    ("cornell_mesh bump", "cornell_mesh", ("MESH_BUMP",)),
+]
 SCAN_SIZES = (640000, 2073600, 5000, 16200)
 SCAN_TIMED = 5000  # the tile table of an 800x800 image: the kernels line
 
@@ -483,10 +517,11 @@ def time_variant(K, B, torch, label, job, mask, card, spp_kernel, k_kernel,
     ms_k, runs_k, (_, counts) = median_ms(
         lambda: K.trace_k1(**job, it0=1, n_spp=spp_kernel), torch, k_kernel)
     # the plain version's warm call is its first sample, counted
+    tallies = {}
     _, ops_by, bytes_by = B.count_work(
-        lambda: K.trace_plain(**job, it0=1, n_spp=1))
+        lambda: K.trace_plain(**job, it0=1, n_spp=1), tallies)
     WORK[label, width, height] = (ops_by, bytes_by,
-                                  small_table_bytes(torch, job))
+                                  small_table_bytes(torch, job), tallies)
     ms_p, runs_p, _ = median_ms(
         lambda: K.trace_plain(**job, it0=1, n_spp=spp_plain), torch, k_plain,
         warm=False)
@@ -640,11 +675,8 @@ def engine_vs_plain(ptt, K, B, SP, torch, label, scene, nee, rr, split,
     # or made here; K1's image write is not K5's) and the state the spans
     # must move
     if (config, width, height) not in WORK:
-        _, ops_by, bytes_by = B.count_work(
-            lambda: K.trace_plain(**job, it0=1, n_spp=1))
-        WORK[config, width, height] = (ops_by, bytes_by,
-                                       small_table_bytes(torch, job))
-    ops_by, bytes_by, table_bytes = WORK[config, width, height]
+        forward_work(K, B, torch, config, job)
+    ops_by, bytes_by, table_bytes, _ = WORK[config, width, height]
     # the state K5 must move, by where each ray is at the end of each
     # span (this run's counts; the resumed span runs the live tiles' rays)
     n_keys = len(K.state_keys(job["features"], nee, split is None))
@@ -804,32 +836,34 @@ def held(GC, label, got, want, tol, share=None):
     return max((row[2] for row in rows), default=0.0)
 
 
-def held_terms(GC, torch, label, names, got, plain, w64, mags, tol):
-    """At full size: each table of the kernel's gradient ``got`` against
-    the plain version's ``plain`` (``tests/torch_gradcheck.compare_terms``:
-    ``tol`` the reference's (rtol, atol), plus float32's epsilon times each
-    entry's term magnitude in ``mags``), and both against the float64
-    reading ``w64``, for information.  Prints each table and its worst
-    entry; raises on a miss or a gradient that is not finite.  Returns the
-    largest absolute difference of the kernel from the plain version."""
-    rows = GC.compare_terms(zip(names, got), zip(names, plain),
-                            zip(names, mags), *tol)
-    for (name, scale, err, ratio, need, ok), g, w, w6, m in zip(
-            rows, got, plain, w64, mags):
-        w6, m = w6.to(g.device), m.to(g.device)
-        bound = tol[1] + tol[0] * w.double().abs() + GC.EPS32 * m
-        at = ((g.double() - w.double()).abs() / bound).argmax()
+def held_own(GC, torch, label, names, got, plain, w64, tol):
+    """Each table of the kernel's gradient ``got`` against the plain
+    version's ``plain`` within the reference's (rtol, atol) ``tol`` plus
+    twice the plain version's own distance from its float64 reading
+    ``w64`` (``tests/torch_gradcheck.compare_own``).  Prints each table:
+    its limit beyond the bare tolerance as a share of its largest
+    gradient, and its worst entry.  Raises on a miss, on a gradient that
+    is not finite, or on a limit that exceeds its table's largest
+    gradient (a limit that could not fail).  Returns the largest absolute
+    difference of the kernel from the plain version."""
+    rows = GC.compare_own(zip(names, got), zip(names, plain),
+                          zip(names, w64), *tol)
+    for (name, scale, err, ratio, need, room, ok), g, w, w6 in zip(
+            rows, got, plain, w64):
+        w, w6 = w.double(), w6.to(g.device)
+        bound = tol[1] + tol[0] * w.abs() + 2.0 * (w - w6).abs()
+        at = ((g.double() - w).abs() / bound).argmax()
         idx = tuple(int(i) for i in torch.unravel_index(at, g.shape))
         k64, p64 = ((x.double() - w6).abs().max() for x in (g, w))
-        print(f"  {label} {name}: max |g| {scale:.6g}; kernel max |diff| "
-              f"{err:.6g}, {ratio:.3g} of its bound at worst, over the "
-              f"bare tolerance by at most {need:.3g} x eps32 x terms; "
+        print(f"  {label} {name}: max |g| {scale:.6g}; limit beyond the "
+              f"bare tolerance at most {room:.3g} of it; kernel max |diff| "
+              f"{err:.6g}, {ratio:.3g} of its bound at worst, over the bare"
+              f" tolerance by at most {need:.3g} x |plain - float64|; "
               f"float64: kernel max |diff| {float(k64):.6g}, float32 plain "
               f"{float(p64):.6g}; worst entry {idx}: kernel "
               f"{float(g.reshape(-1)[at]):.6f} float32 plain "
               f"{float(w.reshape(-1)[at]):.6f} float64 "
-              f"{float(w6.reshape(-1)[at]):.6f} terms "
-              f"{float(m.reshape(-1)[at]):.6g} bound "
+              f"{float(w6.reshape(-1)[at]):.6f} bound "
               f"{float(bound.reshape(-1)[at]):.6g} "
               f"{'ok' if ok else 'MISS'}", flush=True)
     missed = [row[0] for row in rows if not row[-1]]
@@ -844,15 +878,23 @@ def k8_vs_plain(K, VJ, GC, torch, label, scene, nee, full=False):
     between the NEE fireflies and the other pixels (``GC.split``): every
     table's gradient and, at the small size, every parameter group of
     ``render_vjp`` (the entry point on K8 and on K8's plain version), each
-    with :func:`held`.  At full size (``full``) the other pixels are held
-    entry by entry with the bound of their terms' magnitudes, which the
-    plain version in float64 gives with its own reading
-    (:func:`held_terms`), on the pixels whose float64 radiance is the
-    float32 one's.  Returns (the largest
+    with :func:`held`.  With NEE at full size (``full``) the other pixels
+    are held within twice the plain version's own distance from its
+    float64 reading (:func:`held_own`), on the pixels whose float64
+    radiance is the float32 one's; in a build with bump and NEE, whose
+    float32 readings part by more than the bare tolerance at any size, so
+    are both parts at any size (PERF.md §2).  A build with sections holds
+    ``render_vjp``'s parameter groups to the bound the tables' tolerance
+    gives through the packing (``GC.chain_bound``).  Returns (the largest
     abs error of the tables on either part of the cotangent, the plain
-    version's ms on the other pixels' part)."""
+    version's ms on the other pixels' part, one call on the host clock)."""
     job = K.prepare(scene, "cuda", nee=nee)
     width, height, depth = job["width"], job["height"], job["depth"]
+    mask = K.scene_mask(scene, nee)
+    sections = bool(mask & (K.NEE_BIT - 1))
+    # bump with NEE: the tilted normal magnifies float32 rounding past the
+    # bare tolerance at any size, on both parts of the cotangent
+    bump_nee = nee and bool(mask & 32)
     rad, _ = K.trace_k1(**job, it0=1, n_spp=1)
     ref, _ = K.trace_plain(**job, it0=1, n_spp=1)
     ct = masked_ct(torch, rad, ref, 0)
@@ -860,12 +902,12 @@ def k8_vs_plain(K, VJ, GC, torch, label, scene, nee, full=False):
     def args(c):
         return (job["cam"], job["mats"], job["gmat"], job["geom_types"],
                 width, height, depth, 1, 1, job["lights"], c, job["tri"],
-                job["nodes"], job["bvh_meta"])
+                job["nodes"], job["bvh_meta"], job["features"])
 
     def trace(cam, mats, gmat, lights=None):
         return K.trace_plain(cam, mats, gmat, job["geom_types"], width,
-                             height, depth, 1, 1, lights=lights,
-                             tri=job["tri"], nodes=job["nodes"],
+                             height, depth, 1, 1, features=job["features"],
+                             lights=lights, tri=job["tri"], nodes=job["nodes"],
                              bvh_meta=job["bvh_meta"])[0]
 
     rad8, got = VJ.trace_k8(*args(ct))
@@ -873,10 +915,10 @@ def k8_vs_plain(K, VJ, GC, torch, label, scene, nee, full=False):
                 for a, b in zip(got, VJ.trace_k8(*args(ct))[1]))
     same = torch.equal(rad8, rad)
     ff = GC.fireflies(rad, 1, scene.materials.emittance)
-    print(f"k8 {label} {width}x{height} d{depth} 1spp: radiance bit-equal "
-          f"to K1 {same}; two calls give the same bits {twice}; cotangent "
-          f"on {float((ct[:, 0] > 0).float().mean()):.6f} of the pixels; "
-          f"{int(ff.sum())} fireflies (radiance "
+    print(f"k8 {label} {width}x{height} d{depth} 1spp (mask {mask}): "
+          f"radiance bit-equal to K1 {same}; two calls give the same bits "
+          f"{twice}; cotangent on {float((ct[:, 0] > 0).float().mean()):.6f}"
+          f" of the pixels; {int(ff.sum())} fireflies (radiance "
           f"{[round(float(x), 4) for x in rad.amax(-1)[ff][:8]]})",
           flush=True)
     if not (same and twice):
@@ -889,7 +931,8 @@ def k8_vs_plain(K, VJ, GC, torch, label, scene, nee, full=False):
     from pathtrace_tpu_torch.render import diff as D
 
     for part, c in zip(("other pixels", "fireflies"), GC.split(ct, ff)):
-        judge = full and part == "other pixels"
+        judge = bump_nee or (nee and full and part == "other pixels")
+        share = GC.FIREFLY_SHARE if part == "fireflies" else None
         if judge:
             t0 = time.perf_counter()
             rad64, grads64 = GC.reading64(trace, tables)
@@ -905,10 +948,10 @@ def k8_vs_plain(K, VJ, GC, torch, label, scene, nee, full=False):
         _, g = VJ.trace_k8(*args(c))
         if judge:
             t0 = time.perf_counter()
-            w64, mags = grads64(c)
+            w64 = grads64(c)
             del grads64
-            print(f"  {label} {part}: the float64 gradients and their "
-                  f"terms' magnitudes {time.perf_counter() - t0:.1f} s; "
+            print(f"  {label} {part}: the float64 gradients "
+                  f"{time.perf_counter() - t0:.1f} s; "
                   f"card memory at most "
                   f"{torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB",
                   flush=True)
@@ -920,21 +963,42 @@ def k8_vs_plain(K, VJ, GC, torch, label, scene, nee, full=False):
         plain_ms = ms if plain_ms is None else plain_ms
         print(f"  {label} {part}: plain version {ms:.1f} ms", flush=True)
         if judge:
-            err = max(err, held_terms(GC, torch, f"{label} {part}", names,
-                                      g, w, w64, mags, GC.K8_TOL))
-            continue
-        err = max([err] + [float((a - b).abs().max()) for a, b in zip(g, w)])
-        held(GC, f"{label} {part}", zip(names, g), zip(names, w), GC.K8_TOL,
-             GC.FIREFLY_SHARE if part == "fireflies" else None)
+            err = max(err, held_own(GC, torch, f"{label} {part}", names,
+                                    g, w, w64, GC.K8_TOL))
+        else:
+            err = max([err] + [float((a - b).abs().max())
+                               for a, b in zip(g, w)])
+            held(GC, f"{label} {part}", zip(names, g), zip(names, w),
+                 GC.K8_TOL, share)
         if full:
             continue
-        _, g = VJ.render_vjp(scene, c, 1, 1, nee=nee)
-        _, w = VJ.render_vjp(scene, c, 1, 1, nee=nee, plain=True)
-        if scene.mesh.count and g["tri_verts"] is not None:
+        _, gp = VJ.render_vjp(scene, c, 1, 1, nee=nee)
+        _, wp = VJ.render_vjp(scene, c, 1, 1, nee=nee, plain=True)
+        if scene.mesh.count and gp["tri_verts"] is not None:
             raise RuntimeError(f"{label}: render_vjp gave tri_verts")
-        held(GC, f"{label} render_vjp {part}", D.named_leaves(g),
-             D.named_leaves(w), GC.K8_TOL,
-             GC.FIREFLY_SHARE if part == "fireflies" else None)
+        if not sections:
+            held(GC, f"{label} render_vjp {part}", D.named_leaves(gp),
+                 D.named_leaves(wp), GC.K8_TOL, share)
+            continue
+        # the tables' own bound (held_own's where they were held by it),
+        # through the packing
+        rtol, atol = GC.K8_TOL
+        extra = ([2.0 * (b.double() - b6.to(b.device)).abs() for b, b6 in
+                  zip(w, w64)] if judge else [0.0] * len(w))
+        bounds = [atol + rtol * b.abs() + x + (share or 0.0) * b.abs().max()
+                  for b, x in zip(w, extra)]
+        rows = GC.compare_chained(
+            D.named_leaves(gp), D.named_leaves(wp),
+            GC.chain_bound(scene, nee, bounds), rtol, atol)
+        for name, scale, e, ratio, need, ok in rows:
+            print(f"  {label} render_vjp {part} {name}: max |g| {scale:.6g},"
+                  f" max |diff| {e:.6g} ({ratio:.3g} of atol + rtol |g| + "
+                  f"the tables' bound through the packing at worst) "
+                  f"{'ok' if ok else 'MISS'}", flush=True)
+        missed = [row[0] for row in rows if not row[-1]]
+        if missed:
+            raise RuntimeError(f"{label} render_vjp {part}: {missed} "
+                               f"against the plain version")
     return err, plain_ms
 
 
@@ -1139,32 +1203,104 @@ def mesh_grad_main_path(ptt, K, MG, VJ, torch, mesh):
 
 def time_k8(K, VJ, B, torch, label, name, job, nee, card):
     """K8's time on ``job`` beside K1's on the same tables, 1 spp a call,
-    with its bound (K1's counted work plus ``bound.k8_extra``).  Returns
+    with its bound (K1's counted work plus ``bound.k8_extra``, the
+    sections' adjoints on the lanes the plain version tallies).  Returns
     (ms, bound ms, bound by)."""
     width, height = job["width"], job["height"]
     n_pix = width * height
     ones = torch.ones((n_pix, 3), device="cuda")
     args = (job["cam"], job["mats"], job["gmat"], job["geom_types"], width,
             height, job["depth"], 1, 1, job["lights"], ones, job["tri"],
-            job["nodes"], job["bvh_meta"])
+            job["nodes"], job["bvh_meta"], job["features"])
     ms_k8, runs_k8, (_, tabs) = median_ms(lambda: VJ.trace_k8(*args),
                                           torch, 9)
     ms_k1, runs_k1, (_, counts) = median_ms(
         lambda: K.trace_k1(**job, it0=1, n_spp=1), torch, 9)
-    ops, n_bytes = forward_work(K, B, torch, label, job)
+    ops, n_bytes, tallies = forward_work(K, B, torch, label, job)
+    if not nee:
+        tallies = {}
     extra_ops, extra_bytes = B.k8_extra(
         counts.tolist(), n_pix, sum(t.numel() for t in tabs), nee,
-        mesh=bool(job["bvh_meta"]))
+        mesh=bool(job["bvh_meta"]), sss=job["features"][6], tallies=tallies)
     bound_ms, bound_by = B.bound(ops + extra_ops, n_bytes + extra_bytes)
     print(f"time {name} {label} {width}x{height} d{job['depth']} 1spp: "
           f"kernel median {ms_k8:.4f} ms (runs "
           f"{[round(t, 4) for t in runs_k8]}), K1 on the same tables "
           f"{ms_k1:.4f} ms (runs {[round(t, 4) for t in runs_k1]}) on {card};"
           f" bound {bound_ms:.4f} ms by {bound_by} ({ops:.4g} ops of K1's "
-          f"count + {extra_ops:.4g}; {n_bytes + extra_bytes} bytes, of "
-          f"which {extra_bytes} K8's own); kernel at {bound_ms / ms_k8:.2%} "
-          f"of it; library call: none", flush=True)
+          f"count + {extra_ops:.4g}, the sections' lanes {tallies}; "
+          f"{n_bytes + extra_bytes} bytes, of which {extra_bytes} K8's "
+          f"own); kernel at {bound_ms / ms_k8:.2%} of it; library call: "
+          f"none", flush=True)
     return ms_k8, bound_ms, bound_by
+
+
+def k8_name(K, mask):
+    """The kernels line's name of K8's build of ``mask``."""
+    return kernel_name(K, mask).replace("k1_trace", "k8_vjp")
+
+
+def section_grad_main_path(ptt, K, VJ, torch, scenes):
+    """K8's section builds on the gradients' main path, launch counts reset
+    before and read after: the sections' grad step (``render_vjp`` on
+    cornell_glass 800x800 d8, NEE, a cotangent of ones, 1 spp), which must
+    launch K8 (mask 135) once and give K1's radiance, then ``render_vjp``
+    with and without NEE on each configuration of ``K8_SECTION_CONFIGS``
+    at its own size (``scenes``: label -> scene).  Returns the launches by
+    kernel name."""
+    from pathtrace_tpu_torch.render import diff as D
+
+    glass = scenes["cornell_glass"]
+    VJ.LAUNCHES.clear()
+    K.LAUNCHES.clear()
+    rad, g = ptt.render_vjp(glass, torch.ones((glass.pixel_count, 3)), 1,
+                            1, nee=True)
+    torch.cuda.synchronize()
+    step = dict(VJ.LAUNCHES)
+    mask = K.scene_mask(glass, True)
+    print(f"sections' grad step cornell_glass 800x800 d8 NEE: launches "
+          f"{step}; |d aperture| {float(g['camera'].aperture.abs()):.6g}, "
+          f"|d focal_dist| {float(g['camera'].focal_dist.abs()):.6g}, max "
+          f"|d ior| {float(g['materials'].ior.abs().max()):.6g}, max "
+          f"|d spec_exponent| "
+          f"{float(g['materials'].spec_exponent.abs().max()):.6g}",
+          flush=True)
+    if step != {mask: 1} or K.LAUNCHES:
+        raise RuntimeError(f"the sections' grad step: K8 launches {step}, "
+                           f"K1 {dict(K.LAUNCHES)}")
+    want, _ = ptt.pathtrace_batch(glass, 1, 1, nee=True)
+    K.LAUNCHES.clear()
+    if not torch.equal(rad, want):
+        raise RuntimeError("the sections' grad step: its radiance is not "
+                           "K1's")
+    if not all(float(x.abs().max()) > 0 for x in (
+            g["camera"].aperture, g["camera"].focal_dist,
+            g["materials"].ior, g["materials"].spec_exponent)):
+        raise RuntimeError("the sections' grad step: a section's own "
+                           "gradient is zero")
+    grads = [("grad step", glass, g)]
+    for label, *_ in K8_SECTION_CONFIGS:
+        scene = scenes[label]
+        ct = torch.rand((scene.pixel_count, 3),
+                        generator=torch.Generator().manual_seed(13))
+        for nee in (False, True):
+            grads.append((f"{label} NEE {nee}", scene,
+                          ptt.render_vjp(scene, ct, 1, 1, nee=nee)[1]))
+    torch.cuda.synchronize()
+    launches = {k8_name(K, m): n for m, n in VJ.LAUNCHES.items()}
+    print(f"sections' gradients' main path: launches {launches} (K1 "
+          f"{dict(K.LAUNCHES)})", flush=True)
+    for what, scene, gr in grads:
+        if scene.mesh.count and gr["tri_verts"] is not None:
+            raise RuntimeError(f"{what}: tri_verts is not None on a mesh")
+        if not all(bool(torch.isfinite(t).all()) for t in D.leaves(gr)):
+            raise RuntimeError(f"{what}: a gradient is not finite")
+    want = {k8_name(K, K.scene_mask(scenes[label], nee))
+            for label, *_ in K8_SECTION_CONFIGS for nee in (False, True)}
+    if K.LAUNCHES or set(launches) != want:
+        raise RuntimeError(f"the sections' gradients' main path: launches "
+                           f"{launches}, K1 {dict(K.LAUNCHES)}")
+    return launches
 
 
 def time_k7(K, MG, B, torch, label, name, k7_job, card):
@@ -1176,7 +1312,7 @@ def time_k7(K, MG, B, torch, label, name, k7_job, card):
     ct = torch.rand((n_pix, 3), device="cuda")
     ms_k7, runs_k7, (_, counts, _) = median_ms(
         lambda: MG.trace_k7(job, mtab, mat_of, ct, 1, 1), torch, 9)
-    ops, n_bytes = forward_work(K, B, torch, label, job)
+    ops, n_bytes, _ = forward_work(K, B, torch, label, job)
     extra_ops, extra_bytes = B.k7_extra(counts.tolist(), n_pix,
                                         mtab.shape[0])
     bound_ms, bound_by = B.bound(ops + extra_ops, n_bytes + extra_bytes)
@@ -1191,17 +1327,20 @@ def time_k7(K, MG, B, torch, label, name, k7_job, card):
 
 
 def forward_work(K, B, torch, label, job):
-    """(ops, bytes) of one sample of K1 on ``job``: the count made by
-    time_variant for ``label`` at this size, or made here."""
+    """(ops, bytes, the lanes of K8's section adjoints) of one sample of
+    K1 on ``job``: the count made by time_variant for ``label`` at this
+    size, or made here (``bound.count_work`` and its tallies)."""
     key = (label, job["width"], job["height"])
     if key not in WORK:
+        tallies = {}
         _, ops_by, bytes_by = B.count_work(
-            lambda: K.trace_plain(**job, it0=1, n_spp=1))
-        WORK[key] = (ops_by, bytes_by, small_table_bytes(torch, job))
-    ops_by, bytes_by, table_bytes = WORK[key]
+            lambda: K.trace_plain(**job, it0=1, n_spp=1), tallies)
+        WORK[key] = (ops_by, bytes_by, small_table_bytes(torch, job),
+                     tallies)
+    ops_by, bytes_by, table_bytes, tallies = WORK[key]
     return (sum(ops_by.values()),
             table_bytes + sum(bytes_by.values())
-            + 12 * job["width"] * job["height"])
+            + 12 * job["width"] * job["height"], tallies)
 
 
 def time_gradients(ptt, K, MG, VJ, B, torch, cornell, card, k7_job):
@@ -1481,6 +1620,35 @@ def main():
         card)
     phase_done("time mesh gradients")
 
+    # K8's section builds: at 64x64 d4 and at full size, with and without
+    # NEE, on the main path, and their times
+    section_scenes = {
+        label: scenes[label][0] if label in scenes else load(ptt, name, edits)
+        for label, name, edits in K8_SECTION_CONFIGS}
+    for label, *_ in K8_SECTION_CONFIGS:
+        scene = section_scenes[label]
+        small = dataclasses.replace(scene, resolution=GRAD_SMALL[0],
+                                    trace_depth=GRAD_SMALL[1])
+        for full, sc in ((False, small), (True, scene)):
+            for nee in (False, True):
+                name = k8_name(K, K.scene_mask(scene, nee))
+                grad_rows[name] = k8_vs_plain(K, VJ, GC, torch, name, sc,
+                                              nee, full)
+                phase_done(f"{name} vs plain {sc.resolution}")
+    grad_launches.update(section_grad_main_path(ptt, K, VJ, torch,
+                                                section_scenes))
+    phase_done("sections' gradients' main path")
+    section_names = []
+    for label, *_ in K8_SECTION_CONFIGS:
+        scene = section_scenes[label]
+        for nee in (False, True):
+            name = k8_name(K, K.scene_mask(scene, nee))
+            section_names.append(name)
+            grad_times[name] = time_k8(
+                K, VJ, B, torch, f"{label} NEE" if nee else label, name,
+                K.prepare(scene, "cuda", nee=nee), nee, card)
+    phase_done("time sections' gradients")
+
     print(card, flush=True)
     print(json.dumps({"kernels": [{
         "name": kernel_name(K, mask),
@@ -1546,7 +1714,8 @@ def main():
         "bound_by": grad_times[name][2],
         "library_ms": None,
     } for name in ("k7_grads", "k8_vjp", "k8_vjp+k2_nee", "k7_grads+k3_mesh",
-                   "k8_vjp+k3_mesh", "k8_vjp+k2_nee+k3_mesh")]}), flush=True)
+                   "k8_vjp+k3_mesh", "k8_vjp+k2_nee+k3_mesh",
+                   *section_names)]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

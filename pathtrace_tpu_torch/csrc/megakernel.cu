@@ -1802,9 +1802,9 @@ k7_grads(const float* __restrict__ cam_g, const float* __restrict__ mats_g,
 #endif  // PT_GRAD
 
 #if PT_VJP
-static_assert((kFeatures & ~(128u | 512u)) == 0,
-              "K8 is built for the scenes without sections, with or without NEE and BVH "
-              "meshes (masks 0, 128, 512, 640)");
+static_assert((kFeatures & ~(127u | 128u | 512u)) == 0,
+              "K8 is built for the scene sections (bits 0-6), NEE and BVH meshes: not for "
+              "Russian roulette, image textures or K3-linear");
 
 // K8 — the reverse sweep (replaces the Pallas `_vjp_kernel`, reached from
 // `render_vjp_pallas` through `_run_vjp`): per sample, the forward sweep
@@ -1820,15 +1820,36 @@ static_assert((kFeatures & ~(128u | 512u)) == 0,
 //
 // The cotangent of the radiance is ct at every bounce (the radiance only
 // adds up), so the sweep carries the cotangents of the ray (o, d) and of the
-// throughput.  Table gradients go into the block's table in shared memory,
-// exactly (fx_add), which each block adds into the global one after each
-// sample (fx_flush); fx_round rounds that to float32.  Table layout: cam 16 | mats
-// n_geoms x 24 | gmat n_geoms x 40 | lights n_lights x 128 (the packed
-// tables' own).
+// throughput (and, with SSS, of the medium).  Table gradients go into the
+// block's table in shared memory, exactly (fx_add), which each block adds
+// into the global one after each sample (fx_flush); fx_round rounds that to
+// float32.  Table layout: cam 16 | mats n_geoms x 24 | gmat n_geoms x 40 |
+// lights n_lights x 128 (the packed tables' own).
 //
-// Meshes (masks 512, 640; the reference's "carry" form of bvh_grad): the
-// forward sweep keeps each bounce's winning geom and triangle row beside
-// its state, so bounce_adj walks no BVH: it recomputes the carried
+// The sections (bits 0-6 of the mask), each adjoint beside its forward
+// code, every choice detached as the reference's selects are:
+// * depth of field: the thin lens in raygen's adjoint (aperture cam[14],
+//   focal distance cam[15]; the lens draws are constants);
+// * motion: every hit and shadow test at origin - time velocity, the hit
+//   point moved back by time velocity (gmat 33..35, the lights' 120..122);
+//   the time is drawn again, not stored;
+// * checker: the albedo row is the checker's (mats 12..14) on odd cells, for
+//   the emission, the diffuse and refraction tints and NEE;
+// * bump: the tilted normal's adjoint (bump_adj) to the geometric normal,
+//   the object-space hit point, bump scale and strength (mats 15, 16) and
+//   the inverse-transpose (gmat 24..32);
+// * imperfect specular: the power-cosine lobe about the mirror direction
+//   (spec_lobe_adj; the exponent, mats 6, through pow(u, 1/(m+1)));
+// * glass: Schlick's choice detached; the mirror, or Snell's direction
+//   (ior, mats 9) and the push past the interface (gmat 36); no NEE on it;
+// * SSS: the medium (sigma, albedo rgb) is state, kept in Saved and carried
+//   by the cotangent: an inside scatter's free path moves the ray's origin
+//   (sigma) and tints by the medium's albedo; entering a medium loads mats
+//   17..20.
+//
+// Meshes (masks with bit 512; the reference's "carry" form of bvh_grad):
+// the forward sweep keeps each bounce's winning geom and triangle row
+// beside its state, so bounce_adj walks no BVH: it recomputes the carried
 // triangle's hit (tri_hit) and differentiates it (tri_adj).  The row, the
 // face it shows and the winner are detached, as the reference's carried
 // row is: the triangles get no gradient (render_vjp returns tri_verts
@@ -1842,21 +1863,37 @@ static_assert((kFeatures & ~(128u | 512u)) == 0,
 // nearest hit of a primitive is traced again in bounce_adj, and the threads
 // of a block that hit one geom serialise on its rows' shared atomics.
 constexpr int kVjpMaxDepth = 32;
+// raygen's camera gradients: pos, view, right, up, tan (and the lens)
+constexpr int kCamGrads = kDof ? 16 : 14;
 
 // The state entering a bounce; in the mesh builds also the winner its
-// fold found (geom; triangle row, -1: a primitive or none).
-template <bool kCarry>
+// fold found (geom; triangle row, -1: a primitive or none); in the SSS
+// builds also the medium the path is in.
+template <bool kCarry, bool kMed>
 struct SavedT {
   float ox, oy, oz, dx, dy, dz, tr, tg, tb;
   bool live, emit_ok;
 };
 template <>
-struct SavedT<true> {
+struct SavedT<true, false> {
   float ox, oy, oz, dx, dy, dz, tr, tg, tb;
   bool live, emit_ok;
   int geom, row;
 };
-using Saved = SavedT<kMesh>;
+template <>
+struct SavedT<false, true> {
+  float ox, oy, oz, dx, dy, dz, tr, tg, tb;
+  bool live, emit_ok;
+  float med_s, med_r, med_g, med_b;
+};
+template <>
+struct SavedT<true, true> {
+  float ox, oy, oz, dx, dy, dz, tr, tg, tb;
+  bool live, emit_ok;
+  int geom, row;
+  float med_s, med_r, med_g, med_b;
+};
+using Saved = SavedT<kMesh, kSss>;
 
 template <typename S>
 __device__ __forceinline__ void keep_winner(S& sv, const PathState& p) {
@@ -1866,10 +1903,26 @@ __device__ __forceinline__ void keep_winner(S& sv, const PathState& p) {
   }
 }
 
-// The cotangents of the ray and the throughput a bounce hands on.
-struct Cot {
+template <typename S>
+__device__ __forceinline__ void keep_medium(S& sv, const PathState& p) {
+  if constexpr (kSss) {
+    sv.med_s = p.med_s;
+    sv.med_r = p.med_r;
+    sv.med_g = p.med_g;
+    sv.med_b = p.med_b;
+  }
+}
+
+// The cotangents of the ray and the throughput a bounce hands on, and in
+// the SSS builds of the medium (sigma ms, albedo m).
+struct CotRay {
   float o[3], d[3], t[3];
 };
+struct CotMed {
+  float o[3], d[3], t[3];
+  float ms, m[3];
+};
+using Cot = std::conditional_t<kSss, CotMed, CotRay>;
 
 struct GradTab {
   Fx cam;
@@ -1898,34 +1951,76 @@ __device__ __forceinline__ void cross_add(const float* a, const float* b, float*
   c[2] += a[0] * b[1] - a[1] * b[0];
 }
 
+// The origin a winner's object ray starts from: o, or (motion) o moved back
+// by time * the geom's velocity (gmat row m, 33..35).
+__device__ __forceinline__ void moved_origin(const float* m, const float* o, float time,
+                                             float* go) {
+  for (int k = 0; k < 3; ++k) go[k] = o[k];
+  if constexpr (kMotion) {
+    for (int k = 0; k < 3; ++k) go[k] = o[k] - time * m[33 + k];
+  }
+}
+
 // The adjoint of a winner's object ray, rd = normalize(rdr), rdr = M^-1 d,
-// ro = M^-1 o + the inverse's translation (gmat row m, 12..23): from the
-// cotangents g_ro, g_rd (g_rd is overwritten), adds the ray's into c.o,
-// c.d and the inverse's into tg.
-__device__ __forceinline__ void ray_adj(const float* m, const float* o, const float* d,
+// ro = M^-1 go + the inverse's translation (gmat row m, 12..23), go the
+// origin moved back by time * velocity (motion; o itself otherwise): from
+// the cotangents g_ro, g_rd (g_rd is overwritten), adds the ray's into
+// c.o, c.d and the inverse's (and the velocity's) into tg.
+template <typename C>
+__device__ __forceinline__ void ray_adj(const float* m, const float* go, const float* d,
                                         const float* rdr, const float* g_ro, float* g_rd,
-                                        const Fx& tg, Cot& c) {
+                                        float time, const Fx& tg, C& c) {
   normalize3_adj(rdr[0], rdr[1], rdr[2], g_rd);
+  float g_go[3] = {0.f, 0.f, 0.f};
   for (int i = 0; i < 3; ++i) {
     for (int j = 0; j < 3; ++j) {
-      gadd(tg + 12 + 4 * i + j, g_ro[i] * o[j] + g_rd[i] * d[j]);
-      c.o[j] += m[12 + 4 * i + j] * g_ro[i];
+      gadd(tg + 12 + 4 * i + j, g_ro[i] * go[j] + g_rd[i] * d[j]);
+      g_go[j] += m[12 + 4 * i + j] * g_ro[i];
       c.d[j] += m[12 + 4 * i + j] * g_rd[i];
     }
     gadd(tg + 12 + 4 * i + 3, g_ro[i]);
   }
+  for (int j = 0; j < 3; ++j) {
+    c.o[j] += g_go[j];
+    // go = o - time * velocity
+    if constexpr (kMotion) gadd(tg + 33 + j, -g_go[j] * time);
+  }
+}
+
+// The adjoint of the world hit point p = F q + t (+ time * velocity with
+// motion) to the forward rows and the velocity (tg) and, into g_q, to the
+// object-space point q; gq (bump builds) adds the point's own cotangent.
+__device__ __forceinline__ void point_adj(const float* m, const float* q, const float* gp,
+                                          const float* gq, float time, const Fx& tg,
+                                          float* g_q) {
+  for (int j = 0; j < 3; ++j) g_q[j] = m[j] * gp[0] + m[4 + j] * gp[1] + m[8 + j] * gp[2];
+  if constexpr (kBump) {
+    for (int j = 0; j < 3; ++j) g_q[j] += gq[j];
+  }
+  for (int i = 0; i < 3; ++i) {
+    for (int j = 0; j < 3; ++j) gadd(tg + 4 * i + j, gp[i] * q[j]);
+    gadd(tg + 4 * i + 3, gp[i]);
+  }
+  if constexpr (kMotion) {
+    for (int i = 0; i < 3; ++i) gadd(tg + 33 + i, gp[i] * time);
+  }
 }
 
 // The winner's hit (nearest<false>'s sphere and cube sections, for geom row
-// m of type `type`) from the ray (o, d): recomputed, then its adjoint.  gp,
-// gn: the cotangents of the world hit point and normal; adds the ray's into
-// c.o, c.d and the row's into tg (the geom's gmat gradient row).  The slab
-// and root choices are detached, as the reference's selects are.
-__device__ void hit_adj(const float* m, int type, const float* o, const float* d,
-                        const float* gp, const float* gn, const Fx& tg, Cot& c) {
-  const float ro[3] = {m[12] * o[0] + m[13] * o[1] + m[14] * o[2] + m[15],
-                       m[16] * o[0] + m[17] * o[1] + m[18] * o[2] + m[19],
-                       m[20] * o[0] + m[21] * o[1] + m[22] * o[2] + m[23]};
+// m of type `type`) from the ray (o, d) at shutter time `time`: recomputed,
+// then its adjoint.  gp, gn, gq: the cotangents of the world hit point, the
+// normal and (bump builds) the object-space point; adds the ray's into c.o,
+// c.d and the row's into tg (the geom's gmat gradient row).  The slab and
+// root choices are detached, as the reference's selects are.
+template <typename C>
+__device__ void hit_adj(const float* m, int type, const float* o, const float* d, float time,
+                        const float* gp, const float* gn, const float* gq, const Fx& tg,
+                        C& c) {
+  float go[3];
+  moved_origin(m, o, time, go);
+  const float ro[3] = {m[12] * go[0] + m[13] * go[1] + m[14] * go[2] + m[15],
+                       m[16] * go[0] + m[17] * go[1] + m[18] * go[2] + m[19],
+                       m[20] * go[0] + m[21] * go[1] + m[22] * go[2] + m[23]};
   const float rdr[3] = {m[12] * d[0] + m[13] * d[1] + m[14] * d[2],
                         m[16] * d[0] + m[17] * d[1] + m[18] * d[2],
                         m[20] * d[0] + m[21] * d[1] + m[22] * d[2]};
@@ -1948,13 +2043,8 @@ __device__ void hit_adj(const float* m, int type, const float* o, const float* d
     for (int i = 0; i < 3; ++i)
       nr[i] = m[24 + 3 * i] * q[0] + m[25 + 3 * i] * q[1] + m[26 + 3 * i] * q[2];
     const float flip = both_pos ? 1.f : -1.f;
-    // p = F q + t
     float g_q[3];
-    for (int j = 0; j < 3; ++j) g_q[j] = m[j] * gp[0] + m[4 + j] * gp[1] + m[8 + j] * gp[2];
-    for (int i = 0; i < 3; ++i) {
-      for (int j = 0; j < 3; ++j) gadd(tg + 4 * i + j, gp[i] * q[j]);
-      gadd(tg + 4 * i + 3, gp[i]);
-    }
+    point_adj(m, q, gp, gq, time, tg, g_q);
     // n = flip * normalize(N q), N the inverse-transpose rows
     float g_nr[3] = {gn[0] * flip, gn[1] * flip, gn[2] * flip};
     normalize3_adj(nr[0], nr[1], nr[2], g_nr);
@@ -2004,13 +2094,8 @@ __device__ void hit_adj(const float* m, int type, const float* o, const float* d
     const float sgn = inside ? nmax : nmin;
     const float tofs = t_use - kRayOffset;
     for (int k = 0; k < 3; ++k) q[k] = ro[k] + tofs * rd[k];
-    // p = F q + t
     float g_q[3];
-    for (int j = 0; j < 3; ++j) g_q[j] = m[j] * gp[0] + m[4 + j] * gp[1] + m[8 + j] * gp[2];
-    for (int i = 0; i < 3; ++i) {
-      for (int j = 0; j < 3; ++j) gadd(tg + 4 * i + j, gp[i] * q[j]);
-      gadd(tg + 4 * i + 3, gp[i]);
-    }
+    point_adj(m, q, gp, gq, time, tg, g_q);
     // n = normalize(F n_obj), n_obj = sgn on axis a (the forward quirk)
     float g_nr[3] = {gn[0], gn[1], gn[2]};
     normalize3_adj(m[a] * sgn, m[4 + a] * sgn, m[8 + a] * sgn, g_nr);
@@ -2024,20 +2109,24 @@ __device__ void hit_adj(const float* m, int type, const float* o, const float* d
     g_ro[a] += -g_t / rd[a];
     g_rd[a] += -g_t * t_use / rd[a];
   }
-  ray_adj(m, o, d, rdr, g_ro, g_rd, tg, c);
+  ray_adj(m, go, d, rdr, g_ro, g_rd, time, tg, c);
 }
 
-// The adjoint of tri_hit, beside hit_adj's: gp, gn the cotangents of the
-// world hit point and normal; adds the ray's into c.o, c.d and the geom
-// row's into tg.  The triangle's row and the face it shows are detached.
-// Moller-Trumbore's distance tt = (e2 . qv) / det, qv = (ro - v0) x e1,
-// det = (rd x e2) . e1, is differentiated step by step, as autograd
-// takes the plain version's.
+// The adjoint of tri_hit, beside hit_adj's: gp, gn, gq the cotangents of
+// the world hit point, the normal and (bump builds) the object-space point;
+// adds the ray's into c.o, c.d and the geom row's into tg.  The triangle's
+// row and the face it shows are detached.  Moller-Trumbore's distance tt =
+// (e2 . qv) / det, qv = (ro - v0) x e1, det = (rd x e2) . e1, is
+// differentiated step by step, as autograd takes the plain version's.
+template <typename C>
 __device__ void tri_adj(const float* m, const float4* t, const float* o, const float* d,
-                        const float* gp, const float* gn, const Fx& tg, Cot& c) {
-  const float ro[3] = {m[12] * o[0] + m[13] * o[1] + m[14] * o[2] + m[15],
-                       m[16] * o[0] + m[17] * o[1] + m[18] * o[2] + m[19],
-                       m[20] * o[0] + m[21] * o[1] + m[22] * o[2] + m[23]};
+                        float time, const float* gp, const float* gn, const float* gq,
+                        const Fx& tg, C& c) {
+  float go[3];
+  moved_origin(m, o, time, go);
+  const float ro[3] = {m[12] * go[0] + m[13] * go[1] + m[14] * go[2] + m[15],
+                       m[16] * go[0] + m[17] * go[1] + m[18] * go[2] + m[19],
+                       m[20] * go[0] + m[21] * go[1] + m[22] * go[2] + m[23]};
   const float rdr[3] = {m[12] * d[0] + m[13] * d[1] + m[14] * d[2],
                         m[16] * d[0] + m[17] * d[1] + m[18] * d[2],
                         m[20] * d[0] + m[21] * d[1] + m[22] * d[2]};
@@ -2058,13 +2147,8 @@ __device__ void tri_adj(const float* m, const float4* t, const float* o, const f
   const float flip = rd[0] * no[0] + rd[1] * no[1] + rd[2] * no[2] < 0.f ? 1.f : -1.f;
   for (int i = 0; i < 3; ++i)
     nr[i] = (m[24 + 3 * i] * no[0] + m[25 + 3 * i] * no[1] + m[26 + 3 * i] * no[2]) * flip;
-  // p = F q + t
   float g_q[3];
-  for (int j = 0; j < 3; ++j) g_q[j] = m[j] * gp[0] + m[4 + j] * gp[1] + m[8 + j] * gp[2];
-  for (int i = 0; i < 3; ++i) {
-    for (int j = 0; j < 3; ++j) gadd(tg + 4 * i + j, gp[i] * q[j]);
-    gadd(tg + 4 * i + 3, gp[i]);
-  }
+  point_adj(m, q, gp, gq, time, tg, g_q);
   // n = normalize(flip N n_obj), N the inverse-transpose rows
   float g_nr[3] = {gn[0], gn[1], gn[2]};
   normalize3_adj(nr[0], nr[1], nr[2], g_nr);
@@ -2085,19 +2169,133 @@ __device__ void tri_adj(const float* m, const float4* t, const float* o, const f
   const float g_pv[3] = {g_det * e1[0], g_det * e1[1], g_det * e1[2]};
   cross_add(e1, g_qv, g_ro);
   cross_add(e2, g_pv, g_rd);
-  ray_adj(m, o, d, rdr, g_ro, g_rd, tg, c);
+  ray_adj(m, go, d, rdr, g_ro, g_rd, time, tg, c);
 }
 
-// The adjoint of nee_add at hit h (shading normal n, material row mt, the
-// path's throughput tr entering the bounce): for each light whose sample is
-// seen, the gradient of ct . (tr * albedo * emission / pi * cos cos' / r^2 *
-// area) to the throughput (g_t), the hit point (gp), the normal (gn), the
-// albedo (gm: the geom's mats gradient row) and the light's row.  The
-// shadow rays walk the mesh tables again, as the forward's did.
-__device__ void nee_adj(const float* tr, const Hit& h, const float* n, const float* mt,
-                        uint32_t it, uint32_t pix, uint32_t dep, const Tables& s, const Mesh mesh,
-                        const float* ct, float* g_t, float* gp, float* gn, const Fx& gm,
-                        const GradTab& G) {
+// The adjoint of bump_perturb (BUMP: the normal n0 tilted by the gradient of
+// h = sin(w qx) sin(w qy) sin(w qz), w = 2 pi bs, through the
+// inverse-transpose t): from the cotangent g_n of the tilted normal, adds
+// into g_n0 (the geometric normal), g_q (the object-space point), gm (the
+// geom's mats gradient row: bump scale 15, strength 16) and gt (its gmat
+// gradient row from column 24).
+__device__ void bump_adj(const float* n0, const float* q, float bs, float bk, const float* t,
+                         const float* g_n, float* g_n0, float* g_q, const Fx& gm,
+                         const Fx& gt) {
+  const float w = bs * kTwoPi;
+  const float ph = 0.5f;
+  float sn[3], cs[3];
+  for (int k = 0; k < 3; ++k) {
+    sn[k] = sinf(w * q[k] + ph);
+    cs[k] = cosf(w * q[k] + ph);
+  }
+  // the object-space gradient of h, then through t
+  const float go[3] = {w * cs[0] * sn[1] * sn[2], w * sn[0] * cs[1] * sn[2],
+                       w * sn[0] * sn[1] * cs[2]};
+  float g[3];
+  for (int i = 0; i < 3; ++i) g[i] = t[3 * i] * go[0] + t[3 * i + 1] * go[1] + t[3 * i + 2] * go[2];
+  const float gdn = g[0] * n0[0] + g[1] * n0[1] + g[2] * n0[2];
+  float tv[3], pr[3];
+  for (int k = 0; k < 3; ++k) {
+    tv[k] = g[k] - gdn * n0[k];
+    pr[k] = n0[k] - bk * tv[k];
+  }
+  // n = normalize(n0 - bk (g - (g . n0) n0))
+  float g_pr[3] = {g_n[0], g_n[1], g_n[2]};
+  normalize3_adj(pr[0], pr[1], pr[2], g_pr);
+  const float g_bk = -(g_pr[0] * tv[0] + g_pr[1] * tv[1] + g_pr[2] * tv[2]);
+  float g_g[3];
+  for (int k = 0; k < 3; ++k) {
+    const float g_tv = -bk * g_pr[k];
+    g_n0[k] += g_pr[k] - gdn * g_tv;
+    g_g[k] = g_tv;
+  }
+  const float g_gdn = -(g_g[0] * n0[0] + g_g[1] * n0[1] + g_g[2] * n0[2]);
+  float g_go[3] = {0.f, 0.f, 0.f};
+  for (int k = 0; k < 3; ++k) {
+    g_g[k] += g_gdn * n0[k];
+    g_n0[k] += g_gdn * g[k];
+  }
+  for (int i = 0; i < 3; ++i)
+    for (int j = 0; j < 3; ++j) {
+      gadd(gt + 3 * i + j, g_g[i] * go[j]);
+      g_go[j] += t[3 * i + j] * g_g[i];
+    }
+  // go = w (c0 s1 s2, s0 c1 s2, s0 s1 c2)
+  float g_w = g_go[0] * cs[0] * sn[1] * sn[2] + g_go[1] * sn[0] * cs[1] * sn[2] +
+              g_go[2] * sn[0] * sn[1] * cs[2];
+  const float g_sn[3] = {w * (g_go[1] * cs[1] * sn[2] + g_go[2] * sn[1] * cs[2]),
+                         w * (g_go[0] * cs[0] * sn[2] + g_go[2] * sn[0] * cs[2]),
+                         w * (g_go[0] * cs[0] * sn[1] + g_go[1] * sn[0] * cs[1])};
+  const float g_cs[3] = {w * g_go[0] * sn[1] * sn[2], w * g_go[1] * sn[0] * sn[2],
+                         w * g_go[2] * sn[0] * sn[1]};
+  for (int k = 0; k < 3; ++k) {
+    // the phase w q + ph
+    const float g_a = g_sn[k] * cs[k] - g_cs[k] * sn[k];
+    g_w += g_a * q[k];
+    g_q[k] += g_a * w;
+  }
+  gadd(gm + 15, g_w * kTwoPi);
+  gadd(gm + 16, g_bk);
+}
+
+// The adjoint of imperfect_specular (the power-cosine lobe about the mirror
+// direction mr, exponent m_ex > 0): from the cotangent g of the lobe's
+// direction, writes the cotangent of mr into g_mr and adds the exponent's
+// into ge (mats 6).
+__device__ void spec_lobe_adj(float m_ex, const float* mr, float u_s1, float u_s2,
+                              const float* g, float* g_mr, const Fx& ge) {
+  const float n1 = 1.f / (m_ex + 1.f);
+  const float base = fmaxf(u_s1, 1e-12f);
+  const float cos_t = powf(base, n1);
+  const float one_m = 1.f - cos_t * cos_t;
+  const float sin_t = sqrtf(fmaxf(one_m, 0.f));
+  const float phi = u_s2 * kTwoPi;
+  const bool use_x = fabsf(mr[0]) < kSqrtThird;
+  const bool use_y = !use_x && fabsf(mr[1]) < kSqrtThird;
+  const float nm[3] = {use_x ? 1.f : 0.f, use_y ? 1.f : 0.f, (use_x || use_y) ? 0.f : 1.f};
+  float c1[3] = {0.f, 0.f, 0.f};
+  cross_add(mr, nm, c1);
+  float q1[3] = {c1[0], c1[1], c1[2]};
+  normalize3(q1[0], q1[1], q1[2]);
+  float c2[3] = {0.f, 0.f, 0.f};
+  cross_add(mr, q1, c2);
+  float q2[3] = {c2[0], c2[1], c2[2]};
+  normalize3(q2[0], q2[1], q2[2]);
+  const float cp = cosf(phi), sp = sinf(phi);
+  // out = cos_t mr + cp sin_t q1 + sp sin_t q2
+  float g_cos = 0.f, g_q1d = 0.f, g_q2d = 0.f, g_q1[3], g_c2[3];
+  for (int k = 0; k < 3; ++k) {
+    g_mr[k] = cos_t * g[k];
+    g_cos += g[k] * mr[k];
+    g_q1d += g[k] * q1[k];
+    g_q2d += g[k] * q2[k];
+    g_q1[k] = cp * sin_t * g[k];
+    g_c2[k] = sp * sin_t * g[k];
+  }
+  const float g_sin = cp * g_q1d + sp * g_q2d;
+  // q2 = normalize(mr x q1), q1 = normalize(mr x nm)
+  normalize3_adj(c2[0], c2[1], c2[2], g_c2);
+  cross_add(q1, g_c2, g_mr);
+  cross_add(g_c2, mr, g_q1);
+  normalize3_adj(c1[0], c1[1], c1[2], g_q1);
+  cross_add(nm, g_q1, g_mr);
+  // sin_t = sqrt(max(1 - cos_t^2, 0)), cos_t = base^n1, n1 = 1 / (m + 1)
+  if (one_m >= 0.f) g_cos += -2.f * cos_t * (g_sin * 0.5f / sin_t);
+  const float g_n1 = g_cos * (cos_t * logf(base));
+  gadd(ge, -g_n1 * (n1 * n1));
+}
+
+// The adjoint of nee_add at hit h (shading normal n, albedo row al, the
+// path's throughput tr entering the bounce, shutter time `time`): for each
+// light whose sample is seen, the gradient of ct . (tr * albedo * emission
+// / pi * cos cos' / r^2 * area) to the throughput (g_t), the hit point
+// (gp), the normal (gn), the albedo (ga: the albedo row's gradient entries)
+// and the light's row.  The shadow rays walk the mesh tables again, as the
+// forward's did.
+__device__ void nee_adj(const float* tr, const Hit& h, const float* n, const float* al,
+                        float time, uint32_t it, uint32_t pix, uint32_t dep, const Tables& s,
+                        const Mesh mesh, const float* ct, float* g_t, float* gp, float* gn,
+                        const Fx& ga, const GradTab& G) {
   for (int k = 0; k < s.n_lights; ++k) {
     const float* lr = s.lights + k * kLightCols;
     const Fx gl = G.lights + k * kLightCols;
@@ -2135,13 +2333,17 @@ __device__ void nee_adj(const float* tr, const Hit& h, const float* n, const flo
       }
       w_area = lr[5];
     }
+    if constexpr (kMotion) {
+      // a moving light: the sample point at the ray's time
+      for (int i = 0; i < 3; ++i) lp[i] = lp[i] + time * lr[120 + i];
+    }
     const float wl[3] = {lp[0] - h.px, lp[1] - h.py, lp[2] - h.pz};
     const float r2 = wl[0] * wl[0] + wl[1] * wl[1] + wl[2] * wl[2];
     const float r2_safe = fmaxf(r2, 1e-8f);
     const float dist_l = sqrtf(fmaxf(r2, 1e-12f));
     const float inv_dl = 1.f / dist_l;
     const float sd[3] = {wl[0] * inv_dl, wl[1] * inv_dl, wl[2] * inv_dl};
-    const Hit sh = nearest<true>(h.px, h.py, h.pz, sd[0], sd[1], sd[2], 0.f, s.gmat, s.types,
+    const Hit sh = nearest<true>(h.px, h.py, h.pz, sd[0], sd[1], sd[2], time, s.gmat, s.types,
                                  s.n_geoms, mesh);
     const float tol = fmaxf(1e-3f, 5e-3f * dist_l);
     if (sh.geom != static_cast<int>(lr[0]) || !(fabsf(sh.dist - dist_l) < tol)) continue;
@@ -2153,10 +2355,10 @@ __device__ void nee_adj(const float* tr, const Hit& h, const float* n, const flo
     float g_g = 0.f;
     for (int c = 0; c < 3; ++c) {
       const float e = kInvPi * lr[2 + c];
-      g_t[c] += ct[c] * mt[c] * e * gterm;
-      gadd(gm + c, ct[c] * tr[c] * e * gterm);
-      gadd(gl + 2 + c, ct[c] * tr[c] * mt[c] * gterm * kInvPi);
-      g_g += ct[c] * tr[c] * mt[c] * e;
+      g_t[c] += ct[c] * al[c] * e * gterm;
+      gadd(ga + c, ct[c] * tr[c] * e * gterm);
+      gadd(gl + 2 + c, ct[c] * tr[c] * al[c] * gterm * kInvPi);
+      g_g += ct[c] * tr[c] * al[c] * e;
     }
     // gterm = cos_s cos_l / r2_safe * area
     const float g_cs = cs_raw >= 0.f ? g_g * cos_l / r2_safe * w_area : 0.f;
@@ -2179,6 +2381,9 @@ __device__ void nee_adj(const float* tr, const Hit& h, const float* n, const flo
     for (int i = 0; i < 3; ++i) {
       g_lp[i] = g_sd[i] * inv_dl + 2.f * g_r2 * wl[i];
       gp[i] -= g_lp[i];
+    }
+    if constexpr (kMotion) {
+      for (int i = 0; i < 3; ++i) gadd(gl + 120 + i, g_lp[i] * time);
     }
     if (sphere) {
       // lp = M (w / 2) + c; ln = normalize(N w); area = pi |det| |N w|
@@ -2207,47 +2412,81 @@ __device__ void nee_adj(const float* tr, const Hit& h, const float* n, const flo
   }
 }
 
-// The hit of the winner of the bounce that started from sv: the carried
-// triangle's (tri_hit, whose row goes to *wt), else the primitives' fold
-// again (no mesh walked), whose winner is the forward's.
+// The hit of the winner of the bounce that started from sv at shutter time
+// `time`: the carried triangle's (tri_hit, whose row goes to *wt), else the
+// primitives' fold again (no mesh walked), whose winner is the forward's.
 template <typename S, typename M>
-__device__ __forceinline__ Hit winner_hit(const S& sv, const Tables& s, const M& mesh,
-                                          const float4** wt) {
+__device__ __forceinline__ Hit winner_hit(const S& sv, float time, const Tables& s,
+                                          const M& mesh, const float4** wt) {
   *wt = nullptr;
   if constexpr (kMesh) {
     if (sv.row >= 0) {
       *wt = mesh.tri + static_cast<long long>(kTriF4) * sv.row;
       return tri_hit<false>(s.gmat + sv.geom * kGeomCols, sv.geom, *wt, sv.row, sv.ox, sv.oy,
-                            sv.oz, sv.dx, sv.dy, sv.dz, 0.f);
+                            sv.oz, sv.dx, sv.dy, sv.dz, time);
     }
   }
-  return nearest<false>(sv.ox, sv.oy, sv.oz, sv.dx, sv.dy, sv.dz, 0.f, s.gmat, s.types,
+  return nearest<false>(sv.ox, sv.oy, sv.oz, sv.dx, sv.dy, sv.dz, time, s.gmat, s.types,
                         s.n_geoms, M(nullptr, nullptr, nullptr, 0));
 }
 
-// The adjoint of bounce d on the state s it started from: c holds the
-// cotangents of the ray and throughput the bounce handed on, and on return
-// those of the ones it was given; table gradients go to G.  A path that was
-// dead, missed or ended on a light hands its ray and throughput on
-// unchanged.
-__device__ void bounce_adj(const Saved& sv, int d, uint32_t it, uint32_t pix, const Tables& s,
-                           const Mesh mesh, const float* ct, Cot& c, const GradTab& G) {
+// The adjoint of the mirror d' = d - 2 (n . d) n: from g_dn, the
+// cotangent of d', adds into c_d (of d) and gn (of n).
+__device__ __forceinline__ void mirror_adj(const float* n, const float* dd, const float* g_dn,
+                                           float* c_d, float* gn) {
+  const float ndoti = n[0] * dd[0] + n[1] * dd[1] + n[2] * dd[2];
+  const float gdn = g_dn[0] * n[0] + g_dn[1] * n[1] + g_dn[2] * n[2];
+  for (int k = 0; k < 3; ++k) {
+    c_d[k] += g_dn[k] - 2.f * n[k] * gdn;
+    gn[k] += -2.f * dd[k] * gdn - 2.f * ndoti * g_dn[k];
+  }
+}
+
+// The adjoint of bounce d on the state sv it started from (shutter time
+// `time`): c holds the cotangents of the ray, the throughput (and the
+// medium) the bounce handed on, and on return those of the ones it was
+// given; table gradients go to G.  A path that was dead, missed or ended on
+// a light hands its ray and throughput on unchanged.
+template <typename S, typename C>
+__device__ void bounce_adj(const S& sv, int d, uint32_t it, uint32_t pix, float time,
+                           const Tables& s, const Mesh mesh, const float* ct, C& c,
+                           const GradTab& G) {
   if (!sv.live) return;
   const float4* wt;
-  const Hit h = winner_hit(sv, s, mesh, &wt);
+  const Hit h = winner_hit(sv, time, s, mesh, &wt);
   if (h.geom < 0) return;
   const float* mt = s.mats + h.geom * kMatCols;
+  const float* gmr = s.gmat + h.geom * kGeomCols;
   const Fx gm = G.mats + h.geom * kMatCols;
+  const Fx gg = G.gmat + h.geom * kGeomCols;
   const float tr[3] = {sv.tr, sv.tg, sv.tb};
+  // the winner's albedo row (checker: mats 12..14 on odd cells) and
+  // shading normal (bump), as bounce computes them
+  int alb = 0;
+  if constexpr (kChecker) {
+    const float cs = mt[11];
+    const float ph = 0.015625f;
+    const float cells = floorf(h.qx * cs - ph) + floorf(h.qy * cs - ph) +
+                        floorf(h.qz * cs - ph);
+    if (cs > 0.f && cells - 2.f * floorf(cells * 0.5f) >= 1.f) alb = 12;
+  }
+  const float* al = mt + alb;
+  const Fx ga = gm + alb;
+  [[maybe_unused]] const float n0[3] = {h.nx, h.ny, h.nz};
+  float n[3] = {h.nx, h.ny, h.nz};
+  [[maybe_unused]] const bool bumped = kBump && mt[16] > 0.f;
+  if constexpr (kBump) {
+    if (bumped) bump_perturb(n[0], n[1], n[2], h.qx, h.qy, h.qz, mt[15], mt[16], gmr + 24);
+  }
   const float emit = mt[10];
   if (emit > 0.f) {
     if (!kNee || sv.emit_ok) {
       // rad += tr * albedo * emit
       float g_e = 0.f;
       for (int k = 0; k < 3; ++k) {
-        c.t[k] += ct[k] * mt[k] * emit;
-        gadd(gm + k, ct[k] * tr[k] * emit);
-        g_e += ct[k] * tr[k] * mt[k];
+        c.t[k] += ct[k] * al[k] * emit;
+        gadd(ga + k, ct[k] * tr[k] * emit);
+        g_e += ct[k] * tr[k] * al[k];
       }
       gadd(gm + 10, g_e);
     }
@@ -2256,81 +2495,190 @@ __device__ void bounce_adj(const Saved& sv, int d, uint32_t it, uint32_t pix, co
   const uint32_t dep = static_cast<uint32_t>(d) + 1u;
   const float o[3] = {sv.ox, sv.oy, sv.oz};
   const float dd[3] = {sv.dx, sv.dy, sv.dz};
-  const float n[3] = {h.nx, h.ny, h.nz};
-  // what the bounce handed on: o' = the hit point, d' = the lobe's
-  // direction, t' = t * tint / p_safe
+  if constexpr (kSss) {
+    // inside a medium, a free path shorter than the surface scatters the
+    // path there: o' = o + step d, d' a constant, t' = t * the medium's
+    // albedo, step = -log(max(1 - u, 1e-7)) / max(sigma, 1e-8)
+    const bool in_med = sv.med_s > 0.f;
+    const float u_step = pt::uniform(it, pix, dep, pt::kDrawSssStep);
+    const float m_s = fmaxf(sv.med_s, 1e-8f);
+    const float sss_step = -logf(fmaxf(1.f - u_step, 1e-7f)) / m_s;
+    if (in_med && sss_step < h.dist) {
+      const float med[3] = {sv.med_r, sv.med_g, sv.med_b};
+      float g_step = 0.f;
+      for (int k = 0; k < 3; ++k) {
+        c.m[k] += c.t[k] * tr[k];
+        c.t[k] = c.t[k] * med[k];
+        g_step += c.o[k] * dd[k];
+        c.d[k] = sss_step * c.o[k];
+      }
+      if (sv.med_s >= 1e-8f) c.ms += -g_step * (sss_step / m_s);
+      return;
+    }
+  }
+  // what the bounce handed on: o' = the hit point (past it, refracted),
+  // d' = the lobe's direction, t' = t * tint (/ p_safe)
   float gp[3] = {c.o[0], c.o[1], c.o[2]};
-  const float g_dn[3] = {c.d[0], c.d[1], c.d[2]};
+  float g_dn[3] = {c.d[0], c.d[1], c.d[2]};
   float gn[3] = {0.f, 0.f, 0.f}, g_t[3];
   for (int k = 0; k < 3; ++k) c.o[k] = c.d[k] = 0.f;
-  const float u_lobe = pt::uniform(it, pix, dep, pt::kDrawLobe);
-  const float p_spec = fminf(fmaxf(mt[7], 0.f), 1.f);
-  const bool take_spec = u_lobe < p_spec;
-  const float sel = take_spec ? p_spec : 1.f - p_spec;
-  const float p_safe = fmaxf(sel, 1e-8f);
-  const int tint = take_spec ? 3 : 0;
-  float g_ps = 0.f;
-  for (int k = 0; k < 3; ++k) {
-    const float f = mt[tint + k] / p_safe;
-    const float g_f = c.t[k] * tr[k];
-    g_t[k] = c.t[k] * f;
-    gadd(gm + tint + k, g_f / p_safe);
-    g_ps += -g_f * f / p_safe;
-  }
-  if (sel >= 1e-8f) {
-    // p = clip(REFL, 0, 1), whose gradient the reference splits in half at
-    // the ends (jnp.clip: a maximum, then a minimum)
-    const float x = mt[7];
-    const float part = (x > 0.f && x < 1.f) ? 1.f : (x == 0.f || x == 1.f) ? 0.5f : 0.f;
-    gadd(gm + 7, part * (take_spec ? g_ps : -g_ps));
-  }
-  if (take_spec) {
-    // d' = d - 2 (n . d) n
+  if (kGlass && mt[8] > 0.f) {
+    // Fresnel glass: the choice (Schlick's, or total internal reflection)
+    // again, detached; no division by its probability
     const float ndoti = n[0] * dd[0] + n[1] * dd[1] + n[2] * dd[2];
-    const float gdn = g_dn[0] * n[0] + g_dn[1] * n[1] + g_dn[2] * n[2];
+    const float cos_i = fminf(fmaxf(-ndoti, 0.f), 1.f);
+    const float ior = mt[9];
+    const float r0b = (1.f - ior) / (1.f + ior);
+    const float r0 = r0b * r0b;
+    const float mm = fmaxf(1.f - cos_i, 0.f);
+    const float refl_p = r0 + (1.f - r0) * mm * mm * mm * mm * mm;
+    const float eta = h.outside ? 1.f / fmaxf(ior, 1e-6f) : ior;
+    const float kk = 1.f - eta * eta * (1.f - ndoti * ndoti);
+    const float u_fr = pt::uniform(it, pix, dep, pt::kDrawFresnel);
+    const bool reflect = u_fr < refl_p || !(kk >= 0.f);
+    const float* tint = reflect ? mt + 3 : al;
+    const Fx gtint = reflect ? gm + 3 : ga;
     for (int k = 0; k < 3; ++k) {
-      c.d[k] += g_dn[k] - 2.f * n[k] * gdn;
-      gn[k] += -2.f * dd[k] * gdn - 2.f * ndoti * g_dn[k];
+      g_t[k] = c.t[k] * tint[k];
+      gadd(gtint + k, c.t[k] * tr[k]);
+    }
+    if (reflect) {
+      mirror_adj(n, dd, g_dn, c.d, gn);
+    } else {
+      // d' = eta d - (eta (n . d) + sqrt(kk)) n, and the origin pushed past
+      // the interface: o' = p + push d'
+      const float sqk = sqrtf(kk);
+      const float aa = eta * ndoti + sqk;
+      float rf[3], g_push = 0.f;
+      for (int k = 0; k < 3; ++k) {
+        rf[k] = eta * dd[k] - aa * n[k];
+        g_push += gp[k] * rf[k];
+        g_dn[k] += gmr[36] * gp[k];
+      }
+      gadd(gg + 36, g_push);
+      float g_eta = 0.f, g_aa = 0.f;
+      for (int k = 0; k < 3; ++k) {
+        c.d[k] += eta * g_dn[k];
+        g_eta += g_dn[k] * dd[k];
+        g_aa -= g_dn[k] * n[k];
+        gn[k] += -aa * g_dn[k];
+      }
+      g_eta += g_aa * ndoti;
+      float g_ndoti = g_aa * eta;
+      // kk = 1 - eta^2 (1 - ndoti^2)
+      const float g_kk = g_aa * 0.5f / sqk;
+      g_eta += 2.f * eta * (-g_kk * (1.f - ndoti * ndoti));
+      g_ndoti += -2.f * ndoti * (-g_kk * (eta * eta));
+      for (int k = 0; k < 3; ++k) {
+        gn[k] += g_ndoti * dd[k];
+        c.d[k] += g_ndoti * n[k];
+      }
+      // eta = 1 / max(ior, 1e-6) entering, ior leaving
+      if (!h.outside) {
+        gadd(gm + 9, g_eta);
+      } else if (ior >= 1e-6f) {
+        gadd(gm + 9, -g_eta * (eta * eta));
+      }
+    }
+    if constexpr (kSss) {
+      // the medium changes only at refractions: entering a geom with
+      // sigma > 0 from outside (mats 17..20), or leaving from inside
+      if (!reflect) {
+        if (mt[17] > 0.f && h.outside) {
+          gadd(gm + 17, c.ms);
+          for (int k = 0; k < 3; ++k) gadd(gm + 18 + k, c.m[k]);
+          c.ms = c.m[0] = c.m[1] = c.m[2] = 0.f;
+        } else if (sv.med_s > 0.f && !h.outside) {
+          c.ms = c.m[0] = c.m[1] = c.m[2] = 0.f;
+        }
+      }
     }
   } else {
-    // d' = up n + cos(a) over p1 + sin(a) over p2 (the Peter-Kutz frame)
-    const float u_d1 = pt::uniform(it, pix, dep, pt::kDrawDiffU1);
-    const float u_d2 = pt::uniform(it, pix, dep, pt::kDrawDiffU2);
-    const float up = sqrtf(u_d1);
-    const float over = sqrtf(fmaxf(1.f - up * up, 0.f));
-    const float around = u_d2 * kTwoPi;
-    const bool use_x = fabsf(n[0]) < kSqrtThird;
-    const bool use_y = !use_x && fabsf(n[1]) < kSqrtThird;
-    const float nn[3] = {use_x ? 1.f : 0.f, use_y ? 1.f : 0.f, (use_x || use_y) ? 0.f : 1.f};
-    float c1[3] = {0.f, 0.f, 0.f};
-    cross_add(n, nn, c1);
-    float p1[3] = {c1[0], c1[1], c1[2]};
-    normalize3(p1[0], p1[1], p1[2]);
-    float c2[3] = {0.f, 0.f, 0.f};
-    cross_add(n, p1, c2);
-    const float ca = cosf(around), sa = sinf(around);
-    float g_p1[3], g_c2[3];
+    const float u_lobe = pt::uniform(it, pix, dep, pt::kDrawLobe);
+    const float p_spec = fminf(fmaxf(mt[7], 0.f), 1.f);
+    const bool take_spec = u_lobe < p_spec;
+    const float sel = take_spec ? p_spec : 1.f - p_spec;
+    const float p_safe = fmaxf(sel, 1e-8f);
+    const float* tint = take_spec ? mt + 3 : al;
+    const Fx gtint = take_spec ? gm + 3 : ga;
+    float g_ps = 0.f;
     for (int k = 0; k < 3; ++k) {
-      gn[k] += up * g_dn[k];
-      g_p1[k] = ca * over * g_dn[k];
-      g_c2[k] = sa * over * g_dn[k];
+      const float f = tint[k] / p_safe;
+      const float g_f = c.t[k] * tr[k];
+      g_t[k] = c.t[k] * f;
+      gadd(gtint + k, g_f / p_safe);
+      g_ps += -g_f * f / p_safe;
     }
-    // p2 = normalize(n x p1), p1 = normalize(n x nn)
-    normalize3_adj(c2[0], c2[1], c2[2], g_c2);
-    cross_add(p1, g_c2, gn);
-    cross_add(g_c2, n, g_p1);
-    normalize3_adj(c1[0], c1[1], c1[2], g_p1);
-    cross_add(nn, g_p1, gn);
+    if (sel >= 1e-8f) {
+      // p = clip(REFL, 0, 1), whose gradient the reference splits in half at
+      // the ends (jnp.clip: a maximum, then a minimum)
+      const float x = mt[7];
+      const float part = (x > 0.f && x < 1.f) ? 1.f : (x == 0.f || x == 1.f) ? 0.5f : 0.f;
+      gadd(gm + 7, part * (take_spec ? g_ps : -g_ps));
+    }
+    if (take_spec) {
+      // d' = d - 2 (n . d) n, or the power-cosine lobe about it
+      if constexpr (kImperfect) {
+        if (mt[6] > 0.f) {
+          const float ndoti = n[0] * dd[0] + n[1] * dd[1] + n[2] * dd[2];
+          const float mr[3] = {dd[0] - 2.f * ndoti * n[0], dd[1] - 2.f * ndoti * n[1],
+                               dd[2] - 2.f * ndoti * n[2]};
+          const float g_out[3] = {g_dn[0], g_dn[1], g_dn[2]};
+          spec_lobe_adj(mt[6], mr, pt::uniform(it, pix, dep, pt::kDrawSpecU1),
+                        pt::uniform(it, pix, dep, pt::kDrawSpecU2), g_out, g_dn, gm + 6);
+        }
+      }
+      mirror_adj(n, dd, g_dn, c.d, gn);
+    } else {
+      // d' = up n + cos(a) over p1 + sin(a) over p2 (the Peter-Kutz frame)
+      const float u_d1 = pt::uniform(it, pix, dep, pt::kDrawDiffU1);
+      const float u_d2 = pt::uniform(it, pix, dep, pt::kDrawDiffU2);
+      const float up = sqrtf(u_d1);
+      const float over = sqrtf(fmaxf(1.f - up * up, 0.f));
+      const float around = u_d2 * kTwoPi;
+      const bool use_x = fabsf(n[0]) < kSqrtThird;
+      const bool use_y = !use_x && fabsf(n[1]) < kSqrtThird;
+      const float nn[3] = {use_x ? 1.f : 0.f, use_y ? 1.f : 0.f, (use_x || use_y) ? 0.f : 1.f};
+      float c1[3] = {0.f, 0.f, 0.f};
+      cross_add(n, nn, c1);
+      float p1[3] = {c1[0], c1[1], c1[2]};
+      normalize3(p1[0], p1[1], p1[2]);
+      float c2[3] = {0.f, 0.f, 0.f};
+      cross_add(n, p1, c2);
+      const float ca = cosf(around), sa = sinf(around);
+      float g_p1[3], g_c2[3];
+      for (int k = 0; k < 3; ++k) {
+        gn[k] += up * g_dn[k];
+        g_p1[k] = ca * over * g_dn[k];
+        g_c2[k] = sa * over * g_dn[k];
+      }
+      // p2 = normalize(n x p1), p1 = normalize(n x nn)
+      normalize3_adj(c2[0], c2[1], c2[2], g_c2);
+      cross_add(p1, g_c2, gn);
+      cross_add(g_c2, n, g_p1);
+      normalize3_adj(c1[0], c1[1], c1[2], g_p1);
+      cross_add(nn, g_p1, gn);
+    }
   }
   if constexpr (kNee) {
-    if (!(mt[8] > 0.f)) nee_adj(tr, h, n, mt, it, pix, dep, s, mesh, ct, g_t, gp, gn, gm, G);
+    if (!(mt[8] > 0.f))
+      nee_adj(tr, h, n, al, time, it, pix, dep, s, mesh, ct, g_t, gp, gn, ga, G);
   }
   for (int k = 0; k < 3; ++k) c.t[k] = g_t[k];
+  [[maybe_unused]] float gq[3] = {0.f, 0.f, 0.f};
+  if constexpr (kBump) {
+    if (bumped) {
+      // the tilted normal's cotangent to the geometric normal and the point
+      const float q[3] = {h.qx, h.qy, h.qz};
+      float g_n0[3] = {0.f, 0.f, 0.f};
+      bump_adj(n0, q, mt[15], mt[16], gmr + 24, gn, g_n0, gq, gm, gg + 24);
+      for (int k = 0; k < 3; ++k) gn[k] = g_n0[k];
+    }
+  }
   if (wt != nullptr) {
-    tri_adj(s.gmat + h.geom * kGeomCols, wt, o, dd, gp, gn, G.gmat + h.geom * kGeomCols, c);
+    tri_adj(gmr, wt, o, dd, time, gp, gn, gq, gg, c);
   } else {
-    hit_adj(s.gmat + h.geom * kGeomCols, s.types[h.geom], o, dd, gp, gn,
-            G.gmat + h.geom * kGeomCols, c);
+    hit_adj(gmr, s.types[h.geom], o, dd, time, gp, gn, gq, gg, c);
   }
 }
 
@@ -2370,8 +2718,9 @@ k8_vjp(const float* __restrict__ cam_g, const float* __restrict__ mats_g,
     for (int k = 0; k < 3; ++k) ctp[k] = ct[3 * idx + k];
   }
   // raygen's gradient, summed over the samples: pos, view, right, up, tan
-  float g_cam[14];
-  for (int k = 0; k < 14; ++k) g_cam[k] = 0.f;
+  // (and the lens: aperture, focal distance)
+  float g_cam[kCamGrads];
+  for (int k = 0; k < kCamGrads; ++k) g_cam[k] = 0.f;
 
   float acc_r = 0.f, acc_g = 0.f, acc_b = 0.f;
   Saved saved[kVjpMaxDepth];
@@ -2382,6 +2731,7 @@ k8_vjp(const float* __restrict__ cam_g, const float* __restrict__ mats_g,
     init_state(p, cam, s.cam, it, pix_u, fx, fy, sx_scale, sy_scale, valid);
     for (int d = 0; d < depth; ++d) {
       saved[d] = Saved{p.ox, p.oy, p.oz, p.dx, p.dy, p.dz, p.tr, p.tg, p.tb, p.live, p.emit_ok};
+      keep_medium(saved[d], p);
       bounce(p, d, it, pix_u, s, mesh, tex);
       keep_winner(saved[d], p);
     }
@@ -2390,19 +2740,68 @@ k8_vjp(const float* __restrict__ cam_g, const float* __restrict__ mats_g,
     acc_b = acc_b + p.rb;
     if (valid) {
       // the reverse sweep: the final ray and throughput reach nothing
+      const float time = kMotion ? pt::uniform(it, pix_u, 0u, pt::kDrawTime) : 0.f;
       Cot c{};
       for (int d = depth - 1; d >= 0; --d)
-        bounce_adj(saved[d], d, it, pix_u, s, mesh, ctp, c, G);
+        bounce_adj(saved[d], d, it, pix_u, time, s, mesh, ctp, c, G);
       // raygen: o = pos, d = normalize(view - right tan_x sx - up tan_y sy)
       const float ujx = pt::uniform(it, pix_u, 0u, pt::kDrawAaX);
       const float ujy = pt::uniform(it, pix_u, 0u, pt::kDrawAaY);
       const float sx = (fx + ujx) * sx_scale - 1.f;
       const float sy = (fy + ujy) * sy_scale - 1.f;
       const float ax = cam.tan_x * sx, ay = cam.tan_y * sy;
-      float g_d[3] = {c.d[0], c.d[1], c.d[2]};
-      normalize3_adj(cam.v_x - cam.r_x * ax - cam.u_x * ay, cam.v_y - cam.r_y * ax - cam.u_y * ay,
-                     cam.v_z - cam.r_z * ax - cam.u_z * ay, g_d);
+      const float v[3] = {cam.v_x, cam.v_y, cam.v_z};
       const float r[3] = {cam.r_x, cam.r_y, cam.r_z}, u[3] = {cam.u_x, cam.u_y, cam.u_z};
+      const float raw[3] = {v[0] - r[0] * ax - u[0] * ay, v[1] - r[1] * ax - u[1] * ay,
+                            v[2] - r[2] * ax - u[2] * ay};
+      float g_d[3] = {c.d[0], c.d[1], c.d[2]};
+      if constexpr (kDof) {
+        const float aperture = s.cam[14], focal = s.cam[15];
+        if (aperture > 0.f) {
+          // the thin lens: o = pos + off, d = normalize(pf - o), pf = pos +
+          // dn ft, ft = focal / max(dn . view, 1e-6), off = right lc + up ls,
+          // (lc, ls) = aperture sqrt(u1) (cos, sin)(2 pi u2)
+          float dn[3] = {raw[0], raw[1], raw[2]};
+          normalize3(dn[0], dn[1], dn[2]);
+          const float sq1 = sqrtf(pt::uniform(it, pix_u, 0u, pt::kDrawDofU));
+          const float theta = pt::uniform(it, pix_u, 0u, pt::kDrawDofV) * kTwoPi;
+          const float r_lens = aperture * sq1;
+          const float cth = cosf(theta), sth = sinf(theta);
+          const float lc = r_lens * cth, ls = r_lens * sth;
+          const float cos_v = dn[0] * v[0] + dn[1] * v[1] + dn[2] * v[2];
+          const float cvc = fmaxf(cos_v, 1e-6f);
+          const float ft = focal / cvc;
+          const float pos[3] = {cam.pos_x, cam.pos_y, cam.pos_z};
+          float wv[3];
+          for (int k = 0; k < 3; ++k) {
+            const float pf = pos[k] + dn[k] * ft;
+            const float ok = pos[k] + (r[k] * lc + u[k] * ls);
+            wv[k] = pf - ok;
+          }
+          float g_w[3] = {c.d[0], c.d[1], c.d[2]};
+          normalize3_adj(wv[0], wv[1], wv[2], g_w);
+          float g_ft = 0.f, g_lc = 0.f, g_ls = 0.f;
+          for (int k = 0; k < 3; ++k) {
+            const float g_off = c.o[k] - g_w[k];
+            g_cam[k] += c.o[k];  // pos: through o and pf
+            g_cam[6 + k] += g_off * lc;
+            g_cam[9 + k] += g_off * ls;
+            g_lc += g_off * r[k];
+            g_ls += g_off * u[k];
+            g_ft += g_w[k] * dn[k];
+            g_d[k] = g_w[k] * ft;
+          }
+          g_cam[15] += g_ft / cvc;
+          const float g_cos = cos_v >= 1e-6f ? -g_ft * (ft / cvc) : 0.f;
+          for (int k = 0; k < 3; ++k) {
+            g_d[k] += g_cos * v[k];
+            g_cam[3 + k] += g_cos * dn[k];
+          }
+          g_cam[14] += (g_lc * cth + g_ls * sth) * sq1;
+          for (int k = 0; k < 3; ++k) c.o[k] = 0.f;  // taken above
+        }
+      }
+      normalize3_adj(raw[0], raw[1], raw[2], g_d);
       for (int k = 0; k < 3; ++k) {
         g_cam[k] += c.o[k];
         g_cam[3 + k] += g_d[k];
@@ -2420,7 +2819,7 @@ k8_vjp(const float* __restrict__ cam_g, const float* __restrict__ mats_g,
     rad[3 * idx + 0] = acc_r;
     rad[3 * idx + 1] = acc_g;
     rad[3 * idx + 2] = acc_b;
-    for (int k = 0; k < 14; ++k) gadd(G.cam + k, g_cam[k]);
+    for (int k = 0; k < kCamGrads; ++k) gadd(G.cam + k, g_cam[k]);
   }
   __syncthreads();
   fx_flush(s_grad, n_tab, gtab);

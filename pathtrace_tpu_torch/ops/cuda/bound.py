@@ -79,6 +79,15 @@ def read(table, key, rows, cols):
         _COUNT.read(table, key, rows, cols)
 
 
+def tally(name, lanes):
+    """Counts the lanes of ``lanes`` (a bool mask, or a function that
+    makes one) under ``name``: the paths or bounces that take a section
+    whose work another kernel adds (K8's adjoints, :func:`k8_extra`).
+    Outside a count it does nothing and ``lanes`` is never called."""
+    if _COUNT is not None:
+        _COUNT.tally(name, lanes)
+
+
 def bound(ops, n_bytes):
     """(bound in ms, "operations" or "bytes"): the larger of the two
     times, and the term that gives it."""
@@ -136,11 +145,24 @@ def scan_bytes(n, tile=2048):
 # lights a hit sees is not kept.
 K8_SCATTER_ADJ_OPS = 251 + 74
 K8_RAYGEN_ADJ_OPS = 106
+# The sections' adjoints beside those, on the lanes that take them (the
+# plain version's tallies, :func:`tally`), counted the same way but for
+# the forward values they compute again (a least implementation would
+# keep them): the thin lens a path (aperture > 0), the moving winner's
+# origin and point a scattering hit, the tilted normal a bumped scatter
+# (``bump_adj``), the power-cosine lobe an imperfect specular bounce
+# (``spec_lobe_adj``), a refraction's tint, Snell's direction and push
+# beyond the specular lobe that K8_SCATTER_ADJ_OPS counts (77 - 74), and an
+# inside scatter of SSS, which takes no hit's or lobe's adjoint (22 - 325).
+K8_SECTION_ADJ_OPS = {"dof": 77, "motion": 15, "bump": 154, "imperfect": 112,
+                      "refraction": 77 - 74, "sss scatter": 22 - 325}
 # K8 keeps the state entering each bounce (``Saved``: 9 floats and 2
 # flags, 40 bytes), written once and read once; the mesh builds also the
-# bounce's winner (geom and triangle row, 8 bytes).
+# bounce's winner (geom and triangle row, 8 bytes), the SSS builds the
+# medium (4 floats, 16 bytes).
 K8_SAVED_BYTES = 40
 K8_WINNER_BYTES = 8
+K8_MEDIUM_BYTES = 16
 # K7's fold, the least of it: w = ct * rad (3 products) and its sum (2
 # adds) a path, and for each scatter a division and an add a color
 # channel (``grad_fold``).
@@ -164,30 +186,39 @@ def k7_extra(counts, n_pix, n_mats):
     return ops, 12 * n_pix + 2 * 32 * n_mats
 
 
-def k8_extra(counts, n_pix, n_tab, nee, mesh=False):
+def k8_extra(counts, n_pix, n_tab, nee, mesh=False, sss=False,
+             tallies=None):
     """(ops, bytes) K8 needs for one sample beside K1's work, and the
     gradient table written (``n_tab`` floats) and the cotangent read (12
     bytes a pixel).  With NEE: the adjoints (``K8_SCATTER_ADJ_OPS`` a
-    scatter, ``K8_RAYGEN_ADJ_OPS`` a path) and the state of each live
-    bounce written and read once (``K8_SAVED_BYTES`` each way, and with
-    ``mesh`` its winner, ``K8_WINNER_BYTES``).  Without NEE, the
-    materials' gradient is the only one that is not zero (at fixed draws
-    the path is piecewise constant in the camera and the transforms), and
-    it is K7's fold of each path's factors, which needs no stored state:
-    K7's ops (``K7_PATH_OPS`` a path, ``K7_SCATTER_OPS`` a scatter)."""
+    scatter, ``K8_RAYGEN_ADJ_OPS`` a path, and ``K8_SECTION_ADJ_OPS`` on
+    the lanes of each section in ``tallies``, the plain version's
+    :func:`tally` of the same sample) and the state of each live bounce
+    written and read once (``K8_SAVED_BYTES`` each way, and with ``mesh``
+    its winner, ``K8_WINNER_BYTES``, with ``sss`` its medium,
+    ``K8_MEDIUM_BYTES``).  Without NEE, the materials' gradient is the
+    only one that is not zero (at fixed draws the path is piecewise
+    constant in the camera, the transforms, the lens, the exponent, the
+    ior, the bump and the medium's sigma), and it is K7's fold of each
+    path's factors, which needs no stored state: K7's ops (``K7_PATH_OPS``
+    a path, ``K7_SCATTER_OPS`` a scatter)."""
     n_bytes = 12 * n_pix + 4 * n_tab
     if not nee:
         return (K7_PATH_OPS * n_pix + K7_SCATTER_OPS * scatters(counts),
                 n_bytes)
     ops = (K8_SCATTER_ADJ_OPS * scatters(counts)
            + K8_RAYGEN_ADJ_OPS * n_pix)
-    saved = K8_SAVED_BYTES + (K8_WINNER_BYTES if mesh else 0)
+    for name, n in (tallies or {}).items():
+        ops += K8_SECTION_ADJ_OPS[name] * n
+    saved = (K8_SAVED_BYTES + (K8_WINNER_BYTES if mesh else 0)
+             + (K8_MEDIUM_BYTES if sss else 0))
     return ops, n_bytes + 2 * saved * int(sum(counts))
 
 
-def count_work(fn):
+def count_work(fn, tallies=None):
     """Runs ``fn`` (a plain version) under a count.  Returns (``fn``'s
-    result, the ops by section, the bytes read by table): each a dict."""
+    result, the ops by section, the bytes read by table): each a dict.
+    ``tallies``, a dict, gets the lanes counted by :func:`tally`."""
     from torch.utils._python_dispatch import TorchDispatchMode
 
     global _COUNT
@@ -200,6 +231,7 @@ def count_work(fn):
             self.rows = {}
             self.stack = [("other", None, 1.0)]  # (section, mask, share)
             self.paused = False
+            self.tallies = Counter()
 
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
             out = func(*args, **(kwargs or {}))
@@ -235,6 +267,14 @@ def count_work(fn):
             finally:
                 self.stack.pop()
 
+        def tally(self, name, lanes):
+            self.paused = True
+            try:
+                mask = lanes() if callable(lanes) else lanes
+                self.tallies[name] += int(mask.sum())
+            finally:
+                self.paused = False
+
         def read(self, table, key, rows, cols):
             self.paused = True
             try:
@@ -264,6 +304,8 @@ def count_work(fn):
             out = fn()
     finally:
         _COUNT = outer
+    if tallies is not None:
+        tallies.update(count.tallies)
     n_bytes = Counter()
     for (key, _), (seen, row_bytes) in count.rows.items():
         n_bytes[key] += int(seen.sum()) * row_bytes

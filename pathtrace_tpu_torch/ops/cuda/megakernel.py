@@ -44,6 +44,7 @@ from ...render.integrator import (
 from .. import lights as L
 from .bound import needed as _needed
 from .bound import read as _read
+from .bound import tally as _tally
 
 # Launches of the CUDA kernel (``trace_k1`` on a CUDA device) by feature
 # mask (``feature_mask``), so a run can show which builds it went through.
@@ -1250,6 +1251,7 @@ def init_state(sc, it, pix, width, height):
         pfx, pfy, pfz = ox + dx * ft, oy + dy * ft, oz + dz * ft
         ox, oy, oz = ox + off_x, oy + off_y, oz + off_z
         dx, dy, dz = _normalize3(pfx - ox, pfy - oy, pfz - oz)
+        _tally("dof", lambda: torch.ones_like(dx, dtype=torch.bool))
     one, zero = torch.ones_like(dx), torch.zeros_like(dx)
     st = dict(ox=ox, oy=oy, oz=oz, dx=dx, dy=dy, dz=dz, tr=one, tg=one,
               tb=one, rr=zero, rg=zero, rb=zero,
@@ -1494,6 +1496,23 @@ def bounces(sc, st, it, pix, d0, d1, counts, grad_mats=None):
                     med = [torch.where(entering, row[:, 18 + k],
                                        torch.where(exiting, 1.0, med[k]))
                            for k in range(3)]
+
+            # the lanes of K8's section adjoints (bound.k8_extra): a
+            # scattering hit moved (motion), bumped, an imperfect lobe, a
+            # refraction, an inside scatter
+            def hit_lanes(on):
+                return lambda: cont & ~scatter_inside & on
+
+            if time is not None:
+                _tally("motion", hit_lanes(True))
+            if has_bump:
+                _tally("bump", hit_lanes(row[:, 16] > 0.0))
+            if has_imperfect:
+                _tally("imperfect", hit_lanes(spec & (row[:, 6] > 0.0)))
+            if has_glass:
+                _tally("refraction", hit_lanes(took_refract))
+            if has_sss:
+                _tally("sss scatter", scatter_inside)
 
             if rr_mode and d >= 3:
                 # Russian roulette from bounce 3 on, after NEE: survive

@@ -28,10 +28,16 @@ returns ``tri_verts`` None, as the reference does (their gradient is
 ``render/diff.render_loss_and_grad(engine="planes")``'s).  The plain
 version takes the mesh tables as constants.
 
-Scope: scenes of spheres, cubes and BVH meshes without the K1 sections,
-with or without NEE.  A mesh without a BVH, image textures and the other
-sections raise ``NotImplementedError``, the last two naming their
-ROADMAP item.
+The K1 sections (glass, imperfect specular, depth of field, motion,
+checker, bump, SSS: mask bits 0-6) have their adjoints in the kernel too,
+each written by hand beside its forward code; the plain version traces
+the scene's sections (``scene_features``) as K1's does.
+
+Scope: every scene the reference's ``render_vjp_pallas`` differentiates:
+spheres, cubes and BVH meshes, with any of the sections, with or without
+NEE.  A mesh without a BVH and image textures raise
+``NotImplementedError`` (the latter naming its ROADMAP item), as the
+reference refuses both.
 """
 
 from __future__ import annotations
@@ -45,7 +51,13 @@ from . import megakernel as K
 
 # Launches of K8 by feature mask.
 LAUNCHES = Counter()
-MASKS = (0, K.NEE_BIT, K.MESH_BIT, K.MESH_BIT | K.NEE_BIT)
+# the builds the gradients' paths launch: without sections, with NEE, BVH
+# meshes; with sections, cornell_glass (7), cornell_checker (24), its bump +
+# SSS variant (103), cornell_mesh's glass + checker + motion (537) and bump
+# (544) variants, each with and without NEE.  build.load_k8 builds any other
+# mask of K8's (csrc's static_assert) at first use.
+MASKS = tuple(m | nee for m in (0, K.MESH_BIT, 7, 24, 103, 537, 544)
+              for nee in (0, K.NEE_BIT))
 MAX_DEPTH = 32
 MAX_LIGHTS = 64  # the kernel's exact sums (csrc's kFxMaxLights)
 _ITEM = "ROADMAP Queue 1 item 3"
@@ -53,11 +65,9 @@ _ITEM = "ROADMAP Queue 1 item 3"
 
 def check_supported(scene, nee=False):
     """Raise ``NotImplementedError`` for a scene outside K8's slice: a
-    mesh without a BVH (as the reference's ``render_vjp_pallas`` does),
-    image textures and the K1 sections (glass, imperfect specular, depth
-    of field, motion, checker, bump, SSS: K8's sections), the last two
-    naming their ROADMAP item; and for depth over ``MAX_DEPTH`` (the
-    stored states)."""
+    mesh without a BVH and image textures (as the reference's
+    ``render_vjp_pallas`` does; the textures naming their ROADMAP item),
+    and depth over ``MAX_DEPTH`` (the stored states)."""
     if scene.mesh.count and not scene.mesh.bvh_meta:
         raise NotImplementedError(
             "render_vjp on a mesh without a BVH: the reverse sweep carries "
@@ -71,11 +81,6 @@ def check_supported(scene, nee=False):
             f"render_vjp on image-textured materials is not ported yet: "
             f"{_ITEM}a' (texel gradients: a float texel path in the plain "
             f"K4)")
-    on = [n for n, f in zip(K.FEATURE_NAMES, K.scene_features(scene)) if f]
-    if on:
-        raise NotImplementedError(
-            f"render_vjp with {', '.join(on)} is not ported yet: {_ITEM}b "
-            f"(K8's sections)")
     if not 0 < int(scene.trace_depth) <= MAX_DEPTH:
         raise NotImplementedError(
             f"render_vjp keeps every bounce's state: depth 1..{MAX_DEPTH}")
@@ -89,35 +94,39 @@ def table_grad_shapes(n_geoms, n_lights):
 
 
 def k8_plain(cam, mats, gmat, geom_types, width, height, depth, it0, n_spp,
-             lights, ct, tri=None, nodes=None, bvh_meta=()):
+             lights, ct, tri=None, nodes=None, bvh_meta=(),
+             features=K.NO_FEATURES):
     """Plain PyTorch K8 on the device of the tables: autograd over
-    :func:`megakernel.trace_plain`, the mesh tables (``pack_mesh``'s)
+    :func:`megakernel.trace_plain` with the scene's sections
+    ``features`` (``scene_features``), the mesh tables (``pack_mesh``'s)
     constants.  Returns (rad (P,3), [d_cam, d_mats, d_gmat(,
     d_lights)])."""
     leaf = [t.detach().requires_grad_(True) for t in (cam, mats, gmat)]
     if lights is not None:
         leaf.append(lights.detach().requires_grad_(True))
     rad, _ = K.trace_plain(*leaf[:3], geom_types, width, height, depth, it0,
-                           n_spp, lights=leaf[3] if lights is not None
-                           else None, tri=tri, nodes=nodes,
-                           bvh_meta=bvh_meta)
+                           n_spp, features=features,
+                           lights=leaf[3] if lights is not None else None,
+                           tri=tri, nodes=nodes, bvh_meta=bvh_meta)
     torch.autograd.backward(rad, ct)
     return rad.detach(), [t.grad if t.grad is not None
                           else torch.zeros_like(t) for t in leaf]
 
 
 def trace_k8(cam, mats, gmat, geom_types, width, height, depth, it0, n_spp,
-             lights, ct, tri=None, nodes=None, bvh_meta=()):
-    """K8 on the packed tables (sections off; NEE when ``lights`` is
-    given; the BVH meshes of ``tri``, ``nodes`` and ``bvh_meta``): (rad
-    (P,3), [d_cam (1,16), d_mats (G,24), d_gmat (G,40)(, d_lights
-    (L,128))]), the gradients of sum(ct * rad).  For tensors on the CPU
+             lights, ct, tri=None, nodes=None, bvh_meta=(),
+             features=K.NO_FEATURES):
+    """K8 on the packed tables (the sections ``features``; NEE when
+    ``lights`` is given; the BVH meshes of ``tri``, ``nodes`` and
+    ``bvh_meta``): (rad (P,3), [d_cam (1,16), d_mats (G,24), d_gmat
+    (G,40)(, d_lights (L,128))]), the gradients of sum(ct * rad).  For tensors on the CPU
     this is :func:`k8_plain`; on a CUDA device it launches the kernel
     (built at first use) and raises if the build or the launch fails."""
     device = cam.device
     if device.type == "cpu":
         return k8_plain(cam, mats, gmat, geom_types, width, height, depth,
-                        it0, n_spp, lights, ct, tri, nodes, bvh_meta)
+                        it0, n_spp, lights, ct, tri, nodes, bvh_meta,
+                        features)
     from . import build
 
     n_pix = width * height
@@ -129,7 +138,7 @@ def trace_k8(cam, mats, gmat, geom_types, width, height, depth, it0, n_spp,
     if bvh_meta and nodes is None:
         raise ValueError("K8 carries the BVH walk's winners: a mesh without "
                          "nodes (the linear form) has none")
-    mask, args = K.kernel_tables(cam, mats, gmat, geom_types, K.NO_FEATURES,
+    mask, args = K.kernel_tables(cam, mats, gmat, geom_types, features,
                                  lights, False, tri, nodes, bvh_meta, None,
                                  (), ())
     K._check_table("ct", ct, (n_pix, 3), device)
@@ -190,7 +199,7 @@ def render_vjp(scene, ct, it0, n_spp, nee=False, device="cuda",
         *(t.detach() for t in tables[:3]), tuple(scene.geoms.type), width,
         height, int(scene.trace_depth), it0, n_spp,
         lights.detach() if lights is not None else None, ct, tri, nodes,
-        bvh_meta)
+        bvh_meta, K.scene_features(scene))
     torch.autograd.backward(tables, d_tables)
     grads = D.grads(params)
     if scene.mesh.count:

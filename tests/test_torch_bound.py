@@ -173,6 +173,57 @@ def test_gradient_kernels_extra_work():
         + 4 * 592)
 
 
+def test_k8_sections_extra_work():
+    # the sections' adjoints on the lanes the plain version tallied, and
+    # the medium kept beside each live bounce's state in the SSS builds
+    counts = [100, 60, 20]
+    tallies = {"dof": 100, "motion": 70, "bump": 30, "imperfect": 5,
+               "refraction": 12, "sss scatter": 4}
+    base = B.k8_extra(counts, 100, 592, nee=True)
+    got = B.k8_extra(counts, 100, 592, nee=True, sss=True, tallies=tallies)
+    assert got[0] == base[0] + sum(B.K8_SECTION_ADJ_OPS[k] * n
+                                   for k, n in tallies.items())
+    assert got[1] == base[1] + 2 * B.K8_MEDIUM_BYTES * 180
+    # an inside scatter takes no hit's and no lobe's adjoint
+    assert B.K8_SECTION_ADJ_OPS["sss scatter"] < 0
+    assert (B.K8_SCATTER_ADJ_OPS + B.K8_SECTION_ADJ_OPS["sss scatter"]) > 0
+    # without NEE the fold alone: the sections add nothing
+    assert B.k8_extra(counts, 100, 464, nee=False, sss=True,
+                      tallies=tallies) == B.k8_extra(counts, 100, 464,
+                                                     nee=False)
+
+
+@pytest.mark.parametrize("config,nee,sections", [
+    ("cornell_glass", True, ("dof", "imperfect", "refraction")),
+    ("cornell_checker", True, ("motion",)),
+    ("cornell_glass", (("BUMP", "SSS")), ("bump", "sss scatter")),
+])
+def test_tallies_count_the_lanes_of_each_section(config, nee, sections):
+    from pathtrace_tpu_torch.scene import variants
+
+    edits = () if nee is True else tuple(getattr(variants, e) for e in nee)
+    scene = S.load(config, edits, res=(24, 24), depth=6)
+    job = K.prepare(scene, "cpu", nee=True)
+    want = K.trace_plain(**job, it0=1, n_spp=1)
+    tallies = {}
+    got, _, _ = B.count_work(lambda: K.trace_plain(**job, it0=1, n_spp=1),
+                             tallies)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    # a tally for each section the scene has
+    on = dict(zip(("refraction", "imperfect", "dof", "motion", None, "bump",
+                   "sss scatter"), job["features"]))
+    assert set(tallies) == {k for k, v in on.items() if k and v}
+    # a section's lanes: every path (the lens), or some of the scatters
+    scatters = B.scatters(want[1].tolist()) + int(want[1][-1])
+    for name, n in tallies.items():
+        assert n <= (24 * 24 if name == "dof" else scatters), name
+        assert n > 0 or name not in sections, name
+    if "dof" in tallies:
+        assert tallies["dof"] == 24 * 24
+    # outside a count a tally does nothing
+    B.tally("dof", lambda: 1 / 0)
+
+
 @pytest.mark.parametrize("nee", [False, True])
 def test_linear_fold_counts_every_triangle(nee):
     # K3-linear: every live ray meets every triangle, and every row is read

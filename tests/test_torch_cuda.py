@@ -401,7 +401,7 @@ def test_cli_engines_on_the_card(cuda, tmp_path, flags):
 def _k8_args(job, ct):
     return (job["cam"], job["mats"], job["gmat"], job["geom_types"],
             job["width"], job["height"], job["depth"], 1, 2, job["lights"],
-            ct, job["tri"], job["nodes"], job["bvh_meta"])
+            ct, job["tri"], job["nodes"], job["bvh_meta"], job["features"])
 
 
 def _masked_ct(rad, ref, seed=0):
@@ -453,6 +453,36 @@ def test_k8_matches_plain(cuda, nee):
         before = VJ.LAUNCHES[K.NEE_BIT if nee else 0]
         _, got = VJ.trace_k8(*_k8_args(job, c))
         assert VJ.LAUNCHES[K.NEE_BIT if nee else 0] == before + 1
+        _, want = VJ.k8_plain(*_k8_args(job, c))
+        rows = GC.compare(zip(names, got), zip(names, want), *GC.K8_TOL,
+                          share)
+        assert all(row[-1] for row in rows), rows
+
+
+@pytest.mark.parametrize("nee", [False, True])
+@pytest.mark.parametrize("name", ["cornell_glass", "cornell_checker"])
+def test_k8_sections_match_plain(cuda, name, nee):
+    # K8's section builds (glass, imperfect specular, DoF; motion,
+    # checker): K1's radiance bit for bit, every table at the bare
+    # tolerance of test_k8_matches_plain at 64x64 d4, equal bits twice
+    scene = _scene(name, (64, 64), 4)
+    job = K.prepare(scene, cuda, nee=nee)
+    mask = K.scene_mask(scene, nee)
+    assert mask & (K.NEE_BIT - 1)
+    rad, _ = K.trace_k1(**job, it0=1, n_spp=2)
+    ref, _ = K.trace_plain(**job, it0=1, n_spp=2)
+    ct = _masked_ct(rad, ref)
+    before = VJ.LAUNCHES[mask]
+    rad8, first = VJ.trace_k8(*_k8_args(job, ct))
+    assert VJ.LAUNCHES[mask] == before + 1 and torch.equal(rad8, rad)
+    assert all(torch.equal(a, b) for a, b in
+               zip(first, VJ.trace_k8(*_k8_args(job, ct))[1]))
+    ff = GC.fireflies(rad, 2, scene.materials.emittance)
+    names = ("cam", "mats", "gmat", "lights")
+    for c, share in zip(GC.split(ct, ff), (None, GC.FIREFLY_SHARE)):
+        if not bool(c.any()):
+            continue
+        _, got = VJ.trace_k8(*_k8_args(job, c))
         _, want = VJ.k8_plain(*_k8_args(job, c))
         rows = GC.compare(zip(names, got), zip(names, want), *GC.K8_TOL,
                           share)
@@ -555,11 +585,11 @@ def test_material_grads_on_the_card(cuda):
         torch.testing.assert_close(g[key], want[key], rtol=1e-4, atol=1e-4)
 
 
-@pytest.mark.parametrize("name", ["cornell_glass", "cornell_mesh",
-                                  "cornell_tex"])
+@pytest.mark.parametrize("name", ["cornell_mesh", "cornell_tex"])
 def test_render_vjp_rejects_what_k8_does_not_trace(cuda, name):
     # cornell_mesh renders with its BVH (test_k8_mesh_matches_plain);
-    # stripped of it, it raises, as the reference's render_vjp_pallas does
+    # stripped of it, it raises, as the reference's render_vjp_pallas does;
+    # the sections render (test_k8_sections_match_plain)
     scene = _scene(name, (16, 16), 2)
     if scene.mesh.count:
         scene = without_bvh(scene)

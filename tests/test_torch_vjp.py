@@ -125,26 +125,42 @@ def test_cornell_gradients_are_finite(nee):
 
 
 def test_wrapper_on_cpu_tensors_is_the_plain_version():
-    job = K.prepare(load("cornell", res=(8, 8), depth=3), "cpu", nee=True)
-    ct = torch.rand((64, 3), generator=torch.Generator().manual_seed(2))
-    args = (job["cam"], job["mats"], job["gmat"], job["geom_types"], 8, 8,
-            3, 1, 2, job["lights"], ct)
-    before = sum(VJ.LAUNCHES.values())
-    got = VJ.trace_k8(*args)
-    want = VJ.k8_plain(*args)
-    assert torch.equal(got[0], want[0])
-    assert len(got[1]) == 4
-    for a, b in zip(got[1], want[1]):
-        assert torch.equal(a, b)
-    assert sum(VJ.LAUNCHES.values()) == before
+    # cornell (no section) and cornell_glass (glass, imperfect specular,
+    # depth of field: K8's mask 135)
+    for name in ("cornell", "cornell_glass"):
+        job = K.prepare(load(name, res=(8, 8), depth=3), "cpu", nee=True)
+        ct = torch.rand((64, 3), generator=torch.Generator().manual_seed(2))
+        args = (job["cam"], job["mats"], job["gmat"], job["geom_types"], 8,
+                8, 3, 1, 2, job["lights"], ct, None, None, (),
+                job["features"])
+        before = sum(VJ.LAUNCHES.values())
+        got = VJ.trace_k8(*args)
+        want = VJ.k8_plain(*args)
+        assert torch.equal(got[0], want[0])
+        assert len(got[1]) == 4
+        for a, b in zip(got[1], want[1]):
+            assert torch.equal(a, b)
+        assert sum(VJ.LAUNCHES.values()) == before
+        if any(job["features"]):
+            # the sections take part: the trace without them is another
+            plain = VJ.k8_plain(*args[:11])
+            assert not torch.equal(plain[0], want[0])
 
 
-# the ids are the cases' names from before meshes rendered
+def test_render_vjp_traces_the_scene_sections():
+    # the sections reach the plain version's trace (K8's plain version
+    # once traced every scene without them)
+    scene = load("cornell_glass", res=(10, 10), depth=3)
+    ct = np.random.RandomState(3).rand(100, 3).astype(np.float32)
+    rad, g = ptt.render_vjp(scene, ct, 1, 1, device="cpu")
+    want, _ = K.trace_plain(**K.prepare(scene, "cpu"), it0=1, n_spp=1)
+    assert torch.equal(rad, want)
+    assert tuple(g) == D.KEYS
+
+
+# the ids are the cases' names from before meshes rendered; the sections
+# (glass, checker, ...) render since K8's section builds
 @pytest.mark.parametrize("name,edits,item", [
-    pytest.param("cornell_glass", (), "item 3b",
-                 id="cornell_glass-edits0-item 3b"),
-    pytest.param("cornell_checker", (), "item 3b",
-                 id="cornell_checker-edits1-item 3b"),
     pytest.param("cornell_mesh", (), "without a BVH",
                  id="cornell_mesh-edits2-item 3a"),
     pytest.param("cornell_tex", (), "item 3a'",
