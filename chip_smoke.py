@@ -29,7 +29,8 @@ Phases, each of which raises on failure (exit code non-zero):
    builds it), a checker on cornell_tex's textured material and
    cornell_bumpmesh.txt at 800x800, cornell_bigmesh_tex.txt at 1920x1080.
    Under 0.5% of pixels may differ by more than 1e-3, bounce 0 must count
-   every pixel and the other bounces must agree within 0.5%; the share of
+   every pixel and the other bounces must agree within 0.5% (the counts
+   come per sample, (n_iters, depth), as the reference's); the share of
    bit-equal pixels is printed;
 5. the main path through the CLI entry point (``cli.main``, default
    ``--device cuda``), launch counts reset before and read after:
@@ -78,12 +79,16 @@ Phases, each of which raises on failure (exit code non-zero):
    scene, plus the state the spans must read and write for this run's
    paths, by where each ray is at the end of each span
    (``bound.span_state_bytes``; the sorted engine's gather is a torch op,
-   not K5's work);
-10. K6 against its plain version and ``torch.cumsum(x) - x``, exactly
-   equal, at 640,000 and 2,073,600 random 0/1 masks and at the tile-table
-   sizes 5,000 (800x800) and 16,200 (1920x1080); its time beside the
-   plain version's, that of ``torch.cumsum(x, dtype=int32) - x`` (the
-   same function) and its bound (``bound.scan_bytes``);
+   not K5's work); the kernels line gives one K5 row per feature mask and
+   engine, its times and bound per launch (an iteration's over its
+   launches: 2 for the split engine, one a bounce for the sorted);
+10. K6 (one launch a scan, the decoupled look-back) against its plain
+   version and ``torch.cumsum(x) - x``, exactly equal, at 640,000 and
+   2,073,600 random 0/1 masks and at the tile-table sizes 5,000 (800x800)
+   and 16,200 (1920x1080); its time (CUDA events around the Python call,
+   median of 21) beside the plain version's, that of
+   ``torch.cumsum(x, dtype=int32) - x`` (the same function) and its bound
+   (``bound.scan_bytes``: each value read and written once);
 11. ``cli.main`` with ``--split-depth 1`` on sphere.txt (its PNG must be
    K1's) and ``--engine sorted`` on cornell_mesh.txt (orientation), 64
    spp, launch counts checked;
@@ -165,7 +170,12 @@ Phases, each of which raises on failure (exit code non-zero):
    mask 135 once and gives K1's radiance), then ``render_vjp`` with and
    without NEE on each configuration at its own size; and each build's
    time beside K1's and its bound (``bound.k8_extra`` with the sections'
-   adjoints on the lanes the plain version tallies), as phase 15.
+   adjoints on the lanes the plain version tallies), as phase 15;
+17. the digests of ``tests/torch_digest.py --k8 --k6`` (K8's radiance and
+   rounded tables of every build at 64x64 d4, K6's output at the four
+   scan sizes, held to ``cumsum(x) - x``), so that two checkouts compare
+   line by line, and the times of the K8 builds PERF.md breaks down
+   (``K8_BREAKDOWN``).
 
 K3-linear, the fold of every triangle of a mesh without a BVH, runs as
 the other K1 builds do: phase 4 on cornell_mesh.txt stripped of its BVH
@@ -319,6 +329,9 @@ K8_SECTION_CONFIGS = [
     ("cornell_mesh bump", "cornell_mesh", ("MESH_BUMP",)),
 ]
 SCAN_SIZES = (640000, 2073600, 5000, 16200)
+# the K8 builds whose time PERF.md breaks down: without NEE, with it, mesh
+# with NEE, the mesh variant with NEE
+K8_BREAKDOWN = (0, 128, 640, 665)
 SCAN_TIMED = 5000  # the tile table of an 800x800 image: the kernels line
 
 
@@ -402,6 +415,10 @@ def compare(ptt, K, torch, label, scene, nee, rr, mask):
     torch.cuda.synchronize()
     if rad.shape != (n_pix, 3) or not bool(torch.isfinite(rad).all()):
         raise RuntimeError(f"{label}: bad radiance {tuple(rad.shape)}")
+    if tuple(counts.shape) != (1, scene.trace_depth):
+        raise RuntimeError(f"{label}: counts of shape {tuple(counts.shape)}"
+                           f", want (n_iters, depth)")
+    counts = counts[0]
     diff = (rad - ref).abs().amax(dim=-1)
     share = float((diff > 1e-3).float().mean())
     max_err = float(diff.max())
@@ -588,6 +605,7 @@ def engine_equal(ptt, K, SP, SC, torch, label, scene, nee, rr, split):
     width, height = scene.resolution
     want, want_counts = ptt.pathtrace_batch(scene, 1, 1, device="cuda",
                                             nee=nee, rr=rr)
+    want_counts = want_counts.sum(0)  # the engines sum over the samples
     K.LAUNCHES.clear()
     SP.LAUNCHES.clear()
     SC.LAUNCHES.clear()
@@ -633,7 +651,9 @@ def engine_vs_plain(ptt, K, B, SP, torch, label, scene, nee, rr, split,
     tie-flip bound; then K5's time per iteration in a second run (CUDA
     events around each launch), the plain version's (one call, host
     clock after a synchronize) and K5's bound.  Returns (max abs error,
-    K5 ms, plain ms, bound ms, bound by)."""
+    K5 ms, plain ms, bound ms, bound by), each time per launch: an
+    iteration's over its launches (the split engine's 2, the sorted
+    engine's one a bounce)."""
     width, height = scene.resolution
     n_pix = width * height
     depth = int(scene.trace_depth)
@@ -696,7 +716,12 @@ def engine_vs_plain(ptt, K, B, SP, torch, label, scene, nee, rr, split,
           f"bound {bound_ms:.4f} ms by {bound_by} ({sum(ops_by.values()):.4g}"
           f" ops of K1's count, {n_bytes} bytes of which state {n_state}); "
           f"K5 at {bound_ms / ms:.2%} of it; library call: none", flush=True)
-    return max_err, ms, plain_ms, bound_ms, bound_by
+    n_launch = depth if split is None else 2
+    print(f"time k5 {label}: per launch ({n_launch} an iteration) K5 "
+          f"{ms / n_launch:.4f} ms, plain {plain_ms / n_launch:.4f} ms, "
+          f"bound {bound_ms / n_launch:.6f} ms", flush=True)
+    return (max_err, ms / n_launch, plain_ms / n_launch,
+            bound_ms / n_launch, bound_by)
 
 
 def scan_phase(B, SC, torch, card):
@@ -726,7 +751,8 @@ def scan_phase(B, SC, torch, card):
               f"{ms_p:.4f} ms, torch.cumsum(x, dtype=int32) - x "
               f"{ms_l:.4f} ms on {card}; bound "
               f"{bound_ms:.6f} ms by {bound_by} ({B.scan_bytes(n)} bytes); "
-              f"K6 at {bound_ms / ms:.2%} of it", flush=True)
+              f"K6 at {bound_ms / ms:.2%} of it; K6 / library "
+              f"{ms / ms_l:.3f}", flush=True)
         out[n] = (err, ms, ms_p, ms_l, bound_ms, bound_by)
     return out
 
@@ -735,7 +761,7 @@ def cli_engines(ptt, K, SP, SC, np, torch):
     """The engines through the CLI, 64 spp: --split-depth 1 on sphere.txt
     (its PNG must be the default engine's), --engine sorted on
     cornell_mesh.txt (orientation); launch counts reset before and read
-    after.  Returns (K5 launches by mask, K6 launches)."""
+    after.  Returns (K5 launches by (mask, engine), K6 launches)."""
     from PIL import Image
 
     k5, k6 = {}, 0
@@ -753,8 +779,9 @@ def cli_engines(ptt, K, SP, SC, np, torch):
                     n6 > 0):
                 raise RuntimeError(f"the CLI with {flags} did not run on K5 "
                                    f"(and K6 for the split engine) alone")
+            eng = "split" if flags[0] == "--split-depth" else "sorted"
             for m, n in n5.items():
-                k5[m] = k5.get(m, 0) + n
+                k5[m, eng] = k5.get((m, eng), 0) + n
             k6 += n6
             if not orient:
                 # the split engine's PNG is the default engine's
@@ -1110,6 +1137,7 @@ def linear_vs_k3(ptt, K, torch, label, scene, bvh_scene, nee, rr):
     pixels off by more than 1e-3 are counted)."""
     rad, counts = ptt.pathtrace_batch(scene, 1, 1, nee=nee, rr=rr)
     want, want_counts = ptt.pathtrace_batch(bvh_scene, 1, 1, nee=nee, rr=rr)
+    counts, want_counts = counts[0], want_counts[0]
     diff = (rad - want).abs().amax(-1)
     share = float((diff > 1e-3).float().mean())
     print(f"k3_linear vs k3 {label} {scene.resolution[0]}x"
@@ -1389,6 +1417,7 @@ def main():
     from pathtrace_tpu_torch.ops.cuda import span as SP
     from pathtrace_tpu_torch.scene.bvh import without_bvh
     sys.path.insert(0, os.path.join(HERE, "tests"))
+    import torch_digest as TD
     from torch_digest import ptxas_usage
     import torch_gradcheck as GC
 
@@ -1489,13 +1518,14 @@ def main():
         scene, nee, rr = engine_scene(scenes, config, res)
         k5, k6 = engine_equal(ptt, K, SP, SC, torch, label, scene, nee, rr,
                               split)
+        eng = "split" if split else "sorted"
         for m, n in k5.items():
-            k5_launches[m] = k5_launches.get(m, 0) + n
+            k5_launches[m, eng] = k5_launches.get((m, eng), 0) + n
         k6_launches += k6
         phase_done(f"engine {label}")
     k5, k6 = cli_engines(ptt, K, SP, SC, np, torch)
-    for m, n in k5.items():
-        k5_launches[m] = k5_launches.get(m, 0) + n
+    for key, n in k5.items():
+        k5_launches[key] = k5_launches.get(key, 0) + n
     k6_launches += k6
     phase_done("cli engines")
 
@@ -1560,12 +1590,13 @@ def main():
         scene, nee, rr = engine_scene(scenes, config, res)
         row = engine_vs_plain(ptt, K, B, SP, torch, label, scene, nee, rr,
                               split, config)
-        k5_row.setdefault(K.scene_mask(scene, nee, rr), row)
+        k5_row.setdefault((K.scene_mask(scene, nee, rr),
+                           "sorted" if split is None else "split"), row)
         phase_done(f"k5 vs plain {label}")
     missing = sorted(set(k5_launches) - set(k5_row))
     if missing:
-        raise RuntimeError(f"K5 masks {missing} ran on the main path but "
-                           f"were not measured")
+        raise RuntimeError(f"K5 (mask, engine) {missing} ran on the main "
+                           f"path but were not measured")
     k6_row = scan_phase(B, SC, torch, card)
     phase_done("k6")
     time_engines(ptt, K, SP, torch, scenes, card)
@@ -1648,6 +1679,17 @@ def main():
                 K, VJ, B, torch, f"{label} NEE" if nee else label, name,
                 K.prepare(scene, "cuda", nee=nee), nee, card)
     phase_done("time sections' gradients")
+    print("k8 breakdown builds (PERF.md section 5), ms at full size, 1 spp: "
+          + ", ".join(f"mask {m} {grad_times[k8_name(K, m)][0]:.4f}"
+                      for m in K8_BREAKDOWN) + f" on {card}", flush=True)
+    # the digests tests/torch_digest.py prints (--k8, --k6), to hold two
+    # checkouts to each other
+    for scene, nee, mask in TD.k8_scenes(HERE, ptt, K):
+        rad, tabs = TD.k8_digest(torch, K, VJ, scene, nee, mask)
+        print(f"k8 digest mask {mask} {TD.K8_RES[0]}x{TD.K8_RES[1]} "
+              f"d{TD.K8_DEPTH}: rad {rad} tables {tabs}", flush=True)
+    TD.k6_digests(HERE, torch)
+    phase_done("digests")
 
     print(card, flush=True)
     print(json.dumps({"kernels": [{
@@ -1678,18 +1720,19 @@ def main():
         "bound_by": k9_bound[1],
         "library_ms": None,
     }] + [{
-        "name": kernel_name(K, mask).replace("k1_trace", "k5_span"),
+        "name": (kernel_name(K, mask).replace("k1_trace", "k5_span")
+                 + f" ({eng})"),
         "route": "cuda",
         "source": "pathtrace_tpu_torch/csrc/megakernel.cu",
         "replaces": K5_SITE,
-        "launches": k5_launches[mask],
-        "max_abs_err": k5_row[mask][0],
-        "ms": k5_row[mask][1],
-        "plain_ms": k5_row[mask][2],
-        "bound_ms": k5_row[mask][3],
-        "bound_by": k5_row[mask][4],
+        "launches": k5_launches[mask, eng],
+        "max_abs_err": k5_row[mask, eng][0],
+        "ms": k5_row[mask, eng][1],
+        "plain_ms": k5_row[mask, eng][2],
+        "bound_ms": k5_row[mask, eng][3],
+        "bound_by": k5_row[mask, eng][4],
         "library_ms": None,
-    } for mask in sorted(k5_launches)] + [{
+    } for mask, eng in sorted(k5_launches)] + [{
         "name": "k6_scan",
         "route": "cuda",
         "source": "pathtrace_tpu_torch/csrc/scan.cu",

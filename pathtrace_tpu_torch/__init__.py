@@ -55,19 +55,19 @@ def pathtrace_batch(scene, it0, n_iters, compaction="mask", remat=True,
                     nee=False, rr=False, device="cuda"):
     """``n_iters`` samples per pixel starting at iteration ``it0``, with
     next-event estimation if ``nee`` and Russian roulette if ``rr``:
-    (accumulated radiance (P,3) f32, live counts per bounce (depth,)
-    int64, summed over the samples), both on ``device``.
+    (accumulated radiance (P,3) f32, live counts (n_iters, depth) int64,
+    the paths entering each bounce of each sample), both on ``device``,
+    as the reference's.
 
     The arguments are the reference's ``pathtrace_batch``'s, but its
     wavefront is not ported yet (ROADMAP Queue 1 item 1): K1 traces every
     sample here.  So ``compaction="sort"`` gives the image of ``"mask"``
-    (K1 masks dead lanes, as the reference's tiled engines do), ``remat``
-    (memory under autodiff of the wavefront) changes nothing, and the
-    counts are summed over the samples, where the reference's wavefront
-    gives them per sample, (n_iters, depth)."""
+    (K1 masks dead lanes, as the reference's tiled engines do) and
+    ``remat`` (memory under autodiff of the wavefront) changes
+    nothing."""
     _check_compaction(compaction)
-    return pathtrace_batch_cuda(scene, it0, n_iters, device=device, nee=nee,
-                                rr=rr)
+    return trace_k1(**prepare(scene, device, nee=nee, rr=rr), it0=it0,
+                    n_spp=n_iters, per_sample=True)
 
 
 def render(scene, n_iters=None, chunk=8, compaction="mask", callback=None,

@@ -55,6 +55,9 @@
 //   it once;
 // * live counts: one __ballot_sync/__popc per warp and bounce, summed per
 //   warp in shared memory, then one 64-bit atomicAdd per warp and bounce.
+//   Per sample (the reference's (n_iters, depth), k1_trace<true>): 32-bit
+//   words per warp for a chunk of samples, summed over the warps and added
+//   once the block has run them, one atomicAdd per sample and bounce.
 //   Shadow rays are not counted.  The reference keeps int32 counts; at
 //   800x800 and 5000 samples a single bounce sees 3.2e9 paths, which int32
 //   cannot hold.
@@ -902,7 +905,11 @@ __device__ __forceinline__ void nee_add(
     const Hit& h, float nx, float ny, float nz, const A al, float time,
     uint32_t it, uint32_t pix, uint32_t dep, const float* lights,
     int n_lights, const float* gmat, const int* types, int n_geoms,
-    const M mesh) {
+    const M mesh
+#if PT_VJP
+    , unsigned long long& vis  // K8: bit k set where light k's sample is seen
+#endif
+    ) {
   for (int k = 0; k < n_lights; ++k) {
     const float* lr = lights + k * kLightCols;
     const uint32_t base = pt::kDrawNeeBase + 3u * static_cast<uint32_t>(k);
@@ -968,6 +975,9 @@ __device__ __forceinline__ void nee_add(
     const float tol = fmaxf(1e-3f, 5e-3f * dist_l);
     if (sh.geom != static_cast<int>(lr[0]) || !(fabsf(sh.dist - dist_l) < tol))
       continue;
+#if PT_VJP
+    vis |= 1ull << k;
+#endif
     const float cos_s = fmaxf(nx * sdx + ny * sdy + nz * sdz, 0.f);
     const float cos_l = fmaxf(-(lnx * sdx + lny * sdy + lnz * sdz), 0.f);
     const float gterm = cos_s * cos_l / r2_safe * w_area;
@@ -999,9 +1009,12 @@ struct PathState {
   uint32_t ev[64];
 #endif
 #if PT_VJP
-  // K8's mesh builds: the last bounce's winning geom and triangle row
-  // (-1: not a triangle), which the reverse sweep takes as they are
+  // K8: what the last bounce's forward found, which the reverse sweep takes
+  // as it is: the winning geom (-1: none) and, in the mesh builds, its
+  // triangle row (-1: not a triangle); with NEE, the lights whose samples
+  // its shadow rays saw (bit k: light k)
   int win_geom, win_row;
+  unsigned long long nee_vis;
 #endif
 };
 
@@ -1060,6 +1073,20 @@ __device__ __forceinline__ Tables stage_tables(
   }
   for (int i = threadIdx.x; i < kWarps * n_bounces; i += kBlock) smem[i] = 0ull;
   return Tables{s_cam, s_mats, s_gmat, s_lights, s_types, s_meta, s_charts, n_geoms, n_lights};
+}
+
+// K1's counts per sample: the samples whose counts a block keeps before it
+// adds them up (a chunk: at most kK1CountWords 32-bit words a warp, one a
+// sample and a bounce), and the 64-bit rows a warp's chunk takes.
+constexpr int kK1CountWords = 512;
+__host__ __device__ constexpr int k1_count_chunk(int n_spp, int depth) {
+  return n_spp < 1 ? 1
+         : n_spp * depth <= kK1CountWords ? n_spp
+         : kK1CountWords / depth > 0     ? kK1CountWords / depth
+                                         : 1;
+}
+__host__ __device__ constexpr int k1_count_rows(int chunk, int depth) {
+  return (chunk * depth + 1) / 2;
 }
 
 // The shared memory stage_tables takes.
@@ -1138,10 +1165,9 @@ __device__ __forceinline__ void bounce(PathState& p, int d, uint32_t it, uint32_
   const Hit h = nearest<false>(p.ox, p.oy, p.oz, p.dx, p.dy, p.dz, p.time, s.gmat, s.types,
                                s.n_geoms, mesh);
 #if PT_VJP
-  if constexpr (kMesh) {
-    p.win_geom = h.geom;
-    p.win_row = h.row;
-  }
+  p.win_geom = h.geom;
+  if constexpr (kMesh) p.win_row = h.row;
+  if constexpr (kNee) p.nee_vis = 0ull;
 #endif
   if (h.geom < 0) {  // miss: the path ends
     p.live = false;
@@ -1287,7 +1313,11 @@ __device__ __forceinline__ void bounce(PathState& p, int d, uint32_t it, uint32_
     // taken (the reference's rule)
     if (!scatter_inside && !(mt[8] > 0.f))
       nee_add(p.rr, p.rg, p.rb, p.tr, p.tg, p.tb, h, nx, ny, nz, albedo, p.time, it, pix_u,
-              dep, s.lights, s.n_lights, s.gmat, s.types, s.n_geoms, mesh);
+              dep, s.lights, s.n_lights, s.gmat, s.types, s.n_geoms, mesh
+#if PT_VJP
+              , p.nee_vis
+#endif
+              );
   }
   if constexpr (kSss) {
     if (scatter_inside) {
@@ -1347,6 +1377,11 @@ __device__ __forceinline__ void bounce(PathState& p, int d, uint32_t it, uint32_
 }
 
 #if !PT_GRAD && !PT_VJP  // K1 and K5: the forward builds only
+// kPerSample: the live counts of each sample, counts[sample][d] (the
+// reference's (n_iters, depth); pathtrace_batch), else summed over the
+// samples, counts[d] (every other caller).  The two differ only in the
+// counts, so that the summed build's code is the one it always was.
+template <bool kPerSample>
 __global__ void __launch_bounds__(kBlock)
 k1_trace(const float* __restrict__ cam_g, const float* __restrict__ mats_g,
          const float* __restrict__ gmat_g, const int* __restrict__ types_g,
@@ -1357,11 +1392,15 @@ k1_trace(const float* __restrict__ cam_g, const float* __restrict__ mats_g,
          int depth, uint32_t it0, int n_spp, long long pix0,
          long long n_local, float* __restrict__ rad,
          unsigned long long* __restrict__ counts) {
-  // shared: per-warp live counts [kWarps][depth], then the tables
+  // shared: per-warp live counts [kWarps][depth] (per sample: 32-bit,
+  // [kWarps][chunk][depth] in k1_count_rows 64-bit rows a warp), then the
+  // tables
   extern __shared__ unsigned long long smem[];
+  [[maybe_unused]] const int chunk = k1_count_chunk(n_spp, depth);
   unsigned long long* s_counts = smem;
-  const Tables s = stage_tables(smem, depth, cam_g, mats_g, gmat_g, types_g, lights_g, meta_g,
-                                charts_g, n_geoms, n_lights, n_meta);
+  const Tables s = stage_tables(smem, kPerSample ? k1_count_rows(chunk, depth) : depth, cam_g,
+                                mats_g, gmat_g, types_g, lights_g, meta_g, charts_g, n_geoms,
+                                n_lights, n_meta);
   const Mesh mesh(tri_g, nodes_g, s.meta, n_meta);
   const Tex tex(texels_g);
   __syncthreads();
@@ -1380,28 +1419,52 @@ k1_trace(const float* __restrict__ cam_g, const float* __restrict__ mats_g,
   const Camera cam = load_camera(s.cam);
 
   float acc_r = 0.f, acc_g = 0.f, acc_b = 0.f;
+  [[maybe_unused]] unsigned* s_samples = reinterpret_cast<unsigned*>(smem);
   for (int sample = 0; sample < n_spp; ++sample) {
     const uint32_t it = it0 + static_cast<uint32_t>(sample);
     PathState p;
     init_state(p, cam, s.cam, it, pix_u, fx, fy, sx_scale, sy_scale, valid);
     for (int d = 0; d < depth; ++d) {
       const unsigned ballot = __ballot_sync(0xffffffffu, p.live);
-      if (lane == 0) s_counts[warp * depth + d] += __popc(ballot);
+      if constexpr (kPerSample) {
+        if (lane == 0) s_samples[(warp * chunk + sample % chunk) * depth + d] += __popc(ballot);
+      } else {
+        if (lane == 0) s_counts[warp * depth + d] += __popc(ballot);
+      }
       bounce(p, d, it, pix_u, s, mesh, tex);
     }
     acc_r = acc_r + p.rr;
     acc_g = acc_g + p.rg;
     acc_b = acc_b + p.rb;
+    if constexpr (kPerSample) {
+      const int slot = sample % chunk;
+      if (slot == chunk - 1 || sample == n_spp - 1) {
+        // the chunk's counts, summed over the warps, into counts[sample][d]
+        __syncthreads();
+        const long long first = sample - slot;
+        for (int i = threadIdx.x; i < (slot + 1) * depth; i += kBlock) {
+          unsigned long long c = 0ull;
+          for (int w = 0; w < kWarps; ++w) {
+            c += s_samples[w * chunk * depth + i];
+            s_samples[w * chunk * depth + i] = 0u;
+          }
+          if (c) atomicAdd(&counts[first * depth + i], c);
+        }
+        __syncthreads();
+      }
+    }
   }
   if (idx < n_local) {
     rad[3 * idx + 0] = acc_r;
     rad[3 * idx + 1] = acc_g;
     rad[3 * idx + 2] = acc_b;
   }
-  if (lane == 0) {
-    for (int d = 0; d < depth; ++d) {
-      const unsigned long long c = s_counts[warp * depth + d];
-      if (c) atomicAdd(&counts[d], c);
+  if constexpr (!kPerSample) {
+    if (lane == 0) {
+      for (int d = 0; d < depth; ++d) {
+        const unsigned long long c = s_counts[warp * depth + d];
+        if (c) atomicAdd(&counts[d], c);
+      }
     }
   }
 }
@@ -1564,15 +1627,20 @@ k5_span(const float* __restrict__ cam_g, const float* __restrict__ mats_g,
 // kFxLimbs 32-bit limbs in the block's table in shared memory, limb k
 // weighing 2^(12 k): integer atomics, which commute, need no carry and run
 // natively on 32-bit words in shared memory (64-bit ones, integer or
-// float, are compare-and-swap loops there).  A limb takes 2^19 digits
-// before it can overflow, so after each sample the block adds its limbs,
-// as one 128-bit two's-complement integer an entry, into the one table in
-// global memory (fx_flush) and starts again from zero; a sample adds at
-// most 128 threads x depth x (n_lights + 3) digits to a limb
-// (kFxMaxLights).  A term below 2^-64 adds nothing; one that is not finite
-// or reaches 2^62 sets the entry's flag bit, and the entry comes out NaN.
-// fx_round rounds the global table to float32.  The sums are exact while
-// the absolute values of an entry's terms add up to less than 2^63.
+// float, are compare-and-swap loops there).  A limb holds any sum of digits
+// below 2^31 in absolute value: 2^19 digits of up to 2^12 - 1, however
+// they are grouped into adds, so after each sample the block adds its
+// limbs, as one 128-bit two's-complement integer an entry, into the one
+// table in global memory (fx_flush) and starts again from zero; a sample
+// adds at most 128 threads x depth x (n_lights + 3) terms to an entry, one
+// digit each to a limb (kFxMaxLights).  Each lane adds its own terms: the
+// atomics need no result, so a lane does not wait on them, where summing a
+// warp's digits first (__match_any_sync, __reduce_add_sync) chains warp
+// collectives on every add and made K8 2-13 times slower (PERF.md).  A
+// term below 2^-64 adds nothing; one that is not finite or reaches 2^62
+// sets the entry's flag bit, and the entry comes out NaN.  fx_round rounds
+// the global table to float32.  The sums are exact while the absolute
+// values of an entry's terms add up to less than 2^63.
 constexpr int kFxLimbs = 11;     // 11 x 12 bits cover the 128
 constexpr int kFxMaxLights = 64;  // 128 x 32 x (64 + 3) < 2^19
 
@@ -1809,7 +1877,7 @@ static_assert((kFeatures & ~(127u | 128u | 512u)) == 0,
 // K8 — the reverse sweep (replaces the Pallas `_vjp_kernel`, reached from
 // `render_vjp_pallas` through `_run_vjp`): per sample, the forward sweep
 // through K1's init_state and bounce, keeping the state entering each bounce
-// (Saved: 40 bytes, in local memory), then the bounces' adjoints from the
+// and what the bounce found (Saved), then the bounces' adjoints from the
 // last to the first and raygen's, which give the gradient of ct . radiance
 // with respect to every table entry.  The reference transposes its tracer
 // with jax.vjp; CUDA has none, so each step's adjoint is written here by
@@ -1847,70 +1915,75 @@ static_assert((kFeatures & ~(127u | 128u | 512u)) == 0,
 //   (sigma) and tints by the medium's albedo; entering a medium loads mats
 //   17..20.
 //
-// Meshes (masks with bit 512; the reference's "carry" form of bvh_grad):
-// the forward sweep keeps each bounce's winning geom and triangle row
-// beside its state, so bounce_adj walks no BVH: it recomputes the carried
-// triangle's hit (tri_hit) and differentiates it (tri_adj).  The row, the
-// face it shows and the winner are detached, as the reference's carried
-// row is: the triangles get no gradient (render_vjp returns tri_verts
-// None, as the reference does).  NEE's shadow rays walk the BVH again in
-// nee_adj; their visibility is detached.
+// The reverse sweep does not repeat the forward's search.  The forward
+// keeps each bounce's winning geom (and in the mesh builds, the reference's
+// "carry" form of bvh_grad, its triangle row) beside its state, so
+// bounce_adj recomputes only the winner's own test (the carried triangle's
+// hit, tri_hit, or the primitive's, the fold over that one geom) and
+// differentiates it (tri_adj, hit_adj).  With NEE, nee_add keeps a bit per
+// light, set where the shadow test saw the sample, and nee_adj takes it:
+// no shadow ray is traced and no BVH walked in the reverse sweep.  The
+// winner, the row, the face it shows and the visibility are detached, as
+// the reference's selects and carried row are: the triangles get no
+// gradient (render_vjp returns tri_verts None, as the reference does).
 //
 // What bounds it: K1's operations, plus K7's fold without NEE (the only
 // gradient that is not zero there is the materials') or the adjoints with
-// NEE (bound.k8_extra).  It runs far from that: the states live in local
-// memory (kVjpMaxDepth of them a thread), the
-// nearest hit of a primitive is traced again in bounce_adj, and the threads
-// of a block that hit one geom serialise on its rows' shared atomics.
+// NEE (bound.k8_extra), and the states each live bounce keeps, written and
+// read once.  It runs far from that: the adjoints and their exact adds
+// (fx_add) take about half of its time, the forward sweep at K8's register
+// count the rest (PERF.md section 5).  The states live in local memory
+// (kVjpMaxDepth of them a thread): in shared memory they would cost more
+// occupancy than they save.
 constexpr int kVjpMaxDepth = 32;
 // raygen's camera gradients: pos, view, right, up, tan (and the lens)
 constexpr int kCamGrads = kDof ? 16 : 14;
 
-// The state entering a bounce; in the mesh builds also the winner its
-// fold found (geom; triangle row, -1: a primitive or none); in the SSS
-// builds also the medium the path is in.
-template <bool kCarry, bool kMed>
-struct SavedT {
+// The state entering a bounce and what its forward found: the winning geom
+// (-1: none) and, in the mesh builds, its triangle row (-1: a primitive);
+// with NEE, the lights whose samples its shadow rays saw (bit k: light k);
+// in the SSS builds also the medium the path is in.
+struct SavedCore {
   float ox, oy, oz, dx, dy, dz, tr, tg, tb;
+  int geom;
   bool live, emit_ok;
 };
-template <>
-struct SavedT<true, false> {
-  float ox, oy, oz, dx, dy, dz, tr, tg, tb;
-  bool live, emit_ok;
-  int geom, row;
-};
-template <>
-struct SavedT<false, true> {
-  float ox, oy, oz, dx, dy, dz, tr, tg, tb;
-  bool live, emit_ok;
-  float med_s, med_r, med_g, med_b;
-};
-template <>
-struct SavedT<true, true> {
-  float ox, oy, oz, dx, dy, dz, tr, tg, tb;
-  bool live, emit_ok;
-  int geom, row;
-  float med_s, med_r, med_g, med_b;
-};
-using Saved = SavedT<kMesh, kSss>;
+template <bool> struct SavedRow {};
+template <> struct SavedRow<true> { int row; };
+template <bool> struct SavedMed {};
+template <> struct SavedMed<true> { float med_s, med_r, med_g, med_b; };
+template <bool> struct SavedVis {};
+template <> struct SavedVis<true> { unsigned long long vis; };
+struct Saved : SavedCore, SavedRow<kMesh>, SavedMed<kSss>, SavedVis<kNee> {};
 
+// The state entering a bounce, into sv.
 template <typename S>
-__device__ __forceinline__ void keep_winner(S& sv, const PathState& p) {
-  if constexpr (kMesh) {
-    sv.geom = p.win_geom;
-    sv.row = p.win_row;
-  }
-}
-
-template <typename S>
-__device__ __forceinline__ void keep_medium(S& sv, const PathState& p) {
+__device__ __forceinline__ void keep_state(S& sv, const PathState& p) {
+  sv.ox = p.ox;
+  sv.oy = p.oy;
+  sv.oz = p.oz;
+  sv.dx = p.dx;
+  sv.dy = p.dy;
+  sv.dz = p.dz;
+  sv.tr = p.tr;
+  sv.tg = p.tg;
+  sv.tb = p.tb;
+  sv.live = p.live;
+  sv.emit_ok = p.emit_ok;
   if constexpr (kSss) {
     sv.med_s = p.med_s;
     sv.med_r = p.med_r;
     sv.med_g = p.med_g;
     sv.med_b = p.med_b;
   }
+}
+
+// What the bounce's forward found, into sv: its winner and visibility.
+template <typename S>
+__device__ __forceinline__ void keep_found(S& sv, const PathState& p) {
+  sv.geom = p.win_geom;
+  if constexpr (kMesh) sv.row = p.win_row;
+  if constexpr (kNee) sv.vis = p.nee_vis;
 }
 
 // The cotangents of the ray and the throughput a bounce hands on, and in
@@ -2290,13 +2363,14 @@ __device__ void spec_lobe_adj(float m_ex, const float* mr, float u_s1, float u_s
 // light whose sample is seen, the gradient of ct . (tr * albedo * emission
 // / pi * cos cos' / r^2 * area) to the throughput (g_t), the hit point
 // (gp), the normal (gn), the albedo (ga: the albedo row's gradient entries)
-// and the light's row.  The shadow rays walk the mesh tables again, as the
-// forward's did.
+// and the light's row.  Which samples were seen is the forward's shadow
+// test, carried in vis (bit k: light k): no shadow ray is traced again.
 __device__ void nee_adj(const float* tr, const Hit& h, const float* n, const float* al,
                         float time, uint32_t it, uint32_t pix, uint32_t dep, const Tables& s,
-                        const Mesh mesh, const float* ct, float* g_t, float* gp, float* gn,
-                        const Fx& ga, const GradTab& G) {
+                        unsigned long long vis, const float* ct, float* g_t, float* gp,
+                        float* gn, const Fx& ga, const GradTab& G) {
   for (int k = 0; k < s.n_lights; ++k) {
+    if (!((vis >> k) & 1ull)) continue;  // not seen: no term
     const float* lr = s.lights + k * kLightCols;
     const Fx gl = G.lights + k * kLightCols;
     const uint32_t base = pt::kDrawNeeBase + 3u * static_cast<uint32_t>(k);
@@ -2343,10 +2417,6 @@ __device__ void nee_adj(const float* tr, const Hit& h, const float* n, const flo
     const float dist_l = sqrtf(fmaxf(r2, 1e-12f));
     const float inv_dl = 1.f / dist_l;
     const float sd[3] = {wl[0] * inv_dl, wl[1] * inv_dl, wl[2] * inv_dl};
-    const Hit sh = nearest<true>(h.px, h.py, h.pz, sd[0], sd[1], sd[2], time, s.gmat, s.types,
-                                 s.n_geoms, mesh);
-    const float tol = fmaxf(1e-3f, 5e-3f * dist_l);
-    if (sh.geom != static_cast<int>(lr[0]) || !(fabsf(sh.dist - dist_l) < tol)) continue;
     const float cs_raw = n[0] * sd[0] + n[1] * sd[1] + n[2] * sd[2];
     const float cl_raw = -(ln[0] * sd[0] + ln[1] * sd[1] + ln[2] * sd[2]);
     const float cos_s = fmaxf(cs_raw, 0.f), cos_l = fmaxf(cl_raw, 0.f);
@@ -2413,8 +2483,10 @@ __device__ void nee_adj(const float* tr, const Hit& h, const float* n, const flo
 }
 
 // The hit of the winner of the bounce that started from sv at shutter time
-// `time`: the carried triangle's (tri_hit, whose row goes to *wt), else the
-// primitives' fold again (no mesh walked), whose winner is the forward's.
+// `time`, as the forward found it: the carried triangle's (tri_hit, whose
+// row goes to *wt), else the carried primitive's own test (the fold over
+// the one geom [g, g + 1), the fold's arithmetic; no other geom is tested
+// and no mesh walked); geom -1 where the forward found none.
 template <typename S, typename M>
 __device__ __forceinline__ Hit winner_hit(const S& sv, float time, const Tables& s,
                                           const M& mesh, const float4** wt) {
@@ -2426,8 +2498,16 @@ __device__ __forceinline__ Hit winner_hit(const S& sv, float time, const Tables&
                             sv.oz, sv.dx, sv.dy, sv.dz, time);
     }
   }
-  return nearest<false>(sv.ox, sv.oy, sv.oz, sv.dx, sv.dy, sv.dz, time, s.gmat, s.types,
-                        s.n_geoms, M(nullptr, nullptr, nullptr, 0));
+  const int g = sv.geom;
+  if (g < 0) {
+    Hit h{};
+    h.geom = -1;
+    return h;
+  }
+  Hit h = nearest<false>(sv.ox, sv.oy, sv.oz, sv.dx, sv.dy, sv.dz, time, s.gmat + g * kGeomCols,
+                         s.types + g, 1, M(nullptr, nullptr, nullptr, 0));
+  h.geom += g;
+  return h;
 }
 
 // The adjoint of the mirror d' = d - 2 (n . d) n: from g_dn, the
@@ -2662,9 +2742,16 @@ __device__ void bounce_adj(const S& sv, int d, uint32_t it, uint32_t pix, float 
   }
   if constexpr (kNee) {
     if (!(mt[8] > 0.f))
-      nee_adj(tr, h, n, al, time, it, pix, dep, s, mesh, ct, g_t, gp, gn, ga, G);
+      nee_adj(tr, h, n, al, time, it, pix, dep, s, sv.vis, ct, g_t, gp, gn, ga, G);
   }
   for (int k = 0; k < 3; ++k) c.t[k] = g_t[k];
+  // the hit's adjoint from the cotangents of its point and normal: where
+  // both are zero (every bounce without NEE, whose radiance the geometry
+  // does not move), each of its terms is zero and adds nothing, so it is
+  // skipped (a NaN cotangent is not zero, and is carried)
+  if (gp[0] == 0.f && gp[1] == 0.f && gp[2] == 0.f && gn[0] == 0.f && gn[1] == 0.f &&
+      gn[2] == 0.f)
+    return;
   [[maybe_unused]] float gq[3] = {0.f, 0.f, 0.f};
   if constexpr (kBump) {
     if (bumped) {
@@ -2682,7 +2769,9 @@ __device__ void bounce_adj(const S& sv, int d, uint32_t it, uint32_t pix, float 
   }
 }
 
-__global__ void __launch_bounds__(kBlock)
+// 7 blocks an SM: at most 72 registers a thread (the rest spill to local
+// memory), a latency-bound sweep's trade (PERF.md section 5)
+__global__ void __launch_bounds__(kBlock, 7)
 k8_vjp(const float* __restrict__ cam_g, const float* __restrict__ mats_g,
        const float* __restrict__ gmat_g, const int* __restrict__ types_g,
        const float* __restrict__ lights_g, const float4* __restrict__ tri_g,
@@ -2730,10 +2819,9 @@ k8_vjp(const float* __restrict__ cam_g, const float* __restrict__ mats_g,
     PathState p;
     init_state(p, cam, s.cam, it, pix_u, fx, fy, sx_scale, sy_scale, valid);
     for (int d = 0; d < depth; ++d) {
-      saved[d] = Saved{p.ox, p.oy, p.oz, p.dx, p.dy, p.dz, p.tr, p.tg, p.tb, p.live, p.emit_ok};
-      keep_medium(saved[d], p);
+      keep_state(saved[d], p);
       bounce(p, d, it, pix_u, s, mesh, tex);
-      keep_winner(saved[d], p);
+      keep_found(saved[d], p);
     }
     acc_r = acc_r + p.rr;
     acc_g = acc_g + p.rg;
@@ -2840,9 +2928,10 @@ extern "C" int pt_k1_features() { return static_cast<int>(kFeatures); }
 // the others need n_meta = 0.  `texels` (n_texels uint32 words) and
 // `charts` (n_geoms, 6) are read by a library built for textures, which
 // needs n_texels > 0; the others need 0.
-// rad (n_local,3) float32 is written; counts (depth,) must be zeroed by the
-// caller and is added into.  Returns the cudaError_t of the launch (0 =
-// success).
+// rad (n_local,3) float32 is written; counts, the live paths entering each
+// bounce, (n_spp, depth) with per_sample (each sample's) or else (depth,)
+// (summed over the samples), must be zeroed by the caller and is added
+// into.  Returns the cudaError_t of the launch (0 = success).
 extern "C" int pt_k1_trace(const float* cam, const float* mats,
                            const float* gmat, const int* geom_types,
                            const float* lights, const float* tri,
@@ -2851,24 +2940,25 @@ extern "C" int pt_k1_trace(const float* cam, const float* mats,
                            int n_lights, int n_meta, long long n_texels, int width, int height,
                            int depth, unsigned int it0, int n_spp,
                            long long pix0, long long n_local, float* rad,
-                           unsigned long long* counts, void* stream) {
+                           unsigned long long* counts, int per_sample, void* stream) {
   if (kNee != (n_lights > 0) || n_lights < 0 || n_meta < 0 || (!kMesh && n_meta > 0) ||
-      kTexAny != (n_texels > 0) || n_texels < 0)
+      kTexAny != (n_texels > 0) || n_texels < 0 || depth <= 0 || n_spp < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = tables_smem(depth, n_geoms, n_lights, n_meta);
+  const auto kernel = per_sample ? k1_trace<true> : k1_trace<false>;
+  const size_t smem = tables_smem(
+      per_sample ? k1_count_rows(k1_count_chunk(n_spp, depth), depth) : depth, n_geoms,
+      n_lights, n_meta);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        k1_trace, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   const long long blocks = (n_local + kBlock - 1) / kBlock;
   if (blocks <= 0 || blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  k1_trace<<<static_cast<unsigned>(blocks), kBlock, smem,
-             static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<static_cast<unsigned>(blocks), kBlock, smem, static_cast<cudaStream_t>(stream)>>>(
       cam, mats, gmat, geom_types, lights, reinterpret_cast<const float4*>(tri),
       reinterpret_cast<const float4*>(nodes), meta, texels, charts, n_geoms, n_lights, n_meta,
-      width,
-      height, depth, it0, n_spp, pix0, n_local, rad, counts);
+      width, height, depth, it0, n_spp, pix0, n_local, rad, counts);
   return static_cast<int>(cudaGetLastError());
 }
 

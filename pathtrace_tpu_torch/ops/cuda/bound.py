@@ -123,16 +123,11 @@ def span_state_bytes(n_keys, counts, spans, pix=False):
     return 4 * n
 
 
-def scan_bytes(n, tile=2048):
-    """The bytes K6 must move for an exclusive scan of ``n`` int32
-    values in tiles of ``tile``: each value read and written once, at
-    each level of tile totals the totals written and read and the offsets
-    written and read, and the last level's one total written."""
-    n_bytes, t = 8 * n, -(-n // tile)
-    while t > 1:
-        n_bytes += 16 * t
-        t = -(-t // tile)
-    return n_bytes + 4
+def scan_bytes(n):
+    """The bytes any exclusive scan of ``n`` int32 values must move:
+    each value read once and its prefix written once (no design's own
+    traffic, such as K6's status words)."""
+    return 8 * n
 
 
 # The least float ops of K8's adjoints (``csrc/megakernel.cu``), counted

@@ -92,7 +92,8 @@ def build_many(jobs):
         log, _ = proc.communicate()
         seconds = time.perf_counter() - t0
         if proc.returncode != 0:
-            os.unlink(tmp)
+            if os.path.exists(tmp):  # nvcc may have removed it
+                os.unlink(tmp)
             failed.append(f"nvcc failed building {name} (exit "
                           f"{proc.returncode}):\n{' '.join(cmd)}\n{log}")
             continue
@@ -207,7 +208,7 @@ def load_k1(mask=0):
             i, i, i,                               # width, height, depth
             ctypes.c_uint, i,                      # it0, n_spp
             ctypes.c_longlong, ctypes.c_longlong,  # pix0, n_local
-            p, p, p,                               # rad, counts, stream
+            p, p, i, p,                            # rad, counts, per_sample, stream
         ]
         lib.pt_k1_trace.restype = i
         lib.pt_k5_span.argtypes = [
@@ -242,12 +243,12 @@ def load_k6():
     if "k6" not in _LIBS:
         lib = ctypes.CDLL(str(build(*K6_JOB)))
         p, ll = ctypes.c_void_p, ctypes.c_longlong
-        lib.pt_k6_scan.argtypes = [p, p, p, ll, p]
+        lib.pt_k6_scan.argtypes = [p, p, p, ll, ll, p]
         lib.pt_k6_scan.restype = ctypes.c_int
-        lib.pt_k6_scratch.argtypes = [ll]
-        lib.pt_k6_scratch.restype = ll
         lib.pt_k6_tile.argtypes = []
         lib.pt_k6_tile.restype = ll
+        lib.pt_k6_max_tag.argtypes = []
+        lib.pt_k6_max_tag.restype = ll
         lib.pt_cuda_error_string.argtypes = [ctypes.c_int]
         lib.pt_cuda_error_string.restype = ctypes.c_char_p
         _LIBS["k6"] = lib

@@ -1556,7 +1556,7 @@ def bounces(sc, st, it, pix, d0, d1, counts, grad_mats=None):
 def trace_plain(cam, mats, gmat, geom_types, width, height, depth, it0,
                 n_spp, pix0=0, features=NO_FEATURES, lights=None, rr=False,
                 tri=None, nodes=None, bvh_meta=(), texels=None, tex_geom=(),
-                btex_geom=()):
+                btex_geom=(), per_sample=False):
     """Plain PyTorch K1 on the device of ``cam``: ``n_spp`` samples of
     pixels ``pix0 ..`` to the end of the image (all of it by default) at
     iterations ``it0 .. it0+n_spp-1``, with the scene ``features``
@@ -1569,21 +1569,23 @@ def trace_plain(cam, mats, gmat, geom_types, width, height, depth, it0,
     :func:`init_state` and :func:`bounces` over every bounce.
 
     Returns (rad (P - pix0, 3) f32 summed over the samples, counts
-    (depth,) int64: live paths entering each bounce, summed over the
-    samples)."""
+    (n_spp, depth) int64: live paths entering each bounce of each
+    sample, or with ``per_sample`` False their sum over the samples,
+    (depth,))."""
     device = cam.device
     sc = plain_scene(cam, mats, gmat, geom_types, features, lights, rr, tri,
                      nodes, bvh_meta, texels, tex_geom, btex_geom)
     pixel = torch.arange(pix0, width * height, dtype=torch.int64,
                          device=device)
     acc = [torch.zeros(pixel.shape, device=device) for _ in range(3)]
-    counts = torch.zeros(depth, dtype=torch.int64, device=device)
+    counts = torch.zeros((n_spp, depth), dtype=torch.int64, device=device)
     for s in range(n_spp):
         it = (it0 + s) & 0xFFFFFFFF
         st = bounces(sc, init_state(sc, it, pixel, width, height), it,
-                     pixel, 0, depth, counts)
+                     pixel, 0, depth, counts[s])
         acc = [a + st[k] for a, k in zip(acc, ("rr", "rg", "rb"))]
-    return torch.stack(acc, dim=-1), counts
+    return (torch.stack(acc, dim=-1),
+            counts if per_sample else counts.sum(0))
 
 
 # ----------------------------------------------------------------------------
@@ -1727,7 +1729,7 @@ def launch_error(name, lib, err):
 def trace_k1(cam, mats, gmat, geom_types, width, height, depth, it0, n_spp,
              pix0=0, features=NO_FEATURES, lights=None, rr=False,
              tri=None, nodes=None, bvh_meta=(), texels=None, tex_geom=(),
-             btex_geom=()):
+             btex_geom=(), per_sample=False):
     """K1 (and K2 when ``lights`` is given, K3 when ``bvh_meta`` is,
     K3-linear when it is without ``nodes``, K4 when ``tex_geom`` or
     ``btex_geom`` is): the same computation and result as
@@ -1736,12 +1738,16 @@ def trace_k1(cam, mats, gmat, geom_types, width, height, depth, it0, n_spp,
     For tensors on the CPU this is :func:`trace_plain`.  For tensors on
     a CUDA device it launches the kernel of ``csrc/megakernel.cu``
     compiled for this feature set on the current stream (building it at
-    first use) and raises if the build or the launch fails."""
+    first use) and raises if the build or the launch fails.  With
+    ``per_sample`` the counts are each sample's, (n_spp, depth), from
+    the kernel's per-sample form (``k1_trace<true>``); else (depth,),
+    summed over the samples."""
     device = cam.device
     if device.type == "cpu":
         return trace_plain(cam, mats, gmat, geom_types, width, height,
                            depth, it0, n_spp, pix0, features, lights, rr,
-                           tri, nodes, bvh_meta, texels, tex_geom, btex_geom)
+                           tri, nodes, bvh_meta, texels, tex_geom, btex_geom,
+                           per_sample)
     if device.type != "cuda":
         raise ValueError(f"K1 runs on cuda or cpu tensors, not {device}")
     from . import build
@@ -1757,14 +1763,17 @@ def trace_k1(cam, mats, gmat, geom_types, width, height, depth, it0, n_spp,
                                rr, tri, nodes, bvh_meta, texels, tex_geom,
                                btex_geom)
     rad = torch.empty((n_local, 3), dtype=torch.float32, device=device)
-    # the kernel adds into these as unsigned 64-bit integers
-    counts = torch.zeros(depth, dtype=torch.int64, device=device)
+    # the kernel adds into these as unsigned 64-bit integers: per sample
+    # (its per-sample build), or summed over the samples
+    counts = torch.zeros((n_spp, depth) if per_sample else depth,
+                         dtype=torch.int64, device=device)
     lib = build.load_k1(mask)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.pt_k1_trace(
             *args, width, height, depth, it0 & 0xFFFFFFFF, n_spp, pix0,
-            n_local, rad.data_ptr(), counts.data_ptr(), stream)
+            n_local, rad.data_ptr(), counts.data_ptr(), int(per_sample),
+            stream)
     launch_error("K1", lib, err)
     LAUNCHES[mask] += 1
     return rad, counts

@@ -15,12 +15,11 @@ Counterpart of ``pathtrace_tpu/ops/scan.py``, with its API:
 * :func:`compact` -- a tensor, or a dict, list or tuple of tensors,
   gathered into that order.
 
-On a CUDA tensor the scan launches K6 (``csrc/scan.cu``: GPU Gems 3
-ch. 39's scan of tiles, their totals and the offsets added) and raises
-if the build or the launch fails; on a CPU tensor it is the plain
-version, :func:`prefix_sum_plain`, which takes the kernel's steps in
-torch ops.  The scatter of ``arange`` to the slots is a torch op on
-both, as the reference left it to XLA.
+On a CUDA tensor the scan launches K6 (``csrc/scan.cu``: one launch, a
+decoupled look-back between tiles) and raises if the build or the launch
+fails; on a CPU tensor it is the plain version, :func:`prefix_sum_plain`,
+which takes the kernel's steps in torch ops.  The scatter of ``arange``
+to the slots is a torch op on both, as the reference left it to XLA.
 """
 
 from __future__ import annotations
@@ -30,43 +29,90 @@ from collections import Counter
 import torch
 
 # Values of one K6 tile (csrc/scan.cu kTile): the plain version's tiles.
-TILE = 2048
+TILE = 4096
 
 # Launches of K6 (one per scan on a CUDA tensor), under "k6_scan".
 LAUNCHES = Counter()
 
+# K6's scratch per device index: [library, state (the ticket, then one
+# status word per tile; int64, zeroed when made), tiles it holds, calls,
+# the largest tag].
+# Scans on one device run in stream order: two streams must not scan at
+# once.
+_K6 = {}
+
 
 def prefix_sum_plain(x):
     """The exclusive prefix sum of int tensor ``x`` (1-D) in K6's steps:
-    each tile's exclusive scan and total, the totals scanned (the same
-    way, while there is more than one tile), each tile's offset added.
-    Returns int32."""
+    each tile's inclusive sums and its total (the aggregate), then the
+    look-back, in tile order: each tile's exclusive prefix is its
+    predecessor's plus that one's aggregate; each tile's values offset by
+    it.  Returns int32 (wrapping past 2^31 - 1 as the kernel does)."""
     n = x.numel()
     n_tiles = -(-n // TILE)
     tiles = torch.nn.functional.pad(
         x.to(torch.int64), (0, n_tiles * TILE - n)).view(n_tiles, TILE)
     incl = torch.cumsum(tiles, dim=1)
-    excl = incl - tiles
-    if n_tiles > 1:
-        excl = excl + prefix_sum_plain(incl[:, -1]).to(torch.int64)[:, None]
-    return excl.reshape(-1)[:n].to(torch.int32)
+    prefix, run = [], 0
+    for agg in incl[:, -1].tolist():
+        prefix.append(run)
+        run += agg
+    prefix = torch.tensor(prefix, dtype=torch.int64, device=x.device)
+    return (incl - tiles + prefix[:, None]).reshape(-1)[:n].to(torch.int32)
 
 
-def _scan_k6(x):
-    """K6 on int32 CUDA tensor ``x``: its exclusive prefix sum, int32."""
-    from .cuda import build
-    from .cuda.megakernel import launch_error
+def _k6_state(index, n_tiles):
+    """K6's library and scratch for device ``index`` holding ``n_tiles``
+    tiles, made (or grown, zeroed) here."""
+    st = _K6.get(index)
+    if st is None:
+        from .cuda import build
 
-    lib = build.load_k6()
-    n = x.numel()
+        lib = build.load_k6()
+        if lib.pt_k6_tile() != TILE:
+            raise RuntimeError(f"K6 tiles of {lib.pt_k6_tile()} values, the "
+                               f"plain version's of {TILE}")
+        st = _K6[index] = [lib, None, 0, 0, lib.pt_k6_max_tag()]
+    if n_tiles > st[2]:
+        st[2] = max(n_tiles, 2 * st[2])
+        st[1] = torch.zeros(1 + st[2], dtype=torch.int64,
+                            device=torch.device("cuda", index))
+    if st[3] >= st[4]:  # the tags start again on zeroed words
+        st[1].zero_()
+        st[3] = 0
+    return st
+
+
+def _stream(index):
+    """The raw handle of device ``index``'s current stream."""
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    return (raw(index) if raw is not None
+            else torch.cuda.current_stream(index).cuda_stream)
+
+
+def _scan_k6(x, n):
+    """K6 on the ``n`` int32 values of contiguous CUDA tensor ``x``: its
+    exclusive prefix sum, int32, in one launch, with no allocation but
+    the output's.  The host path is one ``ctypes`` call: K6 is timed
+    around it."""
+    index = x.get_device()
+    st = _K6.get(index)
+    if st is None or n > st[2] * TILE or st[3] >= st[4]:
+        st = _k6_state(index, -(-n // TILE))
+    st[3] += 1
     out = torch.empty_like(x)
-    scratch = torch.empty(lib.pt_k6_scratch(n), dtype=torch.int32,
-                          device=x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.pt_k6_scan(x.data_ptr(), out.data_ptr(), scratch.data_ptr(),
-                             n, stream)
-    launch_error("K6", lib, err)
+    if index == torch.cuda.current_device():
+        err = st[0].pt_k6_scan(x.data_ptr(), out.data_ptr(),
+                               st[1].data_ptr(), n, st[3], _stream(index))
+    else:
+        with torch.cuda.device(index):
+            err = st[0].pt_k6_scan(x.data_ptr(), out.data_ptr(),
+                                   st[1].data_ptr(), n, st[3],
+                                   _stream(index))
+    if err:
+        from .cuda.megakernel import launch_error
+
+        launch_error("K6", st[0], err)
     LAUNCHES["k6_scan"] += 1
     return out
 
@@ -75,14 +121,17 @@ def scan_int(x):
     """The exclusive prefix sum of the 1-D tensor ``x`` as int32 (``x``
     cast to int32 first): K6 on a CUDA tensor, :func:`prefix_sum_plain`
     on a CPU one."""
-    if x.dim() != 1 or not 0 < x.numel() < 2 ** 31:
+    n = x.numel()
+    if x.dim() != 1 or not 0 < n < 2 ** 31:
         raise ValueError(f"scan: want a 1-D tensor of 1 .. 2^31-1 values, "
                          f"got shape {tuple(x.shape)}")
-    if x.device.type == "cpu":
-        return prefix_sum_plain(x)
-    if x.device.type != "cuda":
+    if x.is_cuda:
+        if x.dtype != torch.int32:
+            x = x.to(torch.int32)
+        return _scan_k6(x if x.is_contiguous() else x.contiguous(), n)
+    if x.device.type != "cpu":
         raise ValueError(f"K6 runs on cuda or cpu tensors, not {x.device}")
-    return _scan_k6(x.to(torch.int32).contiguous())
+    return prefix_sum_plain(x)
 
 
 def prefix_sum(x):

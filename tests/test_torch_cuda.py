@@ -93,6 +93,19 @@ def test_pathtrace_batch_cuda_runs_the_kernel(cuda):
     _assert_tie_flip_bound(rad.cpu(), ref, counts.cpu(), ref_counts)
 
 
+def test_k1_counts_per_sample_over_chunks(cuda):
+    # 70 samples at depth 8 take two of K1's count chunks (64 samples a
+    # block): each sample's row is that sample's own launch's
+    job = K.prepare(_scene("cornell", (24, 16)), cuda)
+    rad, per = K.trace_k1(**job, it0=5, n_spp=70, per_sample=True)
+    assert tuple(per.shape) == (70, 8)
+    for s in (0, 1, 63, 64, 69):
+        _, one = K.trace_k1(**job, it0=5 + s, n_spp=1, per_sample=True)
+        assert torch.equal(per[s], one[0])
+    assert torch.equal(K.trace_k1(**job, it0=5, n_spp=70)[1], per.sum(0))
+    assert int(per[:, 0].min()) == 24 * 16
+
+
 def test_k1_rejects_bad_tables(cuda):
     scene = _scene("cornell", (8, 8))
     cam, mats, gmat = K.pack_scene(scene, cuda)
@@ -343,6 +356,26 @@ def test_k6_matches_plain_and_cumsum(cuda, n):
         assert torch.equal(SC.prefix_sum(x.to(cuda)).cpu(), want.float())
 
 
+def test_k6_one_scratch_over_growing_and_shrinking_calls(cuda):
+    # one launch a scan, on the one scratch the wrapper keeps per device
+    # (grown, never shrunk): each call's tag keeps it from reading the
+    # status words an earlier call left
+    sizes = [5000, 2073600, 1, 640000, 4097, 16200, 3 * SC.TILE + 5,
+             2 ** 21 + 7]
+    g = torch.Generator().manual_seed(9)
+    kept = None
+    for n in sizes + sizes[::-1]:
+        x = (torch.rand(n, generator=g) < 0.4).to(torch.int32).to(cuda)
+        before = SC.LAUNCHES["k6_scan"]
+        got = SC.scan_int(x)
+        assert SC.LAUNCHES["k6_scan"] == before + 1
+        assert torch.equal(got, torch.cumsum(x, 0, dtype=torch.int32) - x)
+        if n == max(sizes):
+            kept = SC._K6[x.device.index][1].data_ptr()
+        elif kept is not None:
+            assert SC._K6[x.device.index][1].data_ptr() == kept
+
+
 def test_k6_compact_indices_is_the_stable_partition(cuda):
     g = torch.Generator().manual_seed(5)
     mask = torch.rand(16200, generator=g) < 0.3
@@ -501,6 +534,38 @@ def test_k8_two_calls_give_equal_gradients(cuda, nee):
     _, b = VJ.trace_k8(*_k8_args(job, ct))
     for x, y in zip(a, b):
         assert torch.equal(x, y)
+
+
+# K8's digests at 64x64 d4, 1 spp (tests/torch_digest.py --k8): radiance,
+# rounded tables; those of the reverse sweep that traced its winners and
+# shadow rays again, whose bits carrying them keeps
+K8_DIGESTS = {
+    0: ("22767a99bc40ecf7", "8037406d538dace3"),
+    7: ("10ce831b5297b86e", "106e07f256b871b5"),
+    24: ("0f49d66e9e40cbc4", "b091089cb0688847"),
+    103: ("9eca4ddf6a7bf6bd", "9078fefaa892a156"),
+    128: ("32c88f0bb51b269d", "352605660ee6bab8"),
+    135: ("fd299ef8d8e2277a", "b2731acca9e938cf"),
+    152: ("10703fb6e67c5f27", "d044a42f9672d87a"),
+    231: ("d808f80cb8f7fe2d", "c3ec8b8a73fdfa5b"),
+    512: ("725b0e5df5cebeca", "dac6df6f21d19a52"),
+    537: ("16b08a466d02a81c", "7a0f230ace56b7ee"),
+    544: ("508e7d7c1098e8ab", "afa1e9a7a99378ad"),
+    640: ("b10e1d8c71141f28", "4c97e9f1e5350aa8"),
+    665: ("27c3a26bab325650", "460e5ac5e83d713d"),
+    672: ("83029ee344d0278e", "d90f57b95ff2e18b"),
+}
+
+
+@pytest.mark.parametrize("mask", sorted(VJ.MASKS))
+def test_k8_digests_are_pinned(cuda, mask):
+    # two calls give the same bits, and the pinned ones
+    import torch_digest as TD
+
+    (scene, nee), = [(sc, nee) for sc, nee, m in TD.k8_scenes(REPO, ptt, K)
+                     if m == mask]
+    got = [TD.k8_digest(torch, K, VJ, scene, nee, mask) for _ in range(2)]
+    assert got[0] == got[1] == K8_DIGESTS[mask]
 
 
 def test_k8_flags_a_term_that_is_not_finite(cuda):

@@ -84,3 +84,23 @@ def test_scan_rejects_bad_input():
         ptt.prefix_sum(torch.zeros((2, 3)))
     with pytest.raises(ValueError, match="1-D"):
         ptt.prefix_sum(torch.zeros(0))
+
+
+@pytest.mark.parametrize("n", [1, SC.TILE - 1, SC.TILE, SC.TILE + 1,
+                               3 * SC.TILE + 5])
+def test_plain_look_back_matches_reference_around_the_tile(n):
+    # the plain version's tiles and look-back, at sizes around K6's tile,
+    # against the reference's kernel in interpret mode: exactly equal
+    x = np.random.RandomState(n).randint(0, 4, size=n).astype(np.int32)
+    want = np.asarray(prefix_sum_pallas(jnp.asarray(x), interpret=True))
+    got = SC.prefix_sum_plain(torch.from_numpy(x))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("n", [640000, 2073600])
+def test_plain_look_back_matches_cumsum_at_mask_sizes(n):
+    # the mask sizes timed on the card: exactly cumsum(x) - x
+    x = (np.random.RandomState(n).rand(n) < 0.4).astype(np.int32)
+    got = SC.prefix_sum_plain(torch.from_numpy(x)).numpy()
+    np.testing.assert_array_equal(got, np.cumsum(x) - x)

@@ -134,7 +134,7 @@ def test_entry_points_take_compaction_and_remat():
     got = ptt.pathtrace_batch(scene, 1, 2, "sort", False, device="cpu")
     for a, b in zip(got, want):
         assert torch.equal(a, b)
-    assert want[1].shape == (3,)  # summed over the samples
+    assert want[1].shape == (2, 3)  # per sample, as the reference's
     acc = ptt.render(scene, 2, 2, "sort", device="cpu")
     assert torch.equal(acc, want[0])
     with pytest.raises(ValueError, match="compaction"):

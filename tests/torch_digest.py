@@ -2,7 +2,8 @@
 the port on one card.
 
     python3 tests/torch_digest.py [ROOT] [--time] [--regs MASK,MASK,...]
-                                  [--sass MASK,MASK,...]
+                                  [--sass MASK,MASK,...] [--k8] [--k8-time]
+                                  [--k6]
 
 For cornell.txt (the build without features, mask 0) and cornell_mesh.txt
 (the mesh build, mask 512), each at 96x80, depth 8, 3 samples from
@@ -19,9 +20,21 @@ spills as ``-Xptxas -v`` reports them; without ``--time`` it then stops
 ``megakernel.cu`` for each mask listed to a cubin and prints, for each
 kernel of it, the sha256 (first 16 hex digits) and the instruction count
 of its SASS as ``cuobjdump -sass`` prints it: equal digests on two
-checkouts are the same machine code.  ROOT is the root of a checkout whose
-``pathtrace_tpu_torch`` and ``scenes/`` are used (default: this one).
-Needs a CUDA GPU.  Imports no JAX.
+checkouts are the same machine code.  With ``--k8`` it prints, for each
+build of K8 in ``vjp.MASKS`` (all built at once first), the sha256 of
+its radiance and of its rounded gradient tables (cam, mats, gmat,
+lights, concatenated) at 64x64 d4, 1 spp, iteration 1, under a
+cotangent drawn from a numpy seed, on the scene of that build (``K8_JOBS``: cornell, cornell_mesh, cornell_glass,
+cornell_checker and the variants of ``scene/variants.py``): these are the
+digests that ``test_torch_cuda.py`` pins.  With ``--k8-time`` it prints
+each K8 build's ms on its scene at the file's own size, depth 8, 1 spp a
+call: the median of 9 calls, CUDA events, after one warm call.  With
+``--k6`` it prints the sha256 of K6's output at ``K6_SIZES`` (0/1 masks
+from a numpy seed), checks it against ``cumsum(x) - x``, and prints the
+device time a call of K6 and of ``torch.cumsum(x, dtype=int32) - x``
+(the kernels alone: ``torch.profiler`` over 50 calls).  ROOT is the
+root of a checkout whose ``pathtrace_tpu_torch`` and ``scenes/`` are used
+(default: this one).  Needs a CUDA GPU.  Imports no JAX.
 """
 
 import argparse
@@ -32,14 +45,25 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import time
 
 JOBS = (("cornell", 0), ("cornell_mesh", 512))  # scene file, feature mask
 RES, DEPTH, SPP = (96, 80), 8, 3
 TIMED = ("cornell", "cornell_bigmesh")  # at the files' own size
 TIME_SPP, TIME_CALLS = 8, 9
 # the kernels of the sources, by the names ptxas reports them under
-KERNELS = ("k1_trace", "k5_span", "k6_scan_tiles", "k6_add_offsets",
-           "k9_probe", "k7_grads", "k8_vjp", "fx_round")
+KERNELS = ("k1_trace", "k5_span", "k6_scan", "k9_probe", "k7_grads",
+           "k8_vjp", "fx_round")
+# K8's builds: (scene file, variants of scene/variants.py, mask without
+# NEE); each is run without and with NEE
+K8_JOBS = (("cornell", (), 0), ("cornell_mesh", (), 512),
+           ("cornell_glass", (), 7), ("cornell_checker", (), 24),
+           ("cornell_glass", ("BUMP", "SSS"), 103),
+           ("cornell_mesh", ("MESH_GLASS", "MESH_MOTION"), 537),
+           ("cornell_mesh", ("MESH_BUMP",), 544))
+K8_RES, K8_DEPTH = (64, 64), 4
+K8_TIME_DEPTH, K8_TIME_CALLS = 8, 9
+K6_SIZES = (640000, 2073600, 5000, 16200)
 
 
 def digest(rad):
@@ -55,6 +79,8 @@ def ptxas_usage(log):
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
             fn = next((k for k in KERNELS if k in ln), ln.split("'")[1])
+            if "ILb1E" in ln:  # a template kernel's true form
+                fn += "<true>"
         elif "spill" in ln:
             spill = ln.strip()
         elif "registers" in ln and fn:
@@ -109,6 +135,8 @@ def sass(root, masks):
             for part in text.split("Function : ")[1:]:
                 name = part.splitlines()[0].strip()
                 fn = next((k for k in KERNELS if k in name), name)
+                if "ILb1E" in name:  # a template kernel's true form
+                    fn += "<true>"
                 # the instruction lines, "/*0010*/ OP ... ;", each
                 # followed by its encoding, "/* 0x... */"
                 code = [ln.strip() for ln in part.splitlines()
@@ -141,6 +169,131 @@ def k1_times(root, torch, ptt, K):
               f"{[round(t, 4) for t in runs]}", flush=True)
 
 
+def k8_scenes(root, ptt, K):
+    """(scene, NEE, mask) of each K8 build of K8_JOBS, at the file's own
+    size."""
+    from pathtrace_tpu_torch.scene import variants
+
+    out = []
+    for name, edits, mask in K8_JOBS:
+        with open(os.path.join(root, "scenes", f"{name}.txt")) as f:
+            text = variants.edit_text(
+                f.read(), [getattr(variants, e) for e in edits])
+        scene = ptt.parse_scene(text, base_dir=os.path.join(root, "scenes"))
+        for nee in (False, True):
+            want = mask | (K.NEE_BIT if nee else 0)
+            if K.scene_mask(scene, nee) != want:
+                raise RuntimeError(f"{name} {edits}: mask "
+                                   f"{K.scene_mask(scene, nee)}, want {want}")
+            out.append((scene, nee, want))
+    return out
+
+
+def k8_args(job, ct):
+    return (job["cam"], job["mats"], job["gmat"], job["geom_types"],
+            job["width"], job["height"], job["depth"], 1, 1, job["lights"],
+            ct, job["tri"], job["nodes"], job["bvh_meta"], job["features"])
+
+
+def k8_digest(torch, K, VJ, scene, nee, mask):
+    """(radiance digest, tables digest) of K8's build ``mask`` on
+    ``scene`` at K8_RES, K8_DEPTH, 1 spp, under a cotangent drawn from
+    numpy seed ``mask``; checks that it launched once."""
+    import numpy as np
+
+    scene = dataclasses.replace(scene, resolution=K8_RES,
+                                trace_depth=K8_DEPTH)
+    job = K.prepare(scene, "cuda", nee=nee)
+    ct = torch.from_numpy(np.random.RandomState(mask).rand(
+        scene.pixel_count, 3).astype(np.float32)).cuda()
+    VJ.LAUNCHES.clear()
+    rad, tabs = VJ.trace_k8(*k8_args(job, ct))
+    torch.cuda.synchronize()
+    if dict(VJ.LAUNCHES) != {mask: 1}:
+        raise RuntimeError(f"K8 launches {dict(VJ.LAUNCHES)}, want one of "
+                           f"mask {mask}")
+    return digest(rad), digest(torch.cat([t.reshape(-1) for t in tabs]))
+
+
+def k8_digests(root, torch, ptt, K, VJ, masks):
+    """The digests of K8's radiance and rounded tables, each build of
+    ``masks``."""
+    seen = set()
+    for scene, nee, mask in k8_scenes(root, ptt, K):
+        if mask not in masks:
+            continue
+        rad, tabs = k8_digest(torch, K, VJ, scene, nee, mask)
+        seen.add(mask)
+        print(f"k8 digest mask {mask} {K8_RES[0]}x{K8_RES[1]} d{K8_DEPTH} "
+              f"({VJ.__file__}): rad {rad} tables {tabs}", flush=True)
+    if seen != set(masks):
+        raise RuntimeError(f"K8 builds {sorted(seen)}, vjp.MASKS "
+                           f"{sorted(VJ.MASKS)}")
+
+
+def k8_times(root, torch, ptt, K, VJ, masks, label=None):
+    """Each K8 build of ``masks``: its ms at its scene's own size, 1 spp a
+    call, printed under ``label`` (default: ``root``)."""
+    for scene, nee, mask in k8_scenes(root, ptt, K):
+        if mask not in masks:
+            continue
+        scene = dataclasses.replace(scene, trace_depth=K8_TIME_DEPTH)
+        job = K.prepare(scene, "cuda", nee=nee)
+        ct = torch.ones((scene.pixel_count, 3), device="cuda")
+        args = k8_args(job, ct)
+        VJ.trace_k8(*args)
+        runs = []
+        for _ in range(K8_TIME_CALLS):
+            start, stop = (torch.cuda.Event(enable_timing=True)
+                           for _ in range(2))
+            start.record()
+            VJ.trace_k8(*args)
+            stop.record()
+            torch.cuda.synchronize()
+            runs.append(start.elapsed_time(stop))
+        width, height = scene.resolution
+        print(f"k8 time mask {mask} {width}x{height} d{K8_TIME_DEPTH} 1spp "
+              f"({label or root}): {statistics.median(runs):.4f} ms, runs "
+              f"{[round(t, 4) for t in runs]}", flush=True)
+
+
+def device_ms(torch, fn, calls=50):
+    """The device time of ``fn``'s kernels, ms a call (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sum(getattr(e, "device_time_total", 0) or
+               getattr(e, "cuda_time_total", 0)
+               for e in prof.key_averages()) / calls / 1e3
+
+
+def k6_digests(root, torch):
+    """K6's output at K6_SIZES, against cumsum(x) - x."""
+    import numpy as np
+    from pathtrace_tpu_torch.ops import scan as SC
+
+    for n in K6_SIZES:
+        x = torch.from_numpy((np.random.RandomState(n).rand(n) < 0.4).astype(
+            np.int32)).cuda()
+        got = SC.scan_int(x)
+        want = torch.cumsum(x, 0, dtype=torch.int32) - x
+        print(f"k6 digest n={n} ({SC.__file__}): {digest(got)}, equal to "
+              f"cumsum(x) - x {torch.equal(got, want)}", flush=True)
+        if not torch.equal(got, want):
+            raise RuntimeError(f"K6 at {n} is not cumsum(x) - x")
+        dev = [device_ms(torch, fn) for fn in (
+            lambda: SC.scan_int(x),
+            lambda: torch.cumsum(x, 0, dtype=torch.int32) - x)]
+        print(f"k6 device n={n}: K6 {dev[0]:.5f} ms a call, "
+              f"torch.cumsum(x, dtype=int32) - x {dev[1]:.5f} ms",
+              flush=True)
+
+
 def main(argv):
     p = argparse.ArgumentParser()
     p.add_argument("root", nargs="?", default=os.path.dirname(
@@ -148,6 +301,9 @@ def main(argv):
     p.add_argument("--time", action="store_true")
     p.add_argument("--regs", default="")
     p.add_argument("--sass", default="")
+    p.add_argument("--k8", action="store_true")
+    p.add_argument("--k8-time", action="store_true")
+    p.add_argument("--k6", action="store_true")
     args = p.parse_args(argv)
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -155,7 +311,8 @@ def main(argv):
         registers(root, [int(m) for m in args.regs.split(",")])
     if args.sass:
         sass(root, [int(m) for m in args.sass.split(",")])
-    if (args.regs or args.sass) and not args.time:
+    if (args.regs or args.sass) and not (args.time or args.k8 or args.k6
+                                         or args.k8_time):
         return 0
     import torch
 
@@ -164,6 +321,7 @@ def main(argv):
         return 2
     import pathtrace_tpu_torch as ptt
     from pathtrace_tpu_torch.ops.cuda import megakernel as K
+    from pathtrace_tpu_torch.ops.cuda import vjp as VJ
 
     for name, mask in JOBS:
         scene = ptt.load_scene(os.path.join(root, "scenes", f"{name}.txt"))
@@ -178,6 +336,25 @@ def main(argv):
               f"{mask} ({K.__file__}): {digest(rad)}", flush=True)
     if args.time:
         k1_times(root, torch, ptt, K)
+    masks = list(VJ.MASKS)
+    if args.k8 or args.k8_time:
+        from pathtrace_tpu_torch.ops.cuda import build
+
+        t0 = time.perf_counter()
+        build.build_kernels((), k8_masks=masks)  # nvcc at once
+        print(f"build K8 masks {masks} ({root}): "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+        for m in masks:
+            sec, log = build.BUILD_INFO.get(f"k8_m{m}", (0.0, ""))
+            for fn, usage in ptxas_usage(log).items():
+                print(f"regs {root} k8 mask {m} {fn}: {usage} (build "
+                      f"{sec:.2f} s)", flush=True)
+    if args.k8:
+        k8_digests(root, torch, ptt, K, VJ, masks)
+    if args.k8_time:
+        k8_times(root, torch, ptt, K, VJ, masks)
+    if args.k6:
+        k6_digests(root, torch)
     return 0
 
 
