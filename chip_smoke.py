@@ -39,7 +39,13 @@ Phases, each of which raises on failure (exit code non-zero):
    plausible mean, a red left third and a green right third;
 6. K9: the probe's 32x128 ray bundle over the bigmesh tables, CUDA
    against plain (final cursor, steps, leaves, tsum equal), and a one-warp
-   bundle of 32 rays for information;
+   bundle of 32 rays for information; then K1's lane schedule and K5's
+   live prefix (``schedule_holds``): K1's pinned digests of radiance and
+   counts (``K1_DIGESTS``, the bits before the lane schedule), each
+   sample's counts equal to the plain version's at 1, 3 and 65 samples,
+   ``pix0``/``n_local`` tiles and two calls with the whole image's bits,
+   and a sorted span handed a live count of 0 that leaves the state as it
+   was;
 7. timing, warm, tables resident on the device, CUDA events, median of k
    calls (runs listed), for each kernel and its plain version: each
    primitive variant at 800x800 depth 8 (8 spp per call); the mesh
@@ -629,6 +635,87 @@ def engine_equal(ptt, K, SP, SC, torch, label, scene, nee, rr, split):
     return k5, k6
 
 
+# K1's pinned digests (sha256 of the float32 radiance, and of the int64
+# counts per sample, first 16 hex digits) of ``tests/torch_digest.py``'s
+# jobs: the bits K1 gave before its lane schedule (H100, CUDA 12.8)
+K1_DIGESTS = {"cornell": ("56f1410781372ccc", "a52ad48147c2ae95"),
+              "cornell_mesh": ("42eec1d67a3c3d90", "a9bc73f86ac50c28")}
+
+
+def schedule_holds(ptt, K, SP, TD, build, torch, cornell):
+    """K1's lane schedule and K5's live prefix on the card: the pinned
+    digests of radiance and counts; each sample's counts and radiance
+    equal to the plain version's at 1, 3 and 65 samples (65: past one
+    count chunk); pix0/n_local tiles of the library put together give the
+    whole image's bits and counts, and two calls give the same bits; a
+    sorted span handed a live count of 0 leaves the state as it was."""
+    for name, mask in TD.JOBS:
+        scene = dataclasses.replace(
+            ptt.load_scene(os.path.join(HERE, "scenes", f"{name}.txt")),
+            resolution=TD.RES, trace_depth=TD.DEPTH)
+        job = K.prepare(scene, "cuda")
+        rad, _ = K.trace_k1(**job, it0=1, n_spp=TD.SPP)
+        _, counts = K.trace_k1(**job, it0=1, n_spp=TD.SPP, per_sample=True)
+        got = (TD.digest(rad), TD.digest(counts))
+        print(f"k1 digest {name} (mask {mask}): radiance {got[0]} counts "
+              f"{got[1]}, pinned {K1_DIGESTS[name]}", flush=True)
+        if got != K1_DIGESTS[name]:
+            raise RuntimeError(f"K1's digests of {name} moved")
+    job = K.prepare(dataclasses.replace(cornell, resolution=(160, 120)),
+                    "cuda")
+    for n_spp in (1, 3, 65):
+        rad, per = K.trace_k1(**job, it0=2, n_spp=n_spp, per_sample=True)
+        ref, ref_per = K.trace_plain(**job, it0=2, n_spp=n_spp,
+                                     per_sample=True)
+        ok = torch.equal(rad, ref) and torch.equal(per, ref_per)
+        print(f"k1 per sample, {n_spp} spp 160x120 d8: radiance and counts "
+              f"equal to the plain version's {ok}", flush=True)
+        if not ok:
+            raise RuntimeError(f"K1's per-sample form at {n_spp} spp is not "
+                               f"its plain version")
+    whole, counts = K.trace_k1(**job, it0=4, n_spp=3)
+    again, again_counts = K.trace_k1(**job, it0=4, n_spp=3)
+    mask, args = K.kernel_tables(
+        job["cam"], job["mats"], job["gmat"], job["geom_types"],
+        job["features"], job["lights"], job["rr"], job["tri"], job["nodes"],
+        job["bvh_meta"], job["texels"], job["tex_geom"], job["btex_geom"])
+    lib = build.load_k1(mask)
+    tiles, total = [], torch.zeros_like(counts)
+    for pix0, n_local in ((0, 5000), (5000, 1), (5001, 9999), (15000, 4200)):
+        rad = torch.empty((n_local, 3), device="cuda")
+        part = torch.zeros_like(counts)
+        err = lib.pt_k1_trace(*args, 160, 120, 8, 4, 3, pix0, n_local,
+                              rad.data_ptr(), part.data_ptr(), 0,
+                              torch.cuda.current_stream().cuda_stream)
+        K.launch_error("K1", lib, err)
+        tiles.append(rad)
+        total += part
+    ok = (torch.equal(whole, again) and torch.equal(counts, again_counts)
+          and torch.equal(torch.cat(tiles), whole)
+          and torch.equal(total, counts))
+    print(f"k1 two calls and four pix0/n_local tiles: the same bits {ok}",
+          flush=True)
+    if not ok:
+        raise RuntimeError("K1's tiles or two calls differ")
+    keys = K.state_keys(job["features"], False, True)
+    state = torch.empty((len(keys), 160 * 120), device="cuda")
+    counts = torch.zeros(8, dtype=torch.int64, device="cuda")
+    SP.trace_span(job, state, keys, 0, 1, 4, counts)
+    state = SP.permute(state, SP.sort_perm(state, *SP.sort_box(cornell,
+                                                               "cuda")))
+    before, out = state.clone(), torch.zeros(1, dtype=torch.int32,
+                                             device="cuda")
+    SP.trace_span(job, state, keys, 1, 2, 4, counts,
+                  n_live=torch.zeros(1, dtype=torch.int32, device="cuda"),
+                  live_out=out)
+    ok = torch.equal(state.view(torch.int32), before.view(torch.int32)) \
+        and int(out) == 0 and int(counts[1]) == 0
+    print(f"k5 sorted span handed a live count of 0: the state as it was "
+          f"{ok}", flush=True)
+    if not ok:
+        raise RuntimeError("K5 with a live count of 0 moved the state")
+
+
 def live_tile_rays(K, SP, torch, job, split):
     """The rays of the tiles the split engine's resumed span runs (1 spp,
     iteration 1): the tiles with a live path after bounce ``split``."""
@@ -701,7 +788,10 @@ def engine_vs_plain(ptt, K, B, SP, torch, label, scene, nee, rr, split,
     # span (this run's counts; the resumed span runs the live tiles' rays)
     n_keys = len(K.state_keys(job["features"], nee, split is None))
     if split is None:
-        spans = [(d, d + 1, n_pix) for d in range(depth)]
+        # a later span runs the tiles below the live count it is handed
+        spans = [(0, 1, n_pix)] + [
+            (d, d + 1, min(n_pix, -(-int(counts[d]) // SP.TILE) * SP.TILE))
+            for d in range(1, depth)]
     else:
         spans = [(0, split, n_pix),
                  (split, depth, live_tile_rays(K, SP, torch, job, split))]
@@ -832,8 +922,9 @@ def time_engines(ptt, K, SP, torch, scenes, card):
             SP.EVENTS = None
         print(f"breakdown engine {label}: "
               + ", ".join(f"{k} {v:.4f}" for k, v in steps.items())
-              + f" ms/iter (one call, events around each step) on {card}",
-              flush=True)
+              + f" ms/iter (one call, events around each step; K5's spans "
+              f"{steps.get('span', 0.0) / sum(steps.values()):.2%} of them) "
+              f"on {card}", flush=True)
 
 
 def masked_ct(torch, rad, ref, seed):
@@ -1506,6 +1597,8 @@ def main():
     k9_launches, k9_err, k9_args = probe_phase(K, P,
                                                bigmesh_scene(mesh_configs))
     phase_done("k9")
+    schedule_holds(ptt, K, SP, TD, build, torch, configs[0][1])
+    phase_done("k1 and k5 schedule holds")
 
     scenes = {c[0]: c[1:4] for c in forward}
     for label, scene, nee, rr, _ in linear_configs:

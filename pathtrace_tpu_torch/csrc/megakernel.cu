@@ -38,27 +38,34 @@
 // dozen hashes, a shade with a few transcendentals, and with NEE one more
 // ray test over every geom per light.
 //
-// What this first, simple design does about that:
-// * one thread per pixel, looping over samples, then bounces, then geoms;
-//   the branch on the geom type is the same for every thread of a warp, and
-//   so is the branch on the light type in the NEE loop;
+// What the design does about that:
+// * one path per lane at a time, looping over bounces, then geoms; the
+//   branch on the geom type is the same for every thread of a warp, and so
+//   is the branch on the light type in the NEE loop;
+// * the lane schedule (k1_trace): a lane whose path ends starts its pixel's
+//   next sample in the same step, and a lane whose pixel has run its
+//   samples takes the next pixel of its block's pool, so its warp no longer
+//   waits, sample by sample, for its longest path (48% of the lane-steps of
+//   a thread-per-pixel loop held a dead path on cornell, d8, 8 spp:
+//   tests/torch_lane_model.py);
 // * the tables are staged once per block in shared memory, where the
 //   threads of a warp all read the same word (a broadcast);
 // * the nearest-hit fold carries only the winner's geometry; its material
 //   fields, checker albedo and bump normal are computed once after the fold
 //   from its object-space point and its table rows (the same arithmetic on
 //   the same inputs as the reference's per-geom selects);
-// * a shade computes only the lobe it takes, and a path that has ended
-//   skips its bounce: a dead path costs only divergence (the reference
-//   computes masked lanes instead);
-// * each thread sums its radiance in registers, in sample order, and writes
-//   it once;
-// * live counts: one __ballot_sync/__popc per warp and bounce, summed per
-//   warp in shared memory, then one 64-bit atomicAdd per warp and bounce.
-//   Per sample (the reference's (n_iters, depth), k1_trace<true>): 32-bit
-//   words per warp for a chunk of samples, summed over the warps and added
-//   once the block has run them, one atomicAdd per sample and bounce.
-//   Shadow rays are not counted.  The reference keeps int32 counts; at
+// * a shade computes only the lobe it takes (the reference computes masked
+//   lanes instead);
+// * a pixel's lane sums its radiance in registers, in sample order, and
+//   writes it once (per sample, once a chunk of samples: the sum so far
+//   waits in rad for the next chunk);
+// * live counts: the lanes of a warp sit at different bounces and samples,
+//   so each live path entering a bounce adds one to a 32-bit word of its
+//   block in shared memory (a native shared atomic), and the block adds its
+//   words into the 64-bit global counts once it has run a chunk of samples:
+//   one word a bounce (summed), or one a sample and a bounce (per sample,
+//   the reference's (n_iters, depth), k1_trace<true>).  Shadow rays are not
+//   counted.  The reference keeps int32 counts; at
 //   800x800 and 5000 samples a single bounce sees 3.2e9 paths, which int32
 //   cannot hold.
 // K3, meshes (the reference's BVH walk `trav_w`/`leaf_w` and its winner
@@ -1075,18 +1082,39 @@ __device__ __forceinline__ Tables stage_tables(
   return Tables{s_cam, s_mats, s_gmat, s_lights, s_types, s_meta, s_charts, n_geoms, n_lights};
 }
 
-// K1's counts per sample: the samples whose counts a block keeps before it
-// adds them up (a chunk: at most kK1CountWords 32-bit words a warp, one a
-// sample and a bounce), and the 64-bit rows a warp's chunk takes.
+// K1's live counts, kept per block in shared memory as 32-bit words (one
+// a bounce; per sample, one a sample and a bounce of a chunk of samples)
+// and added into the 64-bit global counts once the block has run the
+// chunk.  A chunk is as many samples as those words can count: per sample
+// at most kK1CountWords words, summed at most 2^20 samples (a block's 2^11
+// pixels at most, so a word stays under 2^32).
 constexpr int kK1CountWords = 512;
-__host__ __device__ constexpr int k1_count_chunk(int n_spp, int depth) {
-  return n_spp < 1 ? 1
+__host__ __device__ constexpr int k1_count_chunk(bool per_sample, int n_spp, int depth) {
+  return !per_sample      ? (n_spp < (1 << 20) ? (n_spp < 1 ? 1 : n_spp) : (1 << 20))
+         : n_spp < 1      ? 1
          : n_spp * depth <= kK1CountWords ? n_spp
          : kK1CountWords / depth > 0     ? kK1CountWords / depth
                                          : 1;
 }
-__host__ __device__ constexpr int k1_count_rows(int chunk, int depth) {
-  return (chunk * depth + 1) / 2;
+__host__ __device__ constexpr int k1_count_rows(bool per_sample, int chunk, int depth) {
+  return per_sample ? chunk * depth : depth;
+}
+// The 64-bit per-warp slots of stage_tables that hold the count words and,
+// after them, the pool's taken word.
+__host__ __device__ constexpr int k1_count_slots(int rows) {
+  return (rows + 1 + 2 * kWarps - 1) / (2 * kWarps);
+}
+
+// K1's pixel pool: a block takes kBlock * lane_px neighbouring pixels, the
+// host's choice from the blocks the card keeps resident: as many as
+// kLanePxMax a lane while the grid still fills the card once (more pixels a
+// lane leave SMs idle; fewer leave each lane's last pixel a longer tail).
+// A BVH walk's cost varies more from pixel to pixel, so the mesh builds
+// keep more, shorter blocks (measured: PERF.md section 5).
+constexpr int kLanePxMax = kMesh ? 4 : 8;
+inline int k1_lane_pixels(long long n_local, long long resident) {
+  const long long k = n_local / (static_cast<long long>(kBlock) * (resident > 0 ? resident : 1));
+  return static_cast<int>(k < 1 ? 1 : k > kLanePxMax ? kLanePxMax : k);
 }
 
 // The shared memory stage_tables takes.
@@ -1379,10 +1407,19 @@ __device__ __forceinline__ void bounce(PathState& p, int d, uint32_t it, uint32_
 #if !PT_GRAD && !PT_VJP  // K1 and K5: the forward builds only
 // kPerSample: the live counts of each sample, counts[sample][d] (the
 // reference's (n_iters, depth); pathtrace_batch), else summed over the
-// samples, counts[d] (every other caller).  The two differ only in the
-// counts, so that the summed build's code is the one it always was.
+// samples, counts[d] (every other caller).
+//
+// The lane schedule: a lane keeps one path at a time.  When it ends (dead,
+// or past the last bounce) the lane adds its radiance to its pixel's sum
+// and starts the pixel's next sample at once, in the same step; when the
+// pixel has run its samples (of the chunk) the lane writes its sum and
+// takes the next pixel of the block's pool.  So a lane idles only once the
+// pool is empty, and a warp's step no longer waits for the longest path
+// of each sample.  Each pixel's samples are still added in sample order by
+// one thread, and every draw is keyed on (iteration, pixel, bounce, draw),
+// so the image and the counts are the lockstep loop's, bit for bit.
 template <bool kPerSample>
-__global__ void __launch_bounds__(kBlock)
+__global__ void __launch_bounds__(kBlock, 7)
 k1_trace(const float* __restrict__ cam_g, const float* __restrict__ mats_g,
          const float* __restrict__ gmat_g, const int* __restrict__ types_g,
          const float* __restrict__ lights_g, const float4* __restrict__ tri_g,
@@ -1390,82 +1427,117 @@ k1_trace(const float* __restrict__ cam_g, const float* __restrict__ mats_g,
          const uint32_t* __restrict__ texels_g, const int* __restrict__ charts_g,
          int n_geoms, int n_lights, int n_meta, int width, int height,
          int depth, uint32_t it0, int n_spp, long long pix0,
-         long long n_local, float* __restrict__ rad,
+         long long n_local, int lane_px, float* __restrict__ rad,
          unsigned long long* __restrict__ counts) {
-  // shared: per-warp live counts [kWarps][depth] (per sample: 32-bit,
-  // [kWarps][chunk][depth] in k1_count_rows 64-bit rows a warp), then the
-  // tables
+  // shared: the count words (k1_count_rows) and the pool's taken word,
+  // then the tables
   extern __shared__ unsigned long long smem[];
-  [[maybe_unused]] const int chunk = k1_count_chunk(n_spp, depth);
-  unsigned long long* s_counts = smem;
-  const Tables s = stage_tables(smem, kPerSample ? k1_count_rows(chunk, depth) : depth, cam_g,
-                                mats_g, gmat_g, types_g, lights_g, meta_g, charts_g, n_geoms,
-                                n_lights, n_meta);
+  const int chunk = k1_count_chunk(kPerSample, n_spp, depth);
+  const int rows = k1_count_rows(kPerSample, chunk, depth);
+  const Tables s = stage_tables(smem, k1_count_slots(rows), cam_g, mats_g, gmat_g, types_g,
+                                lights_g, meta_g, charts_g, n_geoms, n_lights, n_meta);
+  unsigned* s_counts = reinterpret_cast<unsigned*>(smem);
+  unsigned* s_taken = s_counts + rows;  // the pool's pixels taken past its first kBlock
   const Mesh mesh(tri_g, nodes_g, s.meta, n_meta);
   const Tex tex(texels_g);
   __syncthreads();
 
-  const int warp = threadIdx.x >> 5;
+  constexpr unsigned kFull = 0xffffffffu;
   const int lane = threadIdx.x & 31;
-  const long long idx = static_cast<long long>(blockIdx.x) * kBlock + threadIdx.x;
-  const long long pixel = pix0 + idx;
-  // threads past the end still run the loops: every lane joins the ballots
-  const bool valid = idx < n_local && pixel < static_cast<long long>(width) * height;
-  const uint32_t pix_u = static_cast<uint32_t>(pixel);
-  const float fx = static_cast<float>(pixel % width);
-  const float fy = static_cast<float>(pixel / width);
+  const unsigned below = (1u << lane) - 1u;
+  // the pool: local pixels first .. first + pool - 1
+  const long long first = static_cast<long long>(blockIdx.x) * kBlock * lane_px;
+  const int pool = static_cast<int>(
+      min(static_cast<long long>(kBlock) * lane_px, n_local - first));
   const float sx_scale = static_cast<float>(2.0 / width);
   const float sy_scale = static_cast<float>(2.0 / height);
   const Camera cam = load_camera(s.cam);
+  if (n_spp == 0) {
+    for (int q = threadIdx.x; q < pool; q += kBlock)
+      rad[3 * (first + q) + 0] = rad[3 * (first + q) + 1] = rad[3 * (first + q) + 2] = 0.f;
+    return;
+  }
 
-  float acc_r = 0.f, acc_g = 0.f, acc_b = 0.f;
-  [[maybe_unused]] unsigned* s_samples = reinterpret_cast<unsigned*>(smem);
-  for (int sample = 0; sample < n_spp; ++sample) {
-    const uint32_t it = it0 + static_cast<uint32_t>(sample);
+  for (int c0 = 0; c0 < n_spp; c0 += chunk) {
+    const int c1 = min(n_spp, c0 + chunk);
+    long long idx = 0;  // the lane's local pixel
+    uint32_t pix_u = 0u;
+    float fx = 0.f, fy = 0.f, acc_r = 0.f, acc_g = 0.f, acc_b = 0.f;
+    int sample = c0, d = 0;
+    // the pool's pixel q: its sum so far (the chunks before) and sample c0
+    const auto take = [&](int q) {
+      idx = first + q;
+      const long long pixel = pix0 + idx;
+      pix_u = static_cast<uint32_t>(pixel);
+      fx = static_cast<float>(pix_u % static_cast<uint32_t>(width));
+      fy = static_cast<float>(pix_u / static_cast<uint32_t>(width));
+      acc_r = acc_g = acc_b = 0.f;
+      if (c0 > 0) {
+        acc_r = rad[3 * idx + 0];
+        acc_g = rad[3 * idx + 1];
+        acc_b = rad[3 * idx + 2];
+      }
+      sample = c0;
+    };
+    bool done = static_cast<int>(threadIdx.x) >= pool;
+    bool fresh = !done;  // a sample to start
+    if (!done) take(threadIdx.x);
     PathState p;
-    init_state(p, cam, s.cam, it, pix_u, fx, fy, sx_scale, sy_scale, valid);
-    for (int d = 0; d < depth; ++d) {
-      const unsigned ballot = __ballot_sync(0xffffffffu, p.live);
-      if constexpr (kPerSample) {
-        if (lane == 0) s_samples[(warp * chunk + sample % chunk) * depth + d] += __popc(ballot);
-      } else {
-        if (lane == 0) s_counts[warp * depth + d] += __popc(ballot);
-      }
-      bounce(p, d, it, pix_u, s, mesh, tex);
-    }
-    acc_r = acc_r + p.rr;
-    acc_g = acc_g + p.rg;
-    acc_b = acc_b + p.rb;
-    if constexpr (kPerSample) {
-      const int slot = sample % chunk;
-      if (slot == chunk - 1 || sample == n_spp - 1) {
-        // the chunk's counts, summed over the warps, into counts[sample][d]
-        __syncthreads();
-        const long long first = sample - slot;
-        for (int i = threadIdx.x; i < (slot + 1) * depth; i += kBlock) {
-          unsigned long long c = 0ull;
-          for (int w = 0; w < kWarps; ++w) {
-            c += s_samples[w * chunk * depth + i];
-            s_samples[w * chunk * depth + i] = 0u;
-          }
-          if (c) atomicAdd(&counts[first * depth + i], c);
+    p.live = false;
+    for (;;) {
+      bool need = false;  // the lane's pixel has run the chunk
+      if (!done && !fresh && (!p.live || d == depth)) {
+        acc_r = acc_r + p.rr;
+        acc_g = acc_g + p.rg;
+        acc_b = acc_b + p.rb;
+        if (++sample < c1) {
+          fresh = true;
+        } else {
+          rad[3 * idx + 0] = acc_r;
+          rad[3 * idx + 1] = acc_g;
+          rad[3 * idx + 2] = acc_b;
+          need = true;
         }
-        __syncthreads();
+      }
+      // the lanes that need a pixel take the pool's next ones, in lane order
+      const unsigned want = __ballot_sync(kFull, need);
+      if (want != 0u) {
+        const int leader = __ffs(want) - 1;
+        unsigned got = 0u;
+        if (lane == leader) got = atomicAdd(s_taken, static_cast<unsigned>(__popc(want)));
+        got = __shfl_sync(kFull, got, leader);
+        if (need) {
+          const int q = kBlock + static_cast<int>(got) + __popc(want & below);
+          done = q >= pool;
+          fresh = !done;
+          if (!done) take(q);
+        }
+      }
+      if (__all_sync(kFull, done)) break;
+      if (fresh) {
+        init_state(p, cam, s.cam, it0 + static_cast<uint32_t>(sample), pix_u, fx, fy, sx_scale,
+                   sy_scale, true);
+        d = 0;
+        fresh = false;
+      }
+      if (!done) {
+        // a live path entering bounce d
+        atomicAdd(s_counts + (kPerSample ? (sample - c0) * depth + d : d), 1u);
+        bounce(p, d, it0 + static_cast<uint32_t>(sample), pix_u, s, mesh, tex);
+        ++d;
       }
     }
-  }
-  if (idx < n_local) {
-    rad[3 * idx + 0] = acc_r;
-    rad[3 * idx + 1] = acc_g;
-    rad[3 * idx + 2] = acc_b;
-  }
-  if constexpr (!kPerSample) {
-    if (lane == 0) {
-      for (int d = 0; d < depth; ++d) {
-        const unsigned long long c = s_counts[warp * depth + d];
-        if (c) atomicAdd(&counts[d], c);
-      }
+    // the chunk's counts, summed over the block, into the global ones
+    __syncthreads();
+    const int used = kPerSample ? (c1 - c0) * depth : depth;
+    for (int i = threadIdx.x; i < used; i += kBlock) {
+      const unsigned c = s_counts[i];
+      s_counts[i] = 0u;
+      if (c) atomicAdd(&counts[(kPerSample ? static_cast<long long>(c0) * depth : 0) + i],
+                       static_cast<unsigned long long>(c));
     }
+    if (threadIdx.x == 0) *s_taken = 0u;
+    __syncthreads();
   }
 }
 
@@ -1481,6 +1553,8 @@ constexpr int kKeyTime = kKeyEmitOk + (kNee ? 1 : 0);
 constexpr int kKeyMed = kKeyTime + (kMotion ? 1 : 0);
 constexpr int kStateKeys = kKeyMed + (kSss ? 4 : 0);
 
+// The planes of a ray that enters a span live (its `live` plane, already
+// read, is 1).
 __device__ __forceinline__ void load_state(PathState& p, const float* st, long long n,
                                            long long i) {
   p.ox = st[i];
@@ -1495,7 +1569,7 @@ __device__ __forceinline__ void load_state(PathState& p, const float* st, long l
   p.rr = st[kKeyRad * n + i];
   p.rg = st[(kKeyRad + 1) * n + i];
   p.rb = st[(kKeyRad + 2) * n + i];
-  p.live = st[kKeyLive * n + i] != 0.f;
+  p.live = true;
   p.emit_ok = true;
   if constexpr (kNee) p.emit_ok = st[kKeyEmitOk * n + i] != 0.f;
   p.time = 0.f;
@@ -1510,8 +1584,23 @@ __device__ __forceinline__ void load_state(PathState& p, const float* st, long l
   }
 }
 
+__device__ __forceinline__ void store_rad(const PathState& p, float* st, long long n,
+                                          long long i) {
+  st[kKeyRad * n + i] = p.rr;
+  st[(kKeyRad + 1) * n + i] = p.rg;
+  st[(kKeyRad + 2) * n + i] = p.rb;
+}
+
+// What a ray that entered a span live leaves: every plane of a path still
+// live after a span that is not the last; the radiance and `live` of one
+// that ended in it (its other planes are never read again); the radiance
+// alone after the last span.
 __device__ __forceinline__ void store_state(const PathState& p, float* st, long long n,
-                                            long long i) {
+                                            long long i, bool last) {
+  store_rad(p, st, n, i);
+  if (last) return;
+  st[kKeyLive * n + i] = p.live ? 1.f : 0.f;
+  if (!p.live) return;
   st[i] = p.ox;
   st[n + i] = p.oy;
   st[2 * n + i] = p.oz;
@@ -1521,10 +1610,6 @@ __device__ __forceinline__ void store_state(const PathState& p, float* st, long 
   st[6 * n + i] = p.tr;
   st[7 * n + i] = p.tg;
   st[8 * n + i] = p.tb;
-  st[kKeyRad * n + i] = p.rr;
-  st[(kKeyRad + 1) * n + i] = p.rg;
-  st[(kKeyRad + 2) * n + i] = p.rb;
-  st[kKeyLive * n + i] = p.live ? 1.f : 0.f;
   if constexpr (kNee) st[kKeyEmitOk * n + i] = p.emit_ok ? 1.f : 0.f;
   if constexpr (kMotion) st[kKeyTime * n + i] = p.time;
   if constexpr (kSss) {
@@ -1545,13 +1630,21 @@ __device__ __forceinline__ void store_state(const PathState& p, float* st, long 
 // pixel id carried in plane pix_key, written by the first span.  With a
 // table (the split engine's resumed span), block b takes tile tbl[b] while
 // b < *n_live (a count left on the card by the scan), and exits otherwise:
-// the grid covers every tile, so no count comes back to the host.  Live
-// counts at the absolute bounce, as K1's.  State in, state out, in place.
+// the grid covers every tile, so no count comes back to the host.  Without
+// a table, `n_live` (a later span of the sorted engine, whose dead rays
+// are sorted last) is the count of live rays, which the span before it
+// added into its `live_out`: the blocks whose first slot is past it exit.
+// Live counts at the absolute bounce, as K1's.  State in, state out, in
+// place.
 //
 // What bounds it: as K1, the bounce's ALU work and divergence; each span
-// boundary adds one read and one write of 4 bytes per plane and ray, at
-// most 88 bytes a ray, coalesced (a warp's 32 rays are 32 neighbouring
-// floats of each plane).
+// boundary adds the state a ray needs, coalesced (a warp's 32 rays are 32
+// neighbouring floats of each plane).  Once most paths have ended that is
+// little: a ray that enters dead reads its `live` plane and nothing else
+// and writes nothing (its planes already hold its radiance), a path that
+// ends writes its radiance and `live` (4 planes), only a path still live
+// writes every plane, and after the last span only the radiance is
+// written; the sorted engine's blocks past the live prefix read nothing.
 __global__ void __launch_bounds__(kBlock)
 k5_span(const float* __restrict__ cam_g, const float* __restrict__ mats_g,
         const float* __restrict__ gmat_g, const int* __restrict__ types_g,
@@ -1560,13 +1653,15 @@ k5_span(const float* __restrict__ cam_g, const float* __restrict__ mats_g,
         const uint32_t* __restrict__ texels_g, const int* __restrict__ charts_g, int n_geoms,
         int n_lights, int n_meta, int width, int height, float* __restrict__ state,
         long long n_rays, int pix_key, const int* __restrict__ tbl,
-        const int* __restrict__ n_live, long long n_tiles, int d0, int d1, uint32_t it,
-        unsigned long long* __restrict__ counts) {
+        const int* __restrict__ n_live, long long n_tiles, int* __restrict__ live_out, int d0,
+        int d1, int depth, uint32_t it, unsigned long long* __restrict__ counts) {
   long long tile = blockIdx.x;
   if (tbl != nullptr) {
     if (static_cast<long long>(blockIdx.x) >= static_cast<long long>(__ldg(n_live))) return;
     tile = __ldg(tbl + blockIdx.x);
     if (tile < 0 || tile >= n_tiles) return;  // not a tile: nothing to trace
+  } else if (n_live != nullptr && tile * kBlock >= static_cast<long long>(__ldg(n_live))) {
+    return;  // past the live prefix: every ray of the tile is dead
   }
   const int span = d1 - d0;
   extern __shared__ unsigned long long smem[];
@@ -1584,28 +1679,32 @@ k5_span(const float* __restrict__ cam_g, const float* __restrict__ mats_g,
   const bool valid = slot < n_rays;
   int* pix_plane = pix_key >= 0 ? reinterpret_cast<int*>(state + pix_key * n_rays) : nullptr;
   long long pixel = slot;
-  if (d0 > 0 && pix_plane != nullptr && valid) pixel = pix_plane[slot];
-  const uint32_t pix_u = static_cast<uint32_t>(pixel);
-  PathState p;
+  PathState p = PathState{0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 1.f, 1.f, 1.f, 0.f,
+                          0.f, 0.f, false, 0.f, 0.f, 1.f, 1.f, 1.f, true};
   if (d0 == 0) {
     const float fx = static_cast<float>(pixel % width);
     const float fy = static_cast<float>(pixel / width);
     const float sx_scale = static_cast<float>(2.0 / width);
     const float sy_scale = static_cast<float>(2.0 / height);
-    init_state(p, load_camera(s.cam), s.cam, it, pix_u, fx, fy, sx_scale, sy_scale, valid);
-  } else if (valid) {
+    init_state(p, load_camera(s.cam), s.cam, it, static_cast<uint32_t>(pixel), fx, fy,
+               sx_scale, sy_scale, valid);
+  } else if (valid && state[kKeyLive * n_rays + slot] != 0.f) {
     load_state(p, state, n_rays, slot);
-  } else {
-    p = PathState{0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 1.f, 1.f, 1.f, 0.f, 0.f,
-                  0.f, false, 0.f, 0.f, 1.f, 1.f, 1.f, true};
+    if (pix_plane != nullptr) pixel = pix_plane[slot];
   }
+  const bool ran = p.live;  // entered live: the rays whose planes are written
+  const uint32_t pix_u = static_cast<uint32_t>(pixel);
   for (int d = d0; d < d1; ++d) {
     const unsigned ballot = __ballot_sync(0xffffffffu, p.live);
     if (lane == 0) s_counts[warp * span + (d - d0)] += __popc(ballot);
     bounce(p, d, it, pix_u, s, mesh, tex);
   }
-  if (valid) {
-    store_state(p, state, n_rays, slot);
+  if (live_out != nullptr) {
+    const unsigned ballot = __ballot_sync(0xffffffffu, p.live);
+    if (lane == 0 && ballot != 0u) atomicAdd(live_out, __popc(ballot));
+  }
+  if (ran) {
+    store_state(p, state, n_rays, slot, d1 == depth);
     if (d0 == 0 && pix_plane != nullptr) pix_plane[slot] = static_cast<int>(slot);
   }
   if (lane == 0) {
@@ -2942,23 +3041,32 @@ extern "C" int pt_k1_trace(const float* cam, const float* mats,
                            long long pix0, long long n_local, float* rad,
                            unsigned long long* counts, int per_sample, void* stream) {
   if (kNee != (n_lights > 0) || n_lights < 0 || n_meta < 0 || (!kMesh && n_meta > 0) ||
-      kTexAny != (n_texels > 0) || n_texels < 0 || depth <= 0 || n_spp < 0)
+      kTexAny != (n_texels > 0) || n_texels < 0 || depth <= 0 || n_spp < 0 || pix0 < 0 ||
+      n_local <= 0 || pix0 + n_local > static_cast<long long>(width) * height)
     return static_cast<int>(cudaErrorInvalidValue);
   const auto kernel = per_sample ? k1_trace<true> : k1_trace<false>;
-  const size_t smem = tables_smem(
-      per_sample ? k1_count_rows(k1_count_chunk(n_spp, depth), depth) : depth, n_geoms,
-      n_lights, n_meta);
+  const int rows = k1_count_rows(per_sample, k1_count_chunk(per_sample, n_spp, depth), depth);
+  const size_t smem = tables_smem(k1_count_slots(rows), n_geoms, n_lights, n_meta);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  const long long blocks = (n_local + kBlock - 1) / kBlock;
+  // the pool a block takes, from the blocks the card keeps resident
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kBlock, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int lane_px = k1_lane_pixels(n_local, static_cast<long long>(sms) * per_sm);
+  const long long per_block = static_cast<long long>(kBlock) * lane_px;
+  const long long blocks = (n_local + per_block - 1) / per_block;
   if (blocks <= 0 || blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   kernel<<<static_cast<unsigned>(blocks), kBlock, smem, static_cast<cudaStream_t>(stream)>>>(
       cam, mats, gmat, geom_types, lights, reinterpret_cast<const float4*>(tri),
       reinterpret_cast<const float4*>(nodes), meta, texels, charts, n_geoms, n_lights, n_meta,
-      width, height, depth, it0, n_spp, pix0, n_local, rad, counts);
+      width, height, depth, it0, n_spp, pix0, n_local, lane_px, rad, counts);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -2969,25 +3077,28 @@ extern "C" int pt_k5_state_keys() { return kStateKeys; }
 // planes `state` ((n_keys, n_rays) float32; n_keys is kStateKeys, plus the
 // pixel id plane at pix_key = kStateKeys for the sorted engine, else
 // pix_key = -1), in place.  The tables as pt_k1_trace's; n_rays is the
-// image's width * height.  Without `tbl`, one block per kBlock slots; with
-// it (n_tiles int32 tile ids, and `n_live`, one int32 on the card), n_tiles
-// blocks, block b tracing tile tbl[b] while b < *n_live.  depth bounds d1;
-// counts (depth,) is added into at the absolute bounce.  Returns the
-// cudaError_t of the launch (0 = success).
+// image's width * height.  One block per kBlock slots; with `tbl` (n_tiles
+// int32 tile ids, and `n_live`, one int32 on the card) block b traces tile
+// tbl[b] while b < *n_live; with `n_live` alone (d0 > 0: the live rays are
+// the first *n_live slots) the blocks past it exit.  `live_out` (one int32
+// on the card, or null) gets the paths live at the span's end added.
+// depth bounds d1; counts (depth,) is added into at the absolute bounce.
+// Returns the cudaError_t of the launch (0 = success).
 extern "C" int pt_k5_span(const float* cam, const float* mats, const float* gmat,
                           const int* geom_types, const float* lights, const float* tri,
                           const float* nodes, const int* meta, const unsigned int* texels,
                           const int* charts, int n_geoms, int n_lights, int n_meta,
                           long long n_texels, int width, int height, float* state, int n_keys,
                           int pix_key, long long n_rays, const int* tbl, const int* n_live,
-                          long long n_tiles, int d0, int d1, int depth, unsigned int it,
-                          unsigned long long* counts, void* stream) {
+                          long long n_tiles, int* live_out, int d0, int d1, int depth,
+                          unsigned int it, unsigned long long* counts, void* stream) {
   if (kNee != (n_lights > 0) || n_lights < 0 || n_meta < 0 || (!kMesh && n_meta > 0) ||
       kTexAny != (n_texels > 0) || n_texels < 0 ||
       n_keys != kStateKeys + (pix_key >= 0 ? 1 : 0) || (pix_key >= 0 && pix_key != kStateKeys) ||
       n_rays != static_cast<long long>(width) * height || n_rays <= 0 ||
-      !(0 <= d0 && d0 < d1 && d1 <= depth) || (tbl != nullptr) != (n_live != nullptr) ||
-      (tbl != nullptr && (pix_key >= 0 || n_tiles != (n_rays + kBlock - 1) / kBlock)))
+      !(0 <= d0 && d0 < d1 && d1 <= depth) || (tbl != nullptr && n_live == nullptr) ||
+      (tbl != nullptr && (pix_key >= 0 || n_tiles != (n_rays + kBlock - 1) / kBlock)) ||
+      (tbl == nullptr && n_live != nullptr && d0 == 0))
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = tables_smem(d1 - d0, n_geoms, n_lights, n_meta);
   if (smem > 48 * 1024) {
@@ -3000,7 +3111,8 @@ extern "C" int pt_k5_span(const float* cam, const float* mats, const float* gmat
   k5_span<<<static_cast<unsigned>(blocks), kBlock, smem, static_cast<cudaStream_t>(stream)>>>(
       cam, mats, gmat, geom_types, lights, reinterpret_cast<const float4*>(tri),
       reinterpret_cast<const float4*>(nodes), meta, texels, charts, n_geoms, n_lights, n_meta,
-      width, height, state, n_rays, pix_key, tbl, n_live, blocks, d0, d1, it, counts);
+      width, height, state, n_rays, pix_key, tbl, n_live, blocks, live_out, d0, d1, depth, it,
+      counts);
   return static_cast<int>(cudaGetLastError());
 }
 #endif  // !PT_GRAD && !PT_VJP

@@ -219,7 +219,7 @@ def load_k1(mask=0):
             ctypes.c_longlong,                     # n_texels
             i, i,                                  # width, height
             p, i, i, ctypes.c_longlong,            # state, n_keys, pix_key, n_rays
-            p, p, ctypes.c_longlong,               # tbl, n_live, n_tiles
+            p, p, ctypes.c_longlong, p,            # tbl, n_live, n_tiles, live_out
             i, i, i, ctypes.c_uint,                # d0, d1, depth, it
             p, p,                                  # counts, stream
         ]

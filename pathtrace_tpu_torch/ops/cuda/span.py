@@ -23,8 +23,13 @@ A span runs bounces [d0, d1) of one sample on path state kept in
   :func:`sort_perm` (dead last, then a Morton code of the origin's 5-bit
   cell, then the direction's octant) and gathered by :func:`permute`; the
   pixel id rides along (an int32 plane, so exact for any image) and
-  keys the random draws, so the order never changes a ray's result; at
-  the end the radiance is scattered back to its pixel.
+  keys the random draws, so the order never changes a ray's result; the
+  dead sort last, so each later span runs only the tiles below the live
+  count that the span before it left on the card; at the end the
+  radiance is scattered back to its pixel.
+
+A ray that enters a span dead reads ``live`` alone and writes nothing: its
+planes already hold what the engines read of it.
 
 Both give K1's image and live counts bit for bit: every draw is keyed on
 (iteration, pixel, bounce, draw), and each sample's radiance is added to
@@ -70,21 +75,29 @@ def _phase(name, device):
     EVENTS.append((name, start, stop))
 
 
-def span_plain(job, state, keys, d0, d1, it, counts, tbl=None, n_live=None):
+def span_plain(job, state, keys, d0, d1, it, counts, tbl=None, n_live=None,
+               live_out=None):
     """K5's plain version: the same lanes, the same result.  The rays of
-    the tiles ``tbl[:n_live]`` (all rays without a table) run
-    ``megakernel.init_state`` (d0 = 0) or load their planes, then
-    ``megakernel.bounces``, and are written back."""
+    the tiles ``tbl[:n_live]`` (without a table: the tiles that start
+    below ``n_live``, or all) run ``megakernel.init_state`` (d0 = 0) or,
+    entering live, load their planes, then ``megakernel.bounces``; a ray
+    that enters dead reads ``live`` alone and keeps every plane.  A span
+    that is not the last writes every plane of the paths still live and
+    the radiance and ``live`` of those that ended; the last writes the
+    radiance.  ``live_out`` gets the paths live at the span's end added."""
     device = state.device
     n = state.shape[1]
     sc = K.plain_scene(**job)
-    if tbl is None:
-        slots = torch.arange(n, device=device)
-    else:
+    if tbl is not None:
         tiles = tbl[:int(n_live)].long()
         slots = (tiles[:, None] * TILE
                  + torch.arange(TILE, device=device)).reshape(-1)
         slots = slots[slots < n]
+    else:
+        n_run = n if n_live is None else min(n, -(-int(n_live) // TILE) * TILE)
+        slots = torch.arange(n_run, device=device)
+    if d0 > 0:
+        slots = slots[state[LIVE_KEY, slots] != 0.0]
     carry = keys[-1] == "pix"
     pix_plane = state[-1].view(torch.int32) if carry else None
     pix = slots if d0 == 0 or not carry else pix_plane[slots].long()
@@ -96,21 +109,43 @@ def span_plain(job, state, keys, d0, d1, it, counts, tbl=None, n_live=None):
         if "emit_ok" in st:
             st["emit_ok"] = st["emit_ok"].to(torch.bool)
     st = K.bounces(sc, st, it, pix, d0, d1, counts)
-    for i, k in enumerate(keys):
-        if k != "pix":
-            state[i, slots] = st[k].to(torch.float32)
+    live = st["live"]
+    if live_out is not None:
+        live_out += live.sum().to(live_out.dtype)
+    if d1 == job["depth"]:
+        write = [(i, k, slice(None)) for i, k in enumerate(keys)
+                 if k in ("rr", "rg", "rb")]
+    else:
+        write = [(i, k, live if k not in ("rr", "rg", "rb", "live") else
+                  slice(None)) for i, k in enumerate(keys) if k != "pix"]
+    for i, k, on in write:
+        state[i, slots[on]] = st[k][on].to(torch.float32)
     if d0 == 0 and carry:
         pix_plane[slots] = slots.to(torch.int32)
 
 
-def trace_span(job, state, keys, d0, d1, it, counts, tbl=None, n_live=None):
+def _int32_one(name, t, device):
+    if t is not None and (t.device != device or t.dtype != torch.int32 or
+                          t.numel() != 1):
+        raise ValueError(f"{name}: want one int32 value on {device}")
+
+
+def trace_span(job, state, keys, d0, d1, it, counts, tbl=None, n_live=None,
+               live_out=None):
     """Bounces [d0, d1) of iteration ``it`` on the state planes ``state``
     ((len(keys), W*H) float32, rows ``keys``: ``megakernel.state_keys`` of
     the job, with ``"pix"`` last for the sorted engine), in place; d0 = 0
     runs raygen.  ``job`` is ``megakernel.prepare``'s.  Adds the live
     count entering each bounce into ``counts`` ((depth,) int64).  With
     ``tbl`` (int32 tile ids, one per tile of ``TILE`` rays) and ``n_live``
-    (an int32 tensor of one value), only the tiles ``tbl[:n_live]`` run.
+    (an int32 tensor of one value), only the tiles ``tbl[:n_live]`` run;
+    with ``n_live`` alone (a later span of the sorted engine, whose live
+    rays come first), only the tiles that start below ``n_live``.  A ray
+    that enters dead reads ``live`` alone and writes nothing; a span that
+    is not the last writes every plane of the paths still live and the
+    radiance and ``live`` of those that ended in it, the last only the
+    radiance.  ``live_out`` (an int32 tensor of one value) gets the paths
+    live at the span's end added.
 
     On a CUDA device this launches K5 of the job's feature mask on the
     current stream and raises if the build or the launch fails; on the
@@ -118,7 +153,7 @@ def trace_span(job, state, keys, d0, d1, it, counts, tbl=None, n_live=None):
     device = state.device
     if device.type == "cpu":
         return span_plain(job, state, keys, d0, d1, it, counts, tbl,
-                          n_live)
+                          n_live, live_out)
     if device.type != "cuda":
         raise ValueError(f"K5 runs on cuda or cpu tensors, not {device}")
     from . import build
@@ -144,18 +179,18 @@ def trace_span(job, state, keys, d0, d1, it, counts, tbl=None, n_live=None):
         raise ValueError(f"bad span [{d0}, {d1}) of depth {depth}, "
                          f"{n_rays} rays")
     n_tiles = -(-n_rays // TILE)
-    if tbl is not None:
-        if carry or n_live is None or tbl.device != device or \
-                tbl.dtype != torch.int32 or \
-                tuple(tbl.shape) != (n_tiles,) or \
-                not tbl.is_contiguous() or n_live.device != device or \
-                n_live.dtype != torch.int32 or n_live.numel() != 1:
-            raise ValueError(
-                f"tile table: want ({n_tiles},) int32 tile ids and an "
-                f"int32 live count on {device}, for the split engine's "
-                f"state")
-    elif n_live is not None:
-        raise ValueError("n_live given without a tile table")
+    if tbl is not None and (
+            carry or n_live is None or tbl.device != device or
+            tbl.dtype != torch.int32 or tuple(tbl.shape) != (n_tiles,) or
+            not tbl.is_contiguous()):
+        raise ValueError(
+            f"tile table: want ({n_tiles},) int32 tile ids and an int32 "
+            f"live count on {device}, for the split engine's state")
+    if tbl is None and n_live is not None and d0 == 0:
+        raise ValueError("a live count without a tile table is a later "
+                         "span's: raygen runs every ray")
+    _int32_one("n_live", n_live, device)
+    _int32_one("live_out", live_out, device)
     mask, args = K.kernel_tables(
         job["cam"], job["mats"], job["gmat"], job["geom_types"],
         job["features"], job["lights"], job["rr"], job["tri"],
@@ -168,8 +203,8 @@ def trace_span(job, state, keys, d0, d1, it, counts, tbl=None, n_live=None):
         err = lib.pt_k5_span(
             *args, width, height, state.data_ptr(), len(keys),
             n_keys if carry else -1, n_rays, K.ptr(tbl), K.ptr(n_live),
-            n_tiles, d0, d1, depth, it & 0xFFFFFFFF, counts.data_ptr(),
-            stream)
+            n_tiles, K.ptr(live_out), d0, d1, depth, it & 0xFFFFFFFF,
+            counts.data_ptr(), stream)
     K.launch_error("K5", lib, err)
     LAUNCHES[mask] += 1
 
@@ -265,10 +300,12 @@ def sort_perm(state, lo, span):
     3b+2, y at 3b+1, z at 3b of the cell's bit b), then the direction's
     octant (x, y, z signs); a dead ray's key 1 << 29, so the dead sort
     last; a stable argsort.  The bits of the key do not overlap, so they
-    are summed: a few whole-plane ops a sort.  Returns int64 (N,)."""
+    are summed: a few whole-plane ops a sort.  A NaN cell is cell 0, as
+    the reference's int32 cast makes it (torch's int cast of NaN is
+    -2^63, no index).  Returns int64 (N,)."""
     spread, weight = _key_tables(state.device)
-    q = torch.clamp((state[0:3] - lo) / span * 31.0, 0.0, 31.0).to(
-        torch.int64)
+    q = torch.clamp((state[0:3] - lo) / span * 31.0, 0.0, 31.0).nan_to_num(
+        0.0).to(torch.int64)
     key = (spread[q] * weight).sum(0) * 8 \
         + ((state[3:6] > 0) * weight).sum(0)
     key = torch.where(state[LIVE_KEY] != 0.0, key, 1 << 29)
@@ -295,16 +332,21 @@ def sorted_batch(job, it0, n_iters, lo, span, plain=False):
     acc = torch.zeros((n_pix, 3), device=device)
     rad = torch.empty((n_pix, 3), device=device)
     counts = torch.zeros(depth, dtype=torch.int64, device=device)
+    # each sample's paths live entering each bounce, left on the card by
+    # the span before it: after the sort they are the first slots
+    live = torch.zeros((n_iters, depth + 1), dtype=torch.int32,
+                       device=device)
     for s in range(n_iters):
         it = (it0 + s) & 0xFFFFFFFF
         state = torch.empty((len(keys), n_pix), device=device)
-        trace(job, state, keys, 0, 1, it, counts)
+        trace(job, state, keys, 0, 1, it, counts, live_out=live[s, 1:2])
         for d in range(1, depth):
             with _phase("sort_perm", device):
                 perm = sort_perm(state, lo, span)
             with _phase("permute", device):
                 state = permute(state, perm)
-            trace(job, state, keys, d, d + 1, it, counts)
+            trace(job, state, keys, d, d + 1, it, counts,
+                  n_live=live[s, d:d + 1], live_out=live[s, d + 1:d + 2])
         # every pixel id once: scatter the radiance back to its pixel
         with _phase("unpermute", device):
             pix = state[-1].view(torch.int32).long()

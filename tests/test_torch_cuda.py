@@ -106,6 +106,48 @@ def test_k1_counts_per_sample_over_chunks(cuda):
     assert int(per[:, 0].min()) == 24 * 16
 
 
+@pytest.mark.parametrize("n_spp", [1, 3, 65])
+def test_k1_per_sample_counts_are_the_plain_versions(cuda, n_spp):
+    # the lane schedule's counts, each sample's (65: past one count
+    # chunk), are the plain version's; the summed form's are their sum
+    job = K.prepare(_scene("cornell", (40, 24)), cuda)
+    rad, per = K.trace_k1(**job, it0=2, n_spp=n_spp, per_sample=True)
+    ref, ref_per = K.trace_plain(**job, it0=2, n_spp=n_spp, per_sample=True)
+    assert torch.equal(rad, ref) and torch.equal(per, ref_per)
+    assert torch.equal(K.trace_k1(**job, it0=2, n_spp=n_spp)[1], per.sum(0))
+
+
+def test_k1_tiles_and_two_calls_give_the_same_bits(cuda):
+    # pix0/n_local tiles of the image (the library's own range) put
+    # together give the whole image's bits and counts; two calls give the
+    # same bits
+    from pathtrace_tpu_torch.ops.cuda import build
+
+    job = K.prepare(_scene("cornell_glass", (72, 50)), cuda)
+    whole, counts = K.trace_k1(**job, it0=4, n_spp=3)
+    again, again_counts = K.trace_k1(**job, it0=4, n_spp=3)
+    assert torch.equal(whole, again) and torch.equal(counts, again_counts)
+    mask, args = K.kernel_tables(
+        job["cam"], job["mats"], job["gmat"], job["geom_types"],
+        job["features"], job["lights"], job["rr"], job["tri"], job["nodes"],
+        job["bvh_meta"], job["texels"], job["tex_geom"], job["btex_geom"])
+    lib = build.load_k1(mask)
+    tiles, total = [], torch.zeros_like(counts)
+    for pix0, n_local in ((0, 1000), (1000, 1), (1001, 1599), (2600, 1000)):
+        rad = torch.empty((n_local, 3), device=cuda)
+        part = torch.zeros_like(counts)
+        err = lib.pt_k1_trace(*args, 72, 50, 8, 4, 3, pix0, n_local,
+                              rad.data_ptr(), part.data_ptr(), 0,
+                              torch.cuda.current_stream().cuda_stream)
+        K.launch_error("K1", lib, err)
+        tiles.append(rad)
+        total += part
+    assert torch.equal(torch.cat(tiles), whole) and torch.equal(total, counts)
+    rad = torch.empty((10, 3), device=cuda)
+    assert lib.pt_k1_trace(*args, 72, 50, 8, 4, 3, 3595, 10, rad.data_ptr(),
+                           total.data_ptr(), 0, 0) != 0  # past the image
+
+
 def test_k1_rejects_bad_tables(cuda):
     scene = _scene("cornell", (8, 8))
     cam, mats, gmat = K.pack_scene(scene, cuda)
@@ -147,6 +189,17 @@ def test_feature_free_build_is_bit_equal(cuda, name):
         # the first, feature-free K1 (built alone, H100, CUDA 12.8) gave
         # these bits: sha256 of the float32 radiance, first 16 digits
         assert digest(got[0]) == "56f1410781372ccc"
+
+
+@pytest.mark.parametrize("name", ["cornell", "cornell_mesh"])
+def test_k1_count_digests_are_pinned(cuda, name):
+    # the counts per sample of tests/torch_digest.py's jobs (96x80 d8, 3
+    # spp from iteration 1) are the ones K1 gave before its lane schedule
+    # (H100, CUDA 12.8): sha256 of the int64 counts, first 16 digits
+    job = K.prepare(_scene(name, (96, 80)), cuda)
+    _, counts = K.trace_k1(**job, it0=1, n_spp=3, per_sample=True)
+    assert digest(counts) == {"cornell": "a52ad48147c2ae95",
+                              "cornell_mesh": "a9bc73f86ac50c28"}[name]
 
 
 def test_k1_rejects_mismatched_lights(cuda):
@@ -337,6 +390,65 @@ def test_k5_matches_its_plain_version(cuda):
         got = SP.engine(scene, job, split, sort)[1](1, 1)
         want = SP.engine(scene, job, split, sort, plain=True)[1](1, 1)
         _assert_tie_flip_bound(got[0], want[0], got[1], want[1])
+
+
+@pytest.mark.parametrize("sorted_engine", [False, True])
+def test_k5_leaves_a_dead_rays_planes_as_they_were(cuda, sorted_engine):
+    # a ray that enters a span dead reads live alone and writes nothing;
+    # a sorted span handed a live count of 0 writes nothing at all and
+    # adds 0 to the count it leaves
+    scene, job = _engine_job("sss", cuda, (48, 40), 5)
+    keys = K.state_keys(job["features"], False, sorted_engine)
+    n = 48 * 40
+    state = torch.empty((len(keys), n), device=cuda)
+    counts = torch.zeros(5, dtype=torch.int64, device=cuda)
+    SP.trace_span(job, state, keys, 0, 2, 1, counts)
+    dead = state[SP.LIVE_KEY] == 0
+    assert 0 < int(dead.sum()) < n
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    noise = torch.randn(state.shape, generator=gen, device=cuda)
+    noise[SP.LIVE_KEY] = state[SP.LIVE_KEY]
+    if sorted_engine:
+        noise[-1] = state[-1]
+    for d1 in (3, 5):
+        st = noise.clone()
+        SP.trace_span(job, st, keys, 2, d1, 1, counts)
+        assert torch.equal(st[:, dead].view(torch.int32),
+                           noise[:, dead].view(torch.int32))
+        want = noise.clone()
+        SP.span_plain(job, want, keys, 2, d1, 1, counts.clone())
+        assert torch.equal(st.view(torch.int32), want.view(torch.int32))
+    if sorted_engine:
+        st, out = noise.clone(), torch.zeros(1, dtype=torch.int32, device=cuda)
+        before = SP.LAUNCHES.copy()
+        SP.trace_span(job, st, keys, 2, 3, 1, counts,
+                      n_live=torch.zeros(1, dtype=torch.int32, device=cuda),
+                      live_out=out)
+        torch.cuda.synchronize()
+        assert sum(SP.LAUNCHES.values()) == sum(before.values()) + 1
+        assert torch.equal(st.view(torch.int32), noise.view(torch.int32))
+        assert int(out) == 0
+
+
+def test_k5_sorted_live_counts_are_the_next_bounces(cuda):
+    # the count each sorted span leaves on the card is the count of the
+    # paths live entering the next bounce
+    scene, job = _engine_job("cornell_mesh", cuda)
+    box = SP.sort_box(scene, cuda)
+    handed = []
+    trace_span = SP.trace_span
+
+    def spy(*args, **kw):
+        trace_span(*args, **kw)
+        if kw.get("live_out") is not None:
+            handed.append(int(kw["live_out"]))
+
+    SP.trace_span = spy
+    try:
+        rad, counts = SP.sorted_batch(job, 1, 1, *box)
+    finally:
+        SP.trace_span = trace_span
+    assert len(handed) == 8 and handed[:-1] == counts.tolist()[1:]
 
 
 N_SCAN = [1, 127, 128, 129, 4097, 640000, 2 ** 21 + 3]

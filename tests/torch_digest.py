@@ -1,26 +1,37 @@
-"""The output bits, time and registers of K1, to compare two versions of
-the port on one card.
+"""The output bits, time and registers of K1 and K5, to compare two
+versions of the port on one card.
 
-    python3 tests/torch_digest.py [ROOT] [--time] [--regs MASK,MASK,...]
+    python3 tests/torch_digest.py [ROOT] [--time] [--k5-time]
+                                  [--regs MASK,MASK,...]
                                   [--sass MASK,MASK,...] [--k8] [--k8-time]
                                   [--k6]
 
 For cornell.txt (the build without features, mask 0) and cornell_mesh.txt
 (the mesh build, mask 512), each at 96x80, depth 8, 3 samples from
 iteration 1, it prints the sha256 of the float32 radiance that
-``trace_k1`` returns, first 16 hex digits.  These are the jobs of the
-digests that ``test_torch_cuda.py`` pins.  With ``--time`` it prints K1's
-ms/iter on cornell.txt (800x800) and cornell_bigmesh.txt (1920x1080), the
-files' own size and depth 8: the median of 9 calls of 8 samples, CUDA
-events, after one warm call.  With ``--regs`` it first compiles ROOT's
+``trace_k1`` returns, first 16 hex digits, and of its int64 counts per
+sample (``per_sample=True``).  These are the jobs of the digests that
+``test_torch_cuda.py`` pins.  With ``--time`` it prints K1's ms/iter on
+``TIMED``: cornell.txt (800x800) alone, with Russian roulette and with
+NEE, cornell_tex.txt (800x800), cornell_mesh.txt, cornell_bigmesh.txt (also
+at 1 sample a call) and cornell_hugemesh.txt (1920x1080), the files' own
+size and depth 8: the median of 9 calls of 8 samples, CUDA events, after
+one warm call (the
+hugemesh's OBJ, ``scenes/gen_icosphere7.obj``, is made by
+``tools/gen_mesh.py 7`` where absent).  With ``--k5-time`` it prints K5's
+ms a launch on ``K5_TIMED`` (the sorted engine on cornell.txt and
+cornell_mesh.txt, the split engine at 3 on cornell.txt, 1 spp, CUDA
+events around each launch, the median of 5 runs).  With ``--regs`` it
+first compiles ROOT's
 ``megakernel.cu`` for each feature mask listed (all ``nvcc`` processes
 at once, no link, ROOT's flags) and prints each kernel's registers and
 spills as ``-Xptxas -v`` reports them; without ``--time`` it then stops
 (and needs only ``nvcc``).  With ``--sass`` it compiles ROOT's
-``megakernel.cu`` for each mask listed to a cubin and prints, for each
-kernel of it, the sha256 (first 16 hex digits) and the instruction count
-of its SASS as ``cuobjdump -sass`` prints it: equal digests on two
-checkouts are the same machine code.  With ``--k8`` it prints, for each
+``megakernel.cu`` for each mask listed (``k7:M``, ``k8:M``: the K7 or K8
+build of mask M) to a cubin and prints, for each kernel of it, the
+sha256 (first 16 hex digits) and the instruction count of its SASS as
+``cuobjdump -sass`` prints it: equal digests on two checkouts are the same
+machine code.  With ``--k8`` it prints, for each
 build of K8 in ``vjp.MASKS`` (all built at once first), the sha256 of
 its radiance and of its rounded gradient tables (cam, mats, gmat,
 lights, concatenated) at 64x64 d4, 1 spp, iteration 1, under a
@@ -49,7 +60,22 @@ import time
 
 JOBS = (("cornell", 0), ("cornell_mesh", 512))  # scene file, feature mask
 RES, DEPTH, SPP = (96, 80), 8, 3
-TIMED = ("cornell", "cornell_bigmesh")  # at the files' own size
+# (label, scene file, NEE, Russian roulette, samples a call), at the
+# files' own size
+TIMED = (("cornell", "cornell", False, False, 8),
+         ("cornell RR", "cornell", False, True, 8),
+         ("cornell NEE", "cornell", True, False, 8),
+         ("cornell_tex", "cornell_tex", False, False, 8),
+         ("cornell_mesh", "cornell_mesh", False, False, 8),
+         ("cornell_bigmesh", "cornell_bigmesh", False, False, 8),
+         ("cornell_bigmesh 1 spp", "cornell_bigmesh", False, False, 1),
+         ("cornell_hugemesh", "cornell_hugemesh", False, False, 8))
+HUGEMESH_OBJ = os.path.join("scenes", "gen_icosphere7.obj")
+# (label, scene file, split or None for the sorted engine), the files' size
+K5_TIMED = (("sorted cornell", "cornell", None),
+            ("sorted cornell_mesh", "cornell_mesh", None),
+            ("split cornell s3", "cornell", 3))
+K5_RUNS = 5
 TIME_SPP, TIME_CALLS = 8, 9
 # the kernels of the sources, by the names ptxas reports them under
 KERNELS = ("k1_trace", "k5_span", "k6_scan", "k9_probe", "k7_grads",
@@ -112,20 +138,26 @@ def registers(root, masks):
 
 def sass(root, masks):
     """Compiles ROOT's megakernel.cu for each mask at once to a cubin and
-    prints each kernel's SASS digest and instruction count."""
+    prints each kernel's SASS digest and instruction count.  A mask
+    ``k7:M`` or ``k8:M`` is the K7 (``-DPT_GRAD=1``) or K8
+    (``-DPT_VJP=1``) build of mask M."""
     from pathtrace_tpu_torch.ops.cuda import build
 
     csrc = os.path.join(root, "pathtrace_tpu_torch", "csrc")
     flags = [f for f in build.NVCC_FLAGS
              if f not in ("-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")]
     dump = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
+    grad = {"k7": ["-DPT_GRAD=1"], "k8": ["-DPT_VJP=1"]}
     with tempfile.TemporaryDirectory() as tmp:
-        procs = [(m, os.path.join(tmp, f"m{m}.cubin"), subprocess.Popen(
-            [build.nvcc_path(), *flags, f"-DPT_FEATURES={m}", "-I", csrc,
-             "-cubin", "-o", os.path.join(tmp, f"m{m}.cubin"),
-             os.path.join(csrc, "megakernel.cu")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-            for m in masks]
+        procs = []
+        for m in masks:
+            kind, _, bits = str(m).rpartition(":")
+            cubin = os.path.join(tmp, f"m{kind}{bits}.cubin")
+            procs.append((m, cubin, subprocess.Popen(
+                [build.nvcc_path(), *flags, f"-DPT_FEATURES={bits}",
+                 *grad.get(kind, []), "-I", csrc, "-cubin", "-o", cubin,
+                 os.path.join(csrc, "megakernel.cu")],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
         for m, cubin, proc in procs:
             log, _ = proc.communicate()
             if proc.returncode:
@@ -149,24 +181,70 @@ def sass(root, masks):
 
 def k1_times(root, torch, ptt, K):
     """K1's ms/iter on the TIMED scenes, median of TIME_CALLS calls."""
-    for name in TIMED:
+    obj = os.path.join(root, HUGEMESH_OBJ)
+    if not os.path.exists(obj):
+        subprocess.run([sys.executable, os.path.join(root, "tools",
+                                                     "gen_mesh.py"), "7", obj],
+                       check=True, stdout=subprocess.DEVNULL)
+    for label, name, nee, rr, spp in TIMED:
         scene = ptt.load_scene(os.path.join(root, "scenes", f"{name}.txt"))
         scene = dataclasses.replace(scene, trace_depth=DEPTH)
-        job = K.prepare(scene, "cuda")
-        K.trace_k1(**job, it0=1, n_spp=TIME_SPP)
+        job = K.prepare(scene, "cuda", nee=nee, rr=rr)
+        K.trace_k1(**job, it0=1, n_spp=spp)
         runs = []
         for _ in range(TIME_CALLS):
             start, stop = (torch.cuda.Event(enable_timing=True)
                            for _ in range(2))
             start.record()
-            K.trace_k1(**job, it0=1, n_spp=TIME_SPP)
+            K.trace_k1(**job, it0=1, n_spp=spp)
             stop.record()
             torch.cuda.synchronize()
-            runs.append(start.elapsed_time(stop) / TIME_SPP)
+            runs.append(start.elapsed_time(stop) / spp)
         width, height = scene.resolution
-        print(f"k1 {name} {width}x{height} d{DEPTH} ({root}): "
+        print(f"k1 {label} {width}x{height} d{DEPTH} ({root}): "
               f"{statistics.median(runs):.4f} ms/iter, runs "
               f"{[round(t, 4) for t in runs]}", flush=True)
+
+
+def k5_times(root, torch, ptt, K, label=None):
+    """K5's ms a launch on the K5_TIMED engines, 1 spp: CUDA events
+    around each launch (``span.EVENTS``), the median of K5_RUNS runs."""
+    from pathtrace_tpu_torch.ops.cuda import span as SP
+
+    for name, scene_file, split in K5_TIMED:
+        scene = ptt.load_scene(os.path.join(root, "scenes",
+                                            f"{scene_file}.txt"))
+        scene = dataclasses.replace(scene, trace_depth=DEPTH)
+        job = K.prepare(scene, "cuda")
+        run = SP.engine(scene, job, split, split is None)[1]
+        run(1, 1)
+        runs = []
+        try:
+            for _ in range(K5_RUNS):
+                SP.EVENTS = []
+                run(1, 1)
+                torch.cuda.synchronize()
+                spans = [a.elapsed_time(b) for n, a, b in SP.EVENTS
+                         if n == "span"]
+                runs.append(sum(spans) / len(spans))
+        finally:
+            SP.EVENTS = None
+        width, height = scene.resolution
+        # the kernel alone: the events around a launch also hold the host's
+        # wait where the engine's loop is host-bound
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run(1, 1)
+            torch.cuda.synchronize()
+        dev = [(getattr(e, "device_time_total", 0) or
+                getattr(e, "cuda_time_total", 0), e.count)
+               for e in prof.key_averages() if "k5_span" in e.key]
+        dev_ms = sum(t for t, _ in dev) / max(sum(n for _, n in dev), 1) / 1e3
+        print(f"k5 {name} {width}x{height} d{DEPTH} ({label or root}): "
+              f"{statistics.median(runs):.4f} ms a launch ({len(spans)} "
+              f"an iteration), runs {[round(t, 4) for t in runs]}; on the "
+              f"device alone {dev_ms:.4f} ms a launch", flush=True)
 
 
 def k8_scenes(root, ptt, K):
@@ -299,6 +377,7 @@ def main(argv):
     p.add_argument("root", nargs="?", default=os.path.dirname(
         os.path.dirname(os.path.abspath(__file__))))
     p.add_argument("--time", action="store_true")
+    p.add_argument("--k5-time", action="store_true")
     p.add_argument("--regs", default="")
     p.add_argument("--sass", default="")
     p.add_argument("--k8", action="store_true")
@@ -310,9 +389,9 @@ def main(argv):
     if args.regs:
         registers(root, [int(m) for m in args.regs.split(",")])
     if args.sass:
-        sass(root, [int(m) for m in args.sass.split(",")])
+        sass(root, args.sass.split(","))
     if (args.regs or args.sass) and not (args.time or args.k8 or args.k6
-                                         or args.k8_time):
+                                         or args.k8_time or args.k5_time):
         return 0
     import torch
 
@@ -327,15 +406,20 @@ def main(argv):
         scene = ptt.load_scene(os.path.join(root, "scenes", f"{name}.txt"))
         scene = dataclasses.replace(scene, resolution=RES, trace_depth=DEPTH)
         K.LAUNCHES.clear()
-        rad, _ = K.trace_k1(**K.prepare(scene, "cuda"), it0=1, n_spp=SPP)
+        job = K.prepare(scene, "cuda")
+        rad, _ = K.trace_k1(**job, it0=1, n_spp=SPP)
+        _, counts = K.trace_k1(**job, it0=1, n_spp=SPP, per_sample=True)
         torch.cuda.synchronize()
-        if dict(K.LAUNCHES) != {mask: 1}:
+        if dict(K.LAUNCHES) != {mask: 2}:
             raise RuntimeError(f"{name}: launches {dict(K.LAUNCHES)}, want "
-                               f"one of mask {mask}")
+                               f"two of mask {mask}")
         print(f"digest {name} {RES[0]}x{RES[1]} d{DEPTH} {SPP}spp mask "
-              f"{mask} ({K.__file__}): {digest(rad)}", flush=True)
+              f"{mask} ({K.__file__}): {digest(rad)} counts "
+              f"{digest(counts)}", flush=True)
     if args.time:
         k1_times(root, torch, ptt, K)
+    if args.k5_time:
+        k5_times(root, torch, ptt, K)
     masks = list(VJ.MASKS)
     if args.k8 or args.k8_time:
         from pathtrace_tpu_torch.ops.cuda import build
