@@ -38,14 +38,14 @@ Phases, each of which raises on failure (exit code non-zero):
    and cornell_mesh.txt at 1920x1080, 64 spp, to PNGs, which must have a
    plausible mean, a red left third and a green right third;
 6. K9: the probe's 32x128 ray bundle over the bigmesh tables, CUDA
-   against plain (final cursor, steps, leaves, tsum equal), and a one-warp
-   bundle of 32 rays for information; then K1's lane schedule and K5's
-   live prefix (``schedule_holds``): K1's pinned digests of radiance and
-   counts (``K1_DIGESTS``, the bits before the lane schedule), each
-   sample's counts equal to the plain version's at 1, 3 and 65 samples,
-   ``pix0``/``n_local`` tiles and two calls with the whole image's bits,
-   and a sorted span handed a live count of 0 that leaves the state as it
-   was;
+   against plain (final cursor, steps, leaves, tsum equal), the 1x32 and
+   2x40 bundles and a cap of 300 steps, each equal to plain; then K1's
+   lane schedule and K5's live prefix (``schedule_holds``): K1's pinned
+   digests of radiance and counts (``K1_DIGESTS``, the bits before the
+   lane schedule), each sample's counts equal to the plain version's at
+   1, 3 and 65 samples, ``pix0``/``n_local`` tiles and two calls with the
+   whole image's bits, and a sorted span handed a live count of 0 that
+   leaves the state as it was;
 7. timing, warm, tables resident on the device, CUDA events, median of k
    calls (runs listed), for each kernel and its plain version: each
    primitive variant at 800x800 depth 8 (8 spp per call); the mesh
@@ -54,7 +54,8 @@ Phases, each of which raises on failure (exit code non-zero):
    kernel, 1 for the plain version); cornell_tex, cornell_tex512 and
    cornell_bumpmesh at 800x800 and cornell_bigmesh_tex at 1920x1080 (the
    same), and for information cornell_tex's kernel with every chart off
-   (the same build) and with the build without textures; K9.  Mrays/s
+   (the same build) and with the build without textures; K9 (around
+   the call, and on the device alone, ``torch.profiler``).  Mrays/s
    counts live path segments.  Beside each time, its
    bound: the least time the card could take for the same work, the larger
    of ops / 67 TFLOP/s and bytes / 3.35 TB/s (the H100 SXM data sheet's
@@ -112,7 +113,9 @@ Phases, each of which raises on failure (exit code non-zero):
    800x800 depth 8, and at 64x64 depth 4 also every parameter group of
    ``render_vjp`` against the same entry point on the plain version; the
    material gradients K7 (``k7_grads``), its radiance and counts
-   bit-equal to K1's, the same way.  Tolerance
+   bit-equal to K1's, the same way, and at 64x64 d8 16 spp flushing
+   every 1024 paths (``K7_FLUSH``: each block adds its table into the
+   global one twice), bit-equal to the default flush rule's table.  Tolerance
    (``tests/torch_gradcheck.py``): the reference's rtol / atol (K8 2e-4
    / 3e-4, K7 1e-5 / 1e-4), K8's cotangent split between the NEE
    fireflies (held with a share of their part's largest gradient) and
@@ -149,7 +152,8 @@ Phases, each of which raises on failure (exit code non-zero):
 15. the gradients' times, warm, CUDA events, median of k calls: the grad
    step through ``render_vjp`` (the packing and its backward on the host
    included), K8 without and with NEE and K7 (1 spp a call), K1 on the
-   same tables beside them, each with its bound: K1's counted work of one
+   same tables beside them (K7 beside K1 at 1 spp a call: their ratio is
+   the fold's cost), each with its bound: K1's counted work of one
    sample plus ``bound.k8_extra``/``bound.k7_extra`` (K7's fold, and
    K8 without NEE, whose only gradient that is not zero is the
    materials': the fold's ops a path and a scatter; K8 with NEE: the
@@ -225,6 +229,11 @@ K7_SITE = "pathtrace_tpu/ops/pallas/megakernel.py:2551"   # _grad_accumulate
 K8_SITE = "pathtrace_tpu/ops/pallas/megakernel.py:3494"   # _vjp_kernel
 K3_LINEAR_SITE = "pathtrace_tpu/ops/pallas/megakernel.py:870"  # tri_body
 GRAD_SMALL = ((64, 64), 4)  # resolution, depth: the reference's tolerance
+# K7 where each block flushes its table more than once: 64x64 d8, 16 spp,
+# a flush every 1024 paths, 8 samples of a block's pool of 128 pixels
+# (resolution, depth, spp, paths a flush); the default rule,
+# k7_flush_paths(8) = 65535 paths, flushes once there
+K7_FLUSH = ((64, 64), 8, 16, 1024)
 HUGEMESH_OBJ = os.path.join("scenes", "gen_icosphere7.obj")
 # (label, scene file, text replacements of
 # pathtrace_tpu_torch.scene.variants, nee, rr); the first of each feature
@@ -478,7 +487,8 @@ def cli_main_path(K, np, scene_file, flags, orient=True):
 def probe_phase(K, P, scene):
     """K9 on the bigmesh tables: the reference's 32x128 bundle through
     the wrapper (launch count reset before and read after), against the
-    plain version; then a one-warp bundle.  Returns the launches."""
+    plain version; then the 1x32 and 2x40 bundles and a cap on the steps
+    that stops the walk midway.  Returns the launches."""
     tri, nodes, meta = K.pack_mesh(scene, "cuda")
     P.LAUNCHES.clear()
     got = P.probe_k9(nodes, tri, meta[0])
@@ -490,12 +500,12 @@ def probe_phase(K, P, scene):
         raise RuntimeError(f"K9: cuda {got} != plain {want} or launches "
                            f"{launches} != 1")
     err = max(abs(a - b) for a, b in zip(got, want))
-    warp, warp_plain = (f(nodes, tri, meta[0], 1, 32)
-                        for f in (P.probe_k9, P.probe_plain))
-    print(f"k9 bigmesh 1x32 rays (one warp, information): cuda {warp} "
-          f"plain {warp_plain}", flush=True)
-    if warp != warp_plain:
-        raise RuntimeError(f"K9 one warp: cuda {warp} != plain {warp_plain}")
+    for args in ((1, 32), (2, 40), (32, 128, 300)):
+        got = P.probe_k9(nodes, tri, meta[0], *args)
+        want = P.probe_plain(nodes, tri, meta[0], *args)
+        print(f"k9 bigmesh {args}: cuda {got} plain {want}", flush=True)
+        if got != want:
+            raise RuntimeError(f"K9 {args}: cuda {got} != plain {want}")
     return launches, err, (nodes, tri, meta[0])
 
 
@@ -1120,28 +1130,39 @@ def k8_vs_plain(K, VJ, GC, torch, label, scene, nee, full=False):
     return err, plain_ms
 
 
-def k7_vs_plain(K, MG, GC, torch, label, scene):
-    """K7 on the tables of ``scene``, 1 spp, against K1 (radiance and
-    counts, bit for bit) and its plain version (the gradient table by
-    parameter, :func:`held`; without NEE there are no fireflies).
-    Returns (max abs error, plain ms, the job, the material table, the
-    geoms' materials)."""
+def k7_vs_plain(K, MG, GC, torch, label, scene, spp=1, flush_paths=None):
+    """K7 on the tables of ``scene``, ``spp`` samples, against K1
+    (radiance and counts, bit for bit) and its plain version (the
+    gradient table by parameter, :func:`held`; without NEE there are no
+    fireflies); with ``flush_paths``, K7 flushing that often, whose bits
+    must be those of the default flush rule.  Returns (max abs error,
+    plain ms, the job, the material table, the geoms' materials)."""
     job = K.prepare(scene, "cuda")
     mtab = MG.material_table(scene, "cuda")
     mat_of = tuple(int(m) for m in scene.geoms.material_id)
-    rad, counts = K.trace_k1(**job, it0=1, n_spp=1)
-    ref, _ = K.trace_plain(**job, it0=1, n_spp=1)
+    rad, counts = K.trace_k1(**job, it0=1, n_spp=spp)
+    ref, _ = K.trace_plain(**job, it0=1, n_spp=spp)
     ct = masked_ct(torch, rad, ref, 1)
-    rad7, counts7, got = MG.trace_k7(job, mtab, mat_of, ct, 1, 1)
+    rad7, counts7, got = MG.trace_k7(job, mtab, mat_of, ct, 1, spp)
+    per_flush = MG.k7_flush_paths(job["depth"])
+    if flush_paths is not None:
+        split = MG.trace_k7(job, mtab, mat_of, ct, 1, spp, flush_paths)
+        if not all(torch.equal(a, b)
+                   for a, b in zip(split, (rad7, counts7, got))):
+            raise RuntimeError(f"{label}: K7 flushing every {flush_paths} "
+                               f"paths is not the default rule's bits")
+        rad7, counts7, got = split
+        per_flush = flush_paths
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    _, _, want = MG.k7_plain(job, mtab, mat_of, ct, 1, 1)
+    _, _, want = MG.k7_plain(job, mtab, mat_of, ct, 1, spp)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
     same = torch.equal(rad7, rad) and torch.equal(counts7, counts)
-    print(f"k7 {label} {job['width']}x{job['height']} d{job['depth']} 1spp: "
-          f"radiance and counts bit-equal to K1 {same}; plain version "
-          f"{plain_ms:.1f} ms", flush=True)
+    print(f"k7 {label} {job['width']}x{job['height']} d{job['depth']} "
+          f"{spp}spp: radiance and counts bit-equal to K1 {same}; at most "
+          f"{per_flush} paths a block between flushes (the default rule's "
+          f"bits); plain version {plain_ms:.1f} ms", flush=True)
     if not same:
         raise RuntimeError(f"{label}: K7's radiance or counts are not K1's")
     rows = (("color", slice(0, 3)), ("spec_color", slice(3, 6)),
@@ -1431,6 +1452,9 @@ def time_k7(K, MG, B, torch, label, name, k7_job, card):
     ct = torch.rand((n_pix, 3), device="cuda")
     ms_k7, runs_k7, (_, counts, _) = median_ms(
         lambda: MG.trace_k7(job, mtab, mat_of, ct, 1, 1), torch, 9)
+    # K1's same build at 1 spp a call: K7 / K1 is the fold's own cost
+    ms_k1, runs_k1, _ = median_ms(
+        lambda: K.trace_k1(**job, it0=1, n_spp=1), torch, 9)
     ops, n_bytes, _ = forward_work(K, B, torch, label, job)
     extra_ops, extra_bytes = B.k7_extra(counts.tolist(), n_pix,
                                         mtab.shape[0])
@@ -1440,7 +1464,9 @@ def time_k7(K, MG, B, torch, label, name, k7_job, card):
           f"{[round(t, 4) for t in runs_k7]}) on {card}; bound "
           f"{bound_ms:.4f} ms by {bound_by} ({ops:.4g} ops of K1's count + "
           f"{extra_ops:.4g} of the fold; {n_bytes + extra_bytes} bytes); "
-          f"kernel at {bound_ms / ms_k7:.2%} of it; library call: none",
+          f"kernel at {bound_ms / ms_k7:.2%} of it; library call: none; "
+          f"K1 at 1 spp a call {ms_k1:.4f} ms (runs "
+          f"{[round(t, 4) for t in runs_k1]}), K7 / K1 {ms_k7 / ms_k1:.3f}",
           flush=True)
     return ms_k7, bound_ms, bound_by
 
@@ -1663,7 +1689,10 @@ def main():
                 mask, card, SPP_PER_CALL, 5, SPP_PER_CALL, 3)
             missing.remove(mask)
             phase_done(f"time {label}")
-    ms_k9, runs_k9, _ = median_ms(lambda: P.probe_k9(*k9_args), torch, 9)
+    ms_k9, runs_k9, k9_res = median_ms(lambda: P.probe_k9(*k9_args), torch,
+                                       9)
+    k9_dev = TD.device_ms(torch, lambda: P.probe_k9(*k9_args),
+                          name="k9_probe")
     _, k9_ops, k9_bytes = B.count_work(lambda: P.probe_plain(*k9_args))
     ms_k9p, runs_k9p, _ = median_ms(lambda: P.probe_plain(*k9_args), torch, 3,
                                     warm=False)
@@ -1675,7 +1704,9 @@ def main():
           f"{card}; bound {k9_bound[0]:.6f} ms by {k9_bound[1]} "
           f"({sum(k9_ops.values()):.4g} ops; bytes read {fmt_work(k9_bytes)}"
           f" + 16 written), kernel at {k9_bound[0] / ms_k9:.2%} of it; "
-          f"library call: none", flush=True)
+          f"library call: none; on the device alone (torch.profiler) "
+          f"{k9_dev:.5f} ms, {k9_res[1]} steps, {k9_res[2]} leaves, "
+          f"{1e3 * k9_dev / k9_res[1]:.4f} us a step", flush=True)
     phase_done("time k9")
 
     k5_row = {}
@@ -1707,6 +1738,11 @@ def main():
         row = k7_vs_plain(K, MG, GC, torch, "k7_grads", scene)
         grad_rows["k7_grads"], k7_job = row[:2], row[2:]
         phase_done(f"k7_grads vs plain {scene.resolution}")
+    # K7 where each block flushes its table more than once (K7_FLUSH)
+    res, depth, spp, per_flush = K7_FLUSH
+    k7_vs_plain(K, MG, GC, torch, "k7_grads", dataclasses.replace(
+        cornell, resolution=res, trace_depth=depth), spp, per_flush)
+    phase_done(f"k7_grads vs plain {res} {spp} spp")
     # the mesh builds: cornell_mesh at 64x64 d4 and at its 1920x1080 d8
     mesh = scenes["cornell_mesh"][0]
     mesh_small = dataclasses.replace(mesh, resolution=GRAD_SMALL[0],

@@ -57,7 +57,8 @@ def pathtrace_batch(scene, it0, n_iters, compaction="mask", remat=True,
     next-event estimation if ``nee`` and Russian roulette if ``rr``:
     (accumulated radiance (P,3) f32, live counts (n_iters, depth) int64,
     the paths entering each bounce of each sample), both on ``device``,
-    as the reference's.
+    as the reference's (whose counts are int32: the port keeps int64,
+    K1's 64-bit global counts).
 
     The arguments are the reference's ``pathtrace_batch``'s, but its
     wavefront is not ported yet (ROADMAP Queue 1 item 1): K1 traces every
@@ -75,7 +76,9 @@ def render(scene, n_iters=None, chunk=8, compaction="mask", callback=None,
     """Progressive render to completion, ``chunk`` samples per launch;
     returns the accumulated image (P,3) on ``device`` (divide by
     ``n_iters`` for display).  ``callback(done, accum, counts)`` runs
-    after each chunk.  ``compaction`` as :func:`pathtrace_batch`'s."""
+    after each chunk, with the chunk's counts as :func:`pathtrace_batch`
+    returns them: (samples of the chunk, depth), int64 (the reference's
+    are int32).  ``compaction`` as :func:`pathtrace_batch`'s."""
     _check_compaction(compaction)
     n_iters = n_iters if n_iters is not None else scene.iterations
     # the tables stay resident on the device across chunks
@@ -85,7 +88,8 @@ def render(scene, n_iters=None, chunk=8, compaction="mask", callback=None,
     done = 0
     while done < n_iters:
         step = min(chunk, n_iters - done)
-        rad, counts = trace_k1(**job, it0=done + 1, n_spp=step)
+        rad, counts = trace_k1(**job, it0=done + 1, n_spp=step,
+                               per_sample=True)
         accum += rad
         done += step
         if callback is not None:

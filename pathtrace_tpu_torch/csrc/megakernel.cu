@@ -1848,7 +1848,7 @@ inline size_t grad_smem_offset(size_t tables_bytes) {
 // K7 — the analytic material gradients (replaces the grad mode of the
 // Pallas `_kernel`, reached from `material_grads_pallas` through `_run`):
 // K1's trace, whose bounce also records the factor it multiplies into the
-// path (PathState::ev), and at the end of each sample `_grad_accumulate`'s
+// path (PathState::ev), and at the end of each path `_grad_accumulate`'s
 // fold of the path's factors.  At fixed random draws the radiance is a
 // product of the factors, so d(ct . radiance)/d(x) is w / x for each time
 // the path met the factor x (w = ct * radiance): a diffuse bounce color and
@@ -1859,15 +1859,33 @@ inline size_t grad_smem_offset(size_t tables_bytes) {
 //
 // The reference counts the factors per material as base-64 digits of one
 // float32 per lane; here each path keeps its list of (geom, kind), at most
-// one a bounce, in local memory.  Each thread adds its terms (float32) into
-// its block's table in shared memory, exactly (fx_add), and each block
-// adds its table into the global one after each sample (fx_flush), which
-// fx_round rounds to float32.
+// one a bounce, in local memory.  A lane adds its path's terms (float32)
+// into its block's table in shared memory, exactly (fx_add), and the block
+// adds its table into the global one (fx_flush), which fx_round rounds to
+// float32.
+//
+// The schedule is K1's (k1_trace): a lane folds its path the step it ends,
+// starts its pixel's next sample at once and takes the next pixel of its
+// block's pool (k1_lane_pixels) when the pixel's samples are done, so a
+// warp never waits for its longest path.  The block synchronises only at
+// the end of each chunk of samples: it adds its counts and its table into
+// the global ones there.  A chunk is as many samples as keep every limb
+// under 2^19 digits (fx_add): a path adds at most one term an event to an
+// entry, one digit a limb, and meets at most depth events, so a block may
+// fold flush_paths paths between two flushes where flush_paths x depth <
+// 2^19 (ops/cuda/matgrad.py k7_flush_paths, which the host passes and
+// pt_k7_grads checks); a chunk is flush_paths / (kBlock x lane_px) samples
+// of the block's pool.  The exact sum does not depend on the order or the
+// grouping of its terms, so the table's bits are those of any other
+// schedule.
 //
 // What bounds it: K1's operations (the fold adds a few per scatter,
-// bound.k7_extra); the factor list costs local memory (384 bytes of stack a
-// thread).
+// bound.k7_extra).  Measured (PERF.md section 5): the fold is most of what
+// K7 adds to K1's time, its float divisions more than its atomics; a path
+// folding each repeated (material, kind) once with its count, folds batched
+// over a warp's lanes and a table for each warp did not pay.
 constexpr int kGradRows = 8;
+constexpr long long kFxLimbDigits = 1ll << 19;
 
 __device__ __forceinline__ void grad_fold(const PathState& p, const float* ct,
                                           const float* mtab, const int* mat_of, int n_mats,
@@ -1899,23 +1917,31 @@ __device__ __forceinline__ void grad_fold(const PathState& p, const float* ct,
   }
 }
 
-__global__ void __launch_bounds__(kBlock)
+// The samples of a chunk: flush_paths paths a block at most between two
+// flushes, the pool holding kBlock x lane_px pixels (0: too few paths a
+// flush for one sample of the pool).
+__host__ __device__ constexpr int k7_chunk(int flush_paths, int lane_px) {
+  return flush_paths / (kBlock * lane_px);
+}
+
+__global__ void __launch_bounds__(kBlock, 7)
 k7_grads(const float* __restrict__ cam_g, const float* __restrict__ mats_g,
          const float* __restrict__ gmat_g, const int* __restrict__ types_g,
          const float* __restrict__ lights_g, const float4* __restrict__ tri_g,
          const float4* __restrict__ nodes_g, const int* __restrict__ meta_g,
          const uint32_t* __restrict__ texels_g, const int* __restrict__ charts_g, int n_geoms,
          int n_lights, int n_meta, int width, int height, int depth, uint32_t it0, int n_spp,
-         const float* __restrict__ mtab, const int* __restrict__ mat_of, int n_mats,
-         const float* __restrict__ ct, float* __restrict__ rad,
+         int lane_px, int chunk, const float* __restrict__ mtab, const int* __restrict__ mat_of,
+         int n_mats, const float* __restrict__ ct, float* __restrict__ rad,
          unsigned long long* __restrict__ counts, unsigned long long* __restrict__ gtab,
          size_t grad_off) {
-  // shared: per-warp live counts, the tables, and at byte grad_off
-  // (tables_smem) the block's gradient table
+  // shared: the count words (one a bounce) and the pool's taken word, the
+  // tables, and at byte grad_off the block's gradient table
   extern __shared__ unsigned long long smem[];
-  unsigned long long* s_counts = smem;
-  const Tables s = stage_tables(smem, depth, cam_g, mats_g, gmat_g, types_g, lights_g, meta_g,
-                                charts_g, n_geoms, n_lights, n_meta);
+  const Tables s = stage_tables(smem, k1_count_slots(depth), cam_g, mats_g, gmat_g, types_g,
+                                lights_g, meta_g, charts_g, n_geoms, n_lights, n_meta);
+  unsigned* s_counts = reinterpret_cast<unsigned*>(smem);
+  unsigned* s_taken = s_counts + depth;  // the pool's pixels taken past its first kBlock
   unsigned* s_grad = reinterpret_cast<unsigned*>(reinterpret_cast<char*>(smem) + grad_off);
   const int n_grad = kGradRows * n_mats;
   for (int i = threadIdx.x; i < fx_smem_words(n_grad); i += kBlock) s_grad[i] = 0u;
@@ -1924,46 +1950,102 @@ k7_grads(const float* __restrict__ cam_g, const float* __restrict__ mats_g,
   const Tex tex(texels_g);
   __syncthreads();
 
-  const int warp = threadIdx.x >> 5;
+  constexpr unsigned kFull = 0xffffffffu;
   const int lane = threadIdx.x & 31;
-  const long long idx = static_cast<long long>(blockIdx.x) * kBlock + threadIdx.x;
+  const unsigned below = (1u << lane) - 1u;
   const long long n_pix = static_cast<long long>(width) * height;
-  const bool valid = idx < n_pix;
-  const uint32_t pix_u = static_cast<uint32_t>(idx);
-  const float fx = static_cast<float>(idx % width);
-  const float fy = static_cast<float>(idx / width);
+  // the pool: pixels first .. first + pool - 1
+  const long long first = static_cast<long long>(blockIdx.x) * kBlock * lane_px;
+  const int pool = static_cast<int>(min(static_cast<long long>(kBlock) * lane_px, n_pix - first));
   const float sx_scale = static_cast<float>(2.0 / width);
   const float sy_scale = static_cast<float>(2.0 / height);
   const Camera cam = load_camera(s.cam);
+  if (n_spp == 0) {
+    for (int q = threadIdx.x; q < pool; q += kBlock)
+      rad[3 * (first + q) + 0] = rad[3 * (first + q) + 1] = rad[3 * (first + q) + 2] = 0.f;
+    return;
+  }
 
-  float acc_r = 0.f, acc_g = 0.f, acc_b = 0.f;
-  for (int sample = 0; sample < n_spp; ++sample) {
-    const uint32_t it = it0 + static_cast<uint32_t>(sample);
+  for (int c0 = 0; c0 < n_spp; c0 += chunk) {
+    const int c1 = min(n_spp, c0 + chunk);
+    long long idx = 0;  // the lane's pixel
+    uint32_t pix_u = 0u;
+    float fx = 0.f, fy = 0.f, acc_r = 0.f, acc_g = 0.f, acc_b = 0.f;
+    int sample = c0, d = 0;
+    // the pool's pixel q: its sum so far (the chunks before) and sample c0
+    const auto take = [&](int q) {
+      idx = first + q;
+      pix_u = static_cast<uint32_t>(idx);
+      fx = static_cast<float>(pix_u % static_cast<uint32_t>(width));
+      fy = static_cast<float>(pix_u / static_cast<uint32_t>(width));
+      acc_r = acc_g = acc_b = 0.f;
+      if (c0 > 0) {
+        acc_r = rad[3 * idx + 0];
+        acc_g = rad[3 * idx + 1];
+        acc_b = rad[3 * idx + 2];
+      }
+      sample = c0;
+    };
+    bool done = static_cast<int>(threadIdx.x) >= pool;
+    bool fresh = !done;  // a sample to start
+    if (!done) take(threadIdx.x);
     PathState p;
-    init_state(p, cam, s.cam, it, pix_u, fx, fy, sx_scale, sy_scale, valid);
-    for (int d = 0; d < depth; ++d) {
-      const unsigned ballot = __ballot_sync(0xffffffffu, p.live);
-      if (lane == 0) s_counts[warp * depth + d] += __popc(ballot);
-      bounce(p, d, it, pix_u, s, mesh, tex);
+    p.live = false;
+    for (;;) {
+      bool need = false;  // the lane's pixel has run the chunk
+      if (!done && !fresh && (!p.live || d == depth)) {
+        grad_fold(p, ct + 3 * idx, mtab, mat_of, n_mats, tab);
+        acc_r = acc_r + p.rr;
+        acc_g = acc_g + p.rg;
+        acc_b = acc_b + p.rb;
+        if (++sample < c1) {
+          fresh = true;
+        } else {
+          rad[3 * idx + 0] = acc_r;
+          rad[3 * idx + 1] = acc_g;
+          rad[3 * idx + 2] = acc_b;
+          need = true;
+        }
+      }
+      // the lanes that need a pixel take the pool's next ones, in lane order
+      const unsigned want = __ballot_sync(kFull, need);
+      if (want != 0u) {
+        const int leader = __ffs(want) - 1;
+        unsigned got = 0u;
+        if (lane == leader) got = atomicAdd(s_taken, static_cast<unsigned>(__popc(want)));
+        got = __shfl_sync(kFull, got, leader);
+        if (need) {
+          const int q = kBlock + static_cast<int>(got) + __popc(want & below);
+          done = q >= pool;
+          fresh = !done;
+          if (!done) take(q);
+        }
+      }
+      if (__all_sync(kFull, done)) break;
+      if (fresh) {
+        init_state(p, cam, s.cam, it0 + static_cast<uint32_t>(sample), pix_u, fx, fy, sx_scale,
+                   sy_scale, true);
+        d = 0;
+        fresh = false;
+      }
+      if (!done) {
+        // a live path entering bounce d
+        atomicAdd(s_counts + d, 1u);
+        bounce(p, d, it0 + static_cast<uint32_t>(sample), pix_u, s, mesh, tex);
+        ++d;
+      }
     }
-    acc_r = acc_r + p.rr;
-    acc_g = acc_g + p.rg;
-    acc_b = acc_b + p.rb;
-    if (valid) grad_fold(p, ct + 3 * idx, mtab, mat_of, n_mats, tab);
+    // the chunk's counts and gradients, summed over the block, into the
+    // global ones
     __syncthreads();
+    for (int i = threadIdx.x; i < depth; i += kBlock) {
+      const unsigned c = s_counts[i];
+      s_counts[i] = 0u;
+      if (c) atomicAdd(&counts[i], static_cast<unsigned long long>(c));
+    }
     fx_flush(s_grad, n_grad, gtab);
+    if (threadIdx.x == 0) *s_taken = 0u;
     __syncthreads();
-  }
-  if (valid) {
-    rad[3 * idx + 0] = acc_r;
-    rad[3 * idx + 1] = acc_g;
-    rad[3 * idx + 2] = acc_b;
-  }
-  if (lane == 0) {
-    for (int d = 0; d < depth; ++d) {
-      const unsigned long long c = s_counts[warp * depth + d];
-      if (c) atomicAdd(&counts[d], c);
-    }
   }
 }
 #endif  // PT_GRAD
@@ -3137,35 +3219,53 @@ extern "C" int pt_fx_words(int n) { return fx_words(n); }
 // it0 ..; the scene tables as pt_k1_trace's (no lights, textures or RR: the
 // build must have none), mtab (n_mats, 8) each material's color, spec_color,
 // emittance, has_reflective, mat_of (n_geoms) each geom's material, ct
-// (P, 3) the cotangent.  Writes rad (P, 3), adds the live counts into
-// counts (depth,) and the gradients into gtab, the exact (8, n_mats) table
-// (pt_fx_words(8 n_mats) words, zeroed by the caller), which pt_fx_round
-// rounds.  Returns the cudaError_t of the launch.
+// (P, 3) the cotangent.  A block adds its gradients into the global table
+// after at most flush_paths paths (flush_paths x depth < 2^19, and at
+// least one sample of its pool).  Writes rad (P, 3), adds the live counts
+// into counts (depth,) and the gradients into gtab, the exact (8, n_mats)
+// table (pt_fx_words(8 n_mats) words, zeroed by the caller), which
+// pt_fx_round rounds.  Returns the cudaError_t of the launch.
 extern "C" int pt_k7_grads(const float* cam, const float* mats, const float* gmat,
                            const int* geom_types, const float* lights, const float* tri,
                            const float* nodes, const int* meta, const unsigned int* texels,
                            const int* charts, int n_geoms, int n_lights, int n_meta,
                            long long n_texels, int width, int height, int depth, unsigned int it0,
-                           int n_spp, const float* mtab, const int* mat_of, int n_mats,
-                           const float* ct, float* rad, unsigned long long* counts,
+                           int n_spp, int flush_paths, const float* mtab, const int* mat_of,
+                           int n_mats, const float* ct, float* rad, unsigned long long* counts,
                            unsigned long long* gtab, void* stream) {
   const long long n_pix = static_cast<long long>(width) * height;
-  const long long blocks = (n_pix + kBlock - 1) / kBlock;
   if (kNee || kRr || kTexAny || n_lights != 0 || n_texels != 0 || n_meta < 0 ||
       (!kMesh && n_meta > 0) || !(0 < depth && depth < 64) || !(0 < n_mats && n_mats <= 128) ||
-      blocks <= 0 || blocks > 0x7fffffffLL)
+      n_pix <= 0 || n_spp < 0 || flush_paths <= 0 ||
+      static_cast<long long>(flush_paths) * depth >= kFxLimbDigits)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t grad_off = grad_smem_offset(tables_smem(depth, n_geoms, n_lights, n_meta));
+  const size_t grad_off =
+      grad_smem_offset(tables_smem(k1_count_slots(depth), n_geoms, n_lights, n_meta));
   const size_t smem = grad_off + sizeof(unsigned) * fx_smem_words(kGradRows * n_mats);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         k7_grads, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
+  // the pool a block takes, from the blocks the card keeps resident (K1's
+  // rule), and the samples a flush
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, k7_grads, kBlock, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int lane_px = k1_lane_pixels(n_pix, static_cast<long long>(sms) * per_sm);
+  const int chunk = k7_chunk(flush_paths, lane_px);
+  const long long per_block = static_cast<long long>(kBlock) * lane_px;
+  const long long blocks = (n_pix + per_block - 1) / per_block;
+  if (chunk <= 0 || blocks <= 0 || blocks > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
   k7_grads<<<static_cast<unsigned>(blocks), kBlock, smem, static_cast<cudaStream_t>(stream)>>>(
       cam, mats, gmat, geom_types, lights, reinterpret_cast<const float4*>(tri),
       reinterpret_cast<const float4*>(nodes), meta, texels, charts, n_geoms, n_lights, n_meta,
-      width, height, depth, it0, n_spp, mtab, mat_of, n_mats, ct, rad, counts, gtab, grad_off);
+      width, height, depth, it0, n_spp, lane_px, chunk, mtab, mat_of, n_mats, ct, rad, counts,
+      gtab, grad_off);
   return static_cast<int>(cudaGetLastError());
 }
 #endif

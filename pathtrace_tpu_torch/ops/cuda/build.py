@@ -171,7 +171,7 @@ def load_k7(mask=0):
         p, p, p, p, p,           # tri, nodes, meta, texels, charts
         i, i, i, ll,             # n_geoms, n_lights, n_meta, n_texels
         i, i, i,                 # width, height, depth
-        ctypes.c_uint, i,        # it0, n_spp
+        ctypes.c_uint, i, i,     # it0, n_spp, flush_paths
         p, p, i,                 # mtab, mat_of, n_mats
         p, p, p, p, p,           # ct, rad, counts, gradient table, stream
     ])
@@ -261,7 +261,7 @@ def load_k9():
     if "k9" not in _LIBS:
         lib = ctypes.CDLL(str(build(*K9_JOB)))
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.pt_k9_probe.argtypes = [p, p, i, i, i, i, p, p]
+        lib.pt_k9_probe.argtypes = [p, p, i, i, i, i, p, p, p]
         lib.pt_k9_probe.restype = i
         lib.pt_cuda_error_string.argtypes = [i]
         lib.pt_cuda_error_string.restype = ctypes.c_char_p

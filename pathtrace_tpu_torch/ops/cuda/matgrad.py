@@ -17,13 +17,15 @@ counts its factors per material (``megakernel.bounces``' ``grad_mats``,
 color, 3-5 d/d spec_color, 6 d/d emittance, 7 d/d has_reflective.
 
 On the card (:func:`trace_k7`) the kernel is K1's, built with
-``-DPT_GRAD=1``: the shared ``bounce`` also records each bounce's factor
-(the material and which factor) in a per-path list, and at the end of
-each sample the thread adds its path's terms into its block's table,
-which the block then adds into the one table in global memory.  Every
-sum is exact (fixed point, integer atomics: csrc's ``fx_add``) and
-rounded to float32 once, so two calls give the same bits.  The radiance
-is K1's, bit for bit.
+``-DPT_GRAD=1``, on K1's lane schedule: the shared ``bounce`` also
+records each bounce's factor (the geom and which factor) in a per-path
+list; the lane folds its path's terms into its block's table the step
+the path ends and starts its next sample. The block adds its table into
+the one table in global memory at the end of each chunk of samples,
+after at most :func:`k7_flush_paths` paths. Every sum is exact (fixed
+point, integer atomics: csrc's ``fx_add``) and rounded to float32 once,
+so the bits do not depend on the order of the adds: two calls, and any
+chunking, give the same bits. The radiance is K1's, bit for bit.
 """
 
 from __future__ import annotations
@@ -41,6 +43,19 @@ GRAD_ROWS = 8
 MAX_MATERIALS = 128
 MAX_DEPTH = 63
 EPS = 1e-8
+# A 32-bit limb of the exact table holds any sum of fewer than 2^19 of its
+# 12-bit digits (csrc's fx_add: 2^19 x (2^12 - 1) < 2^31).
+LIMB_DIGITS = 2 ** 19
+
+
+def k7_flush_paths(depth):
+    """The paths a block of K7 may fold between two flushes of its table
+    at ``depth``: a path adds at most one term an event to an entry, one
+    digit a limb, and meets at most ``depth`` events, so every limb stays
+    under :data:`LIMB_DIGITS` digits while paths x depth < 2^19."""
+    if not 0 < depth <= MAX_DEPTH:
+        raise ValueError(f"depth {depth} is not in 1 .. {MAX_DEPTH}")
+    return (LIMB_DIGITS - 1) // depth
 
 
 def check_supported(scene, nee=False, rr=False):
@@ -138,12 +153,15 @@ def k7_plain(job, mtab, mat_of_geom, ct, it0, n_spp):
     return rad, counts, gtab
 
 
-def trace_k7(job, mtab, mat_of_geom, ct, it0, n_spp):
+def trace_k7(job, mtab, mat_of_geom, ct, it0, n_spp, flush_paths=None):
     """K7 on the tables of ``job`` (``megakernel.prepare``'s, without
     NEE, RR or textures): (rad (P,3), counts (depth,), the (8, M)
     gradient table of sum(ct * rad)).  For tensors on the CPU this is
     :func:`k7_plain`; on a CUDA device it launches the kernel (built at
-    first use) and raises if the build or the launch fails."""
+    first use) and raises if the build or the launch fails.  A block
+    flushes its table after at most ``flush_paths`` paths (default
+    :func:`k7_flush_paths`; fewer flush more often, to the same bits; the
+    launch fails below one sample of a block's pool)."""
     device = job["cam"].device
     if device.type == "cpu":
         return k7_plain(job, mtab, mat_of_geom, ct, it0, n_spp)
@@ -159,6 +177,11 @@ def trace_k7(job, mtab, mat_of_geom, ct, it0, n_spp):
                          f"materials, geoms' materials {mat_of_geom}")
     if job["lights"] is not None or job["rr"] or job["texels"] is not None:
         raise ValueError("K7 takes no lights, RR or textures")
+    if flush_paths is None:
+        flush_paths = k7_flush_paths(depth)
+    if not 0 < flush_paths <= k7_flush_paths(depth):
+        raise ValueError(f"K7 flushes after 1 .. {k7_flush_paths(depth)} "
+                         f"paths at depth {depth}, not {flush_paths}")
     K._check_table("mtab", mtab, (n_mats, GRAD_ROWS), device)
     K._check_table("ct", ct, (n_pix, 3), device)
     mask, args = K.kernel_tables(
@@ -178,8 +201,9 @@ def trace_k7(job, mtab, mat_of_geom, ct, it0, n_spp):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.pt_k7_grads(
             *args, width, height, depth, it0 & 0xFFFFFFFF, n_spp,
-            mtab.data_ptr(), mat_t.data_ptr(), n_mats, ct.data_ptr(),
-            rad.data_ptr(), counts.data_ptr(), exact.data_ptr(), stream)
+            flush_paths, mtab.data_ptr(), mat_t.data_ptr(), n_mats,
+            ct.data_ptr(), rad.data_ptr(), counts.data_ptr(),
+            exact.data_ptr(), stream)
         K.launch_error("K7", lib, err)
         err = lib.pt_fx_round(exact.data_ptr(), GRAD_ROWS * n_mats,
                               gtab.data_ptr(), stream)

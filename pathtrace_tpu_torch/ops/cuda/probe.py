@@ -26,7 +26,7 @@ LAUNCHES = Counter()
 
 BUNDLE = (32, 128)  # rows, lanes: the reference's (8,128)-tiled ray tile
 MAX_STEPS = 200000
-MAX_RAYS = 4096  # the kernel's one block holds 4 rays a thread
+MAX_RAYS = 4096  # the kernel's cluster holds 4096 rays
 
 
 def bundle_rays(rows, lanes, device="cpu"):
@@ -105,12 +105,15 @@ def probe_k9(nodes, tri, entry, rows=BUNDLE[0], lanes=BUNDLE[1],
             raise ValueError(f"{name}: want a contiguous, 16-byte aligned "
                              f"float32 (>= {n_rows}, 16) tensor on {device}")
     out = torch.empty(4, dtype=torch.int32, device=device)
+    # the leaves fetched, (start, count) each: at most one a node
+    leaf_list = torch.empty((n_nodes, 2), dtype=torch.int32, device=device)
     lib = build.load_k9()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.pt_k9_probe(nodes[node_off].data_ptr(),
                               tri[tri_off].data_ptr(), n_nodes, rows, lanes,
-                              max_steps, out.data_ptr(), stream)
+                              max_steps, leaf_list.data_ptr(),
+                              out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(
             f"K9 launch failed: CUDA error {err} "

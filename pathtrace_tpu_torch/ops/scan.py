@@ -4,9 +4,11 @@ Counterpart of ``pathtrace_tpu/ops/scan.py``, with its API:
 
 * :func:`prefix_sum` -- the exclusive prefix sum of a 1-D tensor, returned
   as float32 as the reference's ``prefix_sum_pallas``.  The values are
-  summed as int32 (a float is cast first), so the sum is exact for the
-  0/1 masks and integer counts the reference supports (totals below
-  2^24, where float32 holds every integer);
+  summed as int32, so the sum is exact for the 0/1 masks and integer
+  counts the reference supports (totals below 2^24, where float32 holds
+  every integer); a float tensor must hold integers, and one that does
+  not raises ``ValueError`` (the reference sums it in float32; K6 sums
+  integers);
 * :func:`compact_indices` -- the stable live-first partition of a mask:
   (perm int32, n_live), ``x[perm]`` holding the live elements in order,
   then the dead ones; the same permutation as ``argsort(~mask, stable)``.
@@ -137,7 +139,14 @@ def scan_int(x):
 def prefix_sum(x):
     """Exclusive prefix sum of a 1-D tensor, float32 (the reference's
     ``prefix_sum_pallas``); exact for 0/1 masks and integer counts whose
-    total is below 2^24."""
+    total is below 2^24.  The sum is K6's, over int32: a floating-point
+    ``x`` must hold integers of int32's range, and raises ``ValueError``
+    otherwise (a value such as 0.5, which the reference sums in float32,
+    is not truncated)."""
+    if x.is_floating_point() and x.numel() and not bool(
+            ((x == torch.trunc(x)) & (x.abs() < 2.0 ** 31)).all()):
+        raise ValueError("prefix_sum sums integers (K6 scans int32): a "
+                         "float input must hold integer values below 2^31")
     return scan_int(x).to(torch.float32)
 
 

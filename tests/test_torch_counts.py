@@ -56,3 +56,27 @@ def test_summed_counts_are_the_per_sample_ones_summed():
     rad2, summed = K.trace_k1(**job, it0=1, n_spp=SPP)
     assert torch.equal(rad, rad2)
     assert torch.equal(per.sum(0), summed) and tuple(summed.shape) == (DEPTH,)
+
+
+def test_render_callback_gets_each_samples_counts():
+    # render's callback(done, accum, counts) gets the chunk's counts per
+    # sample, (chunk, depth), as the reference's render passes its
+    # pathtrace_batch's: cornell 8x8 d3, 3 iterations in chunks of 2
+    res, depth = (8, 8), 3
+    ref = dataclasses.replace(pt.load_scene(CORNELL), resolution=res,
+                              trace_depth=depth)
+    port = dataclasses.replace(ptt.load_scene(CORNELL), resolution=res,
+                               trace_depth=depth)
+    want, got = [], []
+    pt.render(ref, 3, chunk=2, callback=lambda done, acc, counts: want.append(
+        (done, np.asarray(acc), np.asarray(counts))))
+    ptt.render(port, 3, chunk=2, device="cpu",
+               callback=lambda done, acc, counts: got.append(
+                   (done, acc.clone(), counts.clone())))
+    assert [w[0] for w in want] == [g[0] for g in got] == [2, 3]
+    assert [w[2].shape for w in want] == [(2, depth), (1, depth)]
+    for (_, w_acc, w_counts), (_, g_acc, g_counts) in zip(want, got):
+        assert tuple(g_counts.shape) == w_counts.shape
+        assert g_counts.dtype == torch.int64
+        np.testing.assert_array_equal(g_counts.numpy(), w_counts)
+        np.testing.assert_allclose(g_acc.numpy(), w_acc, rtol=0, atol=1e-3)

@@ -328,6 +328,19 @@ def test_k9_matches_plain(cuda, bundle):
     assert got[0] == meta[0][2] and got[1] > 0
 
 
+@pytest.mark.parametrize("bundle,max_steps", [
+    ((1, 32), P.MAX_STEPS), ((2, 40), P.MAX_STEPS), ((32, 128), 1),
+    ((32, 128), 37), ((2, 40), 300), ((32, 128), 0)])
+def test_k9_bundles_and_step_caps_match_plain(cuda, bundle, max_steps):
+    # the cluster's walk is the plain version's on a bundle that fills a
+    # block or part of one, and under a cap that stops it anywhere
+    scene = ptt.load_scene(os.path.join(REPO, "scenes",
+                                        "cornell_bigmesh.txt"))
+    tri, nodes, meta = K.pack_mesh(scene, cuda)
+    got = P.probe_k9(nodes, tri, meta[0], *bundle, max_steps)
+    assert got == P.probe_plain(nodes, tri, meta[0], *bundle, max_steps)
+
+
 # ----------------------------------------------------------------------------
 # K5 (the split and sorted engines) and K6 (the scan)
 # ----------------------------------------------------------------------------
@@ -875,6 +888,35 @@ def test_k8_rejects_the_linear_form(cuda):
     job = K.prepare(without_bvh(_scene("cornell_mesh", (16, 16), 2)), cuda)
     with pytest.raises(ValueError, match="BVH"):
         VJ.trace_k8(*_k8_args(job, torch.ones((256, 3), device=cuda)))
+
+
+def test_k7_over_several_flushes_matches_plain(cuda):
+    # 64x64 d8 at 64 spp: the default flush rule folds the block's 8192
+    # paths at once; 1024 paths a flush cuts them into 8 chunks.  The
+    # exact sums give the same bits either way, and the plain version's
+    # values within the reference's tolerance
+    scene = _scene("cornell", (64, 64), 8)
+    job = K.prepare(scene, cuda)
+    mtab = MG.material_table(scene, cuda)
+    mat_of = tuple(int(m) for m in scene.geoms.material_id)
+    rad, counts = K.trace_k1(**job, it0=1, n_spp=64)
+    ref, _ = K.trace_plain(**job, it0=1, n_spp=64)
+    ct = _masked_ct(rad, ref)
+    assert MG.k7_flush_paths(8) >= 64 * 128
+    got = MG.trace_k7(job, mtab, mat_of, ct, 1, 64)
+    split = MG.trace_k7(job, mtab, mat_of, ct, 1, 64, flush_paths=1024)
+    for a, b in zip(got, split):
+        assert torch.equal(a, b)
+    assert torch.equal(got[0], rad) and torch.equal(got[1], counts)
+    _, want_counts, want = MG.k7_plain(job, mtab, mat_of, ct, 1, 64)
+    assert torch.equal(got[1], want_counts)
+    torch.testing.assert_close(got[2], want, rtol=GC.K7_TOL[0],
+                               atol=GC.K7_TOL[1])
+    with pytest.raises(ValueError, match="flushes"):
+        MG.trace_k7(job, mtab, mat_of, ct, 1, 1,
+                    flush_paths=MG.k7_flush_paths(8) + 1)
+    with pytest.raises(RuntimeError):  # under one sample of a block's pool
+        MG.trace_k7(job, mtab, mat_of, ct, 1, 1, flush_paths=64)
 
 
 def test_k7_on_a_mesh_matches_plain(cuda):

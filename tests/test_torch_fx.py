@@ -13,6 +13,8 @@ from fractions import Fraction
 import numpy as np
 import pytest
 
+from pathtrace_tpu_torch.ops.cuda import matgrad as MG
+
 LIMBS = 11          # kFxLimbs: 11 x 12-bit digits cover the 128 bits
 MAX_LIGHTS = 64     # kFxMaxLights
 BLOCK, MAX_DEPTH, WARP = 128, 32, 32
@@ -190,3 +192,118 @@ def test_the_limb_overflow_bound():
             e.add_group(np.full(WARP, sign * worst, np.float32))
         assert e.limbs[0] == sign * n * 4095
         assert e.flushed() == sign * n * 4095
+
+
+# K7 (csrc/megakernel.cu k7_grads): a block folds its paths into its table
+# in lanes that start their next sample as a path ends, and flushes the
+# table into the global one every chunk of samples, after at most
+# MG.k7_flush_paths(depth) paths; each event of a path adds its terms.
+K7_POOL_MAX = 8  # csrc kLanePxMax: a block's pool, pixels a lane at most
+
+
+@pytest.mark.parametrize("depth", range(1, MG.MAX_DEPTH + 1))
+def test_k7_flush_paths_keeps_every_limb_under_its_capacity(depth):
+    n = MG.k7_flush_paths(depth)
+    # at most one term an event to an entry, one digit a limb, depth
+    # events a path
+    assert n * depth < 2 ** 19 <= (n + 1) * depth
+    assert n * depth * (2 ** 12 - 1) < 2 ** 31
+    # a chunk holds at least one sample of the largest pool
+    assert n >= BLOCK * K7_POOL_MAX
+    if depth in (1, 8, MG.MAX_DEPTH):
+        # the worst case in the model: every event of every path one term
+        # of the largest digit, into one limb, of either sign
+        worst = np.float32(4095 * 2.0 ** -64)
+        for sign in (1, -1):
+            e = Entry()
+            for _ in range(n * depth):
+                e.add_lane(sign * worst)
+            assert e.limbs[0] == sign * n * depth * 4095
+
+
+def _k7_paths(seed, n_pix, spp, depth, n_mats):
+    """Random paths: (w (3,) float32, events [(material, kind)]) of each
+    pixel and sample, as K7's bounce records them."""
+    r = np.random.RandomState(seed)
+    paths = {}
+    for pix in range(n_pix):
+        for s in range(spp):
+            n_ev = int(r.randint(0, depth + 1))
+            ev = [(int(r.randint(n_mats)), int(r.randint(5)))
+                  for _ in range(n_ev)]
+            w = (r.rand(3) * np.exp2(r.randint(-20, 4, 3))).astype(np.float32)
+            paths[pix, s] = (w, ev)
+    return paths
+
+
+def _k7_terms(w, ev, mtab):
+    """grad_fold's terms of one path: [(entry, value)], entry = row *
+    n_mats + material."""
+    n_mats, eps = mtab.shape[0], np.float32(1e-8)
+    wsum = np.float32(np.float32(w[0] + w[1]) + w[2])
+    out = []
+    for m, kind in ev:
+        col = 3 if kind in (1, 3) else 0
+        for ch in range(3):
+            x = mtab[m, col + ch]
+            if x > eps:
+                out.append(((col + ch) * n_mats + m, np.float32(w[ch] / x)))
+        if kind == 2 and mtab[m, 6] > eps:
+            out.append((6 * n_mats + m, np.float32(wsum / mtab[m, 6])))
+        pm = np.float32(min(max(mtab[m, 7], 0.0), 1.0))
+        if kind == 1 and pm > eps:
+            out.append((7 * n_mats + m, -np.float32(wsum / pm)))
+        if kind == 0 and np.float32(1.0 - pm) > eps:
+            out.append((7 * n_mats + m,
+                        np.float32(wsum / np.float32(1 - pm))))
+    return out
+
+
+def _k7_table(order, paths, mtab, flush_paths):
+    """The rounded (8, M) table of the paths folded in ``order`` (a list
+    of blocks, each a list of (pixel, sample) in the order its lanes end
+    them), a block's table flushed every ``flush_paths`` paths."""
+    n = 8 * mtab.shape[0]
+    total = [0] * n
+    flags = [False] * n
+    for block in order:
+        tab = [Entry() for _ in range(n)]
+        for i, key in enumerate(block):
+            for e, v in _k7_terms(*paths[key], mtab):
+                tab[e].add_lane(v)
+            if (i + 1) % flush_paths == 0 or i + 1 == len(block):
+                for e in range(n):
+                    total[e] += tab[e].flushed()
+                    flags[e] |= tab[e].flag
+                tab = [Entry() for _ in range(n)]
+    return np.array([rounded(t, f) for t, f in zip(total, flags)],
+                    np.float32)
+
+
+def test_k7_fold_gives_the_same_bits_in_pixel_and_pool_order():
+    # the lockstep kernel: pixel order, a flush after every sample; the
+    # lane schedule: pools of 2 pixels a lane, the paths ending in a
+    # permuted order, a flush every 96 paths: the same bits
+    n_pix, spp, depth, n_mats, lanes = 8 * 8, 6, 8, 5, 16
+    r = np.random.RandomState(5)
+    mtab = r.rand(n_mats, 8).astype(np.float32)
+    mtab[1, 7], mtab[2, 0], mtab[3, 7] = 0.0, 0.0, 1.0
+    paths = _k7_paths(1, n_pix, spp, depth, n_mats)
+    # repeats of one (material, kind) in a path, as walls of one material
+    paths[0, 0] = (paths[0, 0][0], [(4, 0)] * depth)
+    lockstep = [[(pix, s) for pix in range(b, b + lanes)]
+                for b in range(0, n_pix, lanes) for s in range(spp)]
+    pool = []
+    for b in range(0, n_pix, 2 * lanes):
+        block = [(pix, s) for pix in range(b, b + 2 * lanes)
+                 for s in range(spp)]
+        pool.append([block[i] for i in r.permutation(len(block))])
+    want = _k7_table(lockstep, paths, mtab, lanes)
+    got = _k7_table(pool, paths, mtab, 96)
+    assert want.tobytes() == got.tobytes()
+    # and the float64 sum of the float32 terms, rounded
+    exact64 = np.zeros(8 * n_mats)
+    for key in paths:
+        for e, v in _k7_terms(*paths[key], mtab):
+            exact64[e] += float(v)
+    np.testing.assert_allclose(got, exact64.astype(np.float32), rtol=1e-6)

@@ -66,3 +66,34 @@ def test_bundle_rays_round_as_the_reference():
         np.testing.assert_array_equal(got_ird[k].numpy(),
                                       ird[k].reshape(-1))
     assert torch.isinf(got_ird[2][0])  # lane 0: a zero z direction
+
+
+MESH_SCENES = ("cornell_mesh", "cornell_bigmesh", "cornell_bumpmesh",
+               "cornell_bigmesh_tex", "cornell_hugemesh")
+
+
+def test_every_skip_link_moves_forward(tmp_path):
+    # K9's streamed walk loads both of the next step's nodes, n + 1 and
+    # skip(n), once node n is read: it rests on the cursor only moving
+    # forward, n < skip(n) <= n_nodes, on every pack_mesh BVH the repo
+    # ships (the hugemesh's OBJ made by tools/gen_mesh.py 7); a leaf's
+    # skip is n + 1, and an internal node's subtree is n + 1 .. skip - 1
+    subprocess.run([sys.executable, os.path.join(REPO, "tools", "gen_mesh.py"),
+                    "7", str(tmp_path / "gen_icosphere7.obj")], check=True,
+                   stdout=subprocess.DEVNULL, timeout=120)
+    for name in MESH_SCENES:
+        with open(os.path.join(REPO, "scenes", f"{name}.txt")) as f:
+            text = f.read()
+        base = tmp_path if name == "cornell_hugemesh" else os.path.join(
+            REPO, "scenes")
+        scene = ptt.parse_scene(text, base_dir=str(base))
+        _, nodes, meta = K.pack_mesh(scene, "cpu")
+        assert meta, name
+        for _, node_off, n_nodes, _, _ in meta:
+            table = nodes[node_off:node_off + n_nodes].numpy()
+            n = np.arange(n_nodes)
+            skip = table[:, 6].astype(np.int64)
+            leaf = table[:, 8] > 0
+            assert np.all(n < skip) and np.all(skip <= n_nodes), name
+            assert np.all(skip[leaf] == n[leaf] + 1), name
+            assert skip[0] == n_nodes, name  # the root's subtree is all

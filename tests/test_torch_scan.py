@@ -104,3 +104,21 @@ def test_plain_look_back_matches_cumsum_at_mask_sizes(n):
     x = (np.random.RandomState(n).rand(n) < 0.4).astype(np.int32)
     got = SC.prefix_sum_plain(torch.from_numpy(x)).numpy()
     np.testing.assert_array_equal(got, np.cumsum(x) - x)
+
+
+def test_prefix_sum_of_floats_is_not_truncated():
+    # the reference sums [0.5, 0.5, 0.5, 1, -1] in float32; the port
+    # sums integers (K6) and refuses the halves rather than truncate them
+    x = np.array([0.5, 0.5, 0.5, 1.0, -1.0], np.float32)
+    want = np.asarray(prefix_sum_pallas(jnp.asarray(x), interpret=True))
+    np.testing.assert_array_equal(want, [0.0, 0.5, 1.0, 1.5, 2.5])
+    with pytest.raises(ValueError, match="integer"):
+        ptt.prefix_sum(torch.from_numpy(x))
+    for bad in (np.nan, np.inf, 2.0 ** 31):
+        with pytest.raises(ValueError, match="integer"):
+            ptt.prefix_sum(torch.tensor([1.0, bad]))
+    # floats that hold integers, negative ones too, sum as the reference's
+    y = np.array([2.0, 0.0, -3.0, 1.0, 5.0], np.float32)
+    want = np.asarray(prefix_sum_pallas(jnp.asarray(y), interpret=True))
+    np.testing.assert_array_equal(ptt.prefix_sum(torch.from_numpy(y)).numpy(),
+                                  want)

@@ -4,7 +4,7 @@ versions of the port on one card.
     python3 tests/torch_digest.py [ROOT] [--time] [--k5-time]
                                   [--regs MASK,MASK,...]
                                   [--sass MASK,MASK,...] [--k8] [--k8-time]
-                                  [--k6]
+                                  [--k6] [--k7] [--k7-time] [--k9]
 
 For cornell.txt (the build without features, mask 0) and cornell_mesh.txt
 (the mesh build, mask 512), each at 96x80, depth 8, 3 samples from
@@ -43,8 +43,19 @@ call: the median of 9 calls, CUDA events, after one warm call.  With
 ``--k6`` it prints the sha256 of K6's output at ``K6_SIZES`` (0/1 masks
 from a numpy seed), checks it against ``cumsum(x) - x``, and prints the
 device time a call of K6 and of ``torch.cumsum(x, dtype=int32) - x``
-(the kernels alone: ``torch.profiler`` over 50 calls).  ROOT is the
-root of a checkout whose ``pathtrace_tpu_torch`` and ``scenes/`` are used
+(the kernels alone: ``torch.profiler`` over 50 calls).  With ``--k7`` it
+prints, for each job of ``K7_JOBS`` (cornell, mask 0, and cornell_mesh,
+mask 512, at 64x64 d4 2 spp and at the file's own size d8 1 spp; cornell
+at 32x32 d8 1024 spp, where a block of K7 flushes its table more than
+once), the sha256 of K7's radiance, counts and rounded gradient table
+under a cotangent drawn from a numpy seed.  With ``--k7-time`` it prints
+K7's ms a call (1 spp) on cornell 800x800 and cornell_mesh 1920x1080, d8,
+beside K1's on the same tables (1 spp a call): the median of 9 calls, CUDA
+events.  With ``--k9`` it prints K9's result on the bigmesh tables for
+the bundles of ``K9_BUNDLES`` and its time on the 32x128 bundle: CUDA
+events around the call (median of 9) and the kernel alone on the device
+(``torch.profiler`` over 50 calls).  ROOT is the root of a checkout whose
+``pathtrace_tpu_torch`` and ``scenes/`` are used
 (default: this one).  Needs a CUDA GPU.  Imports no JAX.
 """
 
@@ -90,6 +101,13 @@ K8_JOBS = (("cornell", (), 0), ("cornell_mesh", (), 512),
 K8_RES, K8_DEPTH = (64, 64), 4
 K8_TIME_DEPTH, K8_TIME_CALLS = 8, 9
 K6_SIZES = (640000, 2073600, 5000, 16200)
+# K7: (scene file, mask, resolution or None for the file's, depth, spp)
+K7_JOBS = (("cornell", 0, (64, 64), 4, 2), ("cornell", 0, None, 8, 1),
+           ("cornell", 0, (32, 32), 8, 1024),
+           ("cornell_mesh", 512, (64, 64), 4, 2),
+           ("cornell_mesh", 512, None, 8, 1))
+K7_TIMED = (("cornell", 0), ("cornell_mesh", 512))
+K9_BUNDLES = ((32, 128), (1, 32), (2, 40))
 
 
 def digest(rad):
@@ -335,8 +353,9 @@ def k8_times(root, torch, ptt, K, VJ, masks, label=None):
               f"{[round(t, 4) for t in runs]}", flush=True)
 
 
-def device_ms(torch, fn, calls=50):
-    """The device time of ``fn``'s kernels, ms a call (torch.profiler)."""
+def device_ms(torch, fn, calls=50, name=None):
+    """The device time of ``fn``'s kernels (those whose name holds
+    ``name``, if given), ms a call (torch.profiler)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -347,7 +366,100 @@ def device_ms(torch, fn, calls=50):
         torch.cuda.synchronize()
     return sum(getattr(e, "device_time_total", 0) or
                getattr(e, "cuda_time_total", 0)
-               for e in prof.key_averages()) / calls / 1e3
+               for e in prof.key_averages()
+               if name is None or name in e.key) / calls / 1e3
+
+
+def k7_job(root, torch, ptt, K, MG, name, res, depth):
+    """(job, material table, geoms' materials, cotangent) of K7 on
+    ``name`` at ``res`` (None: the file's) and ``depth``."""
+    import numpy as np
+
+    scene = ptt.load_scene(os.path.join(root, "scenes", f"{name}.txt"))
+    scene = dataclasses.replace(scene, trace_depth=depth,
+                                resolution=res or scene.resolution)
+    ct = torch.from_numpy(np.random.RandomState(depth).rand(
+        scene.pixel_count, 3).astype(np.float32)).cuda()
+    return (K.prepare(scene, "cuda"), MG.material_table(scene, "cuda"),
+            tuple(int(m) for m in scene.geoms.material_id), ct)
+
+
+def k7_digests(root, torch, ptt, K, MG):
+    """The digests of K7's radiance, counts and rounded table on
+    K7_JOBS."""
+    for name, mask, res, depth, spp in K7_JOBS:
+        job, mtab, mat_of, ct = k7_job(root, torch, ptt, K, MG, name, res,
+                                       depth)
+        MG.LAUNCHES.clear()
+        rad, counts, tab = MG.trace_k7(job, mtab, mat_of, ct, 1, spp)
+        torch.cuda.synchronize()
+        if dict(MG.LAUNCHES) != {mask: 1}:
+            raise RuntimeError(f"K7 launches {dict(MG.LAUNCHES)}, want one "
+                               f"of mask {mask}")
+        print(f"k7 digest mask {mask} {name} {job['width']}x{job['height']} "
+              f"d{depth} {spp}spp ({MG.__file__}): rad {digest(rad)} counts "
+              f"{digest(counts)} table {digest(tab)}", flush=True)
+
+
+def events_ms(torch, fn, calls):
+    """The median over ``calls`` calls of ``fn``'s CUDA-event time, after
+    one warm call, and the runs."""
+    fn()
+    runs = []
+    for _ in range(calls):
+        start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        fn()
+        stop.record()
+        torch.cuda.synchronize()
+        runs.append(start.elapsed_time(stop))
+    return statistics.median(runs), runs
+
+
+def k7_times(root, torch, ptt, K, MG):
+    """K7's ms a call of one sample on K7_TIMED at the files' own size,
+    d8, beside K1's on the same tables."""
+    for name, mask in K7_TIMED:
+        job, mtab, mat_of, ct = k7_job(root, torch, ptt, K, MG, name, None,
+                                       8)
+        k7, runs = events_ms(
+            torch, lambda: MG.trace_k7(job, mtab, mat_of, ct, 1, 1),
+            TIME_CALLS)
+        k1, _ = events_ms(torch, lambda: K.trace_k1(**job, it0=1, n_spp=1),
+                          TIME_CALLS)
+        print(f"k7 time mask {mask} {name} {job['width']}x{job['height']} d8 "
+              f"1spp ({root}): {k7:.4f} ms, runs "
+              f"{[round(t, 4) for t in runs]}; k1 {k1:.4f} ms; k7 / k1 "
+              f"{k7 / k1:.3f}", flush=True)
+
+
+def k9_report(root, torch, ptt, K):
+    """K9's result on the bigmesh tables for K9_BUNDLES, and its time on
+    the first."""
+    from pathtrace_tpu_torch.ops.cuda import probe as P
+
+    scene = ptt.load_scene(os.path.join(root, "scenes",
+                                        "cornell_bigmesh.txt"))
+    tri, nodes, meta = K.pack_mesh(scene, "cuda")
+    for bundle in K9_BUNDLES:
+        got = P.probe_k9(nodes, tri, meta[0], *bundle)
+        want = P.probe_plain(nodes, tri, meta[0], *bundle)
+        print(f"k9 result {bundle[0]}x{bundle[1]} ({root}): (n, "
+              f"steps, leaves, tsum) {got}, plain {want}", flush=True)
+        if got != want:
+            raise RuntimeError(f"K9 {bundle}: {got} != plain {want}")
+
+    def call():
+        return P.probe_k9(nodes, tri, meta[0])
+
+    res = call()
+    ms, runs = events_ms(torch, call, TIME_CALLS)
+    dev = device_ms(torch, call, name="k9_probe")
+    print(f"k9 time {P.BUNDLE[0]}x{P.BUNDLE[1]} ({root}): "
+          f"around the call {ms:.4f} ms, runs "
+          f"{[round(t, 4) for t in runs]}; device alone {dev:.5f} ms; "
+          f"{res[1]} steps, {res[2]} leaves: {1e3 * dev / res[1]:.4f} us "
+          f"a step", flush=True)
 
 
 def k6_digests(root, torch):
@@ -383,6 +495,9 @@ def main(argv):
     p.add_argument("--k8", action="store_true")
     p.add_argument("--k8-time", action="store_true")
     p.add_argument("--k6", action="store_true")
+    p.add_argument("--k7", action="store_true")
+    p.add_argument("--k7-time", action="store_true")
+    p.add_argument("--k9", action="store_true")
     args = p.parse_args(argv)
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -390,8 +505,9 @@ def main(argv):
         registers(root, [int(m) for m in args.regs.split(",")])
     if args.sass:
         sass(root, args.sass.split(","))
-    if (args.regs or args.sass) and not (args.time or args.k8 or args.k6
-                                         or args.k8_time or args.k5_time):
+    if (args.regs or args.sass) and not (
+            args.time or args.k8 or args.k6 or args.k8_time or args.k5_time
+            or args.k7 or args.k7_time or args.k9):
         return 0
     import torch
 
@@ -439,6 +555,15 @@ def main(argv):
         k8_times(root, torch, ptt, K, VJ, masks)
     if args.k6:
         k6_digests(root, torch)
+    if args.k7 or args.k7_time:
+        from pathtrace_tpu_torch.ops.cuda import matgrad as MG
+
+        if args.k7:
+            k7_digests(root, torch, ptt, K, MG)
+        if args.k7_time:
+            k7_times(root, torch, ptt, K, MG)
+    if args.k9:
+        k9_report(root, torch, ptt, K)
     return 0
 
 
