@@ -47,13 +47,14 @@ Phases, each of which raises on failure (exit code non-zero):
    whole image's bits, and a sorted span handed a live count of 0 that
    leaves the state as it was;
 7. timing, warm, tables resident on the device, CUDA events, median of k
-   calls (runs listed), for each kernel and its plain version: each
-   primitive variant at 800x800 depth 8 (8 spp per call); the mesh
-   variants at 1920x1080 depth 8, cornell_bigmesh and cornell_hugemesh
-   at 1920x1080 and cornell_bigmesh at 800x800 (8 spp per call for the
-   kernel, 1 for the plain version); cornell_tex, cornell_tex512 and
-   cornell_bumpmesh at 800x800 and cornell_bigmesh_tex at 1920x1080 (the
-   same), and for information cornell_tex's kernel with every chart off
+   calls (runs listed), for each kernel (8 spp per call) and, on the
+   first configuration of each feature mask (the kernels line's), its
+   plain version (1 spp per call, 3 calls): each primitive variant at
+   800x800 depth 8; the mesh variants at 1920x1080 depth 8,
+   cornell_bigmesh and cornell_hugemesh at 1920x1080 and cornell_bigmesh
+   at 800x800; cornell_tex, cornell_tex512 and cornell_bumpmesh at
+   800x800 and cornell_bigmesh_tex at 1920x1080, and for information
+   cornell_tex's kernel with every chart off
    (the same build) and with the build without textures; K9 (around
    the call, and on the device alone, ``torch.profiler``).  Mrays/s
    counts live path segments.  Beside each time, its
@@ -186,6 +187,29 @@ Phases, each of which raises on failure (exit code non-zero):
    scan sizes, held to ``cumsum(x) - x``), so that two checkouts compare
    line by line, and the times of the K8 builds PERF.md breaks down
    (``K8_BREAKDOWN``).
+
+18. (run after phase 12) the wavefront integrator
+   (``render/integrator.py``, torch ops on the card): its main path,
+   ``pathtrace_batch`` 1 spp with ``compaction="mask"`` and ``"sort"``
+   (launch counts reset before and read after), on cornell.txt 800x800 d8
+   and cornell_mesh.txt 1920x1080 d8, each with and without NEE: sort
+   bit-equal to mask, the scan K6 launched depth times a sample in sort
+   mode and never in mask mode, within the tie-flip bound of K1 on the
+   same sample (counts as phase 4's); K6's densify permutation on
+   cornell's 640,000 rays after bounce 0 equal to ``torch.argsort(~live,
+   stable=True)``; ``cli.main`` with ``--engine xla --compaction sort`` and
+   with ``--engine planes`` on cornell.txt 800x800, 8 spp, orientation as
+   phase 5's; ``render_loss_and_grad(engine="wavefront")`` against
+   ``engine="planes"`` on cornell 128x128 d4 NEE 2 spp (each engine's
+   target its own image on the pixels where the images part, so those
+   add to neither gradient; the material leaves at rtol 2e-3 / atol 2e-5,
+   every other leaf's largest difference printed); one wavefront grad
+   step at 800x800 d8 1 spp with ``remat=True``, its ms and peak memory;
+   the wavefront's ms/iter, mask and sort, with and without NEE, beside
+   K1's on the same scene, and K6's share of a sort iteration (its device
+   time, ``torch.profiler``).  The kernels line gives K6 a second row, the
+   densify route: its launches from this phase, its times and bound at
+   640,000 values from phase 10.
 
 K3-linear, the fold of every triangle of a mesh without a BVH, runs as
 the other K1 builds do: phase 4 on cornell_mesh.txt stripped of its BVH
@@ -348,6 +372,7 @@ SCAN_SIZES = (640000, 2073600, 5000, 16200)
 # with NEE, the mesh variant with NEE
 K8_BREAKDOWN = (0, 128, 640, 665)
 SCAN_TIMED = 5000  # the tile table of an 800x800 image: the kernels line
+SCAN_DENSIFY = 640000  # the wavefront's rays at 800x800: its K6 row
 
 
 def card_line():
@@ -452,7 +477,7 @@ def compare(ptt, K, torch, label, scene, nee, rr, mask):
     return launches, max_err
 
 
-def cli_main_path(K, np, scene_file, flags, orient=True):
+def cli_main_path(K, np, scene_file, flags, orient=True, spp=64):
     """The main path as a user runs it; returns K1's launches by mask.
     With ``orient``, the left third must be red and the right green."""
     from PIL import Image
@@ -463,7 +488,7 @@ def cli_main_path(K, np, scene_file, flags, orient=True):
         out = os.path.join(tmp, "render.png")
         K.LAUNCHES.clear()
         rc = cli.main([os.path.join(HERE, "scenes", scene_file),
-                       "--spp", "64", "--out", out, *flags])
+                       "--spp", str(spp), "--out", out, *flags])
         launches = dict(K.LAUNCHES)
         if rc != 0 or not os.path.exists(out):
             raise RuntimeError(f"CLI returned {rc}, wrote no {out}")
@@ -472,7 +497,7 @@ def cli_main_path(K, np, scene_file, flags, orient=True):
     third = img.shape[1] // 3
     left = img[:, :third].reshape(-1, 3).mean(axis=0)
     right = img[:, -third:].reshape(-1, 3).mean(axis=0)
-    print(f"cli {scene_file} {' '.join(flags)} 64spp: {img.shape} mean "
+    print(f"cli {scene_file} {' '.join(flags)} {spp}spp: {img.shape} mean "
           f"{mean:.4f} left rgb {left.round(4).tolist()} right rgb "
           f"{right.round(4).tolist()} launches by mask {launches}",
           flush=True)
@@ -545,7 +570,8 @@ def fmt_work(work):
 def time_variant(K, B, torch, label, job, mask, card, spp_kernel, k_kernel,
                  spp_plain, k_plain):
     """Kernel and plain ms/iter of one configuration (runs printed), and
-    the bound of one iteration: (ms, plain ms, bound ms, bound by)."""
+    the bound of one iteration: (ms, plain ms, bound ms, bound by); with
+    ``k_plain`` 0 the plain version is not timed (plain ms None)."""
     width, height = job["width"], job["height"]
     ms_k, runs_k, (_, counts) = median_ms(
         lambda: K.trace_k1(**job, it0=1, n_spp=spp_kernel), torch, k_kernel)
@@ -555,9 +581,11 @@ def time_variant(K, B, torch, label, job, mask, card, spp_kernel, k_kernel,
         lambda: K.trace_plain(**job, it0=1, n_spp=1), tallies)
     WORK[label, width, height] = (ops_by, bytes_by,
                                   small_table_bytes(torch, job), tallies)
-    ms_p, runs_p, _ = median_ms(
-        lambda: K.trace_plain(**job, it0=1, n_spp=spp_plain), torch, k_plain,
-        warm=False)
+    ms_p = runs_p = None
+    if k_plain:
+        ms_p, runs_p, _ = median_ms(
+            lambda: K.trace_plain(**job, it0=1, n_spp=spp_plain), torch,
+            k_plain, warm=False)
     segs = int(counts.sum()) / spp_kernel  # live segments per iteration
     n_pix = width * height
     ops = sum(ops_by.values())
@@ -566,6 +594,8 @@ def time_variant(K, B, torch, label, job, mask, card, spp_kernel, k_kernel,
     bound_ms, bound_by = B.bound(ops, n_bytes)
     for version, ms, runs, spp in (("kernel", ms_k, runs_k, spp_kernel),
                                    ("plain", ms_p, runs_p, spp_plain)):
+        if ms is None:
+            continue
         print(f"time {version} {label} {width}x{height} d{job['depth']} "
               f"{spp}spp/call ({kernel_name(K, mask)}): median {ms:.4f} "
               f"ms/call = {ms / spp:.4f} ms/iter, "
@@ -577,7 +607,8 @@ def time_variant(K, B, torch, label, job, mask, card, spp_kernel, k_kernel,
           f"{n_bytes} bytes, of which read rows: {fmt_work(bytes_by)}); "
           f"kernel at {bound_ms / (ms_k / spp_kernel):.2%} of it; library "
           f"call: none", flush=True)
-    return ms_k / spp_kernel, ms_p / spp_plain, bound_ms, bound_by
+    return (ms_k / spp_kernel, ms_p and ms_p / spp_plain, bound_ms,
+            bound_by)
 
 
 def tex_breakdown(K, torch, scene, card):
@@ -1509,6 +1540,241 @@ def time_gradients(ptt, K, MG, VJ, B, torch, cornell, card, k7_job):
     return out
 
 
+def _flip_share(torch, rad, ref):
+    """(share of pixels off by more than 1e-3, max abs error, share of
+    bit-equal pixels)."""
+    d = (rad - ref).abs().amax(dim=-1)
+    return (float((d > 1e-3).float().mean()), float(d.max()),
+            float((d == 0).float().mean()))
+
+
+def wavefront_holds(K, SC, I, torch, label, scene, nee):
+    """The wavefront's main path (``render.integrator.pathtrace_batch``,
+    1 spp, launch counts reset before and read after) with
+    ``compaction="mask"`` and ``"sort"``: sort bit-equal to mask, K6
+    launched depth times in sort mode and never in mask mode, no K1;
+    then both within the tie bound of K1 on the same sample, counts as
+    ``compare``'s.  Returns the K6 launches."""
+    width, height = scene.resolution
+    depth, n_pix = scene.trace_depth, width * height
+    out, k6 = {}, 0
+    for compaction in ("mask", "sort"):
+        SC.LAUNCHES.clear()
+        K.LAUNCHES.clear()
+        rad, counts = I.pathtrace_batch(scene, 1, 1, compaction, remat=False,
+                                        nee=nee, device="cuda")
+        torch.cuda.synchronize()
+        n6, n1 = SC.LAUNCHES["k6_scan"], sum(K.LAUNCHES.values())
+        want = depth if compaction == "sort" else 0
+        if n6 != want or n1:
+            raise RuntimeError(f"wavefront {label} {compaction}: K6 launched "
+                               f"{n6} times (want {want}), K1 {n1}")
+        if rad.shape != (n_pix, 3) or not bool(torch.isfinite(rad).all()):
+            raise RuntimeError(f"wavefront {label}: bad radiance")
+        out[compaction] = rad, counts
+        k6 += n6
+    if not (torch.equal(out["sort"][0], out["mask"][0])
+            and torch.equal(out["sort"][1], out["mask"][1])):
+        raise RuntimeError(f"wavefront {label}: sort is not mask's bits")
+    job = K.prepare(scene, "cuda", nee=nee)
+    ref, ref_counts = K.trace_k1(**job, it0=1, n_spp=1, per_sample=True)
+    rad, counts = out["mask"]
+    share, err, exact = _flip_share(torch, rad, ref)
+    counts, ref_counts = counts[0].tolist(), ref_counts[0].tolist()
+    print(f"wavefront {label} {width}x{height} d{depth} 1spp: sort == mask "
+          f"bit for bit, K6 launches {k6} (sort), against K1: share>1e-3 "
+          f"{share:.6f} max_abs_err {err:.3g} exact {exact:.6f} counts "
+          f"wavefront {counts} K1 {ref_counts}", flush=True)
+    if share >= TIE_SHARE:
+        raise RuntimeError(f"wavefront {label}: {share:.4%} of pixels "
+                           f"differ > 1e-3 from K1")
+    if counts[0] != n_pix or ref_counts[0] != n_pix:
+        raise RuntimeError(f"wavefront {label}: bounce-0 count is not "
+                           f"{n_pix}")
+    for d, (a, b) in enumerate(zip(counts, ref_counts)):
+        if abs(a - b) > COUNT_RTOL * max(b, 1):
+            raise RuntimeError(f"wavefront {label}: bounce {d} count {a} "
+                               f"vs {b}")
+    return k6
+
+
+def densify_hold(SC, I, torch, scene):
+    """K6 as the wavefront's densify runs it, on one bounce's live mask
+    (cornell 800x800: 640,000 rays after bounce 0): the permutation
+    equal to ``torch.argsort(~live, stable=True)``.  Returns the live
+    count."""
+    res = I.resident(scene, "cuda")
+    n = res.pixel_count
+    pix = torch.arange(n, device="cuda")
+    o, d = I.raygen(res.camera, res.width, res.height, 1, pix)
+    ones = torch.ones((n, 3), device="cuda")
+    state = dict(origins=o, dirs=d, throughput=ones, radiance=0 * ones,
+                 pixel=pix, live=torch.ones(n, dtype=torch.bool,
+                                            device="cuda"))
+    live = I._bounce(res, I._tables(res), 1, 0, state)["live"]
+    SC.LAUNCHES.clear()
+    perm, n_live = SC.compact_indices(live)
+    dense = I._densify(dict(live=live, pixel=pix))
+    torch.cuda.synchronize()
+    want = torch.argsort(~live, stable=True)
+    if not (torch.equal(perm.long(), want) and torch.equal(dense["pixel"],
+                                                           want)):
+        raise RuntimeError("K6's densify permutation is not the stable "
+                           "argsort of the dead flag")
+    if SC.LAUNCHES["k6_scan"] != 2 or int(n_live) != int(live.sum()):
+        raise RuntimeError(f"densify: K6 launches {dict(SC.LAUNCHES)}, "
+                           f"n_live {int(n_live)}")
+    print(f"densify cornell {res.width}x{res.height}, {n} rays after "
+          f"bounce 0: {int(n_live)} live; K6's "
+          f"permutation equals torch.argsort(~live, stable=True)",
+          flush=True)
+    return int(n_live)
+
+
+def wavefront_grads(ptt, K, torch, np, cornell, card):
+    """``render_loss_and_grad(engine="wavefront")`` against
+    ``engine="planes"`` on the card, cornell 128x128 d4 NEE 2 spp, each
+    engine's target its own image on the pixels where the two images
+    part (tie flips), zero elsewhere, so that those pixels add to
+    neither gradient: the material leaves at rtol 2e-3 / atol 2e-5, every
+    other leaf's largest difference printed; then one wavefront grad step
+    at 800x800 d8 1 spp (each bounce recomputed in the backward pass, the
+    default), its ms and peak memory."""
+    from pathtrace_tpu_torch.render import diff as D
+
+    scene = dataclasses.replace(cornell, resolution=(128, 128),
+                                trace_depth=4)
+    imgs = {e: D.render_mean(scene, 1, 2, nee=True, engine=e,
+                             device="cuda") for e in ("wavefront", "planes")}
+    flip = (imgs["wavefront"] - imgs["planes"]).abs().amax(dim=-1) > 1e-3
+    out = {}
+    for e, img in imgs.items():
+        tgt = torch.where(flip[:, None], img, 0.0)
+        out[e] = D.render_loss_and_grad(scene, tgt, 1, 2, nee=True,
+                                        engine=e, device="cuda")
+    (lw, gw), (lp, gp) = out["wavefront"], out["planes"]
+    print(f"wavefront grads cornell 128x128 d4 NEE 2spp: {int(flip.sum())} "
+          f"pixels flip between the engines; loss wavefront {float(lw):.7g} "
+          f"planes {float(lp):.7g}", flush=True)
+    for (name, a), (_, b) in zip(D.named_leaves(gw), D.named_leaves(gp)):
+        a, b = a.detach().cpu().numpy(), b.detach().cpu().numpy()
+        worst = float(np.abs(a - b).max()) if a.size else 0.0
+        lim = (2e-5 + 2e-3 * np.abs(b))
+        ratio = float((np.abs(a - b) / lim).max()) if a.size else 0.0
+        print(f"  {name}: max |diff| {worst:.3g}, max |planes| "
+              f"{float(np.abs(b).max()) if b.size else 0:.3g}, worst share of "
+              f"the tolerance {ratio:.3g}", flush=True)
+        if name.startswith("materials.") and not (
+                np.isfinite(a).all() and ratio <= 1.0):
+            raise RuntimeError(f"wavefront grads: {name} off planes' by "
+                               f"{worst:.3g}")
+    if not float(gw["materials"].color.abs().max()) > 0:
+        raise RuntimeError("wavefront grads: zero albedo gradient")
+
+    tgt = np.zeros((cornell.pixel_count, 3), np.float32)
+    step = lambda: D.render_loss_and_grad(  # noqa: E731
+        cornell, tgt, 1, 1, engine="wavefront", device="cuda")
+    step()
+    times = []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, g = step()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if not (np.isfinite(float(loss)) and all(
+            bool(torch.isfinite(v).all()) for v in D.leaves(g))):
+        raise RuntimeError("wavefront grad step: not finite")
+    print(f"wavefront grad step cornell {cornell.width}x{cornell.height} "
+          f"d{cornell.trace_depth} 1spp (remat): median "
+          f"{statistics.median(times):.1f} ms (runs "
+          f"{[round(t, 1) for t in times]}; host clock around a "
+          f"synchronize), peak memory {peak:.2f} GiB on {card}", flush=True)
+
+
+def device_ms_of(torch, fn, name, calls=2):
+    """(the device time of ``fn``'s kernels whose name holds ``name``, of
+    all its kernels), ms a call, from one ``torch.profiler`` window after
+    a warm call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    times = [(e.key, getattr(e, "device_time_total", 0)
+              or getattr(e, "cuda_time_total", 0))
+             for e in prof.key_averages()]
+    return (sum(t for k, t in times if name in k) / calls / 1e3,
+            sum(t for _, t in times) / calls / 1e3)
+
+
+def time_wavefront(K, I, torch, cornell, card):
+    """The wavefront's ms/iter on cornell 800x800 d8, mask and sort, with
+    and without NEE (warm, scene resident, CUDA events, median of 5 calls
+    of 1 spp), K1's on the same scene beside it (8 spp a call), and K6's
+    share of a sort iteration (its device time over the iteration's,
+    ``torch.profiler``)."""
+    res = I.resident(cornell, "cuda")
+    for nee in (False, True):
+        job = K.prepare(cornell, "cuda", nee=nee)
+        k1, runs_k1, _ = median_ms(
+            lambda: K.trace_k1(**job, it0=1, n_spp=SPP_PER_CALL), torch, 5)
+        line = []
+        for compaction in ("mask", "sort"):
+            run = lambda: I.pathtrace_batch(  # noqa: E731
+                res, 1, 1, compaction, remat=False, nee=nee, device="cuda")
+            ms, runs, _ = median_ms(run, torch, 5)
+            line.append(f"{compaction} {ms:.4f} (runs "
+                        f"{[round(t, 3) for t in runs]})")
+            if compaction == "sort":
+                k6, dev = device_ms_of(torch, run, "k6_scan")
+                line.append(f"K6 {k6:.5f} ms on the device a sort "
+                            f"iteration = {k6 / ms:.3%} of it ({k6 / dev:.3%}"
+                            f" of its device time {dev:.4f} ms)")
+        print(f"time wavefront cornell {cornell.width}x{cornell.height} "
+              f"d{cornell.trace_depth}{' NEE' if nee else ''} ms/iter: "
+              f"{'; '.join(line)}; K1 {k1 / SPP_PER_CALL:.4f} (runs "
+              f"{[round(t / SPP_PER_CALL, 4) for t in runs_k1]}) on {card}",
+              flush=True)
+
+
+def wavefront_phase(ptt, K, SC, torch, np, scenes, card):
+    """The wavefront integrator on the card: holds, the CLI, gradients,
+    times.  Returns the K6 launches of its main path."""
+    from pathtrace_tpu_torch.render import integrator as I
+
+    cornell, mesh = scenes["cornell"][0], scenes["cornell_mesh"][0]
+    k6 = 0
+    for label, scene, nee in (("cornell", cornell, False),
+                              ("cornell NEE", cornell, True),
+                              ("cornell_mesh", mesh, False),
+                              ("cornell_mesh NEE", mesh, True)):
+        k6 += wavefront_holds(K, SC, I, torch, label, scene, nee)
+        phase_done(f"wavefront {label}")
+    densify_hold(SC, I, torch, cornell)
+    for flags in (["--engine", "xla", "--compaction", "sort"],
+                  ["--engine", "planes"]):
+        SC.LAUNCHES.clear()
+        launches = cli_main_path(K, np, "cornell.txt", flags, spp=8)
+        n6 = SC.LAUNCHES["k6_scan"]
+        if launches or n6 != (8 * cornell.trace_depth if "xla" in flags
+                              else 0):
+            raise RuntimeError(f"the CLI with {flags}: K1 {launches}, K6 "
+                               f"{n6}")
+        k6 += n6
+        phase_done(f"cli {' '.join(flags)}")
+    wavefront_grads(ptt, K, torch, np, cornell, card)
+    phase_done("wavefront gradients")
+    time_wavefront(K, I, torch, cornell, card)
+    phase_done("time wavefront")
+    return k6
+
+
 def bigmesh_scene(mesh_configs):
     return next(c[1] for c in mesh_configs if c[0] == "cornell_bigmesh")
 
@@ -1648,20 +1914,22 @@ def main():
     k6_launches += k6
     phase_done("cli engines")
 
+    # The plain versions are timed at 1 spp a call, 3 calls, and only on
+    # the first configuration of each feature mask (the kernels line's);
+    # the others (bigmesh and hugemesh at 1080p: 6-9 s a sample) print
+    # their kernel's time and bound only
     timed = {}
     for label, scene, nee, rr, mask in configs:
         if mask not in timed:
             timed[mask] = time_variant(
                 K, B, torch, label, K.prepare(scene, "cuda", nee=nee, rr=rr),
-                mask, card, SPP_PER_CALL, 9, SPP_PER_CALL, 5)
+                mask, card, SPP_PER_CALL, 9, 1, 3)
             phase_done(f"time {label}")
     for label, scene, nee, rr, mask in (mesh_configs + tex_timed
                                         + linear_configs):
         job = K.prepare(scene, "cuda", nee=nee, rr=rr)
-        # the mesh scenes' plain version: 1 spp a call (up to seconds)
-        plain = (1, 3) if scene.mesh.count else (SPP_PER_CALL, 5)
         ms = time_variant(K, B, torch, label, job, mask, card, SPP_PER_CALL,
-                          5, *plain)
+                          5, 1, 0 if mask in timed else 3)
         timed.setdefault(mask, ms)
         phase_done(f"time {label}")
         if label == "cornell_bigmesh":
@@ -1669,7 +1937,7 @@ def main():
             # here on the megakernel route
             small = dataclasses.replace(scene, resolution=(800, 800))
             time_variant(K, B, torch, label, K.prepare(small, "cuda"), mask,
-                         card, SPP_PER_CALL, 5, 1, 3)
+                         card, SPP_PER_CALL, 5, 1, 0)
     # for information, the work a BVH saves: K3-linear and K3 on
     # cornell_bigmesh (81,920 triangles) at 128x128 d8, 1 spp a call
     big = dataclasses.replace(bigmesh_scene(mesh_configs),
@@ -1686,7 +1954,7 @@ def main():
         if mask in missing:  # a texture build no timed configuration has
             timed[mask] = time_variant(
                 K, B, torch, label, K.prepare(scene, "cuda", nee=nee, rr=rr),
-                mask, card, SPP_PER_CALL, 5, SPP_PER_CALL, 3)
+                mask, card, SPP_PER_CALL, 5, 1, 3)
             missing.remove(mask)
             phase_done(f"time {label}")
     ms_k9, runs_k9, k9_res = median_ms(lambda: P.probe_k9(*k9_args), torch,
@@ -1725,6 +1993,7 @@ def main():
     phase_done("k6")
     time_engines(ptt, K, SP, torch, scenes, card)
     phase_done("time engines")
+    k6_wavefront = wavefront_phase(ptt, K, SC, torch, np, scenes, card)
 
     cornell = scenes["cornell"][0]
     small = dataclasses.replace(cornell, resolution=GRAD_SMALL[0],
@@ -1873,6 +2142,18 @@ def main():
         "bound_ms": k6_row[SCAN_TIMED][4],
         "bound_by": k6_row[SCAN_TIMED][5],
         "library_ms": k6_row[SCAN_TIMED][3],
+    }, {
+        "name": "k6_scan (wavefront densify)",
+        "route": "cuda",
+        "source": "pathtrace_tpu_torch/csrc/scan.cu",
+        "replaces": K6_SITE,
+        "launches": k6_wavefront,
+        "max_abs_err": k6_row[SCAN_DENSIFY][0],
+        "ms": k6_row[SCAN_DENSIFY][1],
+        "plain_ms": k6_row[SCAN_DENSIFY][2],
+        "bound_ms": k6_row[SCAN_DENSIFY][4],
+        "bound_by": k6_row[SCAN_DENSIFY][5],
+        "library_ms": k6_row[SCAN_DENSIFY][3],
     }] + [{
         "name": name,
         "route": "cuda",

@@ -17,8 +17,14 @@ parameters of ``split_params``/``merge_params``; meshes through their
 BVH winners), and ``render_loss_and_grad``/``render_mean`` with
 ``engine="planes"`` (autograd over the plain trace, ``tri_verts``
 included).  A mesh stripped of its BVH renders on K3-linear, the fold of
-every triangle.  Every entry point takes a ``device``, the card by
-default.
+every triangle.  The wavefront integrator (``render/integrator.py``,
+torch ops on the device, its sort-compaction on the scan K6) gives
+:func:`pathtrace_iteration`, ``render.integrator.pathtrace_batch`` (the
+CLI's ``--engine xla``), the default ``engine="wavefront"`` of
+``render_mean`` and ``render_loss_and_grad`` and
+``render_value_and_pixel_grad``; the package's :func:`pathtrace_batch`
+and :func:`render` stay on K1.  Every entry point takes a ``device``,
+the card by default.
 """
 
 from __future__ import annotations
@@ -36,8 +42,10 @@ from .ops.cuda.span import pathtrace_batch_sorted, pathtrace_batch_split
 from .ops.cuda.vjp import render_vjp
 from .ops.scan import compact, compact_indices, prefix_sum
 from .render.diff import (
-    merge_params, render_loss_and_grad, render_mean, split_params,
+    merge_params, render_loss_and_grad, render_mean,
+    render_value_and_pixel_grad, split_params,
 )
+from .render.integrator import pathtrace_iteration
 from .scene.parser import load_scene, parse_scene
 
 __version__ = "0.1.0"
@@ -60,12 +68,13 @@ def pathtrace_batch(scene, it0, n_iters, compaction="mask", remat=True,
     as the reference's (whose counts are int32: the port keeps int64,
     K1's 64-bit global counts).
 
-    The arguments are the reference's ``pathtrace_batch``'s, but its
-    wavefront is not ported yet (ROADMAP Queue 1 item 1): K1 traces every
-    sample here.  So ``compaction="sort"`` gives the image of ``"mask"``
-    (K1 masks dead lanes, as the reference's tiled engines do) and
-    ``remat`` (memory under autodiff of the wavefront) changes
-    nothing."""
+    The arguments are the reference's ``pathtrace_batch``'s, but K1, the
+    port's main path, traces every sample here: ``compaction="sort"``
+    gives the image of ``"mask"`` (K1 masks dead lanes, as the
+    reference's tiled engines do) and ``remat`` (memory under autodiff)
+    changes nothing.  The reference's function, the wavefront, is
+    ``render.integrator.pathtrace_batch`` (``--engine xla`` on the CLI),
+    whose ``"sort"`` densifies the live rays on K6."""
     _check_compaction(compaction)
     return trace_k1(**prepare(scene, device, nee=nee, rr=rr), it0=it0,
                     n_spp=n_iters, per_sample=True)
@@ -78,7 +87,8 @@ def render(scene, n_iters=None, chunk=8, compaction="mask", callback=None,
     ``n_iters`` for display).  ``callback(done, accum, counts)`` runs
     after each chunk, with the chunk's counts as :func:`pathtrace_batch`
     returns them: (samples of the chunk, depth), int64 (the reference's
-    are int32).  ``compaction`` as :func:`pathtrace_batch`'s."""
+    are int32).  ``compaction`` as :func:`pathtrace_batch`'s: K1 traces
+    every chunk; ``render.integrator.render`` is the wavefront's."""
     _check_compaction(compaction)
     n_iters = n_iters if n_iters is not None else scene.iterations
     # the tables stay resident on the device across chunks

@@ -12,12 +12,17 @@ scene with TEXTURE or BUMPTEX maps, its texture section K4) and raises
 when there is no GPU; ``--split-depth N`` runs the split engine and
 ``--engine sorted`` the sorted engine instead, on the span kernel K5
 (and the split engine's tile table on the scan K6), with K1's image.
-``--device cpu`` runs the plain PyTorch versions (``--interpret``, the
-reference's flag for its kernels' CPU mode, means the same).  A chunk is
-one call of K1, or ``--chunk`` samples of an engine's per-sample loop.
-``--compaction sort`` renders with masking on these engines, as the
-reference's tiled engines do, after a warning.  The reference's other
-engines and options are not ported yet: they raise
+``--engine xla`` runs the wavefront integrator
+(``render/integrator.pathtrace_batch``, torch ops on the device), whose
+``--compaction sort`` densifies the live rays after every bounce on the
+scan K6; ``--engine planes`` runs the megakernel's plain version
+(``megakernel.trace_plain``) on the device, the role of the reference's
+fused-plane engine.  ``--device cpu`` runs the plain PyTorch versions
+(``--interpret``, the reference's flag for its kernels' CPU mode, means
+the same).  A chunk is one call of K1, or ``--chunk`` samples of an
+engine's per-sample loop.  ``--compaction sort`` on the other engines
+renders with masking, as the reference's tiled engines do, after a
+warning.  The reference's other options are not ported yet: they raise
 ``NotImplementedError`` naming the ROADMAP item that brings them.
 """
 
@@ -36,9 +41,6 @@ PREFIX = "[pathtrace_tpu_torch]"
 
 # flag -> (values that are ported, ROADMAP item that ports the others)
 _NOT_PORTED = {
-    "engine": (("pallas", "sorted"),
-               "Queue 1 item 1 (the wavefront twin, --engine xla, and "
-               "--engine planes)"),
     "shard": ((False,), "Queue 1 item 4 (multi-device)"),
     "checkpoint": ((None,), "Queue 1 item 5 (checkpoint/resume)"),
     "checkpoint_every": ((0,), "Queue 1 item 5 (checkpoint/resume)"),
@@ -78,10 +80,13 @@ def build_parser() -> argparse.ArgumentParser:
                    default="pallas",
                    help="pallas = the forward megakernel (K1); sorted = one "
                         "span kernel (K5) per bounce, the rays re-sorted "
-                        "between bounces; planes and xla are not ported yet")
+                        "between bounces; planes = the megakernel's plain "
+                        "version in torch ops; xla = the wavefront "
+                        "integrator in torch ops (sort-compaction on K6)")
     p.add_argument("--compaction", choices=["mask", "sort"], default="mask",
-                   help="sort = the wavefront's sort-densify mode; these "
-                        "engines mask dead lanes instead (same image)")
+                   help="sort = the wavefront's sort-densify mode (--engine "
+                        "xla); the other engines mask dead lanes instead "
+                        "(same image)")
     p.add_argument("--split-depth", type=int, default=0,
                    help="pallas engine: trace bounces [0, N) on every "
                         "pixel, then [N, depth) on the tiles with a live "
@@ -103,6 +108,34 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+def _engine(scene, device, args):
+    """(the engine's name, ``run(it0, n)``: the radiance (P,3) summed over
+    ``n`` samples from iteration ``it0`` and the counts), the scene's
+    tables resident on ``device`` for the whole render."""
+    if args.engine == "xla":
+        from pathtrace_tpu_torch.ops.cuda.megakernel import resolve_device
+        from pathtrace_tpu_torch.render import integrator
+
+        scene = integrator.resident(scene, resolve_device(device))
+
+        def run(it0, n):
+            return integrator.pathtrace_batch(
+                scene, it0, n, args.compaction, remat=False, nee=args.nee,
+                rr=args.rr, device=device)
+        return f"xla (wavefront, compaction {args.compaction})", run
+    from pathtrace_tpu_torch.ops.cuda import span
+    from pathtrace_tpu_torch.ops.cuda.megakernel import prepare, trace_plain
+
+    job = prepare(scene, device, nee=args.nee, rr=args.rr)
+    if args.engine == "planes":
+        def run(it0, n):
+            return trace_plain(**job, it0=it0, n_spp=n)
+        return "planes (the megakernel's plain version)", run
+    return span.engine(
+        scene, job, split=args.split_depth if args.split_depth > 0 else None,
+        sort=args.engine == "sorted")
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     for flag, (ported, item) in _NOT_PORTED.items():
@@ -112,19 +145,15 @@ def main(argv=None) -> int:
                 f"ported yet: ROADMAP {item}")
     if args.interpret:
         args.device = "cpu"
-    if args.compaction == "sort":
-        engine = "sorted" if args.engine == "sorted" else "pallas"
+    if args.compaction == "sort" and args.engine != "xla":
         print(f"{PREFIX} WARNING: --compaction sort is a wavefront-engine "
-              f"mode; the {engine} engine masks dead lanes instead (same "
-              f"image, no densify pass), so rendering proceeds on {engine} "
-              f"with masking.  The sort-densify wavefront (--engine xla) is "
-              f"not ported yet: ROADMAP {_NOT_PORTED['engine'][1]}.",
-              flush=True)
+              f"mode; the {args.engine} engine masks dead lanes instead "
+              f"(same image, no densify pass), so rendering proceeds on "
+              f"{args.engine} with masking.  Use --engine xla to run the "
+              f"sort-densify wavefront.", flush=True)
 
     import pathtrace_tpu_torch as ptt
     from pathtrace_tpu_torch.io import image_io
-    from pathtrace_tpu_torch.ops.cuda import span
-    from pathtrace_tpu_torch.ops.cuda.megakernel import prepare
 
     scene = ptt.load_scene(args.scene)
     if args.res:
@@ -135,11 +164,7 @@ def main(argv=None) -> int:
     width, height = scene.resolution
     depth = int(scene.trace_depth)
     device = torch.device(args.device)
-    # tables resident on the device for the whole render
-    job = prepare(scene, device, nee=args.nee, rr=args.rr)
-    engine, run = span.engine(
-        scene, job, split=args.split_depth if args.split_depth > 0 else None,
-        sort=args.engine == "sorted")
+    engine, run = _engine(scene, device, args)
 
     print(
         f"{PREFIX} {args.scene}: {width}x{height}, {n_iters} spp, "

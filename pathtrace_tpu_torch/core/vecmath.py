@@ -31,8 +31,35 @@ def dot(a, b):
             + a[..., 2] * b[..., 2])[..., None]
 
 
-def normalize(v):
-    return v / torch.sqrt(dot(v, v))
+def maximum(x, c):
+    """max(x, c) for a constant ``c``, with the reference's derivative:
+    half to each side on a tie, as ``jnp.maximum`` (``clamp_min`` passes
+    all of it to ``x``).  ``c`` goes in as a CPU scalar: no copy to the
+    device."""
+    return torch.maximum(x, torch.tensor(c, dtype=x.dtype))
+
+
+def minimum(x, c):
+    """min(x, c) for a constant ``c``, as :func:`maximum`."""
+    return torch.minimum(x, torch.tensor(c, dtype=x.dtype))
+
+
+def clip(x, lo, hi):
+    """``jnp.clip``: half the derivative at either bound."""
+    return minimum(maximum(x, lo), hi)
+
+
+def norm(v):
+    return torch.sqrt(dot(v, v))
+
+
+def normalize(v, eps=0.0):
+    """``v`` over its length, the length held at ``eps`` or above when
+    ``eps`` is given (the reference's guard against a zero vector)."""
+    n = norm(v)
+    if eps:
+        n = maximum(n, eps)
+    return v / n
 
 
 def cross(a, b):
@@ -41,6 +68,28 @@ def cross(a, b):
     return torch.stack(
         [ay * bz - az * by, az * bx - ax * bz, ax * by - ay * bx], dim=-1
     )
+
+
+def reflect(i, n):
+    """GLM-convention reflection: i - 2 dot(n, i) n (``i`` points toward
+    the surface)."""
+    return i - 2.0 * dot(n, i) * n
+
+
+def refract(i, n, eta):
+    """GLM-convention refraction of incident ``i`` about normal ``n``
+    (``eta`` of shape (..., 1)); the zero vector on total internal
+    reflection, as ``glm::refract``.  The square root sees 1 where k < 0,
+    so its derivative on those lanes is finite (the reference's guard)."""
+    cosi = dot(n, i)
+    k = 1.0 - eta * eta * (1.0 - cosi * cosi)
+    valid = k >= 0.0
+    refr = eta * i - (eta * cosi + torch.sqrt(torch.where(valid, k, 1.0))) * n
+    return torch.where(valid, refr, torch.zeros_like(refr))
+
+
+def luminance(rgb):
+    return 0.2126 * rgb[..., 0] + 0.7152 * rgb[..., 1] + 0.0722 * rgb[..., 2]
 
 
 def mat3_vec(m, v):
@@ -63,6 +112,16 @@ def mat3_mat(a, b):
         for i in range(3)
     ]
     return torch.stack(rows, dim=-2)
+
+
+def transform_point(m, p):
+    """Apply 4x4 ``m`` (...,4,4) to points ``p`` (...,3)."""
+    return mat3_vec(m[..., :3, :3], p) + m[..., :3, 3]
+
+
+def transform_dir(m, d):
+    """Apply the linear part of ``m`` to directions (w = 0)."""
+    return mat3_vec(m[..., :3, :3], d)
 
 
 def _rot_axis(c, s, axis):

@@ -38,9 +38,8 @@ from ...core.constants import (
 )
 from ...core.rng import Draw
 from ...core.vecmath import as_f32 as _f32
-from ...render.integrator import (
-    camera_basis, geom_transforms, triangle_uv_gradients,
-)
+from ...ops.intersect import triangle_uv_gradients
+from ...render.integrator import camera_basis, geom_transforms
 from .. import lights as L
 from .bound import needed as _needed
 from .bound import read as _read

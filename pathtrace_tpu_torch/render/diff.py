@@ -18,7 +18,12 @@ the mesh tables packed differentiably, so ``tri_verts`` gets its
 gradient: the BVH walk's winner is found detached and its hit
 recomputed (the reference's ``bvh_grad``), or, with ``use_bvh=False``,
 the linear fold's (its oracle).  The default ``"wavefront"`` is autograd
-over the wavefront integrator, which is not ported yet.
+over the wavefront integrator (``render/integrator.trace_pixels``, torch
+ops on the device), each bounce recomputed in the backward pass when
+``remat`` (``torch.utils.checkpoint``), its triangles folded one by one
+as the reference's wavefront folds them.
+:func:`render_value_and_pixel_grad` differentiates a weighted pixel sum
+through it.
 
 Estimator (the reference's): detached sampling.  Every discrete event
 (the lobe taken, the nearest hit, the light face, visibility, the end of
@@ -127,18 +132,14 @@ def leaves(params):
     return [v for _, v in named_leaves(params)]
 
 
-def _planes_scene(scene, engine, use_bvh):
-    """``scene`` as the planes engine traces it (without its BVH unless
-    ``use_bvh``); raises for an engine that is not ported."""
+def _engine_scene(scene, engine, use_bvh):
+    """``scene`` as ``engine`` traces it: for the planes engine without
+    its BVH unless ``use_bvh`` (the wavefront folds every triangle
+    whatever ``use_bvh``, as the reference's does); raises for an engine
+    that is not one of :data:`ENGINES`."""
     if engine not in ENGINES:
         raise ValueError(f"engine must be one of {ENGINES}, not {engine!r}")
-    if engine == "wavefront":
-        raise NotImplementedError(
-            "engine='wavefront' (autograd over the wavefront integrator) is "
-            "not ported yet: ROADMAP Queue 1 item 1 (the wavefront twin) "
-            "and item 3c; engine='planes' differentiates the megakernel's "
-            "plain version")
-    if not use_bvh and scene.mesh.count:
+    if engine == "planes" and not use_bvh and scene.mesh.count:
         from ..scene.bvh import without_bvh
 
         scene = without_bvh(scene)
@@ -149,20 +150,27 @@ def render_mean(scene, it0, n_iters, compaction="mask", remat=True,
                 nee=False, engine="wavefront", use_bvh=True, device="cuda"):
     """Mean image (P,3) over ``n_iters`` samples from iteration ``it0``,
     differentiable in the leaves of ``scene`` that require grad (the
-    reference's ``render_mean``).  ``engine="planes"`` traces with
-    ``megakernel.trace_plain`` on ``device`` through the differentiable
-    packing; ``use_bvh=False`` folds every triangle (K3-linear's plain
-    version).  ``compaction`` ("mask" or "sort") and ``remat`` choose how
-    the wavefront compacts its rays and recomputes under autodiff; the
-    planes engine ignores both, as the reference's does, and gives the
-    same image for every value."""
+    reference's ``render_mean``), on ``device``.  ``engine="wavefront"``
+    traces with ``render/integrator.trace_pixels``, ``compaction`` ("mask"
+    or "sort") choosing how it compacts its rays and ``remat`` whether
+    each bounce is recomputed in the backward pass (the same image and
+    gradients either way).  ``engine="planes"`` traces with
+    ``megakernel.trace_plain`` through the differentiable packing
+    (``use_bvh=False``: every triangle folded, K3-linear's plain version)
+    and ignores ``compaction`` and ``remat``, as the reference's does."""
     from .. import _check_compaction
     from ..ops.cuda import megakernel as K
 
     _check_compaction(compaction)
-    scene = _planes_scene(scene, engine, use_bvh)
-    job = K.prepare(scene, device, nee=nee)
-    rad, _ = K.trace_plain(**job, it0=it0, n_spp=n_iters)
+    scene = _engine_scene(scene, engine, use_bvh)
+    if engine == "wavefront":
+        from .integrator import pathtrace_batch
+
+        rad, _ = pathtrace_batch(scene, it0, n_iters, compaction, remat, nee,
+                                 device=device)
+    else:
+        job = K.prepare(scene, device, nee=nee)
+        rad, _ = K.trace_plain(**job, it0=it0, n_spp=n_iters)
     return rad / float(n_iters)
 
 
@@ -171,12 +179,13 @@ def render_loss_and_grad(scene, target, it0, n_iters, compaction="mask",
                          device="cuda"):
     """The L2 image loss mean((render_mean - target)^2) and its gradients
     with respect to :func:`split_params` (the reference's
-    ``render_loss_and_grad``): (loss, a 0-d tensor; the gradients keyed as
-    ``split_params``, zeros where no path depends on a parameter), on
-    ``device``.  ``engine="planes"`` only, for now (:func:`render_mean`,
-    which also says what becomes of ``compaction``); ``use_bvh=False``
-    runs the linear fold, the oracle of the BVH's gradients."""
-    scene = _planes_scene(scene, engine, use_bvh)
+    ``render_loss_and_grad``): (loss, a 0-d tensor on ``device``; the
+    gradients keyed as ``split_params``, zeros where no path depends on a
+    parameter).  :func:`render_mean` says what ``engine`` and
+    ``compaction`` choose (the wavefront recomputes each bounce in the
+    backward pass, as the reference's does); ``use_bvh=False`` runs the
+    planes engine's linear fold, the oracle of the BVH's gradients."""
+    scene = _engine_scene(scene, engine, use_bvh)
     params = requires_grad(split_params(scene))
     img = render_mean(merge_params(scene, params), it0, n_iters, compaction,
                       nee=nee, engine=engine, device=device)
@@ -184,3 +193,22 @@ def render_loss_and_grad(scene, target, it0, n_iters, compaction="mask",
     loss = torch.mean((img - target.reshape(img.shape)) ** 2)
     loss.backward()
     return loss.detach(), grads(params)
+
+
+def render_value_and_pixel_grad(scene, it0, n_iters, pixel_weights=None,
+                                compaction="mask", device="cuda"):
+    """The weighted pixel sum of the wavefront's mean image, sum(img x
+    ``pixel_weights``) (the plain sum without weights), and its gradients
+    with respect to :func:`split_params` (the reference's
+    ``render_value_and_pixel_grad``): (value, a 0-d tensor on ``device``;
+    the gradients keyed as ``split_params``)."""
+    params = requires_grad(split_params(scene))
+    img = render_mean(merge_params(scene, params), it0, n_iters, compaction,
+                      device=device)
+    if pixel_weights is None:
+        value = img.sum()
+    else:
+        w = torch.as_tensor(pixel_weights, dtype=torch.float32)
+        value = (img * w.to(img.device)).sum()
+    value.backward()
+    return value.detach(), grads(params)

@@ -933,3 +933,76 @@ def test_k7_on_a_mesh_matches_plain(cuda):
     assert torch.equal(got_rad, rad) and torch.equal(got_counts, counts)
     _, _, want = MG.k7_plain(job, mtab, mat_of, ct, 1, 2)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+
+
+# the wavefront integrator (render/integrator.py): torch ops on the card,
+# its sort-compaction on K6
+@pytest.mark.parametrize("name,nee", [("cornell", False), ("cornell", True),
+                                      ("cornell_mesh", False),
+                                      ("cornell_mesh", True)],
+                         ids=["cornell", "cornell-nee", "cornell_mesh",
+                              "cornell_mesh-nee"])
+def test_wavefront_matches_k1_and_sort_is_mask(cuda, name, nee):
+    from pathtrace_tpu_torch.render import integrator as I
+
+    scene = _scene(name, (64, 64), 4)
+    out = {}
+    for compaction in ("mask", "sort"):
+        SC.LAUNCHES.clear()
+        out[compaction] = I.pathtrace_batch(scene, 1, 2, compaction,
+                                            nee=nee, device=cuda)
+        torch.cuda.synchronize()
+        assert SC.LAUNCHES["k6_scan"] == (4 * 2 if compaction == "sort"
+                                          else 0)
+    for a, b in zip(out["sort"], out["mask"]):
+        assert torch.equal(a, b)
+    rad, counts = out["mask"]
+    assert counts.dtype == torch.int64 and counts.device.type == "cuda"
+    ref, ref_counts = K.trace_k1(**K.prepare(scene, cuda, nee=nee), it0=1,
+                                 n_spp=2, per_sample=True)
+    assert (counts[:, 0] == 64 * 64).all()
+    _assert_tie_flip_bound(rad, ref, counts, ref_counts)
+
+
+def test_wavefront_densify_is_the_stable_argsort_on_the_card(cuda):
+    from pathtrace_tpu_torch.render import integrator as I
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    live = torch.rand(640000, device=cuda, generator=gen) < 0.6
+    state = dict(live=live, pixel=torch.arange(640000, device=cuda))
+    SC.LAUNCHES.clear()
+    dense = I._densify(state)
+    assert SC.LAUNCHES["k6_scan"] == 1
+    assert torch.equal(dense["pixel"], torch.argsort(~live, stable=True))
+
+
+def test_wavefront_gradients_match_planes_on_the_card(cuda):
+    from pathtrace_tpu_torch.render import diff as D
+
+    scene = _scene("cornell", (32, 32), 3)
+    imgs = {e: D.render_mean(scene, 1, 2, nee=True, engine=e, device=cuda)
+            for e in ("wavefront", "planes")}
+    flip = (imgs["wavefront"] - imgs["planes"]).abs().amax(dim=-1) > 1e-3
+    assert float(flip.float().mean()) < 0.005
+    got = {e: D.render_loss_and_grad(
+        scene, torch.where(flip[:, None], img, 0.0), 1, 2, nee=True,
+        engine=e, device=cuda) for e, img in imgs.items()}
+    (lw, gw), (lp, gp) = got["wavefront"], got["planes"]
+    torch.testing.assert_close(lw, lp, rtol=1e-5, atol=0)
+    for (name, a), (_, b) in zip(D.named_leaves(gw), D.named_leaves(gp)):
+        if name.startswith("materials."):
+            torch.testing.assert_close(a, b, rtol=2e-3, atol=2e-5,
+                                       msg=name)
+
+
+@pytest.mark.parametrize("flags", [["--engine", "xla", "--compaction",
+                                    "sort"], ["--engine", "planes"]],
+                         ids=["xla-sort", "planes"])
+def test_cli_wavefront_engines_on_the_card(cuda, tmp_path, flags):
+    from pathtrace_tpu_torch import cli
+
+    out = tmp_path / "c.png"
+    assert cli.main([os.path.join(REPO, "scenes", "cornell.txt"), "--res",
+                     "32", "32", "--depth", "4", "--spp", "2", "--out",
+                     str(out), *flags]) == 0
+    assert out.exists()

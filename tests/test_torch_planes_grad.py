@@ -93,13 +93,23 @@ def test_tri_verts_gradient_matches_central_difference(bvh_case):
 
 
 @pytest.mark.parametrize("engine,err,match", [
-    ("wavefront", NotImplementedError, "item 1"),
     ("xla", ValueError, "engine")])
 def test_other_engines_raise(engine, err, match):
     scene = load("cornell", res=(8, 8), depth=2)
     with pytest.raises(err, match=match):
         D.render_loss_and_grad(scene, np.zeros((64, 3), np.float32), 1, 1,
                                engine=engine, device="cpu")
+
+
+def test_planes_and_wavefront_engines_give_one_image():
+    # the same draws and the same estimator: the two engines trace the
+    # same paths (within the tie bound), as the reference's do
+    scene = load("cornell_mesh", res=(12, 10), depth=3)
+    a = D.render_mean(scene, 1, 2, nee=True, engine="planes", device="cpu")
+    b = D.render_mean(scene, 1, 2, nee=True, engine="wavefront",
+                      device="cpu")
+    d = (a - b).abs().amax(dim=-1)
+    assert float((d > 1e-3).float().mean()) < 0.005
 
 
 def test_planes_defaults_to_the_card(monkeypatch):

@@ -19,6 +19,8 @@ from pathtrace_tpu.render.plane_engine import pathtrace_batch_planes
 import pathtrace_tpu_torch as ptt
 from pathtrace_tpu_torch import cli
 from pathtrace_tpu_torch.io import image_io
+from pathtrace_tpu_torch.ops.cuda import megakernel as K
+from pathtrace_tpu_torch.render import integrator as I
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CORNELL = os.path.join(REPO, "scenes", "cornell.txt")
@@ -72,8 +74,7 @@ def test_cli_glass_nee_matches_reference(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--engine", "planes"], ["--engine", "xla"], ["--shard"],
-    ["--checkpoint", "x.ckpt"], ["--interactive", "ctl"],
+    ["--shard"], ["--checkpoint", "x.ckpt"], ["--interactive", "ctl"],
     ["--resume"], ["--preview-every", "4"], ["--checkpoint-every", "4"],
 ])
 def test_cli_unported_flags_raise(flag):
@@ -81,13 +82,35 @@ def test_cli_unported_flags_raise(flag):
         cli.main([CORNELL, "--device", "cpu", *flag])
 
 
-@pytest.mark.parametrize("flag", [["--engine", "xla"],
-                                  ["--engine", "planes"]])
-def test_cli_wavefront_flags_name_item_3(flag):
-    # the wavefront twin was item 3 of the ROADMAP's Queue 1 before its
-    # re-anchoring; it is item 1 now
-    with pytest.raises(NotImplementedError, match="Queue 1 item 1 "):
-        cli.main([CORNELL, "--device", "cpu", *flag])
+@pytest.mark.parametrize("flags,nee,compaction", [
+    ([], False, "mask"), (["--compaction", "sort"], False, "sort"),
+    (["--compaction", "sort", "--nee"], True, "sort"),
+    (["--nee"], True, "mask")], ids=["mask", "sort", "sort-nee", "mask-nee"])
+def test_cli_engine_xla_renders_the_wavefront(monkeypatch, tmp_path, capsys,
+                                              flags, nee, compaction):
+    # --engine xla is the wavefront (render.integrator.pathtrace_batch),
+    # chunk by chunk; --compaction sort densifies there, with no warning
+    got = _cli_accum(monkeypatch, tmp_path, ["--engine", "xla", *flags])
+    assert "WARNING" not in capsys.readouterr().out
+    scene = dataclasses.replace(ptt.load_scene(CORNELL), resolution=(20, 18),
+                                trace_depth=5)
+    want = sum(I.pathtrace_batch(scene, it0, n, compaction, nee=nee,
+                                 device="cpu")[0]
+               for it0, n in ((1, 2), (3, 1)))
+    np.testing.assert_array_equal(got[0], want.numpy())
+
+
+@pytest.mark.parametrize("flags", [[], ["--nee"]], ids=["bsdf", "nee"])
+def test_cli_engine_planes_renders_the_plain_trace(monkeypatch, tmp_path,
+                                                   flags):
+    # --engine planes is the megakernel's plain version on the device
+    got = _cli_accum(monkeypatch, tmp_path, ["--engine", "planes", *flags])
+    scene = dataclasses.replace(ptt.load_scene(CORNELL), resolution=(20, 18),
+                                trace_depth=5)
+    job = K.prepare(scene, "cpu", nee=bool(flags))
+    want = sum(K.trace_plain(**job, it0=it0, n_spp=n)[0]
+               for it0, n in ((1, 2), (3, 1)))
+    np.testing.assert_array_equal(got[0], want.numpy())
 
 
 @pytest.mark.parametrize("flag,item", [
@@ -100,13 +123,15 @@ def test_cli_unported_flags_name_their_item(flag, item):
         cli.main([CORNELL, "--device", "cpu", *flag])
 
 
-@pytest.mark.parametrize("engine", [[], ["--engine", "sorted"]])
+@pytest.mark.parametrize("engine", [[], ["--engine", "sorted"],
+                                    ["--engine", "planes"]])
 def test_cli_compaction_sort_masks_with_a_warning(monkeypatch, tmp_path,
                                                   capsys, engine):
-    # as the reference's tiled engines: a warning, then the image of
-    # --compaction mask
+    # as the reference's tiled engines: a warning naming the engine that
+    # densifies, then the image of --compaction mask
     got = _cli_accum(monkeypatch, tmp_path, ["--compaction", "sort", *engine])
-    assert "WARNING: --compaction sort" in capsys.readouterr().out
+    out = capsys.readouterr().out
+    assert "WARNING: --compaction sort" in out and "--engine xla" in out
     want = _cli_accum(monkeypatch, tmp_path, engine)
     np.testing.assert_array_equal(got[0], want[0])
     np.testing.assert_array_equal(got[1], want[1])
