@@ -210,6 +210,27 @@ Phases, each of which raises on failure (exit code non-zero):
    time, ``torch.profiler``).  The kernels line gives K6 a second row, the
    densify route: its launches from this phase, its times and bound at
    640,000 values from phase 10.
+19. (run last) the progressive render and the texel gradients: its main
+   path, launch counts reset before and read after (K1's and K7's added to the
+   kernels line): ``cli.main`` on cornell.txt 800x800 d8 16 spp (chunks
+   of 8, K1) with ``--checkpoint-every 8`` and ``--preview-every 8``, then
+   stopped at 8 and ``--resume``d to 16 (bit-equal to the render that
+   never stopped; the preview PNG decodes), and with ``--interactive``, a
+   camera key sent as the first preview is written (the image equal, bit
+   for bit, to a fresh render of the moved camera); a 64-spp CLI loop on
+   cornell 800x800 under ``utils.profiling.trace`` in a fresh process
+   (``--busy-share``), the device's busy share of it from the profiler's
+   records alone; ``render/inverse.inverse_albedo`` at the example's
+   800x800 50 spp, 30 steps (K1 and K7; the error below 0.7x its start)
+   and ``inverse_mesh`` at its 48x48 d3 4 spp, ``MESH_STEPS`` steps (the
+   planes engine, every triangle folded; the loss below 0.8x its
+   start), each step's ms; the
+   checkpoint saves' ms; the planes engine's float-texel forward on
+   cornell_tex 800x800 d8 within the tie bound of K1; texel gradients on
+   cornell_tex 800x800 d8 1 spp NEE through the planes engine and the
+   wavefront (not zero, the two at rtol 1e-3 / atol 1e-7 on the pixels
+   where their forwards agree), each engine's step alone, its ms and
+   peak memory.
 
 K3-linear, the fold of every triangle of a mesh without a BVH, runs as
 the other K1 builds do: phase 4 on cornell_mesh.txt stripped of its BVH
@@ -373,6 +394,10 @@ SCAN_SIZES = (640000, 2073600, 5000, 16200)
 K8_BREAKDOWN = (0, 128, 640, 665)
 SCAN_TIMED = 5000  # the tile table of an 800x800 image: the kernels line
 SCAN_DENSIFY = 640000  # the wavefront's rays at 800x800: its K6 row
+# phase 19's inverse_mesh steps at the example's 48x48 d3 (the reference
+# test's 5): a step of the planes engine on the mesh takes seconds on the
+# card, host-bound, and the loss falls below 0.8x its start in one step
+MESH_STEPS = 5
 
 
 def card_line():
@@ -1775,6 +1800,335 @@ def wavefront_phase(ptt, K, SC, torch, np, scenes, card):
     return k6
 
 
+def _add(total, counts):
+    for key, n in counts.items():
+        total[key] = total.get(key, 0) + n
+
+
+def progressive_main_path(np, torch, cornell, work, spy):
+    """Phase 19's CLI holds on cornell 800x800 d8, 16 spp in chunks of 8
+    (K1): a resume from a checkpoint at 8 bit-equal to the render that
+    never stopped; the preview PNG; a camera key sent as the first
+    preview is written (mid-render) gives the image of a fresh render
+    with the moved camera.  ``spy`` records what the CLI displays and
+    runs its hook at a preview.  Returns the moved scene's image."""
+    from PIL import Image
+
+    from pathtrace_tpu_torch import cli
+    from pathtrace_tpu_torch.render import interact
+
+    def run(*flags):
+        spy["shown"].clear()
+        rc = cli.main([os.path.join(HERE, "scenes", "cornell.txt"), "--res",
+                       str(cornell.width), str(cornell.height), "--depth",
+                       str(cornell.trace_depth), "--spp", "16", "--chunk",
+                       "8", "--out", os.path.join(work, "c.png"), *flags])
+        if rc != 0:
+            raise RuntimeError(f"the CLI with {flags} returned {rc}")
+        return spy["shown"][-1]
+
+    whole = run("--checkpoint", os.path.join(work, "a.ckpt"),
+                "--checkpoint-every", "8", "--preview-every", "8")
+    preview = cli.preview_path(cornell.image_name)
+    img = np.asarray(Image.open(preview))
+    if img.shape != (cornell.height, cornell.width, 3):
+        raise RuntimeError(f"preview {preview}: shape {img.shape}")
+    part = os.path.join(work, "b.ckpt")
+    run("--spp", "8", "--checkpoint", part, "--checkpoint-every", "8")
+    resumed = run("--checkpoint", part, "--resume")
+    if not np.array_equal(resumed, whole):
+        raise RuntimeError("the resumed render is not the uninterrupted "
+                           "render's bits")
+    ctrl = os.path.join(work, "cam.ctrl")
+    spy["hook"] = lambda: interact.send_key(ctrl, "left")
+    moved = run("--preview-every", "8", "--interactive", ctrl)
+    print(f"phase 19 cli cornell {cornell.width}x{cornell.height} "
+          f"d{cornell.trace_depth} 16spp: resumed at 8 bit-equal to the "
+          f"uninterrupted render; preview {img.shape} decodes", flush=True)
+    return moved
+
+
+def texel_gradients(K, I, D, torch, np, tex, card):
+    """Texel gradients on cornell_tex (800x800 d8, 1 spp, NEE; the map of
+    material 5) through the planes engine and the wavefront: d of the
+    mean of the image over the pixels where the two forwards agree to
+    1e-4 (a hit or a lobe that flips between the engines adds to neither;
+    the mask from forwards without autograd), then each engine's forward
+    and backward alone, timed, with its peak memory above what was
+    allocated before it, its graph freed before the next one starts; not
+    zero, planes against wavefront at rtol 1e-3 / atol 1e-7."""
+    tid = tex.texture_ids[5]
+    leaf = torch.tensor(np.asarray(tex.textures[tid]), device="cuda",
+                        requires_grad=True)
+    scene = dataclasses.replace(tex, textures=tuple(
+        leaf if i == tid else t for i, t in enumerate(tex.textures)))
+    engines = (("planes", D.planes_iteration),
+               ("wavefront", I.pathtrace_iteration))
+    with torch.no_grad():
+        rad = {name: fn(scene, 1, nee=True, device="cuda")[0]
+               for name, fn in engines}
+    agree = ((rad["planes"] - rad["wavefront"]).abs().amax(dim=-1)
+             < 1e-4).to(torch.float32)[:, None]
+    del rad
+    grads, stats = {}, {}
+    for name, fn in engines:
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = fn(scene, 1, nee=True, device="cuda")[0]
+        torch.cuda.synchronize()
+        forward = 1e3 * (time.perf_counter() - t0)
+        (out * agree).mean().backward()
+        torch.cuda.synchronize()
+        step = 1e3 * (time.perf_counter() - t0)
+        peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+        grads[name] = leaf.grad.clone()
+        leaf.grad = None
+        del out
+        stats[name] = (step, forward, peak)
+    g_p, g_w = grads["planes"], grads["wavefront"]
+    worst = float(((g_p - g_w).abs() / (1e-7 + 1e-3 * g_w.abs())).max())
+    print(f"texel gradients cornell_tex {tex.width}x{tex.height} "
+          f"d{tex.trace_depth} 1spp NEE, map {tuple(leaf.shape)}: "
+          f"{int((1 - agree).sum())} pixels flip between the engines; "
+          f"sum |g| planes {float(g_p.abs().sum()):.6g} wavefront "
+          f"{float(g_w.abs().sum()):.6g}; max |diff| "
+          f"{float((g_p - g_w).abs().max()):.3g}, worst share of rtol 1e-3 "
+          f"/ atol 1e-7 {worst:.3g}; step (forward + backward, host clock "
+          f"around a synchronize) planes {stats['planes'][0]:.1f} ms "
+          f"(forward {stats['planes'][1]:.1f}), peak "
+          f"{stats['planes'][2]:.2f} GiB, wavefront "
+          f"{stats['wavefront'][0]:.1f} ms (forward "
+          f"{stats['wavefront'][1]:.1f}), peak "
+          f"{stats['wavefront'][2]:.2f} GiB on {card}", flush=True)
+    if not (bool(torch.isfinite(g_p).all()) and float(g_p.abs().sum()) > 0):
+        raise RuntimeError("texel gradients: zero or not finite")
+    if worst > 1.0:
+        raise RuntimeError("texel gradients: planes off the wavefront's")
+
+
+def busy_share_child(work, width, height):
+    """The child of :func:`busy_share`, ``python3 chip_smoke.py
+    --busy-share <dir> <width> <height>``: a 64-spp CLI loop on cornell
+    (chunks of 8, K1) under ``utils.profiling.trace`` in a process of its
+    own, whose profiler has seen no earlier window, after one loop
+    without it (the cold one, which loads the kernel).  Prints, as its
+    last line, a JSON object: the card's busy ms (the profiler's device
+    records merged, ``profiling.device_busy``), the first record's start
+    to the last one's end, the K1 launches and the K1 records the profiler
+    holds, the copies' records and ms, the loop's ms on the host clock
+    (the first K1 launch to the image's display), the call's, and the
+    cold loop's."""
+    import torch
+
+    from pathtrace_tpu_torch import cli
+    from pathtrace_tpu_torch.io import image_io
+    from pathtrace_tpu_torch.ops.cuda import megakernel as K
+    from pathtrace_tpu_torch.utils import profiling
+
+    stamps = {}
+    trace_k1, to_display = K.trace_k1, image_io.to_display
+
+    def stamp_k1(*args, **kwargs):
+        stamps.setdefault("k1", time.perf_counter())
+        return trace_k1(*args, **kwargs)
+
+    def stamp_display(*args):
+        stamps["display"] = time.perf_counter()
+        return to_display(*args)
+
+    K.trace_k1, image_io.to_display = stamp_k1, stamp_display
+    argv = [os.path.join(HERE, "scenes", "cornell.txt"), "--res", str(width),
+            str(height), "--spp", "64", "--out",
+            os.path.join(work, "busy.png")]
+    # the first loop of the process, without the profiler: it loads the
+    # library and the kernel's module
+    rc = cli.main(argv)
+    cold = 1e3 * (stamps.pop("display") - stamps.pop("k1"))
+    K.LAUNCHES.clear()
+    with profiling.trace(os.path.join(work, "trace")) as prof:
+        t0 = time.perf_counter()
+        rc = rc or cli.main(argv)
+        call = 1e3 * (time.perf_counter() - t0)
+    device = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    k1 = [e for e in device if "k1_trace" in e.name]
+    copies = [e for e in device if "memcpy" in e.name.lower()]
+    busy, span = profiling.device_busy(prof)
+    print(json.dumps({
+        "rc": rc, "busy_ms": busy / 1e3, "span_ms": span / 1e3,
+        "k1_launches": sum(K.LAUNCHES.values()), "k1_records": len(k1),
+        "k1_ms": sum(e.time_range.end - e.time_range.start
+                     for e in k1) / 1e3,
+        "copy_records": len(copies),
+        "copy_ms": sum(e.time_range.end - e.time_range.start
+                       for e in copies) / 1e3,
+        "loop_ms": 1e3 * (stamps["display"] - stamps["k1"]),
+        "call_ms": call, "cold_loop_ms": cold}), flush=True)
+    return rc
+
+
+def busy_share(cornell, work, card):
+    """The card's busy share over a warm 64-spp CLI loop on cornell
+    800x800 (8 K1 launches) under ``utils.profiling.trace``, measured in a
+    fresh process (:func:`busy_share_child`; in this one, after the earlier
+    phases' profiler windows, the profiler kept one of the loop's 8 K1
+    records): the device records it holds, merged, over the loop's host
+    time and over the call's.  A profile that lacks a K1 record gives no
+    share ("not measured").  Returns the child's K1 launches."""
+    out = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--busy-share", work,
+         str(cornell.width), str(cornell.height)],
+        capture_output=True, text=True, timeout=300)
+    if out.returncode != 0:
+        raise RuntimeError(f"the busy-share process exited "
+                           f"{out.returncode}: {out.stderr[-2000:]}")
+    r = json.loads(out.stdout.strip().splitlines()[-1])
+    whole = r["k1_records"] == r["k1_launches"]
+    share = (f"{r['busy_ms'] / r['loop_ms']:.4%} of the loop's "
+             f"{r['loop_ms']:.1f} ms, {r['busy_ms'] / r['call_ms']:.4%} of "
+             f"the call's {r['call_ms']:.1f} ms (the process's first, cold "
+             f"loop {r['cold_loop_ms']:.1f} ms)" if whole else
+             f"not measured: the profiler holds {r['k1_records']} of "
+             f"{r['k1_launches']} K1 launches")
+    print(f"phase 19 busy share, cli cornell {cornell.width}x"
+          f"{cornell.height} d{cornell.trace_depth} 64spp under "
+          f"utils.profiling.trace in a fresh process: the card busy "
+          f"{r['busy_ms']:.3f} ms by the profiler's device records merged "
+          f"(K1 {r['k1_records']} records, {r['k1_ms']:.3f} ms; copies "
+          f"{r['copy_records']} records, {r['copy_ms']:.3f} ms; the first "
+          f"record's start to the last one's end {r['span_ms']:.3f} ms): "
+          f"{share} on {card}", flush=True)
+    if r["k1_launches"] != 8 or not r["busy_ms"] > 0:
+        raise RuntimeError(f"the profiled loop: {r['k1_launches']} K1 "
+                           f"launches, {r['busy_ms']} ms busy")
+    return r["k1_launches"]
+
+
+def progressive_phase(ptt, K, MG, torch, np, scenes, card):
+    """Phase 19, the progressive render and the texel gradients.  The
+    main path, the launch counts reset before and read after: the CLI
+    with checkpoints, resume, previews and the interactive camera on K1
+    (:func:`progressive_main_path`), ``inverse_albedo``
+    (K1, K7) at the example's 800x800 50 spp and ``inverse_mesh`` at its
+    48x48 d3 (the planes engine), each step's ms; then the holds: the
+    camera key's image against a fresh render, the losses, the planes
+    engine's float-texel forward on cornell_tex against K1 (tie bound),
+    :func:`texel_gradients`; between them, :func:`busy_share` in a
+    process of its own.  Returns the main path's launches (K1's by mask,
+    K7's)."""
+    from pathtrace_tpu_torch.io import image_io
+    from pathtrace_tpu_torch.render import diff as D
+    from pathtrace_tpu_torch.render import integrator as I
+    from pathtrace_tpu_torch.render import interact, inverse
+    from pathtrace_tpu_torch.utils import checkpoint as ckpt
+
+    cornell, tex = scenes["cornell"][0], scenes["cornell_tex"][0]
+    spy = {"shown": [], "hook": None, "saves": []}
+    to_display, save_png, save = (image_io.to_display, image_io.save_png,
+                                  ckpt.save)
+
+    def spy_display(accum, *args):
+        spy["shown"].append(np.array(accum))
+        return to_display(accum, *args)
+
+    def spy_png(path, img):
+        save_png(path, img)
+        if path.endswith(".preview.png") and spy["hook"] is not None:
+            hook, spy["hook"] = spy["hook"], None
+            hook()
+
+    def timed_save(*args):
+        t0 = time.perf_counter()
+        save(*args)
+        spy["saves"].append(1e3 * (time.perf_counter() - t0))
+
+    k1, k7 = {}, 0
+    old_tmp = tempfile.tempdir
+    with tempfile.TemporaryDirectory() as work:
+        tempfile.tempdir = work
+        image_io.to_display, image_io.save_png = spy_display, spy_png
+        ckpt.save = timed_save
+        try:
+            K.LAUNCHES.clear()
+            moved_img = progressive_main_path(np, torch, cornell, work, spy)
+            _add(k1, K.LAUNCHES)
+            phase_done("19: cli")
+
+            busy_share(cornell, work, card)
+            phase_done("19: busy share")
+        finally:
+            image_io.to_display, image_io.save_png = to_display, save_png
+            ckpt.save = save
+            tempfile.tempdir = old_tmp
+
+    stamps = [time.perf_counter()]
+    K.LAUNCHES.clear()
+    MG.LAUNCHES.clear()
+    err0, err1 = inverse.inverse_albedo(
+        cornell, steps=30, spp=50, device="cuda",
+        callback=lambda *a: stamps.append(time.perf_counter()))
+    _add(k1, K.LAUNCHES)
+    k7 += MG.LAUNCHES[0]
+    steps_ms = [round(1e3 * (b - a), 1) for a, b in zip(stamps, stamps[1:])]
+    print(f"phase 19 inverse_albedo cornell {cornell.width}x{cornell.height} "
+          f"d{cornell.trace_depth} 50spp 30 steps: error "
+          f"{err0:.4f} -> {err1:.4f}; step ms {steps_ms} (the first holds "
+          f"the target); K1 {dict(K.LAUNCHES)}, K7 {dict(MG.LAUNCHES)} on "
+          f"{card}", flush=True)
+    if not err1 < 0.7 * err0:
+        raise RuntimeError("inverse_albedo: the error did not fall below "
+                           "0.7x its start")
+    phase_done("19: inverse_albedo")
+
+    mesh = dataclasses.replace(
+        ptt.load_scene(os.path.join(HERE, "scenes", "cornell_bumpmesh.txt")),
+        resolution=(48, 48), trace_depth=3)
+    stamps = [time.perf_counter()]
+    loss0, loss1 = inverse.inverse_mesh(
+        mesh, steps=MESH_STEPS, spp=4, device="cuda",
+        callback=lambda *a: stamps.append(time.perf_counter()))
+    steps_ms = [round(1e3 * (b - a), 1) for a, b in zip(stamps, stamps[1:])]
+    print(f"phase 19 inverse_mesh cornell_bumpmesh {mesh.width}x{mesh.height} "
+          f"d{mesh.trace_depth} 4spp {MESH_STEPS} steps: "
+          f"loss {loss0:.6g} -> {loss1:.6g}; step ms {steps_ms} (the first "
+          f"holds the target) on {card}", flush=True)
+    if not loss1 < 0.8 * loss0:
+        raise RuntimeError("inverse_mesh: the loss did not fall below 0.8x "
+                           "its start")
+    phase_done("19: inverse_mesh")
+
+    moved = dataclasses.replace(cornell, camera=interact.apply_camera_motion(
+        cornell.camera, *interact.KEY_MOTION["left"]))
+    job = K.prepare(moved, "cuda")
+    fresh = torch.zeros((moved.pixel_count, 3), device="cuda")
+    for it0 in (1, 9):
+        fresh += K.trace_k1(**job, it0=it0, n_spp=8)[0]
+    if not np.array_equal(moved_img, fresh.cpu().numpy()):
+        raise RuntimeError("the camera key's render is not a fresh render "
+                           "of the moved camera")
+    print(f"phase 19 interactive: a camera key mid-render gives the fresh "
+          f"render of the moved camera, bit for bit; checkpoint saves of "
+          f"the {cornell.width}x{cornell.height} accumulation "
+          f"(np.savez_compressed, host clock) ms "
+          f"{[round(t, 1) for t in spy['saves']]}", flush=True)
+
+    k1_rad = K.trace_k1(**K.prepare(tex, "cuda"), it0=1, n_spp=1)[0]
+    planes_rad = K.trace_plain(**K.prepare(tex, "cuda", texels="f32"), it0=1,
+                               n_spp=1)[0]
+    share = float(((k1_rad - planes_rad).abs().amax(dim=-1) > 1e-3)
+                  .float().mean())
+    print(f"phase 19 planes float texels cornell_tex {tex.width}x{tex.height} "
+          f"d{tex.trace_depth} 1spp against K1: share>1e-3 {share:.6f}",
+          flush=True)
+    if share >= TIE_SHARE:
+        raise RuntimeError("the planes engine's float texels part from K1")
+    texel_gradients(K, I, D, torch, np, tex, card)
+    phase_done("19: texel gradients")
+    return k1, k7
+
+
 def bigmesh_scene(mesh_configs):
     return next(c[1] for c in mesh_configs if c[0] == "cornell_bigmesh")
 
@@ -2088,6 +2442,14 @@ def main():
               f"d{TD.K8_DEPTH}: rad {rad} tables {tabs}", flush=True)
     TD.k6_digests(HERE, torch)
     phase_done("digests")
+    phase19_k1, phase19_k7 = progressive_phase(ptt, K, MG, torch, np,
+                                               scenes, card)
+    for mask, n in phase19_k1.items():
+        launches[mask] += n
+    grad_launches["k7_grads"] += phase19_k7
+    if not (phase19_k1.get(0) and phase19_k7):
+        raise RuntimeError(f"phase 19 launched K1 {phase19_k1}, K7 "
+                           f"{phase19_k7}")
 
     print(card, flush=True)
     print(json.dumps({"kernels": [{
@@ -2176,4 +2538,8 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--busy-share"]:
+        sys.path.insert(0, HERE)
+        sys.exit(busy_share_child(sys.argv[2], int(sys.argv[3]),
+                                  int(sys.argv[4])))
     sys.exit(main())

@@ -23,8 +23,18 @@ torch ops on the device, its sort-compaction on the scan K6) gives
 CLI's ``--engine xla``), the default ``engine="wavefront"`` of
 ``render_mean`` and ``render_loss_and_grad`` and
 ``render_value_and_pixel_grad``; the package's :func:`pathtrace_batch`
-and :func:`render` stay on K1.  Every entry point takes a ``device``,
-the card by default.
+and :func:`render` stay on K1.  Texel gradients: a map of
+``scene.textures`` swapped for a tensor that requires grad is
+differentiated by both engines of ``render_mean`` (the planes engine
+reads a float texel table, ``pack_textures_f32``, which also renders a
+map off the u8 grid), :func:`planes_iteration` and
+:func:`pathtrace_iteration`.  The progressive render: the CLI's
+checkpoints, resume, previews and interactive camera
+(``utils/checkpoint.py``,
+``render/interact.py``, ``tools/watch.py``), ``utils/profiling.py``, and
+the inverse loops ``inverse_light``, ``inverse_albedo`` (K1 and K7) and
+``inverse_mesh`` (the planes engine) of ``render/inverse.py``.  Every
+entry point takes a ``device``, the card by default.
 """
 
 from __future__ import annotations
@@ -35,22 +45,34 @@ from .core import types
 from .core.types import Camera, Geoms, Materials, Scene, TriMesh
 from .ops.cuda.matgrad import material_grads
 from .ops.cuda.megakernel import (
-    pack_lights, pack_mesh, pack_scene, pack_textures, pathtrace_batch_cuda,
-    prepare, trace_k1,
+    pack_lights, pack_mesh, pack_scene, pack_textures, pack_textures_f32,
+    pathtrace_batch_cuda, prepare, trace_k1,
 )
 from .ops.cuda.span import pathtrace_batch_sorted, pathtrace_batch_split
 from .ops.cuda.vjp import render_vjp
 from .ops.scan import compact, compact_indices, prefix_sum
 from .render.diff import (
-    merge_params, render_loss_and_grad, render_mean,
+    merge_params, planes_iteration, render_loss_and_grad, render_mean,
     render_value_and_pixel_grad, split_params,
 )
 from .render.integrator import pathtrace_iteration
-from .scene.parser import load_scene, parse_scene
+from .render.interact import InteractiveSession, apply_camera_motion
+from .scene.parser import derived_fov, load_scene, parse_scene
+from .utils import checkpoint, profiling
 
 __version__ = "0.1.0"
 
 COMPACTIONS = ("mask", "sort")
+
+
+def __getattr__(name):
+    # render/inverse.py is also ``python -m``'s entry point: importing it
+    # here at the package's import would load it twice under runpy
+    if name in ("inverse_albedo", "inverse_light", "inverse_mesh"):
+        from .render import inverse
+
+        return getattr(inverse, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 def _check_compaction(compaction):

@@ -17,13 +17,28 @@ when there is no GPU; ``--split-depth N`` runs the split engine and
 ``--compaction sort`` densifies the live rays after every bounce on the
 scan K6; ``--engine planes`` runs the megakernel's plain version
 (``megakernel.trace_plain``) on the device, the role of the reference's
-fused-plane engine.  ``--device cpu`` runs the plain PyTorch versions
+fused-plane engine, its texels read from a float table (a map off the u8
+grid renders there).  ``--device cpu`` runs the plain PyTorch versions
 (``--interpret``, the reference's flag for its kernels' CPU mode, means
 the same).  A chunk is one call of K1, or ``--chunk`` samples of an
 engine's per-sample loop.  ``--compaction sort`` on the other engines
 renders with masking, as the reference's tiled engines do, after a
-warning.  The reference's other options are not ported yet: they raise
-``NotImplementedError`` naming the ROADMAP item that brings them.
+warning.
+
+The progressive render's options, on every engine, as the reference's:
+``--checkpoint FILE`` with ``--checkpoint-every K`` saves the
+accumulation and the iteration count every K iterations and at the end
+(``utils/checkpoint.py``), and
+``--resume`` continues from FILE at its iteration, bit-identical to a
+render that never stopped (the chunk boundaries are the same);
+``--preview-every K`` writes ``<image name>.preview.png`` in the
+temporary directory every K iterations (``tools/watch.py`` draws it);
+``--interactive CTRL`` polls the control file CTRL between chunks
+(``render/interact.py``): a camera key restarts the accumulation at
+iteration 0, space saves the image, esc or q stops.  The accumulation
+stays on the device; it is copied to the host for a checkpoint, a
+preview or the image.  ``--shard`` is not ported yet: it raises
+``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -33,6 +48,7 @@ import dataclasses
 import json
 import os
 import sys
+import tempfile
 import time
 
 import torch
@@ -42,12 +58,14 @@ PREFIX = "[pathtrace_tpu_torch]"
 # flag -> (values that are ported, ROADMAP item that ports the others)
 _NOT_PORTED = {
     "shard": ((False,), "Queue 1 item 4 (multi-device)"),
-    "checkpoint": ((None,), "Queue 1 item 5 (checkpoint/resume)"),
-    "checkpoint_every": ((0,), "Queue 1 item 5 (checkpoint/resume)"),
-    "resume": ((False,), "Queue 1 item 5 (checkpoint/resume)"),
-    "preview_every": ((0,), "Queue 1 item 5 (previews)"),
-    "interactive": ((None,), "Queue 1 item 5 (interactive camera)"),
 }
+
+
+def preview_path(image_name):
+    """Where ``--preview-every`` writes: ``<image_name>.preview.png`` in
+    the temporary directory (``$TMPDIR``, else /tmp, as the reference's
+    /tmp)."""
+    return os.path.join(tempfile.gettempdir(), f"{image_name}.preview.png")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -96,12 +114,19 @@ def build_parser() -> argparse.ArgumentParser:
                         "ray per light at each non-refractive hit")
     p.add_argument("--rr", action="store_true",
                    help="Russian roulette from bounce 3 on")
-    p.add_argument("--preview-every", type=int, default=0, metavar="K")
+    p.add_argument("--preview-every", type=int, default=0, metavar="K",
+                   help="write a preview PNG every K iterations")
     p.add_argument("--shard", action="store_true")
-    p.add_argument("--checkpoint", default=None)
+    p.add_argument("--checkpoint", default=None,
+                   help="checkpoint file for save/resume")
     p.add_argument("--checkpoint-every", type=int, default=0, metavar="K")
-    p.add_argument("--resume", action="store_true")
-    p.add_argument("--interactive", default=None, metavar="CTRL")
+    p.add_argument("--resume", action="store_true",
+                   help="resume from --checkpoint if it exists")
+    p.add_argument("--interactive", default=None, metavar="CTRL",
+                   help="poll the CTRL file for key events between chunks "
+                        "(written by tools.watch --ctrl): arrows orbit, "
+                        "wasd/rf move, space saves, esc or q quits; a "
+                        "camera key restarts the accumulation")
     p.add_argument("--interpret", action="store_true",
                    help="the reference's CPU mode of its kernels: here "
                         "--device cpu, the plain versions")
@@ -126,7 +151,8 @@ def _engine(scene, device, args):
     from pathtrace_tpu_torch.ops.cuda import span
     from pathtrace_tpu_torch.ops.cuda.megakernel import prepare, trace_plain
 
-    job = prepare(scene, device, nee=args.nee, rr=args.rr)
+    job = prepare(scene, device, nee=args.nee, rr=args.rr,
+                  texels="f32" if args.engine == "planes" else "u32")
     if args.engine == "planes":
         def run(it0, n):
             return trace_plain(**job, it0=it0, n_spp=n)
@@ -154,6 +180,7 @@ def main(argv=None) -> int:
 
     import pathtrace_tpu_torch as ptt
     from pathtrace_tpu_torch.io import image_io
+    from pathtrace_tpu_torch.utils import checkpoint as ckpt
 
     scene = ptt.load_scene(args.scene)
     if args.res:
@@ -177,12 +204,51 @@ def main(argv=None) -> int:
     accum = torch.zeros((scene.pixel_count, 3), dtype=torch.float32,
                         device=device)
     done = 0
+    if args.resume and args.checkpoint and os.path.exists(args.checkpoint):
+        saved, done = ckpt.load(args.checkpoint, scene)
+        accum.copy_(torch.from_numpy(saved))
+        print(f"{PREFIX} resumed at iteration {done}", flush=True)
+    session = None
+    if args.interactive:
+        from pathtrace_tpu_torch.render.interact import InteractiveSession
+
+        session = InteractiveSession(args.interactive)
+
+    def save_image(samples):
+        img = image_io.to_display(accum.cpu().numpy(), width, height,
+                                  samples)
+        out = args.out or image_io.render_filename(
+            scene.image_name, start_time, samples)
+        image_io.save_png(out, img)
+        print(f"{PREFIX} saved {out}", flush=True)
+        if args.hdr:
+            hdr_out = os.path.splitext(out)[0] + ".hdr"
+            image_io.save_hdr(hdr_out, img)
+            print(f"{PREFIX} saved {hdr_out}", flush=True)
+
     rays_total = 0
     steady_rays = 0
     steady_time = 0.0
     first_chunk = True
     t_start = time.time()
     while done < n_iters:
+        if session is not None:
+            camera, changed, save_req, quit_req = session.poll(scene.camera)
+            if changed:
+                # the reference's rule (src/main.cpp:74,91-94): a camera
+                # change sets the iteration to 0, the accumulation restarts
+                scene = dataclasses.replace(scene, camera=camera)
+                engine, run = _engine(scene, device, args)
+                accum.zero_()
+                done = rays_total = steady_rays = 0
+                steady_time = 0.0
+                first_chunk = True
+                print(f"{PREFIX} camera changed -> accumulation restarted",
+                      flush=True)
+            if save_req and done:
+                save_image(done)
+            if quit_req:
+                break
         step = min(args.chunk, n_iters - done)
         t0 = time.time()
         rad, counts = run(args.seed + done + 1, step)
@@ -212,6 +278,13 @@ def main(argv=None) -> int:
                 f"{segs / dt / 1e6:.1f} Mrays/s)",
                 flush=True,
             )
+        if args.preview_every and done % args.preview_every < step:
+            image_io.save_png(preview_path(scene.image_name),
+                              image_io.to_display(accum.cpu().numpy(), width,
+                                                  height, done))
+        if (args.checkpoint and args.checkpoint_every
+                and done % args.checkpoint_every < step):
+            ckpt.save(args.checkpoint, accum, done, scene)
 
     wall = time.time() - t_start
     steady = (
@@ -223,16 +296,10 @@ def main(argv=None) -> int:
         f"({rays_total / max(wall, 1e-9) / 1e6:.1f} Mrays/s avg{steady})",
         flush=True,
     )
+    if args.checkpoint and done:
+        ckpt.save(args.checkpoint, accum, done, scene)
     if done:
-        img = image_io.to_display(accum.cpu().numpy(), width, height, done)
-        out = args.out or image_io.render_filename(
-            scene.image_name, start_time, done)
-        image_io.save_png(out, img)
-        print(f"{PREFIX} saved {out}", flush=True)
-        if args.hdr:
-            hdr_out = os.path.splitext(out)[0] + ".hdr"
-            image_io.save_hdr(hdr_out, img)
-            print(f"{PREFIX} saved {hdr_out}", flush=True)
+        save_image(done)
     return 0
 
 

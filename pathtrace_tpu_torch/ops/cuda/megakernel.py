@@ -18,9 +18,13 @@ skip-link BVH walk per ray and MESH geom; a mesh stripped of its BVH,
 every triangle folded: K3-linear, the gradients' oracle); diffuse, mirror,
 imperfect-specular, glass, emissive and subsurface materials; depth of
 field, motion blur, checker and bump; image textures (bilinear albedo
-maps and BUMPTEX height maps); NEE and Russian roulette.  A texture whose
-texels are not on the u8 grid raises ``ValueError``: the kernel reads
-texels as bytes, and the port has no other engine to send it to.
+maps and BUMPTEX height maps); NEE and Russian roulette.  The kernel
+reads texels as bytes (``pack_textures``), so a texture whose texels are
+not on the u8 grid raises ``ValueError`` on its routes; the plain version
+also reads a float texel table (``pack_textures_f32``, ``prepare(...,
+texels="f32")``), which renders such a map and carries the graph of a
+map that requires grad: the planes engine's route (``--engine planes``,
+``render/diff`` with ``engine="planes"``), the texel gradients'.
 """
 
 from __future__ import annotations
@@ -120,9 +124,22 @@ def scene_mask(scene, nee=False, rr=False):
 def check_supported(scene):
     """Raise ``ValueError`` for a scene the kernel cannot render as the
     reference does: a used texture whose texels are not on the u8 grid
-    (the reference sends those to another engine; the port has none)."""
+    (those render on the planes engine, ``prepare(..., texels="f32")``)."""
     for t in tex_used(scene):
         _texel_words(scene.textures[t], t)
+
+
+def check_byte_texels(texels):
+    """Raise ``ValueError`` unless ``texels`` is None or the kernel's
+    byte table (``pack_textures``' int32 words): K1 and K5 read texels as
+    bytes, and a float table (``pack_textures_f32``) is never converted
+    to one behind the caller's back."""
+    if texels is not None and texels.dtype != torch.int32:
+        raise ValueError(
+            f"the kernels read texels as bytes (pack_textures' int32 "
+            f"words), not a {texels.dtype} table: a float texel table "
+            f"(pack_textures_f32) renders on trace_plain, the planes "
+            f"engine (--engine planes, engine='planes')")
 
 
 def resolve_device(device):
@@ -190,12 +207,13 @@ def _texel_words(tex, tid):
     """(H*W,) int64 words ``r | g << 8 | b << 16`` of one map, its texels
     rounded to bytes; raises ``ValueError`` for a texel off the u8 grid
     (the test of the reference's ``_tex_in_kernel``)."""
-    x = np.asarray(tex, np.float32)
+    x = _host(tex).astype(np.float32)
     if not np.array_equal(np.round(x * 255.0) / np.float32(255.0), x):
         raise ValueError(
             f"texture {tid} has texels off the u8 grid (k/255): the CUDA "
-            f"kernel reads texels as bytes, and the port has no other "
-            f"engine to render such a map (the reference's _xla_fallback)")
+            f"kernel reads texels as bytes; such a map renders on the "
+            f"planes engine (--engine planes, engine='planes', "
+            f"prepare(..., texels='f32'))")
     q = np.round(x * 255.0).astype(np.int64).reshape(-1, 3)
     return q[:, 0] | (q[:, 1] << 8) | (q[:, 2] << 16)
 
@@ -214,6 +232,22 @@ def pack_textures(scene, device="cuda"):
     words = np.concatenate([_texel_words(scene.textures[t], t)
                             for t in used])
     return torch.as_tensor(words.astype(np.int32)).to(device)
+
+
+def pack_textures_f32(scene, device="cuda"):
+    """The float texel table of the plain version: the used maps
+    (:func:`tex_used` order, :func:`tex_offsets` offsets) row-major, an
+    (H*W total, 3) float32 tensor on ``device``; None for a scene without
+    a used map.  Made with torch ops, so a map that requires grad keeps
+    its graph (the texel gradients), and any texel value renders.  On a
+    map on the u8 grid, :func:`trace_plain` reads from it the bits it
+    reads through :func:`pack_textures`' words."""
+    device = resolve_device(device)
+    used = tex_used(scene)
+    if not used:
+        return None
+    return torch.cat([_f32(scene.textures[t]).reshape(-1, 3)
+                      for t in used]).to(device)
 
 
 def pack_scene(scene, device="cuda"):
@@ -872,7 +906,9 @@ def _bilin3(tex, chart, u, v):
     """The bilinear rgb sample of each lane's map (``_bilin3``): chart
     (N,3) int64 rows (offset, H, W) in ``tex.texels`` (offset -1: none,
     its u, v zeroed first); wrap, then filter, texel centres at
-    integer + 0.5, the modulo floored."""
+    integer + 0.5, the modulo floored.  The taps read the kernel's
+    words through ``tex.byte``, or rows of a float table
+    (``pack_textures_f32``) at the same indices."""
     off, th, tw = chart.unbind(1)
     on = off >= 0
     u = torch.where(on, u, 0.0)
@@ -887,13 +923,20 @@ def _bilin3(tex, chart, u, v):
     y0 = torch.remainder(_tap(y0f), hi)
     y1 = torch.remainder(y0 + 1, hi)
     base = torch.clamp_min(off, 0)
-    words = []
+    taps = []
     for yy, xx in ((y0, x0), (y0, x1), (y1, x0), (y1, x1)):
-        _read(tex.texels, "texels", base + yy * wi + xx, 1)
-        words.append(tex.texels[base + yy * wi + xx].to(torch.int64))
+        # a word a texel, or its 3 floats
+        _read(tex.texels, "texels", base + yy * wi + xx,
+              1 if tex.byte is not None else 3)
+        tap = tex.texels[base + yy * wi + xx]
+        taps.append(tap if tex.byte is None else tap.to(torch.int64))
     out = []
     for c in range(3):
-        c00, c01, c10, c11 = (tex.byte[(w >> (8 * c)) & 255] for w in words)
+        if tex.byte is None:
+            c00, c01, c10, c11 = (t[:, c] for t in taps)
+        else:
+            c00, c01, c10, c11 = (tex.byte[(t >> (8 * c)) & 255]
+                                  for t in taps)
         top = c00 * (1.0 - fx) + c01 * fx
         bot = c10 * (1.0 - fx) + c11 * fx
         out.append(top * (1.0 - fy) + bot * fy)
@@ -1018,8 +1061,9 @@ def _surface(h, mats, gmat, checker, bump, tex=None):
 
 def _tex_planes(texels, tex_geom, btex_geom, geom_types, tri):
     """What :func:`_surface` reads of the textures: the texel words
-    (int32), the byte -> float32 table k/255 (IEEE quotients, the
-    loader's), the albedo and BUMPTEX charts as (G+1,3) int64 tables
+    (int32) and the byte -> float32 table k/255 (IEEE quotients, the
+    loader's), or a float (n,3) table and no byte table, the albedo and
+    BUMPTEX charts as (G+1,3) int64 tables
     indexed by the winning geom (row G, a miss: no chart; None for a
     mode without charts), the geom types (G+1,) and the triangle rows
     (the BUMPTEX gradients of a mesh winner)."""
@@ -1033,8 +1077,8 @@ def _tex_planes(texels, tex_geom, btex_geom, geom_types, tri):
 
     return SimpleNamespace(
         texels=texels,
-        byte=torch.as_tensor(np.arange(256, dtype=np.float32)
-                             / np.float32(255.0)).to(device),
+        byte=None if texels.is_floating_point() else torch.as_tensor(
+            np.arange(256, dtype=np.float32) / np.float32(255.0)).to(device),
         albedo=charts(tex_geom), bump=charts(btex_geom),
         kind=torch.tensor(tuple(geom_types) + (-1,), dtype=torch.int64,
                           device=device),
@@ -1563,7 +1607,9 @@ def trace_plain(cam, mats, gmat, geom_types, width, height, depth, it0,
     None: no NEE), Russian roulette if ``rr``, the triangle meshes of
     ``tri``, ``nodes`` and ``bvh_meta`` (``pack_mesh``; without nodes,
     K3-linear's fold of every triangle) and the image
-    textures of ``texels`` (``pack_textures``) under the per-geom charts
+    textures of ``texels`` (``pack_textures``' words, or the float table
+    of ``pack_textures_f32``, which carries a map's graph) under the
+    per-geom charts
     ``tex_geom`` and ``btex_geom`` (``tex_statics``): per sample,
     :func:`init_state` and :func:`bounces` over every bounce.
 
@@ -1740,7 +1786,9 @@ def trace_k1(cam, mats, gmat, geom_types, width, height, depth, it0, n_spp,
     first use) and raises if the build or the launch fails.  With
     ``per_sample`` the counts are each sample's, (n_spp, depth), from
     the kernel's per-sample form (``k1_trace<true>``); else (depth,),
-    summed over the samples."""
+    summed over the samples.  Raises ``ValueError`` for a float texel
+    table (:func:`check_byte_texels`), on the CPU too."""
+    check_byte_texels(texels)
     device = cam.device
     if device.type == "cpu":
         return trace_plain(cam, mats, gmat, geom_types, width, height,
@@ -1778,14 +1826,25 @@ def trace_k1(cam, mats, gmat, geom_types, width, height, depth, it0, n_spp,
     return rad, counts
 
 
-def prepare(scene, device="cuda", nee=False, rr=False):
+TEXELS = ("u32", "f32")
+
+
+def prepare(scene, device="cuda", nee=False, rr=False, texels="u32"):
     """Check that K1 can render ``scene`` on ``device`` and return the
     keyword arguments of :func:`trace_k1` (and :func:`trace_plain`) but
     ``it0`` and ``n_spp``: the packed tables on ``device``, resident for
     the whole render, and the static facts the kernel is compiled for.
     Raises ``ValueError`` for a texture off the u8 grid and
-    ``RuntimeError`` for a CUDA device without a GPU."""
-    check_supported(scene)
+    ``RuntimeError`` for a CUDA device without a GPU.
+
+    ``texels="f32"`` packs the maps as :func:`pack_textures_f32`'s float
+    table, for :func:`trace_plain` alone (the planes engine): any texel
+    value renders, and a map that requires grad keeps its graph; the
+    kernels refuse such a job."""
+    if texels not in TEXELS:
+        raise ValueError(f"texels must be one of {TEXELS}, not {texels!r}")
+    if texels == "u32":
+        check_supported(scene)
     device = resolve_device(device)
     cam, mats, gmat = pack_scene(scene, device)
     lights = pack_lights(scene, device)[0] if nee else None
@@ -1797,8 +1856,10 @@ def prepare(scene, device="cuda", nee=False, rr=False):
                 height=height, depth=int(scene.trace_depth),
                 features=scene_features(scene), lights=lights, rr=rr,
                 tri=tri, nodes=nodes, bvh_meta=bvh_meta,
-                texels=pack_textures(scene, device) if tex_geom or btex_geom
-                else None, tex_geom=tex_geom, btex_geom=btex_geom)
+                texels=(pack_textures_f32 if texels == "f32" else
+                        pack_textures)(scene, device)
+                if tex_geom or btex_geom else None,
+                tex_geom=tex_geom, btex_geom=btex_geom)
 
 
 def pathtrace_batch_cuda(scene, it0, n_iters, device="cuda", nee=False,

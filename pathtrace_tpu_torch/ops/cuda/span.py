@@ -149,7 +149,10 @@ def trace_span(job, state, keys, d0, d1, it, counts, tbl=None, n_live=None,
 
     On a CUDA device this launches K5 of the job's feature mask on the
     current stream and raises if the build or the launch fails; on the
-    CPU it is :func:`span_plain`."""
+    CPU it is :func:`span_plain`.  Raises ``ValueError`` for a job with
+    a float texel table (``megakernel.check_byte_texels``), on the CPU
+    too."""
+    K.check_byte_texels(job["texels"])
     device = state.device
     if device.type == "cpu":
         return span_plain(job, state, keys, d0, d1, it, counts, tbl,

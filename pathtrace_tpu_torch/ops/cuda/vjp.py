@@ -60,13 +60,12 @@ MASKS = tuple(m | nee for m in (0, K.MESH_BIT, 7, 24, 103, 537, 544)
               for nee in (0, K.NEE_BIT))
 MAX_DEPTH = 32
 MAX_LIGHTS = 64  # the kernel's exact sums (csrc's kFxMaxLights)
-_ITEM = "ROADMAP Queue 1 item 3"
 
 
 def check_supported(scene, nee=False):
     """Raise ``NotImplementedError`` for a scene outside K8's slice: a
     mesh without a BVH and image textures (as the reference's
-    ``render_vjp_pallas`` does; the textures naming their ROADMAP item),
+    ``render_vjp_pallas`` does; the textures naming the planes engine),
     and depth over ``MAX_DEPTH`` (the stored states)."""
     if scene.mesh.count and not scene.mesh.bvh_meta:
         raise NotImplementedError(
@@ -78,9 +77,11 @@ def check_supported(scene, nee=False):
     if any(t >= 0 for t in scene.texture_ids) or any(
             t >= 0 for t in scene.bump_texture_ids):
         raise NotImplementedError(
-            f"render_vjp on image-textured materials is not ported yet: "
-            f"{_ITEM}a' (texel gradients: a float texel path in the plain "
-            f"K4)")
+            "render_vjp does not trace image-textured materials, as the "
+            "reference's render_vjp_pallas does not (a texel's gradient is "
+            "a scatter-add): they ride "
+            "render/diff.render_loss_and_grad(engine='planes'), which "
+            "gives texel gradients through render_mean")
     if not 0 < int(scene.trace_depth) <= MAX_DEPTH:
         raise NotImplementedError(
             f"render_vjp keeps every bounce's state: depth 1..{MAX_DEPTH}")

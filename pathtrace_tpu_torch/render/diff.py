@@ -17,13 +17,20 @@ counterpart of the reference's planes engine under ``jax.grad``), with
 the mesh tables packed differentiably, so ``tri_verts`` gets its
 gradient: the BVH walk's winner is found detached and its hit
 recomputed (the reference's ``bvh_grad``), or, with ``use_bvh=False``,
-the linear fold's (its oracle).  The default ``"wavefront"`` is autograd
+the linear fold's (its oracle); its texels are read from a float table
+(``megakernel.pack_textures_f32``).  The default ``"wavefront"`` is autograd
 over the wavefront integrator (``render/integrator.trace_pixels``, torch
 ops on the device), each bounce recomputed in the backward pass when
 ``remat`` (``torch.utils.checkpoint``), its triangles folded one by one
 as the reference's wavefront folds them.
 :func:`render_value_and_pixel_grad` differentiates a weighted pixel sum
 through it.
+
+Texel gradients: as in the reference, the maps are not a key of
+:func:`split_params`; a caller swaps ``scene.textures[t]`` for a float32
+tensor that requires grad, and :func:`render_mean` (either engine),
+:func:`planes_iteration` and ``render/integrator.pathtrace_iteration``
+carry its graph (the reference's ``jax.grad`` over a swapped map).
 
 Estimator (the reference's): detached sampling.  Every discrete event
 (the lobe taken, the nearest hit, the light face, visibility, the end of
@@ -169,9 +176,21 @@ def render_mean(scene, it0, n_iters, compaction="mask", remat=True,
         rad, _ = pathtrace_batch(scene, it0, n_iters, compaction, remat, nee,
                                  device=device)
     else:
-        job = K.prepare(scene, device, nee=nee)
+        job = K.prepare(scene, device, nee=nee, texels="f32")
         rad, _ = K.trace_plain(**job, it0=it0, n_spp=n_iters)
     return rad / float(n_iters)
+
+
+def planes_iteration(scene, it, nee=False, rr=False, device="cuda"):
+    """One sample a pixel at iteration ``it`` on the planes engine: the
+    megakernel's plain version over the float texel table (the
+    reference's ``pathtrace_iteration_planes``), differentiable in the
+    leaves and maps of ``scene`` that require grad; (radiance (P,3) f32,
+    counts (depth,) int64) on ``device``."""
+    from ..ops.cuda import megakernel as K
+
+    job = K.prepare(scene, device, nee=nee, rr=rr, texels="f32")
+    return K.trace_plain(**job, it0=it, n_spp=1)
 
 
 def render_loss_and_grad(scene, target, it0, n_iters, compaction="mask",

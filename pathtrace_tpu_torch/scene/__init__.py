@@ -1,3 +1,3 @@
 """Scene-file parsing."""
 
-from .parser import load_scene, parse_scene
+from .parser import derived_fov, load_scene, parse_scene

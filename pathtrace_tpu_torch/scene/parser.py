@@ -18,6 +18,7 @@ from typing import List, Optional
 import numpy as np
 
 from ..core import types as T
+from ..core.constants import PI
 from .bvh import with_bvh
 from .obj import load_obj
 from .textures import attach_textures
@@ -293,3 +294,15 @@ def parse_scene(text: str, base_dir: str = ".") -> T.Scene:
         light_indices=light_indices,
     )
     return attach_textures(scene, text, base_dir=base_dir)
+
+
+def derived_fov(scene: T.Scene):
+    """(fovx_deg, fovy_deg) with fovx derived from the aspect ratio, as
+    the reference's ``derived_fov`` (src/scene.cpp:133-136)."""
+    import math
+
+    fovy = float(scene.camera.fovy_deg)
+    yscaled = math.tan(fovy * (PI / 180.0))
+    xscaled = (yscaled * scene.width) / scene.height
+    fovx = math.atan(xscaled) * 180.0 / PI
+    return fovx, fovy

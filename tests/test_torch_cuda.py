@@ -784,7 +784,8 @@ def test_render_vjp_rejects_what_k8_does_not_trace(cuda, name):
     if scene.mesh.count:
         scene = without_bvh(scene)
     with pytest.raises(NotImplementedError,
-                       match="BVH" if scene.mesh.count else "ROADMAP"):
+                       match="BVH" if scene.mesh.count else
+                       r"render_loss_and_grad\(engine='planes'\)"):
         VJ.render_vjp(scene, torch.ones((256, 3)), 1, 1)
 
 

@@ -3,6 +3,7 @@
 rounding or a fault?  A reading in float64.
 
     JAX_PLATFORMS=cpu python tests/torch_reading64.py bump|mesh-bump|sss
+    JAX_PLATFORMS=cpu python tests/torch_reading64.py texel
 
 On the NEE rig of ``tests/test_torch_vjp_bump.py`` (``bump``),
 ``tests/test_torch_vjp_meshsec.py`` (``mesh-bump``) or
@@ -23,6 +24,16 @@ float64 readings agree where the float32 ones part, the gap is float32
 rounding (XLA's CPU build contracts multiply-adds into FMAs; the port
 rounds each product), which the rig's sections magnify.  Takes a few
 minutes, the two reference processes running at once.
+
+``texel``: the texel gradients of ``tests/test_torch_texel_grad.py``
+(cornell_tex 24x24 d3, 1 spp, NEE, d mean(rad) / d the map of material
+5): the reference's ``jax.grad`` of its planes engine and of its wavefront
+in float32, and of its wavefront in float64 (``jax_enable_x64``, the
+scene's float arrays and maps cast up, ``jnp.float32`` read as float64 as
+above), beside the port's planes engine in float32 and in float64 (its
+tables and draws cast up).  Printed: each reading's largest distance from
+the reference's float64 one, and the entries outside rtol 1e-3 / atol
+1e-7 of it.
 """
 
 import os
@@ -164,10 +175,142 @@ def port(tables, mesh_tabs, dtype, scene, ct=None):
     return rad.detach().numpy(), [t.grad.numpy() for t in leaf]
 
 
+TEXEL_RES, TEXEL_DEPTH, TEXEL_MATERIAL = (24, 24), 3, 5
+
+
+def _texel_scene(load):
+    """cornell_tex at the texel rig's size, and the id of its map."""
+    import dataclasses
+
+    scene = dataclasses.replace(
+        load(os.path.join(REPO, "scenes", "cornell_tex.txt")),
+        resolution=TEXEL_RES, trace_depth=TEXEL_DEPTH)
+    return scene, scene.texture_ids[TEXEL_MATERIAL]
+
+
+def _swap(scene, tid, tex):
+    import dataclasses
+
+    return dataclasses.replace(scene, textures=tuple(
+        tex if i == tid else t for i, t in enumerate(scene.textures)))
+
+
+def texel_reference(mode, out):
+    """The reference's texel gradients in a process of its own: ``mode``
+    "32" (its planes engine and its wavefront) or "64" (its wavefront
+    under ``jax_enable_x64``); written to ``out``."""
+    import dataclasses
+
+    import jax
+
+    if mode == "64":
+        jax.config.update("jax_enable_x64", True)
+    import jax.numpy as jnp
+
+    import pathtrace_tpu as pt
+    from pathtrace_tpu.render.plane_engine import pathtrace_iteration_planes
+
+    scene, tid = _texel_scene(pt.load_scene)
+    engines = {"wave": pt.pathtrace_iteration}
+    if mode == "64":
+        jnp.float32 = _Float32As64
+
+        def up(obj):
+            return dataclasses.replace(obj, **{
+                f.name: (np.asarray(v, np.float64)
+                         if v is not None and np.asarray(v).dtype.kind == "f"
+                         else v)
+                for f in dataclasses.fields(obj)
+                for v in (getattr(obj, f.name),)})
+
+        scene = dataclasses.replace(
+            scene, materials=up(scene.materials), camera=up(scene.camera),
+            geoms=up(scene.geoms),
+            textures=tuple(np.asarray(t, np.float64)
+                           for t in scene.textures))
+    else:
+        engines["planes"] = pathtrace_iteration_planes
+    grads = {
+        name: np.asarray(jax.grad(lambda t, f=fn: jnp.mean(
+            f(_swap(scene, tid, t), 1, nee=True)[0]))(
+                jnp.asarray(scene.textures[tid])))
+        for name, fn in engines.items()}
+    _save(out, **grads)
+
+
+def texel_port(dtype):
+    """The port's planes-engine texel gradient in ``dtype`` (float64: the
+    tables, the float texel table and the draws cast up)."""
+    import torch
+
+    import pathtrace_tpu_torch as ptt
+    from pathtrace_tpu_torch.core import rng
+    from pathtrace_tpu_torch.ops.cuda import megakernel as K
+
+    scene, tid = _texel_scene(ptt.load_scene)
+    off, h, w = K.tex_offsets(scene)[tid]
+    job = K.prepare(scene, "cpu", nee=True, texels="f32")
+    for key in ("cam", "mats", "gmat", "lights", "texels"):
+        job[key] = job[key].to(dtype)
+    job["texels"].requires_grad_(True)
+    uniform = rng.uniform
+    if dtype == torch.float64:
+        rng.uniform = lambda *a, **k: uniform(*a, **k).double()
+    try:
+        rad, _ = K.trace_plain(**job, it0=1, n_spp=1)
+    finally:
+        rng.uniform = uniform
+    rad.mean().backward()
+    return job["texels"].grad[off:off + h * w].reshape(h, w, 3).double() \
+        .numpy()
+
+
+def texel_main():
+    import torch
+
+    sys.path.insert(0, REPO)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as work:
+        env = dict(os.environ, JAX_PLATFORMS="cpu",
+                   PYTHONPATH=REPO + os.pathsep + os.environ.get(
+                       "PYTHONPATH", ""))
+        outs = {m: os.path.join(work, f"texel{m}.npz") for m in ("32", "64")}
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--texel-reference",
+             m, out], env=env) for m, out in outs.items()]
+        try:
+            got = {"port planes 32": texel_port(torch.float32),
+                   "port planes 64": texel_port(torch.float64)}
+        finally:
+            codes = [p.wait() for p in procs]
+        if any(codes):
+            raise RuntimeError("a reference process failed")
+        for m, out in outs.items():
+            with np.load(out) as f:
+                got.update({f"reference {k} {m}": f[k] for k in f.files})
+    ref64 = got.pop("reference wave 64").astype(np.float64)
+    print(f"texel rig: cornell_tex {TEXEL_RES} d{TEXEL_DEPTH} 1 spp NEE, "
+          f"material {TEXEL_MATERIAL}'s map; max |g| of the reference's "
+          f"float64 reading {np.abs(ref64).max():.6g}", flush=True)
+    for name, g in got.items():
+        d = np.abs(g.astype(np.float64) - ref64)
+        out = d > 1e-7 + 1e-3 * np.abs(ref64)
+        print(f"{name}: max |g - reference float64| {d.max():.6g}; "
+              f"{int(out.sum())} entries outside rtol 1e-3 / atol 1e-7 of "
+              f"it", flush=True)
+    print(f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return 0
+
+
 def main():
     if len(sys.argv) > 1 and sys.argv[1] == "--reference":
         reference(sys.argv[2], sys.argv[3], sys.argv[4])
         return 0
+    if len(sys.argv) > 1 and sys.argv[1] == "--texel-reference":
+        texel_reference(sys.argv[2], sys.argv[3])
+        return 0
+    if len(sys.argv) > 1 and sys.argv[1] == "texel":
+        return texel_main()
     import torch
 
     name = sys.argv[1] if len(sys.argv) > 1 else "bump"
