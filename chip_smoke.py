@@ -231,6 +231,32 @@ Phases, each of which raises on failure (exit code non-zero):
    wavefront (not zero, the two at rtol 1e-3 / atol 1e-7 on the pixels
    where their forwards agree), each engine's step alone, its ms and
    peak memory.
+20. multi-device rendering (``parallel/shard.py``) and the native host
+   runtime (``native/``).  Two gloo ranks on ``cuda:0``, processes of
+   their own (``--shard-rank``), meeting through a file store, with the
+   launch counts set to 0 before the sharded routes and read after:
+   ``render_pixel_sharded_pallas``, ``render_sample_sharded_pallas`` and
+   ``render_sample_sharded_sorted`` on cornell 800x800 d8 at 8 spp, the
+   planes and wavefront routes (the sample-sharded wavefront with
+   ``compaction="sort"``, on K6) at 200x200 d8 2 spp, and
+   ``sharded_grad_step_pallas`` with NEE at 1 spp a rank (K1, then K8);
+   then rank 0 alone in a world of one on NCCL, K1 pixel- and
+   sample-sharded.  Both ranks hold the same bits; pixel-sharded images
+   are bit-equal to one process's render, sample-sharded ones bit-equal
+   to the rank-ordered sum of each rank's samples rendered in one process
+   and within rtol 1e-6 of one process's render of all of them, counts
+   exact; the grad step's loss within 1e-6 relative and its gradients
+   within rtol 1e-3 plus 1e-6 of each leaf's largest entry of one
+   process's K1 + ``render_vjp`` on the same loss.  Times (host clock,
+   the card synchronized, median of 5): K1 sample-sharded on the two
+   gloo ranks and on the NCCL rank beside unsharded K1, and one
+   ``all_reduce`` of the 800x800 image on each.  ``cli.main --shard``
+   under ``torch.distributed.run --nproc_per_node 1`` (NCCL) at 8 spp,
+   its accumulation and PNG equal to the unsharded CLI's, whose PNG the
+   native writer wrote and which reads back equal to Pillow's; the
+   native parser (``load_scene(native=True)``) on every scene file, tree
+   equal to the Python parser's, and its time on cornell_bigmesh.txt
+   and its OBJ beside the Python parser's.
 
 K3-linear, the fold of every triangle of a mesh without a BVH, runs as
 the other K1 builds do: phase 4 on cornell_mesh.txt stripped of its BVH
@@ -251,12 +277,14 @@ prints no result and exits non-zero.  It imports nothing of JAX.
 from __future__ import annotations
 
 import dataclasses
+import glob
 import json
 import os
 import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -398,6 +426,10 @@ SCAN_DENSIFY = 640000  # the wavefront's rays at 800x800: its K6 row
 # test's 5): a step of the planes engine on the mesh takes seconds on the
 # card, host-bound, and the loss falls below 0.8x its start in one step
 MESH_STEPS = 5
+# the shard phase (20): the K1 routes at the file's 800x800 d8, SHARD_SPP
+# samples; the planes and wavefront routes at SHARD_SMALL d8, 2 samples
+SHARD_SPP = 8
+SHARD_SMALL = (200, 200)
 
 
 def card_line():
@@ -2129,6 +2161,363 @@ def progressive_phase(ptt, K, MG, torch, np, scenes, card):
     return k1, k7
 
 
+def _wall_ms(torch, fn, k=5):
+    """Median over k calls of fn's time on the host clock, the card
+    synchronized before and after each, after one warm call."""
+    fn()
+    times = []
+    for _ in range(k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(times), times
+
+
+def shard_child(rank, world, store, out):
+    """A process of phase 20 on ``cuda:0`` (``python3 chip_smoke.py
+    --shard-rank RANK WORLD STORE OUT``).  Joins a gloo group of WORLD
+    ranks through the file store STORE and runs the sharded routes, then
+    times K1 sample-sharded and one ``all_reduce`` of the image; rank 0
+    then runs a world of one on NCCL: K1 pixel- and sample-sharded, their
+    time beside unsharded K1's, and one ``all_reduce``.  Saves the results
+    to the .npz file OUT and the launches and times to OUT.json."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, HERE)
+    import pathtrace_tpu_torch as ptt
+    from pathtrace_tpu_torch.ops import scan as SC
+    from pathtrace_tpu_torch.ops.cuda import megakernel as K
+    from pathtrace_tpu_torch.ops.cuda import span as SP
+    from pathtrace_tpu_torch.ops.cuda import vjp as VJ
+    from pathtrace_tpu_torch.parallel import shard
+    from pathtrace_tpu_torch.render import diff as D
+
+    cornell = load(ptt, "cornell", ())
+    small = dataclasses.replace(cornell, resolution=SHARD_SMALL)
+    counters = dict(k1=K.LAUNCHES, k5=SP.LAUNCHES, k6=SC.LAUNCHES,
+                    k8=VJ.LAUNCHES)
+    n = SHARD_SPP
+    arrays, info = {}, {}
+
+    def main_path(group, routes):
+        # the path's launches: the counts set to 0 before, read after
+        for c in counters.values():
+            c.clear()
+        mesh = shard.make_mesh()
+        info[f"{group} backend"] = dist.get_backend(mesh.group)
+        for name, fn in routes:
+            out = fn(mesh)
+            if name.endswith("grad"):
+                arrays[f"{name}.loss"] = out[0].cpu().numpy()
+                for leaf, g in D.named_leaves(out[1]):
+                    arrays[f"{name}.g.{leaf}"] = g.cpu().numpy()
+            else:
+                arrays[f"{name}.rad"] = out[0].cpu().numpy()
+                arrays[f"{name}.counts"] = out[1].cpu().numpy()
+        torch.cuda.synchronize()
+        info[f"{group} launches"] = {k: {str(m): v for m, v in c.items()}
+                                     for k, c in counters.items()}
+        return mesh
+
+    def times(group, mesh):
+        run = shard.make_sharded_renderer(cornell, engine="pallas")
+        info[f"{group} k1 ms"] = _wall_ms(torch, lambda: run(1, n))
+        img = torch.ones((cornell.pixel_count, 3), device=mesh.device)
+        info[f"{group} all_reduce ms"] = _wall_ms(
+            torch, lambda: dist.all_reduce(img, group=mesh.group))
+
+    zeros = np.zeros((cornell.pixel_count, 3), np.float32)
+    shard.initialize_distributed("cuda", backend="gloo",
+                                 store=dist.FileStore(store, world),
+                                 rank=rank, world_size=world)
+    mesh = main_path("gloo", [
+        ("gloo pixel k1", lambda m: shard.render_pixel_sharded_pallas(
+            cornell, 1, n, m)),
+        ("gloo sample k1", lambda m: shard.render_sample_sharded_pallas(
+            cornell, 1, n, m)),
+        ("gloo sample sorted", lambda m: shard.render_sample_sharded_sorted(
+            cornell, 1, n, m)),
+        ("gloo sample planes", lambda m: shard.render_sample_sharded_planes(
+            small, 1, 2, m)),
+        ("gloo pixel planes", lambda m: shard.render_pixel_sharded_planes(
+            small, 1, 2, m)),
+        ("gloo sample wavefront", lambda m: shard.render_sample_sharded(
+            small, 1, 2, m, "sort")),
+        ("gloo pixel wavefront", lambda m: shard.render_pixel_sharded(
+            small, 1, 2, m)),
+        ("gloo grad", lambda m: shard.sharded_grad_step_pallas(
+            cornell, zeros, 1, world, m, nee=True))])
+    times("gloo", mesh)
+    dist.destroy_process_group()
+    if rank == 0:
+        shard.initialize_distributed("cuda", store=dist.HashStore(), rank=0,
+                                     world_size=1)
+        mesh = main_path("nccl", [
+            ("nccl pixel k1", lambda m: shard.render_pixel_sharded_pallas(
+                cornell, 1, n, m)),
+            ("nccl sample k1", lambda m: shard.render_sample_sharded_pallas(
+                cornell, 1, n, m))])
+        times("nccl", mesh)
+        job = K.prepare(cornell, "cuda")
+        info["unsharded k1 ms"] = _wall_ms(
+            torch, lambda: K.trace_k1(**job, it0=1, n_spp=n))
+        dist.destroy_process_group()
+    np.savez(out, **arrays)
+    with open(out + ".json", "w") as f:
+        json.dump(info, f)
+    return 0
+
+
+def _hold_render(np, label, got, want, halves=None):
+    """A sharded render ``got`` (radiance, counts) against one process's
+    on the same route: pixel-sharded (``halves`` None) bit-equal to
+    ``want``, the render of every pixel; sample-sharded bit-equal to the
+    rank-ordered sum of ``halves``, each rank's samples rendered in one
+    process, and within rtol 1e-6 of ``want``, the render of all the
+    samples.  Counts exact."""
+    rad, counts = got
+    if halves is None:
+        same = np.array_equal(rad, want[0])
+        what = "bit-equal to one process"
+    else:
+        err = float(np.max(np.abs(rad - want[0])
+                           / np.maximum(np.abs(want[0]), 1e-30)))
+        same = np.array_equal(rad, halves[0][0] + halves[1][0])
+        what = (f"bit-equal to the rank-ordered sum, largest relative "
+                f"distance from one process {err:.3g}")
+        same = same and err <= 1e-6
+    counts_ok = np.array_equal(counts, want[1])
+    print(f"phase 20 {label}: {what} {same}, counts exact {counts_ok}",
+          flush=True)
+    if not (same and counts_ok):
+        raise RuntimeError(f"phase 20 {label}: the sharded render is not "
+                           f"one process's")
+
+
+def shard_phase(ptt, K, SP, VJ, I, torch, np, cornell, parsed, card):
+    """Phase 20, multi-device rendering and the native runtime.  Returns
+    the sharded main path's launches: {"k1": {mask: n}, "k5": {mask: n},
+    "k6": n, "k8": {mask: n}}."""
+    from PIL import Image
+
+    from pathtrace_tpu_torch import cli
+    from pathtrace_tpu_torch.io import image_io
+    from pathtrace_tpu_torch.native import lib as N
+    from pathtrace_tpu_torch.render import diff as D
+    import torch_scenes as TS
+
+    t_phase = time.perf_counter()
+    n = SHARD_SPP
+    small = dataclasses.replace(cornell, resolution=SHARD_SMALL)
+    with tempfile.TemporaryDirectory() as work:
+        outs = [os.path.join(work, f"rank{r}.npz") for r in range(2)]
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--shard-rank",
+             str(r), "2", os.path.join(work, "store"), outs[r]],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(2)]
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=400)[0])
+        finally:
+            for p in procs:
+                p.kill()
+        if any(p.returncode != 0 for p in procs):
+            raise RuntimeError("phase 20: a shard process failed:\n"
+                               + "\n".join(
+                                   f"rank {r} exit {p.returncode}:\n"
+                                   f"{log[-3000:]}" for r, (p, log)
+                                   in enumerate(zip(procs, logs))))
+        ranks = [dict(np.load(o)) for o in outs]
+        infos = []
+        for o in outs:
+            with open(o + ".json") as f:
+                infos.append(json.load(f))
+    print(f"phase 20 two gloo ranks on cuda:0 and one NCCL rank: "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    for key, value in ranks[1].items():  # every rank holds the same bits
+        if not np.array_equal(value, ranks[0][key]):
+            raise RuntimeError(f"phase 20 {key}: rank 1 is not rank 0")
+    got = ranks[0]
+
+    def host(out):
+        return [x.cpu().numpy() for x in out]
+
+    def route(one, spp=n):
+        """One process's render of every sample from iteration 1, and of
+        each rank's half of them."""
+        halves = [host(one(1 + r * (spp // 2), spp // 2)) for r in range(2)]
+        return host(one(1, spp)), halves
+
+    job = K.prepare(cornell, "cuda")
+    k1 = route(lambda i, m: K.trace_k1(**job, it0=i, n_spp=m))
+    srt = route(lambda i, m: SP.pathtrace_batch_sorted(cornell, i, m,
+                                                       "cuda"))
+    pjob = K.prepare(small, "cuda", texels="f32")
+    planes = route(lambda i, m: K.trace_plain(**pjob, it0=i, n_spp=m), 2)
+    wave_sort = route(lambda i, m: I.pathtrace_batch(
+        small, i, m, "sort", remat=False, device="cuda"), 2)
+    wave_mask = host(I.pathtrace_batch(small, 1, 2, "mask", remat=False,
+                                       device="cuda"))
+    for label, want, halves in (
+            ("gloo pixel k1", k1[0], None),
+            ("gloo sample k1", k1[0], k1[1]),
+            ("gloo sample sorted", srt[0], srt[1]),
+            ("gloo sample planes", planes[0], planes[1]),
+            ("gloo pixel planes", planes[0], None),
+            ("gloo sample wavefront", wave_sort[0], wave_sort[1]),
+            ("gloo pixel wavefront", wave_mask, None),
+            ("nccl pixel k1", k1[0], None),
+            ("nccl sample k1", k1[0], None)):
+        _hold_render(np, label, (got[f"{label}.rad"], got[f"{label}.counts"]),
+                     want, halves)
+    # the grad step: K1 + render_vjp in one process with the same loss
+    rad, _ = K.trace_k1(**K.prepare(cornell, "cuda", nee=True), it0=1,
+                        n_spp=2)
+    img = rad / 2
+    loss = float(torch.mean(img ** 2))
+    _, want = VJ.render_vjp(cornell, 2.0 * img / float(img.numel() * 2), 1,
+                            2, nee=True)
+    worst = 0.0
+    for name, w in D.named_leaves(want):
+        w = w.cpu().numpy()
+        g = got[f"gloo grad.g.{name}"]
+        # the reference's rtol (tests/test_parallel.py:160), and an atol of
+        # 1e-6 of the leaf's largest entry: each rank rounds its exact
+        # table once, one process once
+        tol = 1e-3 * np.abs(w) + 1e-6 * np.abs(w).max(initial=0.0)
+        worst = max(worst, float(np.max(np.abs(g - w)
+                                        / np.maximum(tol, 1e-30),
+                                        initial=0.0)))
+    loss_err = abs(float(got["gloo grad.loss"]) - loss) / loss
+    print(f"phase 20 sharded_grad_step_pallas NEE 1 spp a rank: loss "
+          f"{float(got['gloo grad.loss']):.9g} (one process {loss:.9g}, "
+          f"relative {loss_err:.3g}), gradients at {worst:.3g} of the "
+          f"tolerance (rtol 1e-3, atol 1e-6 of each leaf's largest)",
+          flush=True)
+    if not (worst <= 1 and loss_err <= 1e-6):
+        raise RuntimeError("phase 20: the sharded grad step is not one "
+                           "process's")
+    info = infos[0]
+    for group in ("gloo", "nccl"):
+        if info[f"{group} backend"] != group:
+            raise RuntimeError(f"phase 20: {group} group on "
+                               f"{info[f'{group} backend']}")
+    print(f"phase 20 times, cornell 800x800 d8 {n} spp a call, median of 5 "
+          f"(host clock around the call, the card synchronized), on {card}: "
+          f"K1 sample-sharded on 2 gloo ranks on one card "
+          f"{info['gloo k1 ms'][0] / n:.4f} ms/iter (runs "
+          f"{[round(t, 3) for t in info['gloo k1 ms'][1]]} ms), on 1 NCCL "
+          f"rank {info['nccl k1 ms'][0] / n:.4f} ms/iter (runs "
+          f"{[round(t, 3) for t in info['nccl k1 ms'][1]]}), unsharded "
+          f"{info['unsharded k1 ms'][0] / n:.4f} ms/iter (runs "
+          f"{[round(t, 3) for t in info['unsharded k1 ms'][1]]}); one "
+          f"all_reduce of the 800x800 image (7.68 MB): gloo on CUDA "
+          f"{info['gloo all_reduce ms'][0]:.4f} ms (runs "
+          f"{[round(t, 3) for t in info['gloo all_reduce ms'][1]]}), NCCL "
+          f"{info['nccl all_reduce ms'][0]:.4f} ms (runs "
+          f"{[round(t, 3) for t in info['nccl all_reduce ms'][1]]})",
+          flush=True)
+    launches = dict(k1={}, k5={}, k6=0, k8={})
+    for inf in infos:
+        for group in ("gloo", "nccl"):
+            for kind, by_mask in inf.get(f"{group} launches", {}).items():
+                for m, v in by_mask.items():
+                    if kind == "k6":
+                        launches["k6"] += v
+                    else:
+                        launches[kind][int(m)] = (
+                            launches[kind].get(int(m), 0) + v)
+    if not (launches["k1"].get(0) and launches["k1"].get(K.NEE_BIT)
+            and launches["k5"].get(0) and launches["k6"]
+            and launches["k8"].get(K.NEE_BIT)):
+        raise RuntimeError(f"phase 20: the sharded routes launched "
+                           f"{launches}")
+    print(f"phase 20 launches of the sharded main path (both ranks and the "
+          f"NCCL rank): {launches}", flush=True)
+    phase_done("20 sharded routes")
+
+    # the CLI under torchrun, one process on NCCL, against the unsharded CLI
+    with tempfile.TemporaryDirectory() as work:
+        scene_file = os.path.join(HERE, "scenes", "cornell.txt")
+        common = ["--spp", str(n)]
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             "--nproc_per_node", "1", "-m", "pathtrace_tpu_torch.cli",
+             scene_file, "--shard", *common, "--out",
+             os.path.join(work, "shard.png"), "--checkpoint",
+             os.path.join(work, "shard.ckpt")], cwd=HERE,
+            env=dict(os.environ, PYTHONPATH=HERE), capture_output=True,
+            text=True, timeout=300)
+        t_cli = time.perf_counter() - t0
+        if proc.returncode != 0 or "backend nccl" not in proc.stdout:
+            raise RuntimeError(f"phase 20: the CLI under torchrun exited "
+                               f"{proc.returncode}:\n{proc.stdout[-3000:]}"
+                               f"\n{proc.stderr[-3000:]}")
+        if not N.available():
+            raise RuntimeError("phase 20: the native library did not build")
+        rc = cli.main([scene_file, *common, "--out",
+                       os.path.join(work, "plain.png"), "--checkpoint",
+                       os.path.join(work, "plain.ckpt")])
+        a = np.load(os.path.join(work, "shard.ckpt"))["accum"]
+        b = np.load(os.path.join(work, "plain.ckpt"))["accum"]
+        png = [np.asarray(Image.open(os.path.join(work, f"{k}.png")))
+               for k in ("shard", "plain")]
+        # the unsharded CLI's PNG came from the native writer; Pillow's
+        image_io.save_png(os.path.join(work, "pillow.png"),
+                          image_io.to_display(b, cornell.width,
+                                              cornell.height, n),
+                          native=False)
+        pillow = np.asarray(Image.open(os.path.join(work, "pillow.png")))
+        same = (rc == 0 and np.array_equal(a, b)
+                and np.array_equal(png[0], png[1]))
+        print(f"phase 20 cli --shard under torchrun --nproc_per_node 1 "
+              f"(NCCL) cornell {n} spp: {t_cli:.1f} s, accumulation and "
+              f"PNG equal to the unsharded CLI's {same}; the native PNG "
+              f"writer's image reads back equal to Pillow's "
+              f"{np.array_equal(png[1], pillow)}", flush=True)
+        if not (same and np.array_equal(png[1], pillow)):
+            raise RuntimeError("phase 20: the sharded CLI's image or the "
+                               "native PNG differs")
+    phase_done("20 cli --shard")
+
+    # the native parser on every scene file against the Python parser's
+    from pathtrace_tpu_torch.scene.obj import load_obj
+
+    t_native = {}
+    for path in sorted(glob.glob(os.path.join(HERE, "scenes", "*.txt"))):
+        name = os.path.basename(path)[:-4]
+        t0 = time.perf_counter()
+        native = ptt.load_scene(path, native=True)
+        t_native[name] = time.perf_counter() - t0
+        python = parsed.get(name) or ptt.load_scene(path, native=False)
+        TS.tree_equal(native, python, name)
+    big = os.path.join(HERE, "scenes", "cornell_bigmesh.txt")
+    t0 = time.perf_counter()
+    ptt.load_scene(big, native=False)
+    t_python = time.perf_counter() - t0
+    obj = os.path.join(HERE, "scenes", "icosphere6.obj")
+    t_obj = [_wall_ms(torch, lambda: N.load_obj_native(obj), 3)[0],
+             _wall_ms(torch, lambda: load_obj(obj), 3)[0]]
+    each = ", ".join(f"{k} {v:.3f} s" for k, v in t_native.items())
+    print(f"phase 20 native parser: every scene file's tree equal to the "
+          f"Python parser's ({each}, each BVH build included); on the "
+          f"card's host ({card}), "
+          f"cornell_bigmesh.txt {1e3 * t_native['cornell_bigmesh']:.1f} ms "
+          f"native, {1e3 * t_python:.1f} ms Python, one run each, its BVH "
+          f"build included; its OBJ icosphere6.obj alone, median of 3 "
+          f"after a warm call, "
+          f"{t_obj[0]:.1f} ms native, {t_obj[1]:.1f} ms Python", flush=True)
+    phase_done("20 native")
+    return launches
+
+
 def bigmesh_scene(mesh_configs):
     return next(c[1] for c in mesh_configs if c[0] == "cornell_bigmesh")
 
@@ -2152,6 +2541,7 @@ def main():
     from pathtrace_tpu_torch.ops import scan as SC
     from pathtrace_tpu_torch.ops.cuda import probe as P
     from pathtrace_tpu_torch.ops.cuda import span as SP
+    from pathtrace_tpu_torch.native import lib as N
     from pathtrace_tpu_torch.scene.bvh import without_bvh
     sys.path.insert(0, os.path.join(HERE, "tests"))
     import torch_digest as TD
@@ -2202,7 +2592,11 @@ def main():
 
     t0 = time.perf_counter()
     k7_masks = (0, K.MESH_BIT)
+    # the native host runtime (g++) builds beside the kernels (nvcc)
+    native = threading.Thread(target=N.available)
+    native.start()
     build.build_kernels(masks, k7_masks=k7_masks, k8_masks=VJ.MASKS)
+    native.join()
     print(f"build K1 variants {masks}, K7 (masks {k7_masks}), K8 (masks "
           f"{VJ.MASKS}), K6 and K9: {time.perf_counter() - t0:.2f} s, nvcc "
           f"{' '.join(build.NVCC_FLAGS)} -DPT_FEATURES=<mask> (K7 "
@@ -2450,6 +2844,23 @@ def main():
     if not (phase19_k1.get(0) and phase19_k7):
         raise RuntimeError(f"phase 19 launched K1 {phase19_k1}, K7 "
                            f"{phase19_k7}")
+    phase_done("19")
+    from pathtrace_tpu_torch.render import integrator as I
+
+    # the configurations named after a scene file are the file unedited
+    parsed = {c[0]: c[1] for c in forward if os.path.exists(
+        os.path.join(HERE, "scenes", f"{c[0]}.txt"))}
+    sharded = shard_phase(ptt, K, SP, VJ, I, torch, np, cornell, parsed,
+                          card)
+    for mask, n in sharded["k1"].items():
+        launches[mask] += n
+    for mask, n in sharded["k5"].items():
+        k5_launches[mask, "sorted"] = k5_launches.get((mask, "sorted"),
+                                                      0) + n
+    k6_wavefront += sharded["k6"]
+    for mask, n in sharded["k8"].items():
+        grad_launches[k8_name(K, mask)] = grad_launches.get(
+            k8_name(K, mask), 0) + n
 
     print(card, flush=True)
     print(json.dumps({"kernels": [{
@@ -2538,8 +2949,14 @@ def main():
 
 
 if __name__ == "__main__":
+    import faulthandler
+
+    faulthandler.enable()  # a crash in native code prints the Python stack
     if sys.argv[1:2] == ["--busy-share"]:
         sys.path.insert(0, HERE)
         sys.exit(busy_share_child(sys.argv[2], int(sys.argv[3]),
                                   int(sys.argv[4])))
+    if sys.argv[1:2] == ["--shard-rank"]:
+        sys.exit(shard_child(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
+                             sys.argv[5]))
     sys.exit(main())

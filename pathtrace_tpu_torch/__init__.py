@@ -33,8 +33,13 @@ checkpoints, resume, previews and interactive camera
 (``utils/checkpoint.py``,
 ``render/interact.py``, ``tools/watch.py``), ``utils/profiling.py``, and
 the inverse loops ``inverse_light``, ``inverse_albedo`` (K1 and K7) and
-``inverse_mesh`` (the planes engine) of ``render/inverse.py``.  Every
-entry point takes a ``device``, the card by default.
+``inverse_mesh`` (the planes engine) of ``render/inverse.py``.
+Multi-device rendering and the sharded grad steps
+(``parallel/shard.py``, one process a device on ``torch.distributed``,
+the CLI's ``--shard``), and the native host runtime (``native/``: the C++
+scene parser, OBJ loader and image writers, which :func:`load_scene` and
+``io/image_io.save_png`` use when their library builds).  Every entry
+point takes a ``device``, the card by default.
 """
 
 from __future__ import annotations

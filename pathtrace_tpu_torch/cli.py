@@ -37,8 +37,20 @@ temporary directory every K iterations (``tools/watch.py`` draws it);
 (``render/interact.py``): a camera key restarts the accumulation at
 iteration 0, space saves the image, esc or q stops.  The accumulation
 stays on the device; it is copied to the host for a checkpoint, a
-preview or the image.  ``--shard`` is not ported yet: it raises
-``NotImplementedError`` naming its ROADMAP item.
+preview or the image.
+
+``--shard`` renders through ``parallel/shard.make_sharded_renderer``,
+sample-sharded, as the reference's: ``--engine pallas`` on K1,
+``planes`` on the planes engine, every other engine (``sorted`` too, as
+the reference's) on the wavefront, ``--split-depth`` ignored.  Under
+``torchrun`` (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK`` in the
+environment) each process joins the group on ``--device``'s backend
+(nccl for the card, gloo for the CPU) and renders on
+``cuda:{LOCAL_RANK}``; without it, a world of this process alone.  Each
+chunk's samples must divide among the processes.  Every rank holds the
+whole image; rank 0 alone prints, writes the image, the checkpoints and
+the previews and polls ``--interactive``'s file, whose events it sends to
+the others.
 """
 
 from __future__ import annotations
@@ -54,11 +66,6 @@ import time
 import torch
 
 PREFIX = "[pathtrace_tpu_torch]"
-
-# flag -> (values that are ported, ROADMAP item that ports the others)
-_NOT_PORTED = {
-    "shard": ((False,), "Queue 1 item 4 (multi-device)"),
-}
 
 
 def preview_path(image_name):
@@ -116,7 +123,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Russian roulette from bounce 3 on")
     p.add_argument("--preview-every", type=int, default=0, metavar="K",
                    help="write a preview PNG every K iterations")
-    p.add_argument("--shard", action="store_true")
+    p.add_argument("--shard", action="store_true",
+                   help="shard the samples over the processes of the "
+                        "torchrun group (a world of one without torchrun)")
     p.add_argument("--checkpoint", default=None,
                    help="checkpoint file for save/resume")
     p.add_argument("--checkpoint-every", type=int, default=0, metavar="K")
@@ -137,6 +146,17 @@ def _engine(scene, device, args):
     """(the engine's name, ``run(it0, n)``: the radiance (P,3) summed over
     ``n`` samples from iteration ``it0`` and the counts), the scene's
     tables resident on ``device`` for the whole render."""
+    if args.shard:
+        from pathtrace_tpu_torch.parallel import shard
+
+        # the reference's CLI: only the wavefront densifies
+        compaction = args.compaction if args.engine == "xla" else "mask"
+        name = {"pallas": "pallas (K1)",
+                "planes": "planes (the megakernel's plain version)"}.get(
+            args.engine, f"xla (wavefront, compaction {compaction})")
+        return f"{name}, sample-sharded", shard.make_sharded_renderer(
+            scene, compaction, engine=args.engine, nee=args.nee, rr=args.rr,
+            device=device)
     if args.engine == "xla":
         from pathtrace_tpu_torch.ops.cuda.megakernel import resolve_device
         from pathtrace_tpu_torch.render import integrator
@@ -164,19 +184,39 @@ def _engine(scene, device, args):
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    for flag, (ported, item) in _NOT_PORTED.items():
-        if getattr(args, flag) not in ported:
-            raise NotImplementedError(
-                f"--{flag.replace('_', '-')} {getattr(args, flag)} is not "
-                f"ported yet: ROADMAP {item}")
     if args.interpret:
         args.device = "cpu"
+    if not args.shard:
+        return _render(args, None)
+    from pathtrace_tpu_torch.parallel import shard
+
+    made = shard.join_world(args.device)
+    try:
+        return _render(args, shard.make_mesh(device=args.device))
+    finally:
+        if made:
+            torch.distributed.destroy_process_group()
+
+
+def _render(args, mesh):
+    """The render of ``main``; ``mesh``: ``--shard``'s
+    (``parallel/shard.Mesh``), or None."""
+    lead = mesh is None or mesh.rank == 0
+
+    def say(*a, **k):  # rank 0 alone prints
+        if lead:
+            print(*a, **k)
+
+    if mesh is not None:
+        say(f"{PREFIX} --shard: a world of {mesh.size} process(es), "
+            f"backend {torch.distributed.get_backend(mesh.group)}, rank 0 "
+            f"on {mesh.device}", flush=True)
     if args.compaction == "sort" and args.engine != "xla":
-        print(f"{PREFIX} WARNING: --compaction sort is a wavefront-engine "
-              f"mode; the {args.engine} engine masks dead lanes instead "
-              f"(same image, no densify pass), so rendering proceeds on "
-              f"{args.engine} with masking.  Use --engine xla to run the "
-              f"sort-densify wavefront.", flush=True)
+        say(f"{PREFIX} WARNING: --compaction sort is a wavefront-engine "
+            f"mode; the {args.engine} engine masks dead lanes instead "
+            f"(same image, no densify pass), so rendering proceeds on "
+            f"{args.engine} with masking.  Use --engine xla to run the "
+            f"sort-densify wavefront.", flush=True)
 
     import pathtrace_tpu_torch as ptt
     from pathtrace_tpu_torch.io import image_io
@@ -190,10 +230,10 @@ def main(argv=None) -> int:
     n_iters = args.spp if args.spp is not None else scene.iterations
     width, height = scene.resolution
     depth = int(scene.trace_depth)
-    device = torch.device(args.device)
+    device = torch.device(args.device) if mesh is None else mesh.device
     engine, run = _engine(scene, device, args)
 
-    print(
+    say(
         f"{PREFIX} {args.scene}: {width}x{height}, {n_iters} spp, "
         f"depth {depth}, device={device}, engine {engine}"
         f"{', nee' if args.nee else ''}{', rr' if args.rr else ''}",
@@ -207,24 +247,26 @@ def main(argv=None) -> int:
     if args.resume and args.checkpoint and os.path.exists(args.checkpoint):
         saved, done = ckpt.load(args.checkpoint, scene)
         accum.copy_(torch.from_numpy(saved))
-        print(f"{PREFIX} resumed at iteration {done}", flush=True)
+        say(f"{PREFIX} resumed at iteration {done}", flush=True)
     session = None
-    if args.interactive:
+    if args.interactive and lead:
         from pathtrace_tpu_torch.render.interact import InteractiveSession
 
         session = InteractiveSession(args.interactive)
 
     def save_image(samples):
+        if not lead:
+            return
         img = image_io.to_display(accum.cpu().numpy(), width, height,
                                   samples)
         out = args.out or image_io.render_filename(
             scene.image_name, start_time, samples)
         image_io.save_png(out, img)
-        print(f"{PREFIX} saved {out}", flush=True)
+        say(f"{PREFIX} saved {out}", flush=True)
         if args.hdr:
             hdr_out = os.path.splitext(out)[0] + ".hdr"
             image_io.save_hdr(hdr_out, img)
-            print(f"{PREFIX} saved {hdr_out}", flush=True)
+            say(f"{PREFIX} saved {hdr_out}", flush=True)
 
     rays_total = 0
     steady_rays = 0
@@ -232,8 +274,13 @@ def main(argv=None) -> int:
     first_chunk = True
     t_start = time.time()
     while done < n_iters:
-        if session is not None:
-            camera, changed, save_req, quit_req = session.poll(scene.camera)
+        if args.interactive:
+            poll = session.poll(scene.camera) if lead else None
+            if mesh is not None:  # rank 0's events on every rank
+                from pathtrace_tpu_torch.parallel import shard
+
+                poll = shard.broadcast(poll, mesh)
+            camera, changed, save_req, quit_req = poll
             if changed:
                 # the reference's rule (src/main.cpp:74,91-94): a camera
                 # change sets the iteration to 0, the accumulation restarts
@@ -243,8 +290,8 @@ def main(argv=None) -> int:
                 done = rays_total = steady_rays = 0
                 steady_time = 0.0
                 first_chunk = True
-                print(f"{PREFIX} camera changed -> accumulation restarted",
-                      flush=True)
+                say(f"{PREFIX} camera changed -> accumulation restarted",
+                    flush=True)
             if save_req and done:
                 save_image(done)
             if quit_req:
@@ -265,24 +312,24 @@ def main(argv=None) -> int:
             steady_rays += segs
             steady_time += dt
         if args.stats:
-            print(json.dumps(dict(
+            say(json.dumps(dict(
                 iter=done,
                 ms_per_iter=round(dt / step * 1e3, 2),
                 mrays_per_s=round(segs / dt / 1e6, 2),
                 live_per_bounce=counts.tolist(),
             )), flush=True)
         else:
-            print(
+            say(
                 f"{PREFIX} iter {done}/{n_iters} "
                 f"({dt / step * 1e3:.1f} ms/iter, "
                 f"{segs / dt / 1e6:.1f} Mrays/s)",
                 flush=True,
             )
-        if args.preview_every and done % args.preview_every < step:
+        if lead and args.preview_every and done % args.preview_every < step:
             image_io.save_png(preview_path(scene.image_name),
                               image_io.to_display(accum.cpu().numpy(), width,
                                                   height, done))
-        if (args.checkpoint and args.checkpoint_every
+        if (lead and args.checkpoint and args.checkpoint_every
                 and done % args.checkpoint_every < step):
             ckpt.save(args.checkpoint, accum, done, scene)
 
@@ -291,12 +338,12 @@ def main(argv=None) -> int:
         f", {steady_rays / steady_time / 1e6:.1f} Mrays/s steady-state"
         if steady_time > 0 else ""
     )
-    print(
+    say(
         f"{PREFIX} {done} iterations in {wall:.1f}s "
         f"({rays_total / max(wall, 1e-9) / 1e6:.1f} Mrays/s avg{steady})",
         flush=True,
     )
-    if args.checkpoint and done:
+    if lead and args.checkpoint and done:
         ckpt.save(args.checkpoint, accum, done, scene)
     if done:
         save_image(done)

@@ -1,7 +1,8 @@
 """Image output with the reference's save conventions.
 
-Counterpart of ``pathtrace_tpu/io/image_io.py`` (its Python encoders;
-the native ones are not ported):
+Counterpart of ``pathtrace_tpu/io/image_io.py``; :func:`save_png`
+encodes with the C++ writer of ``native/`` when its library builds, as
+the reference's does:
 
 * the saved pixel at (width-1-x, y) is accumulation/(sample count) —
   the x-mirror of src/main.cpp:58;
@@ -29,10 +30,23 @@ def to_uint8(img: np.ndarray) -> np.ndarray:
     return (np.clip(img, 0.0, 1.0) * 255.0).astype(np.uint8)
 
 
-def save_png(path: str, img: np.ndarray) -> str:
+def save_png(path: str, img: np.ndarray, native=None) -> str:
+    """Write ``img`` (H,W,3 float) as an 8-bit RGB PNG (:func:`to_uint8`):
+    with the C++ writer (``native/lib.write_png_native``) when its
+    library builds and ``native`` is None, with Pillow when ``native`` is
+    False or ``PT_NO_NATIVE=1``; ``native=True`` raises
+    ``native.lib.NativeError`` when the library cannot be built or
+    loaded."""
+    u8 = to_uint8(img)
+    if native is not False:
+        from ..native import lib as N
+
+        if native or N.available():
+            N.write_png_native(path, u8)
+            return path
     from PIL import Image
 
-    Image.fromarray(to_uint8(img), mode="RGB").save(path)
+    Image.fromarray(u8, mode="RGB").save(path)
     return path
 
 

@@ -1597,11 +1597,12 @@ def bounces(sc, st, it, pix, d0, d1, counts, grad_mats=None):
 
 
 def trace_plain(cam, mats, gmat, geom_types, width, height, depth, it0,
-                n_spp, pix0=0, features=NO_FEATURES, lights=None, rr=False,
-                tri=None, nodes=None, bvh_meta=(), texels=None, tex_geom=(),
-                btex_geom=(), per_sample=False):
+                n_spp, pix0=0, n_local=None, features=NO_FEATURES,
+                lights=None, rr=False, tri=None, nodes=None, bvh_meta=(),
+                texels=None, tex_geom=(), btex_geom=(), per_sample=False):
     """Plain PyTorch K1 on the device of ``cam``: ``n_spp`` samples of
-    pixels ``pix0 ..`` to the end of the image (all of it by default) at
+    the ``n_local`` pixels from ``pix0`` (``n_local`` None: to the end of
+    the image; all of it by default) at
     iterations ``it0 .. it0+n_spp-1``, with the scene ``features``
     (``scene_features``), NEE over the ``lights`` table (``pack_lights``;
     None: no NEE), Russian roulette if ``rr``, the triangle meshes of
@@ -1613,15 +1614,15 @@ def trace_plain(cam, mats, gmat, geom_types, width, height, depth, it0,
     ``tex_geom`` and ``btex_geom`` (``tex_statics``): per sample,
     :func:`init_state` and :func:`bounces` over every bounce.
 
-    Returns (rad (P - pix0, 3) f32 summed over the samples, counts
+    Returns (rad (n_local, 3) f32 summed over the samples, counts
     (n_spp, depth) int64: live paths entering each bounce of each
     sample, or with ``per_sample`` False their sum over the samples,
     (depth,))."""
     device = cam.device
     sc = plain_scene(cam, mats, gmat, geom_types, features, lights, rr, tri,
                      nodes, bvh_meta, texels, tex_geom, btex_geom)
-    pixel = torch.arange(pix0, width * height, dtype=torch.int64,
-                         device=device)
+    end = width * height if n_local is None else pix0 + n_local
+    pixel = torch.arange(pix0, end, dtype=torch.int64, device=device)
     acc = [torch.zeros(pixel.shape, device=device) for _ in range(3)]
     counts = torch.zeros((n_spp, depth), dtype=torch.int64, device=device)
     for s in range(n_spp):
@@ -1772,9 +1773,9 @@ def launch_error(name, lib, err):
 
 
 def trace_k1(cam, mats, gmat, geom_types, width, height, depth, it0, n_spp,
-             pix0=0, features=NO_FEATURES, lights=None, rr=False,
-             tri=None, nodes=None, bvh_meta=(), texels=None, tex_geom=(),
-             btex_geom=(), per_sample=False):
+             pix0=0, n_local=None, features=NO_FEATURES, lights=None,
+             rr=False, tri=None, nodes=None, bvh_meta=(), texels=None,
+             tex_geom=(), btex_geom=(), per_sample=False):
     """K1 (and K2 when ``lights`` is given, K3 when ``bvh_meta`` is,
     K3-linear when it is without ``nodes``, K4 when ``tex_geom`` or
     ``btex_geom`` is): the same computation and result as
@@ -1792,17 +1793,18 @@ def trace_k1(cam, mats, gmat, geom_types, width, height, depth, it0, n_spp,
     device = cam.device
     if device.type == "cpu":
         return trace_plain(cam, mats, gmat, geom_types, width, height,
-                           depth, it0, n_spp, pix0, features, lights, rr,
-                           tri, nodes, bvh_meta, texels, tex_geom, btex_geom,
-                           per_sample)
+                           depth, it0, n_spp, pix0, n_local, features,
+                           lights, rr, tri, nodes, bvh_meta, texels,
+                           tex_geom, btex_geom, per_sample)
     if device.type != "cuda":
         raise ValueError(f"K1 runs on cuda or cpu tensors, not {device}")
     from . import build
 
     n_pixels = width * height
-    n_local = n_pixels - pix0
+    if n_local is None:
+        n_local = n_pixels - pix0
     if not (0 < depth and 0 <= n_spp and 0 <= pix0 and 0 < n_local
-            and n_pixels < 2 ** 31):
+            and pix0 + n_local <= n_pixels < 2 ** 31):
         raise ValueError(
             f"bad K1 sizes: depth {depth}, {n_spp} spp, pixels "
             f"{pix0}+{n_local} of {n_pixels}")

@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from .bound import read as _read
-from .megakernel import _slab
+from .megakernel import _slab, resolve_device
 
 # Launches of the CUDA kernel (``probe_k9`` on a CUDA device).
 LAUNCHES = Counter()
@@ -29,12 +29,14 @@ MAX_STEPS = 200000
 MAX_RAYS = 4096  # the kernel's cluster holds 4096 rays
 
 
-def bundle_rays(rows, lanes, device="cpu"):
+def bundle_rays(rows, lanes, device="cuda"):
     """The probe's rays, (origin (3,), 1/direction (3,)) each a (rows *
-    lanes,) float32 tensor: ray (row, lane) starts at (-3 + 0.01 row,
+    lanes,) float32 tensor on ``device`` (the card by default; raises
+    without a GPU): ray (row, lane) starts at (-3 + 0.01 row,
     0.005 lane - 0.3, 0) along (1, 0.001 row, 0.0005 lane) / |.|,
     rounded as the reference computes it (square root correctly rounded,
     IEEE divisions)."""
+    device = resolve_device(device)
     row = torch.arange(rows, dtype=torch.float32, device=device)
     lane = torch.arange(lanes, dtype=torch.float32, device=device)
     row, lane = (t.reshape(-1) for t in torch.meshgrid(row, lane,

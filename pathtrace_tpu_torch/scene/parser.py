@@ -1,13 +1,14 @@
 """Scene-file parser: the reference's text grammar, SoA numpy output.
 
-Counterpart of ``pathtrace_tpu/scene/parser.py`` (its Python path): the
+Counterpart of ``pathtrace_tpu/scene/parser.py``: the
 line-oriented format of ``src/scene.cpp`` + README.md:203-246 with the
 same extensions (CHECKER / BUMP / SSS material lines, MOTION object
 key, APERTURE / FOCAL camera keys, ``mesh <path.obj>`` objects, their
 triangles read by ``scene/obj.py`` and given a BVH by ``scene/bvh.py``)
 and the same arrays.  ``TEXTURE`` / ``BUMPTEX`` material lines are
 consumed by the material block and loaded afterwards by
-``scene/textures.attach_textures``.
+``scene/textures.attach_textures``.  :func:`load_scene` parses with
+the C++ parser of ``native/`` when its library builds.
 """
 
 from __future__ import annotations
@@ -37,7 +38,18 @@ def _vec3(t):
     return (float(t[1]), float(t[2]), float(t[3]))
 
 
-def load_scene(path: str) -> T.Scene:
+def load_scene(path: str, native: Optional[bool] = None) -> T.Scene:
+    """Load a scene file, as the reference's ``load_scene``: with the C++
+    parser (``native/lib.py``, the same scene) when its library builds
+    and ``native`` is None; with :func:`parse_scene` when ``native`` is
+    False or ``PT_NO_NATIVE=1``; with the C++ parser when ``native`` is
+    True, raising ``native.lib.NativeError`` when its library cannot be
+    built or loaded."""
+    if native is not False:
+        from ..native import lib as N
+
+        if native or N.available():
+            return N.parse_scene_native(path=path)
     with open(path, "r") as f:
         text = f.read()
     return parse_scene(text, base_dir=os.path.dirname(os.path.abspath(path)))

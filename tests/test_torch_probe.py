@@ -57,7 +57,7 @@ def test_bundle_rays_round_as_the_reference():
     n2 = np.sqrt((d * d).sum(0, dtype=np.float32))
     with np.errstate(divide="ignore"):  # a zero direction: inf, as IEEE
         ird = f(1.0) / (d / n2)
-    o, got_ird = P.bundle_rays(32, 128)
+    o, got_ird = P.bundle_rays(32, 128, device="cpu")
     np.testing.assert_array_equal(o[0].numpy(),
                                   (f(-3.0) + row * f(0.01)).reshape(-1))
     np.testing.assert_array_equal(o[1].numpy(),

@@ -7,6 +7,7 @@ import os
 import subprocess
 import sys
 import tempfile
+import time
 
 import numpy as np
 import pytest
@@ -75,10 +76,45 @@ def test_cli_glass_nee_matches_reference(tmp_path, monkeypatch):
     assert (d > 1e-3).mean() < 0.005
 
 
-@pytest.mark.parametrize("flag", [["--shard"]])
-def test_cli_unported_flags_raise(flag):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cli.main([CORNELL, "--device", "cpu", *flag])
+def _shard_cli(tmp_path, flags, world=1):
+    """``cli.main`` with ``--shard`` in a subprocess (no process group is
+    made in this one): a world of one, or of ``world`` gloo ranks under
+    ``torch.distributed.run``; (the accumulation of its checkpoint, the
+    PNG, its standard output)."""
+    ck, out = tmp_path / "shard.ckpt", tmp_path / "shard.png"
+    launch = ([] if world == 1 else [
+        "-m", "torch.distributed.run", "--standalone",
+        f"--nproc_per_node={world}"])
+    proc = subprocess.run(
+        [sys.executable, *launch, "-m", "pathtrace_tpu_torch.cli", CORNELL,
+         "--shard", "--device", "cpu", "--res", "20", "18", "--depth", "5",
+         "--spp", "4", "--chunk", "2", "--out", str(out), "--checkpoint",
+         str(ck), *flags], cwd=REPO, capture_output=True, text=True,
+        timeout=300, env=dict(os.environ, PYTHONPATH=REPO,
+                              TMPDIR=str(tmp_path)))
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    accum = np.load(ck)["accum"]
+    return accum, np.asarray(Image.open(out)), proc.stdout
+
+
+@pytest.mark.parametrize("flags,unsharded", [
+    ([], []), (["--nee"], ["--nee"]),
+    (["--engine", "planes"], ["--engine", "planes"]),
+    (["--engine", "xla", "--compaction", "sort"],
+     ["--engine", "xla", "--compaction", "sort"]),
+    # the reference's --shard renders --engine sorted on the wavefront
+    (["--engine", "sorted"], ["--engine", "xla"])],
+    ids=["k1", "k1-nee", "planes", "xla-sort", "sorted"])
+def test_cli_shard_renders_the_unsharded_image(monkeypatch, tmp_path, flags,
+                                               unsharded):
+    accum, png, out = _shard_cli(tmp_path, flags)
+    assert "--shard: a world of 1 process(es), backend gloo" in out
+    ck = tmp_path / "plain.ckpt"
+    want = _cli_accum(monkeypatch, tmp_path, [*unsharded, "--spp", "4",
+                                              "--checkpoint", str(ck)])
+    np.testing.assert_array_equal(accum, np.load(ck)["accum"])
+    np.testing.assert_array_equal(accum, want[0])
+    np.testing.assert_array_equal(png, want[1])
 
 
 @pytest.mark.parametrize("engine", [[], ["--engine", "xla"]],
@@ -145,10 +181,62 @@ def test_cli_engine_planes_renders_the_plain_trace(monkeypatch, tmp_path,
     np.testing.assert_array_equal(got[0], want.numpy())
 
 
-@pytest.mark.parametrize("flag,item", [(["--shard"], "item 4")])
-def test_cli_unported_flags_name_their_item(flag, item):
-    with pytest.raises(NotImplementedError, match=f"Queue 1 {item} "):
-        cli.main([CORNELL, "--device", "cpu", *flag])
+@pytest.mark.parametrize("engine", ["pallas", "xla"])
+def test_cli_shard_on_two_ranks_rank_0_alone_writes(monkeypatch, tmp_path,
+                                                    engine):
+    # two gloo ranks under torch.distributed.run: each chunk's samples
+    # split between them, the image the unsharded one; one line of each
+    # kind printed and one preview written, by rank 0
+    accum, png, out = _shard_cli(tmp_path, ["--engine", engine,
+                                            "--preview-every", "2"], world=2)
+    assert "a world of 2 process(es), backend gloo" in out
+    assert out.count(" saved ") == 1 and out.count("iter 2/4") == 1
+    assert (tmp_path / "cornell.preview.png").exists()
+    want = _cli_accum(monkeypatch, tmp_path, ["--engine", engine, "--spp",
+                                              "4"])
+    np.testing.assert_allclose(accum, want[0], rtol=1e-6, atol=0)
+
+
+def test_cli_shard_resumes_on_two_ranks(monkeypatch, tmp_path):
+    # a checkpoint at 2 samples resumed to 4 by two ranks: the image of an
+    # unsharded render that never stopped; rank 0 alone says so
+    _shard_cli(tmp_path, ["--spp", "2"], world=2)
+    accum, _, out = _shard_cli(tmp_path, ["--resume"], world=2)
+    assert out.count("resumed at iteration 2") == 1
+    want = _cli_accum(monkeypatch, tmp_path, ["--spp", "4"])
+    np.testing.assert_allclose(accum, want[0], rtol=1e-6, atol=0)
+
+
+def test_cli_shard_interactive_quit_reaches_every_rank(tmp_path):
+    # rank 0 polls the control file and sends its events to rank 1: a q
+    # written once the first preview exists stops both ranks (rank 1 would
+    # otherwise wait in its next all_reduce), and the image is saved
+    from pathtrace_tpu_torch.render.interact import send_key
+
+    ctl, log = tmp_path / "ctl", tmp_path / "log"
+    ctl.write_text("")
+    with open(log, "w") as f:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             "--nproc_per_node=2", "-m", "pathtrace_tpu_torch.cli", CORNELL,
+             "--shard", "--device", "cpu", "--res", "8", "8", "--depth", "2",
+             "--spp", "1000000", "--chunk", "2", "--preview-every", "2",
+             "--interactive", str(ctl), "--out", str(tmp_path / "q.png")],
+            cwd=REPO, stdout=f, stderr=subprocess.STDOUT,
+            env=dict(os.environ, PYTHONPATH=REPO, TMPDIR=str(tmp_path)))
+    try:
+        preview = tmp_path / "cornell.preview.png"
+        deadline = time.time() + 120
+        while (not preview.exists() and proc.poll() is None
+               and time.time() < deadline):
+            time.sleep(0.05)
+        send_key(str(ctl), "q")
+        assert proc.wait(timeout=120) == 0, log.read_text()
+    finally:
+        proc.kill()
+    out = log.read_text()
+    assert (tmp_path / "q.png").exists() and " saved " in out
+    assert "/1000000 " in out and "iter 1000000/1000000" not in out
 
 
 @pytest.mark.parametrize("engine", [[], ["--engine", "sorted"],

@@ -8,6 +8,8 @@ JAX, so the GPU-only tests can use it where JAX is not installed.
 import dataclasses
 import os
 
+import numpy as np
+
 import pathtrace_tpu_torch as ptt
 from pathtrace_tpu_torch.ops.cuda import megakernel as K
 from pathtrace_tpu_torch.scene.variants import (  # noqa: F401
@@ -86,3 +88,22 @@ def job(config, res, depth, device="cpu"):
     ``CONFIGS``, ``MESH_CONFIGS`` or ``TEX_CONFIGS``)."""
     name, edits, nee, rr = {**CONFIGS, **MESH_CONFIGS, **TEX_CONFIGS}[config]
     return K.prepare(load(name, edits, res, depth), device, nee=nee, rr=rr)
+
+
+def tree_equal(a, b, path="scene"):
+    """Two scenes (or any of their fields) field by field: the same
+    types, dtypes, shapes and values."""
+    assert type(a) is type(b), (path, type(a), type(b))
+    if dataclasses.is_dataclass(a):
+        for f in dataclasses.fields(a):
+            tree_equal(getattr(a, f.name), getattr(b, f.name),
+                       f"{path}.{f.name}")
+    elif isinstance(a, (tuple, list)):
+        assert len(a) == len(b), path
+        for i, (x, y) in enumerate(zip(a, b)):
+            tree_equal(x, y, f"{path}[{i}]")
+    elif isinstance(a, np.ndarray):
+        assert a.dtype == b.dtype and a.shape == b.shape, path
+        np.testing.assert_array_equal(a, b, err_msg=path)
+    else:
+        assert a == b, path
