@@ -2595,7 +2595,9 @@ def main():
     # the native host runtime (g++) builds beside the kernels (nvcc)
     native = threading.Thread(target=N.available)
     native.start()
-    build.build_kernels(masks, k7_masks=k7_masks, k8_masks=VJ.MASKS)
+    logs = {}
+    build.build_kernels(masks, k7_masks=k7_masks, k8_masks=VJ.MASKS,
+                        logs=logs)
     native.join()
     print(f"build K1 variants {masks}, K7 (masks {k7_masks}), K8 (masks "
           f"{VJ.MASKS}), K6 and K9: {time.perf_counter() - t0:.2f} s, nvcc "
@@ -2608,7 +2610,7 @@ def main():
                       + [(f"k8_m{m}", f"k8_vjp (mask {m})")
                          for m in VJ.MASKS]
                       + [("k6_scan", "k6_scan"), ("k9_probe", "k9_probe")]):
-        sec, log = build.BUILD_INFO.get(lib, (0.0, "(library found built)"))
+        sec, log = logs.get(lib, (0.0, "(library found built)"))
         usage = "; ".join(f"{k}: {v}" for k, v in ptxas_usage(log).items())
         print(f"build {name}: {sec:.2f} s | {usage}", flush=True)
     phase_done("build")

@@ -40,8 +40,6 @@ NVCC_FLAGS = (
 )
 
 _LIBS = {}
-# (seconds, nvcc output) of each build this process ran, by library name
-BUILD_INFO = {}
 
 
 def nvcc_path():
@@ -65,12 +63,13 @@ def _library_path(name, defines):
     return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
 
 
-def build_many(jobs):
+def build_many(jobs, logs=None):
     """Compile each (name, sources, defines) job into a shared library
     unless a build of the same sources, flags and defines exists, all
     ``nvcc`` processes running at once; return the libraries' paths.
     ``sources`` are file names in ``csrc``; ``defines`` are nvcc flags
-    such as ``-DPT_FEATURES=3``."""
+    such as ``-DPT_FEATURES=3``.  A dict ``logs`` gets (seconds, nvcc
+    output) of each build this call ran, by library name."""
     paths, running = [], []
     for name, sources, defines in jobs:
         out = _library_path(name, tuple(defines))
@@ -98,7 +97,8 @@ def build_many(jobs):
                           f"{proc.returncode}):\n{' '.join(cmd)}\n{log}")
             continue
         os.replace(tmp, out)
-        BUILD_INFO[name] = (seconds, log)
+        if logs is not None:
+            logs[name] = (seconds, log)
     if failed:
         raise RuntimeError("\n".join(failed))
     return paths
@@ -127,16 +127,17 @@ K6_JOB = ("k6_scan", ["scan.cu"], ())
 K9_JOB = ("k9_probe", ["probe_trav.cu"], ())
 
 
-def build_kernels(masks, k7_masks=(), k8_masks=()):
+def build_kernels(masks, k7_masks=(), k8_masks=(), logs=None):
     """Build the K1 (and K5) libraries of these feature masks, the K7
     and K8 libraries of ``k7_masks`` and ``k8_masks``, the K6 scan's and
     the K9 probe's at once, nvcc in parallel, so that later
     :func:`load_k1`, :func:`load_k7`, :func:`load_k8`, :func:`load_k6`
-    and :func:`load_k9` calls find them built."""
+    and :func:`load_k9` calls find them built; ``logs`` as
+    :func:`build_many`'s."""
     build_many([_k1_job(m) for m in sorted(set(masks))]
                + [_k7_job(m) for m in sorted(set(k7_masks))]
                + [_k8_job(m) for m in sorted(set(k8_masks))]
-               + [K6_JOB, K9_JOB])
+               + [K6_JOB, K9_JOB], logs)
 
 
 def _load_grad(key, job, mask, entry, argtypes):

@@ -44,6 +44,7 @@ from ...core.rng import Draw
 from ...core.vecmath import as_f32 as _f32
 from ...ops.intersect import triangle_uv_gradients
 from ...render.integrator import camera_basis, geom_transforms
+from ...utils import profiling
 from .. import lights as L
 from .bound import needed as _needed
 from .bound import read as _read
@@ -1789,43 +1790,44 @@ def trace_k1(cam, mats, gmat, geom_types, width, height, depth, it0, n_spp,
     the kernel's per-sample form (``k1_trace<true>``); else (depth,),
     summed over the samples.  Raises ``ValueError`` for a float texel
     table (:func:`check_byte_texels`), on the CPU too."""
-    check_byte_texels(texels)
-    device = cam.device
-    if device.type == "cpu":
-        return trace_plain(cam, mats, gmat, geom_types, width, height,
-                           depth, it0, n_spp, pix0, n_local, features,
-                           lights, rr, tri, nodes, bvh_meta, texels,
-                           tex_geom, btex_geom, per_sample)
-    if device.type != "cuda":
-        raise ValueError(f"K1 runs on cuda or cpu tensors, not {device}")
-    from . import build
+    with profiling.span("k1", it0):
+        check_byte_texels(texels)
+        device = cam.device
+        if device.type == "cpu":
+            return trace_plain(cam, mats, gmat, geom_types, width, height,
+                               depth, it0, n_spp, pix0, n_local, features,
+                               lights, rr, tri, nodes, bvh_meta, texels,
+                               tex_geom, btex_geom, per_sample)
+        if device.type != "cuda":
+            raise ValueError(f"K1 runs on cuda or cpu tensors, not {device}")
+        from . import build
 
-    n_pixels = width * height
-    if n_local is None:
-        n_local = n_pixels - pix0
-    if not (0 < depth and 0 <= n_spp and 0 <= pix0 and 0 < n_local
-            and pix0 + n_local <= n_pixels < 2 ** 31):
-        raise ValueError(
-            f"bad K1 sizes: depth {depth}, {n_spp} spp, pixels "
-            f"{pix0}+{n_local} of {n_pixels}")
-    mask, args = kernel_tables(cam, mats, gmat, geom_types, features, lights,
-                               rr, tri, nodes, bvh_meta, texels, tex_geom,
-                               btex_geom)
-    rad = torch.empty((n_local, 3), dtype=torch.float32, device=device)
-    # the kernel adds into these as unsigned 64-bit integers: per sample
-    # (its per-sample build), or summed over the samples
-    counts = torch.zeros((n_spp, depth) if per_sample else depth,
-                         dtype=torch.int64, device=device)
-    lib = build.load_k1(mask)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.pt_k1_trace(
-            *args, width, height, depth, it0 & 0xFFFFFFFF, n_spp, pix0,
-            n_local, rad.data_ptr(), counts.data_ptr(), int(per_sample),
-            stream)
-    launch_error("K1", lib, err)
-    LAUNCHES[mask] += 1
-    return rad, counts
+        n_pixels = width * height
+        if n_local is None:
+            n_local = n_pixels - pix0
+        if not (0 < depth and 0 <= n_spp and 0 <= pix0 and 0 < n_local
+                and pix0 + n_local <= n_pixels < 2 ** 31):
+            raise ValueError(
+                f"bad K1 sizes: depth {depth}, {n_spp} spp, pixels "
+                f"{pix0}+{n_local} of {n_pixels}")
+        mask, args = kernel_tables(cam, mats, gmat, geom_types, features,
+                                   lights, rr, tri, nodes, bvh_meta, texels,
+                                   tex_geom, btex_geom)
+        rad = torch.empty((n_local, 3), dtype=torch.float32, device=device)
+        # the kernel adds into these as unsigned 64-bit integers: per sample
+        # (its per-sample build), or summed over the samples
+        counts = torch.zeros((n_spp, depth) if per_sample else depth,
+                             dtype=torch.int64, device=device)
+        lib = build.load_k1(mask)
+        with torch.cuda.device(device):
+            stream = torch.cuda.current_stream(device).cuda_stream
+            err = lib.pt_k1_trace(
+                *args, width, height, depth, it0 & 0xFFFFFFFF, n_spp, pix0,
+                n_local, rad.data_ptr(), counts.data_ptr(), int(per_sample),
+                stream)
+        launch_error("K1", lib, err)
+        LAUNCHES[mask] += 1
+        return rad, counts
 
 
 TEXELS = ("u32", "f32")
@@ -1843,25 +1845,27 @@ def prepare(scene, device="cuda", nee=False, rr=False, texels="u32"):
     table, for :func:`trace_plain` alone (the planes engine): any texel
     value renders, and a map that requires grad keeps its graph; the
     kernels refuse such a job."""
-    if texels not in TEXELS:
-        raise ValueError(f"texels must be one of {TEXELS}, not {texels!r}")
-    if texels == "u32":
-        check_supported(scene)
-    device = resolve_device(device)
-    cam, mats, gmat = pack_scene(scene, device)
-    lights = pack_lights(scene, device)[0] if nee else None
-    tri, nodes, bvh_meta = pack_mesh(scene, device)
-    tex_geom, btex_geom = tex_statics(scene)
-    width, height = scene.resolution
-    return dict(cam=cam, mats=mats, gmat=gmat,
-                geom_types=tuple(scene.geoms.type), width=width,
-                height=height, depth=int(scene.trace_depth),
-                features=scene_features(scene), lights=lights, rr=rr,
-                tri=tri, nodes=nodes, bvh_meta=bvh_meta,
-                texels=(pack_textures_f32 if texels == "f32" else
-                        pack_textures)(scene, device)
-                if tex_geom or btex_geom else None,
-                tex_geom=tex_geom, btex_geom=btex_geom)
+    with profiling.span("prepare"):
+        if texels not in TEXELS:
+            raise ValueError(
+                f"texels must be one of {TEXELS}, not {texels!r}")
+        if texels == "u32":
+            check_supported(scene)
+        device = resolve_device(device)
+        cam, mats, gmat = pack_scene(scene, device)
+        lights = pack_lights(scene, device)[0] if nee else None
+        tri, nodes, bvh_meta = pack_mesh(scene, device)
+        tex_geom, btex_geom = tex_statics(scene)
+        width, height = scene.resolution
+        return dict(cam=cam, mats=mats, gmat=gmat,
+                    geom_types=tuple(scene.geoms.type), width=width,
+                    height=height, depth=int(scene.trace_depth),
+                    features=scene_features(scene), lights=lights, rr=rr,
+                    tri=tri, nodes=nodes, bvh_meta=bvh_meta,
+                    texels=(pack_textures_f32 if texels == "f32" else
+                            pack_textures)(scene, device)
+                    if tex_geom or btex_geom else None,
+                    tex_geom=tex_geom, btex_geom=btex_geom)
 
 
 def pathtrace_batch_cuda(scene, it0, n_iters, device="cuda", nee=False,

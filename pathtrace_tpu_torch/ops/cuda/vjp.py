@@ -47,6 +47,7 @@ from collections import Counter
 import torch
 
 from ...render import diff as D
+from ...utils import profiling
 from . import megakernel as K
 
 # Launches of K8 by feature mask.
@@ -184,25 +185,38 @@ def render_vjp(scene, ct, it0, n_spp, nee=False, device="cuda",
     ``plain`` runs K8's plain version (:func:`k8_plain`) on ``device`` in
     the kernel's place.  Raises ``NotImplementedError`` outside K8's
     slice (:func:`check_supported`)."""
-    check_supported(scene, nee)
-    device = K.resolve_device(device)
-    params = D.requires_grad(D.split_params(scene))
-    sc = D.merge_params(scene, params)
-    tables = list(K.pack_scene(sc, device))
-    lights = K.pack_lights(sc, device)[0] if nee else None
-    if lights is not None:
-        tables.append(lights)
-    tri, nodes, bvh_meta = K.pack_mesh(scene, device)
-    ct = torch.as_tensor(ct, dtype=torch.float32).to(device).reshape(
-        scene.pixel_count, 3).contiguous()
+    # the span closes once the call's locals, the packing's graph among
+    # them, are freed
+    with profiling.span("vjp", it0):
+        return _render_vjp(scene, ct, it0, n_spp, nee, device, plain)
+
+
+def _render_vjp(scene, ct, it0, n_spp, nee, device, plain):
+    with profiling.span("vjp.pack"):
+        check_supported(scene, nee)
+        device = K.resolve_device(device)
+        params = D.requires_grad(D.split_params(scene))
+        sc = D.merge_params(scene, params)
+        tables = list(K.pack_scene(sc, device))
+        lights = K.pack_lights(sc, device)[0] if nee else None
+        if lights is not None:
+            tables.append(lights)
+        tri, nodes, bvh_meta = K.pack_mesh(scene, device)
+        ct = torch.as_tensor(ct, dtype=torch.float32).to(device).reshape(
+            scene.pixel_count, 3).contiguous()
     width, height = scene.resolution
     rad, d_tables = (k8_plain if plain else trace_k8)(
         *(t.detach() for t in tables[:3]), tuple(scene.geoms.type), width,
         height, int(scene.trace_depth), it0, n_spp,
         lights.detach() if lights is not None else None, ct, tri, nodes,
         bvh_meta, K.scene_features(scene))
-    torch.autograd.backward(tables, d_tables)
-    grads = D.grads(params)
+    # the chain's first step copies the table gradients to the host,
+    # which waits for K8: wait here, so the chain's span holds none of it
+    if device.type == "cuda":
+        torch.cuda.current_stream(device).synchronize()
+    with profiling.span("vjp.chain"):
+        torch.autograd.backward(tables, d_tables)
+        grads = D.grads(params)
     if scene.mesh.count:
         grads["tri_verts"] = None
     return rad, grads

@@ -5,6 +5,9 @@ Counterpart of ``pathtrace_tpu/utils/profiling.py``:
 * :func:`trace` records a ``torch.profiler`` trace (the card's kernels
   too when CUDA is there) and writes it for Perfetto / TensorBoard;
   :func:`device_busy` reads the card's busy time out of it;
+* :func:`span` marks a stretch of the program's host work while a
+  profiler records (``ptt.<name>`` in the trace, a record in
+  :func:`spans`) and costs one flag check when none does;
 * :func:`time_fn` times a call: on the card the median of CUDA events
   around it, the result read back to the host; on the CPU
   ``time.perf_counter``;
@@ -14,12 +17,15 @@ Counterpart of ``pathtrace_tpu/utils/profiling.py``:
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import os
 import tempfile
 import time
 
 import numpy as np
 import torch
+
+from torch._C._autograd import _profiler_enabled
 
 
 @contextlib.contextmanager
@@ -29,7 +35,10 @@ def trace(logdir=None, device="cuda"):
     ``device`` is a CUDA device; on exit the trace is written to
     ``logdir`` (default: ``pathtrace_tpu_torch_trace`` in the temporary
     directory) as ``trace.json``.  Yields the profiler, whose
-    ``key_averages()`` and :func:`device_busy` read the window."""
+    ``key_averages()`` and :func:`device_busy` read the window.  The
+    program's spans (:func:`span`) of the window are in ``trace.json``,
+    as ``ptt.<name>``, and in :func:`spans`, which this clears when it
+    starts."""
     from torch.profiler import ProfilerActivity, profile
 
     logdir = logdir or os.path.join(tempfile.gettempdir(),
@@ -37,10 +46,68 @@ def trace(logdir=None, device="cuda"):
     activities = [ProfilerActivity.CPU]
     if torch.device(device).type == "cuda":
         activities.append(ProfilerActivity.CUDA)
+    _RECORDS.clear()
+    _OPEN.clear()
     with profile(activities=activities) as prof:
         yield prof
     os.makedirs(logdir, exist_ok=True)
     prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
+
+
+@dataclasses.dataclass
+class SpanRecord:
+    """One :func:`span`: its ``name``, the index in :func:`spans` of the
+    span that was open around it (-1: none), ``it`` (the iteration that
+    the spans of one chunk or step share, or None) and its start and end
+    on the wall clock (``time.time_ns()``, the clock of the profiler's
+    raw events)."""
+    name: str
+    parent: int
+    it: int | None
+    start_ns: int
+    end_ns: int = 0
+
+
+_RECORDS = []  # the SpanRecords, while a profiler records
+_OPEN = []     # the indices of the spans open now, innermost last
+
+
+class span:
+    """``with profiling.span("name", it):`` marks the block.  While a
+    ``torch.profiler`` records, the block is ``record_function(
+    "ptt.name")`` in its trace and a :class:`SpanRecord` in :func:`spans`;
+    otherwise it is a flag check and nothing else, so the program's hot
+    paths keep their spans when no one traces them."""
+
+    __slots__ = ("name", "it", "_fn", "_rec")
+
+    def __init__(self, name, it=None):
+        self.name, self.it, self._rec = name, it, None
+
+    def __enter__(self):
+        if _profiler_enabled():
+            self._fn = torch.profiler.record_function(f"ptt.{self.name}")
+            self._fn.__enter__()
+            self._rec = SpanRecord(self.name, _OPEN[-1] if _OPEN else -1,
+                             self.it, time.time_ns())
+            _OPEN.append(len(_RECORDS))
+            _RECORDS.append(self._rec)
+        return self
+
+    def __exit__(self, *exc):
+        if self._rec is not None:
+            self._rec.end_ns = time.time_ns()
+            if _OPEN:
+                _OPEN.pop()
+            self._fn.__exit__(*exc)
+        return False
+
+
+def spans():
+    """The :class:`SpanRecord` records of the spans that ran while a profiler
+    recorded, in the order they opened; :func:`trace` clears them when it
+    starts."""
+    return list(_RECORDS)
 
 
 def device_busy(prof):

@@ -541,11 +541,12 @@ def main(argv):
         from pathtrace_tpu_torch.ops.cuda import build
 
         t0 = time.perf_counter()
-        build.build_kernels((), k8_masks=masks)  # nvcc at once
+        logs = {}
+        build.build_kernels((), k8_masks=masks, logs=logs)  # nvcc at once
         print(f"build K8 masks {masks} ({root}): "
               f"{time.perf_counter() - t0:.2f} s", flush=True)
         for m in masks:
-            sec, log = build.BUILD_INFO.get(f"k8_m{m}", (0.0, ""))
+            sec, log = logs.get(f"k8_m{m}", (0.0, ""))
             for fn, usage in ptxas_usage(log).items():
                 print(f"regs {root} k8 mask {m} {fn}: {usage} (build "
                       f"{sec:.2f} s)", flush=True)

@@ -143,9 +143,10 @@ def build_all(csrc, build_dir):
     from torch_digest import ptxas_usage
 
     use(B, csrc, build_dir)
-    B.build_many([B._k1_job(m) for m in MASKS])
+    logs = {}
+    B.build_many([B._k1_job(m) for m in MASKS], logs)
     for m in MASKS:
-        log = B.BUILD_INFO.get(f"k1_m{m}", (0.0, ""))[1]  # "": built before
+        log = logs.get(f"k1_m{m}", (0.0, ""))[1]  # "": built before
         for fn, usage in ptxas_usage(log).items():
             print(f"regs {csrc} mask {m} {fn}: {usage}", flush=True)
 

@@ -373,9 +373,10 @@ def build_all(csrc, build_dir):
     from torch_digest import ptxas_usage
 
     use(B, csrc, build_dir)
-    B.build_many([B._k7_job(m) for m in K7_MASKS] + [B.K9_JOB])
+    logs = {}
+    B.build_many([B._k7_job(m) for m in K7_MASKS] + [B.K9_JOB], logs)
     for name in [f"k7_m{m}" for m in K7_MASKS] + ["k9_probe"]:
-        log = B.BUILD_INFO.get(name, (0.0, ""))[1]  # "": built before
+        log = logs.get(name, (0.0, ""))[1]  # "": built before
         for fn, usage in ptxas_usage(log).items():
             print(f"regs {csrc} {name} {fn}: {usage}", flush=True)
 

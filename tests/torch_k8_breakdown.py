@@ -179,11 +179,12 @@ def build_all(csrc, build_dir):
     from pathtrace_tpu_torch.ops.cuda import build as B
 
     use(B, csrc, build_dir)
-    B.build_many([B._k8_job(m) for m in MASKS])
+    logs = {}
+    B.build_many([B._k8_job(m) for m in MASKS], logs)
     from torch_digest import ptxas_usage
 
     for m in MASKS:
-        log = B.BUILD_INFO.get(f"k8_m{m}", (0.0, ""))[1]  # "": built before
+        log = logs.get(f"k8_m{m}", (0.0, ""))[1]  # "": built before
         for fn, usage in ptxas_usage(log).items():
             if fn == "k8_vjp":
                 print(f"regs {csrc} mask {m}: {usage}", flush=True)
