@@ -5,7 +5,11 @@ Counterpart of ``pathtrace_tpu/core/vecmath.py``: the same conventions
 ``T @ Rx @ Ry @ Rz @ S`` with degrees, normals by the inverse-transpose)
 and the same operation order, written as explicit f32 mul-adds so the
 results round exactly as the reference's do.  Vectors are tensors whose
-last axis has size 3; everything broadcasts.
+last axis has size 3; everything broadcasts.  A product's terms are
+formed in one broadcast multiply and added left to right by
+:func:`sum3`: each entry rounds as the reference's ``a0*b0 + a1*b1 +
+a2*b2`` does, in a handful of tensor ops (no fused multiply-add, no
+library matmul, whose summation order is its own).
 """
 
 from __future__ import annotations
@@ -26,9 +30,14 @@ def as_f32(x):
     return torch.as_tensor(np.asarray(x), dtype=torch.float32)
 
 
+def sum3(p):
+    """``p[..., 0] + p[..., 1] + p[..., 2]``, added left to right."""
+    x, y, z = p.unbind(-1)
+    return x + y + z
+
+
 def dot(a, b):
-    return (a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1]
-            + a[..., 2] * b[..., 2])[..., None]
+    return sum3(a * b)[..., None]
 
 
 def maximum(x, c):
@@ -63,11 +72,10 @@ def normalize(v, eps=0.0):
 
 
 def cross(a, b):
-    ax, ay, az = a[..., 0], a[..., 1], a[..., 2]
-    bx, by, bz = b[..., 0], b[..., 1], b[..., 2]
-    return torch.stack(
-        [ay * bz - az * by, az * bx - ax * bz, ax * by - ay * bx], dim=-1
-    )
+    """``(ay bz - az by, az bx - ax bz, ax by - ay bx)``: the axes
+    rotated by one and by two."""
+    return (torch.roll(a, -1, -1) * torch.roll(b, 1, -1)
+            - torch.roll(a, 1, -1) * torch.roll(b, -1, -1))
 
 
 def reflect(i, n):
@@ -94,24 +102,13 @@ def luminance(rgb):
 
 def mat3_vec(m, v):
     """(...,3,3) @ (...,3) -> (...,3), explicit f32 mul-adds."""
-    return torch.stack(
-        [m[..., i, 0] * v[..., 0] + m[..., i, 1] * v[..., 1]
-         + m[..., i, 2] * v[..., 2] for i in range(3)],
-        dim=-1,
-    )
+    return sum3(m * v[..., None, :])
 
 
 def mat3_mat(a, b):
     """(...,3,3) @ (...,3,3) -> (...,3,3), explicit f32 mul-adds."""
-    rows = [
-        torch.stack(
-            [a[..., i, 0] * b[..., 0, j] + a[..., i, 1] * b[..., 1, j]
-             + a[..., i, 2] * b[..., 2, j] for j in range(3)],
-            dim=-1,
-        )
-        for i in range(3)
-    ]
-    return torch.stack(rows, dim=-2)
+    x, y, z = (a[..., :, :, None] * b[..., None, :, :]).unbind(-2)
+    return x + y + z
 
 
 def transform_point(m, p):
@@ -124,44 +121,64 @@ def transform_dir(m, d):
     return mat3_vec(m[..., :3, :3], d)
 
 
-def _rot_axis(c, s, axis):
-    z = torch.zeros_like(c)
-    o = torch.ones_like(c)
-    if axis == 0:
-        rows = [[o, z, z], [z, c, -s], [z, s, c]]
-    elif axis == 1:
-        rows = [[c, z, s], [z, o, z], [-s, z, c]]
-    else:
-        rows = [[c, -s, z], [s, c, z], [z, z, o]]
-    return torch.stack([torch.stack(r, dim=-1) for r in rows], dim=-2)
+# Rx, Ry, Rz, entry by entry, as indices into their axis's
+# (0, 1, cos, sin, -sin): axis a's values sit at 5a .. 5a + 4
+_ROT_ENTRIES = torch.tensor([
+    [[1, 0, 0], [0, 2, 4], [0, 3, 2]],
+    [[7, 5, 8], [5, 6, 5], [9, 5, 7]],
+    [[12, 14, 10], [13, 12, 10], [10, 10, 11]],
+])
 
 
 def _rotation(rotation_deg):
+    """``Rx @ Ry @ Rz`` of the angles (degrees), (..., 3) -> (..., 3, 3)."""
     rad = rotation_deg * (PI / 180.0)
     c, s = torch.cos(rad), torch.sin(rad)
-    r = _rot_axis(c[..., 0], s[..., 0], 0)
-    r = mat3_mat(r, _rot_axis(c[..., 1], s[..., 1], 1))
-    return mat3_mat(r, _rot_axis(c[..., 2], s[..., 2], 2))
+    values = torch.stack([torch.zeros_like(c), torch.ones_like(c), c, s, -s],
+                         dim=-1).flatten(-2)
+    rx, ry, rz = values[..., _ROT_ENTRIES.to(values.device)].unbind(-3)
+    return mat3_mat(mat3_mat(rx, ry), rz)
 
 
-def _homogeneous(m):
+def homogeneous(m):
+    """(..., 3, 4) -> (..., 4, 4), the bottom row (0, 0, 0, 1) added."""
     bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=m.dtype,
                           device=m.device).expand(m.shape[:-2] + (1, 4))
     return torch.cat([m, bottom], dim=-2)
 
 
+def _trs(rot, translation, scale):
+    """The top three rows of :func:`trs_matrix`, from ``rot`` =
+    :func:`_rotation`; (..., 3, 4)."""
+    rs = rot * scale[..., None, :]  # R @ diag(scale)
+    return torch.cat([rs, translation[..., :, None]], dim=-1)
+
+
+def _trs_inv(rot, translation, scale, eps):
+    """The top three rows of :func:`trs_inverse`, from ``rot``."""
+    rt = rot.transpose(-1, -2)
+    inv_s = 1.0 / (scale + torch.where(scale >= 0, eps, -eps))
+    lin = rt * inv_s[..., :, None]  # diag(1/s) @ R^T
+    trans = -mat3_vec(lin, translation)
+    return torch.cat([lin, trans[..., :, None]], dim=-1)
+
+
 def trs_matrix(translation, rotation_deg, scale):
     """``T @ Rx @ Ry @ Rz @ S`` (degrees); inputs (..., 3), output
     (..., 4, 4)."""
-    rs = _rotation(rotation_deg) * scale[..., None, :]  # R @ diag(scale)
-    return _homogeneous(torch.cat([rs, translation[..., :, None]], dim=-1))
+    return homogeneous(_trs(_rotation(rotation_deg), translation, scale))
 
 
 def trs_inverse(translation, rotation_deg, scale, eps=1e-12):
     """Analytic inverse of :func:`trs_matrix`:
     ``S^-1 @ Rz^T Ry^T Rx^T @ T^-1``."""
-    rt = _rotation(rotation_deg).transpose(-1, -2)
-    inv_s = 1.0 / (scale + torch.where(scale >= 0, eps, -eps))
-    lin = rt * inv_s[..., :, None]  # diag(1/s) @ R^T
-    trans = -mat3_vec(lin, translation)
-    return _homogeneous(torch.cat([lin, trans[..., :, None]], dim=-1))
+    return homogeneous(_trs_inv(_rotation(rotation_deg), translation, scale,
+                                 eps))
+
+
+def trs_affine(translation, rotation_deg, scale, eps=1e-12):
+    """(the top three rows of :func:`trs_matrix`, of :func:`trs_inverse`),
+    (..., 3, 4) each, with the same bits, from one rotation."""
+    rot = _rotation(rotation_deg)
+    return (_trs(rot, translation, scale),
+            _trs_inv(rot, translation, scale, eps))

@@ -43,7 +43,7 @@ from ...core.constants import (
 from ...core.rng import Draw
 from ...core.vecmath import as_f32 as _f32
 from ...ops.intersect import triangle_uv_gradients
-from ...render.integrator import camera_basis, geom_transforms
+from ...render.integrator import camera_basis, geom_affine
 from ...utils import profiling
 from .. import lights as L
 from .bound import needed as _needed
@@ -300,16 +300,15 @@ def pack_scene(scene, device="cuda"):
         torch.zeros((mid.shape[0], 2)),
     ], dim=1)
 
-    fwd, inv, inv_t = geom_transforms(scene.geoms)
+    fwd, inv = geom_affine(scene.geoms)
     n_g = fwd.shape[0]
     vel = scene.geoms.velocity
     vel = _f32(vel) if vel is not None else torch.zeros((n_g, 3))
     push = TRANSMISSION_PUSH * torch.amax(
         torch.abs(_f32(scene.geoms.scale)), dim=-1)[:, None]
     gmat = torch.cat([
-        fwd[:, :3, :].reshape(-1, 12),
-        inv[:, :3, :].reshape(-1, 12),
-        inv_t[:, :3, :3].reshape(-1, 9),
+        fwd.reshape(-1, 12), inv.reshape(-1, 12),
+        inv[:, :, :3].transpose(1, 2).reshape(-1, 9),
         vel, push, torch.zeros((n_g, 3)),
     ], dim=1)
     return cam.to(device), mats.to(device), gmat.to(device)
@@ -327,37 +326,36 @@ def pack_lights(scene, device="cuda"):
     device = resolve_device(device)
     if not scene.light_indices:
         return None, ()
-    fwd, _, inv_t = geom_transforms(scene.geoms)
+    fwd, inv = geom_affine(scene.geoms)
     m = scene.materials
     color, emittance = _f32(m.color), _f32(m.emittance)
+    vel = scene.geoms.velocity
     rows, statics = [], []
     for li in scene.light_indices:
         ltype = int(scene.geoms.type[li])
         statics.append((int(li), ltype))
         mid = int(scene.geoms.material_id[li])
-        row = torch.zeros(LIGHT_COLS)
-        row[0], row[1] = float(li), float(ltype)
-        row[2:5] = color[mid] * emittance[mid]
         if ltype == T.SPHERE:
-            row[12:21] = fwd[li][:3, :3].reshape(-1)
-            row[21:24] = fwd[li][:3, 3]
-            row[24:33] = inv_t[li][:3, :3].reshape(-1)
-            row[33] = L.sphere_det3(fwd[li])
+            body = [torch.zeros(7), fwd[li][:, :3].reshape(-1), fwd[li][:, 3],
+                    inv[li][:, :3].transpose(0, 1).reshape(-1),
+                    L.sphere_det3(fwd[li])[None], torch.zeros(86)]
         else:
             tab = L.cube_light_tables(fwd[li])
-            area = tab["area"]
+            area = tab["area"].unbind()
             total = area[0]
             for a in area[1:]:
                 total = total + a
-            row[5] = total
-            row[6:12] = torch.cumsum(area, 0) / torch.clamp_min(total, 1e-20)
-            row[12:30] = tab["origin"].reshape(-1)
-            row[30:48] = tab["e_b"].reshape(-1)
-            row[48:66] = tab["e_c"].reshape(-1)
-            row[66:84] = tab["normal"].reshape(-1)
-        if scene.geoms.velocity is not None:
-            row[120:123] = _f32(scene.geoms.velocity)[li]
-        rows.append(row)
+            body = [total[None],
+                    torch.cumsum(tab["area"], 0) / torch.clamp_min(total,
+                                                                   1e-20),
+                    *(tab[k].reshape(-1)
+                      for k in ("origin", "e_b", "e_c", "normal")),
+                    torch.zeros(36)]
+        rows.append(torch.cat([
+            torch.tensor([float(li), float(ltype)]),
+            color[mid] * emittance[mid], *body,
+            _f32(vel)[li] if vel is not None else torch.zeros(3),
+            torch.zeros(LIGHT_COLS - 123)]))
     return torch.stack(rows).to(device), tuple(statics)
 
 

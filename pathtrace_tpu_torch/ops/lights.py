@@ -6,7 +6,8 @@ light, are what ``ops/cuda/megakernel.pack_lights`` writes into the
 light table that the megakernel's NEE section samples; the samplers and
 :func:`nee_contribution` are the wavefront's
 (``render/integrator._nee_direct``).  Sums of three or six terms are
-written out left to right, as the reference's reductions add them.
+added left to right, as the reference's reductions add them; a cube's
+six faces are computed at once, as (6,3) tensors.
 
 Sampling measure: uniform by area on the light.  A cube light picks a
 face with probability in proportion to its world-space area, then a
@@ -23,54 +24,45 @@ from ..core import vecmath as vm
 from ..core.constants import PI, TWO_PI
 
 
-def _col(m, j):
-    """j-th column of the linear part of a (4,4) transform, (3,)."""
-    return m[:3, j]
+# the faces in the order +x, -x, +y, -y, +z, -z: each face's axis, the
+# two edge axes after it, and its side of the cube
+_FACE_AXIS = torch.tensor([0, 0, 1, 1, 2, 2])
+_FACE_B = (_FACE_AXIS + 1) % 3
+_FACE_C = (_FACE_AXIS + 2) % 3
+_FACE_SIGN = torch.tensor([1.0, -1.0, 1.0, -1.0, 1.0, -1.0])
 
 
-def _cross(a, b):
-    return torch.stack([a[1] * b[2] - a[2] * b[1],
-                        a[2] * b[0] - a[0] * b[2],
-                        a[0] * b[1] - a[1] * b[0]])
-
-
-def _sum3(v):
-    return v[0] + v[1] + v[2]
+def _cols(fwd_g):
+    """The columns of the linear part of a (4,4) or (3,4) transform, as
+    the rows of a (3,3)."""
+    return fwd_g[:3, :3].transpose(0, 1)
 
 
 def cube_light_tables(fwd_g):
     """Per-face (origin, edge_b, edge_c, outward normal, area) for the 6
-    faces of a transformed unit cube.  ``fwd_g``: (4,4) float32.  Returns
-    a dict of (6,3) / (6,) tensors, faces in the order +x, -x, +y, -y,
-    +z, -z."""
-    cols = [_col(fwd_g, j) for j in range(3)]
-    trans = fwd_g[:3, 3]
-    origins, e_bs, e_cs, normals, areas = [], [], [], [], []
-    for axis in range(3):
-        b, c = (axis + 1) % 3, (axis + 2) % 3
-        cross = _cross(cols[b], cols[c])
-        area = torch.sqrt(_sum3(cross * cross))
-        for sign in (1.0, -1.0):
-            center = trans + cols[axis] * (0.5 * sign)
-            # orient the plane normal cross(Mb, Mc) outward: along
-            # sign * (world direction of +axis)
-            orient = _sum3(cross * cols[axis])
-            n = cross * (torch.where(orient >= 0, 1.0, -1.0) * sign)
-            n = n / torch.clamp_min(torch.sqrt(_sum3(n * n)), 1e-20)
-            origins.append(center)
-            e_bs.append(cols[b])
-            e_cs.append(cols[c])
-            normals.append(n)
-            areas.append(area)
-    return dict(origin=torch.stack(origins), e_b=torch.stack(e_bs),
-                e_c=torch.stack(e_cs), normal=torch.stack(normals),
-                area=torch.stack(areas))
+    faces of a transformed unit cube.  ``fwd_g``: (4,4) or (3,4) float32.
+    Returns a dict of (6,3) / (6,) tensors, faces in the order +x, -x,
+    +y, -y, +z, -z, all six at once."""
+    dev = fwd_g.device
+    cols = _cols(fwd_g)
+    sign = _FACE_SIGN.to(dev)
+    e_b, e_c = cols[_FACE_B.to(dev)], cols[_FACE_C.to(dev)]
+    axis = cols[_FACE_AXIS.to(dev)]
+    cross = vm.cross(e_b, e_c)
+    area = torch.sqrt(vm.sum3(cross * cross))
+    center = fwd_g[:3, 3] + axis * (0.5 * sign)[:, None]
+    # orient the plane normal cross(Mb, Mc) outward: along
+    # sign * (world direction of +axis)
+    orient = vm.sum3(cross * axis)
+    n = cross * (torch.where(orient >= 0, 1.0, -1.0) * sign)[:, None]
+    n = n / torch.clamp_min(torch.sqrt(vm.sum3(n * n)), 1e-20)[:, None]
+    return dict(origin=center, e_b=e_b, e_c=e_c, normal=n, area=area)
 
 
 def sphere_det3(fwd_g):
-    """|det| of the linear 3x3 part of a (4,4) transform, ()."""
-    c0, c1, c2 = (_col(fwd_g, j) for j in range(3))
-    return torch.abs(_sum3(c0 * _cross(c1, c2)))
+    """|det| of the linear 3x3 part of a (4,4) or (3,4) transform, ()."""
+    c0, c1, c2 = _cols(fwd_g).unbind(0)
+    return torch.abs(vm.sum3(c0 * vm.cross(c1, c2)))
 
 
 def sample_cube_light(fwd_g, u_sel, u, v):

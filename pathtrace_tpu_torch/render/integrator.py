@@ -63,13 +63,18 @@ def camera_basis(camera, width, height):
     return view, right, up, tan_x, tan_y
 
 
+def geom_affine(geoms):
+    """TRS -> (forward, inverse), the top three rows of each, (G,3,4):
+    :func:`geom_transforms` without the constant bottom row, from one
+    rotation per geom."""
+    return vm.trs_affine(_f32(geoms.translation), _f32(geoms.rotation),
+                         _f32(geoms.scale))
+
+
 def geom_transforms(geoms):
     """TRS -> (forward, inverse, inverse-transpose), (G,4,4) each — the
     precompute of src/scene.cpp:82-85, differentiable in the TRS."""
-    t, r, s = (_f32(geoms.translation), _f32(geoms.rotation),
-               _f32(geoms.scale))
-    fwd = vm.trs_matrix(t, r, s)
-    inv = vm.trs_inverse(t, r, s)
+    fwd, inv = (vm.homogeneous(m) for m in geom_affine(geoms))
     return fwd, inv, inv.transpose(-1, -2)
 
 
