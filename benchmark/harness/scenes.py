@@ -1,12 +1,23 @@
 """A configuration's scene as the program reads it: the scene file in
 the course's text format, written from the configuration's numbers, and
 the OBJ files its mesh objects name (``meshes.py``), in a fixed
-directory of the checkout."""
+directory of the checkout.
+
+A material writes ``RGB``, ``SPECEX``, ``SPECRGB``, ``REFL``, ``REFR``,
+``REFRIOR`` and ``EMITTANCE``; the camera ``RES``, ``FOVY``,
+``ITERATIONS``, ``DEPTH``, ``FILE``, ``EYE``, ``VIEW``, ``UP`` and, where
+it carries ``aperture`` and ``focal``, the thin lens's ``APERTURE`` and
+``FOCAL``; an object its shape (a mesh with its OBJ), ``material``,
+``TRANS``, ``ROTAT`` and ``SCALE``.  Any other key, such as a checker,
+bump, subsurface, motion or texture that the reference does not trace,
+raises ``ValueError`` naming it (``reference/tables.check_config``), so no
+feature reaches the program unseen by the reference."""
 
 from __future__ import annotations
 
 import os
 
+from ..reference.tables import check_config
 from . import meshes
 
 
@@ -16,7 +27,9 @@ def _nums(v):
 
 def scene_text(cfg, obj_names):
     """The scene file of configuration ``cfg``; ``obj_names`` maps each
-    mesh object's index to its OBJ file's name, beside the scene file."""
+    mesh object's index to its OBJ file's name, beside the scene file.
+    Raises ``ValueError`` for a key it does not write."""
+    check_config(cfg)
     out = []
     for i, m in enumerate(cfg["materials"]):
         out += [f"MATERIAL {i}", f"RGB {_nums(m['rgb'])}",
@@ -29,7 +42,10 @@ def scene_text(cfg, obj_names):
             f"FOVY {c['fovy']!r}", f"ITERATIONS {c['iterations']}",
             f"DEPTH {c['depth']}", f"FILE {c['file']}",
             f"EYE {_nums(c['eye'])}", f"VIEW {_nums(c['view'])}",
-            f"UP {_nums(c['up'])}", ""]
+            f"UP {_nums(c['up'])}"]
+    if "aperture" in c:
+        out += [f"APERTURE {c['aperture']!r}", f"FOCAL {c['focal']!r}"]
+    out += [""]
     for i, o in enumerate(cfg["objects"]):
         shape = o["shape"] + (f" {obj_names[i]}" if o["shape"] == "mesh"
                               else "")

@@ -1,11 +1,19 @@
 """The reference's scene and tables, worked out again from a
 configuration's own numbers (``benchmark/configs/<name>.json``) and the
-OBJ file the benchmark writes for it: the camera basis, each geom's
-forward, inverse and inverse-transpose transforms, the material rows, the
-NEE light table, the triangle rows and a median-split BVH with skip
-links.  The layouts and the operation order are those the program's
-plain version reads, written out here again (float32 on the CPU, explicit
-mul-adds), so that the reference rounds as that version does.
+OBJ file the benchmark writes for it: the camera basis and its thin lens
+(aperture and focal distance), each geom's forward, inverse and
+inverse-transpose transforms, the material rows, the NEE light table,
+the triangle rows and a median-split BVH with skip links.  The layouts
+and the operation order are those the program's plain version reads,
+written out here again (float32 on the CPU, explicit mul-adds), so that
+the reference rounds as that version does.
+
+A configuration names only what the reference traces
+(:func:`check_config`): spheres, cubes and meshes; diffuse, mirror,
+imperfect-specular (``specex``), glass (``refr``, ``refrior``) and
+emissive materials; a pinhole or thin-lens camera.  Motion blur, checker,
+bump, subsurface scattering and image textures are refused with a
+``ValueError``, left for a later repair of the reference.
 
 Every table is a function of the geoms' translations, which may require
 grad: :func:`pack` then carries their graph into ``gmat`` and ``lights``
@@ -26,6 +34,18 @@ SPHERE, CUBE, MESH = 0, 1, 2
 LIGHT_COLS = 128
 LEAF_K = 8          # triangles a BVH leaf holds at most
 NODE_COLS = 16      # aabb min (3), max (3), skip, leaf start, leaf count, pad
+
+# the keys a configuration's materials, camera and objects may carry
+MATERIAL_KEYS = ("rgb", "specex", "specrgb", "refl", "refr", "refrior",
+                 "emittance")
+CAMERA_KEYS = ("res", "fovy", "iterations", "depth", "file", "eye", "view",
+               "up", "aperture", "focal")   # the lens: both or neither
+OBJECT_KEYS = ("shape", "material", "trans", "rotat", "scale")
+# the course's features that the reference does not trace yet, by the
+# key a configuration would give them
+UNTRACED = dict(checker="checker", bump="bump", sss="subsurface scattering",
+                motion="motion blur", texture="texture",
+                bumptex="bump texture")
 
 
 @dataclasses.dataclass
@@ -52,6 +72,17 @@ class Scene:
         return tuple(i for i, g in enumerate(self.geoms)
                      if self.materials[g["material"]]["emittance"] > 0)
 
+    @property
+    def features(self):
+        """(has_glass, has_imperfect, has_dof): the static facts the
+        tracer specialises its sections on, as the program's
+        ``scene_features`` reads them (any material refracts, any has a
+        specular exponent, the lens is open)."""
+        m = self.materials
+        return (any(np.float32(x["refr"]) > 0 for x in m),
+                any(np.float32(x["spec_exponent"]) > 0 for x in m),
+                bool(np.float32(self.camera["aperture"]) > 0))
+
     def translations(self):
         """The geoms' translations, (G, 3) float32."""
         return torch.tensor([g["translation"] for g in self.geoms],
@@ -77,9 +108,39 @@ def read_obj(path):
     return np.asarray(verts, np.float32)[np.asarray(tris, np.int64)]
 
 
+def _check_keys(where, entry, known):
+    for key in entry:
+        if key in known:
+            continue
+        if key in UNTRACED:
+            raise ValueError(
+                f"{where}: {key!r} ({UNTRACED[key]}) is a feature the "
+                f"benchmark's reference does not trace")
+        raise ValueError(f"{where}: unknown key {key!r}")
+
+
+def check_config(cfg):
+    """Raises ``ValueError`` naming the first key of ``cfg``'s materials,
+    camera or objects that the reference does not know: an untraced
+    feature (:data:`UNTRACED`) or any other; and a lens with only one of
+    its two keys."""
+    for i, m in enumerate(cfg["materials"]):
+        _check_keys(f"material {i}", m, MATERIAL_KEYS)
+    cam = cfg["camera"]
+    _check_keys("camera", cam, CAMERA_KEYS)
+    if ("aperture" in cam) != ("focal" in cam):
+        raise ValueError("camera: 'aperture' and 'focal' come together")
+    for i, o in enumerate(cfg["objects"]):
+        _check_keys(f"object {i}", o, OBJECT_KEYS + (
+            ("obj",) if o.get("shape") == "mesh" else ()))
+
+
 def scene_from_config(cfg, obj_paths):
     """The :class:`Scene` of configuration ``cfg`` (its JSON as a dict);
-    ``obj_paths`` maps each mesh object's index to its OBJ file."""
+    ``obj_paths`` maps each mesh object's index to its OBJ file.  Raises
+    ``ValueError`` for a key the reference does not trace
+    (:func:`check_config`)."""
+    check_config(cfg)
     cam = cfg["camera"]
     mats = [dict(color=m["rgb"], spec_exponent=m["specex"],
                  spec_color=m["specrgb"], refl=m["refl"], refr=m["refr"],
@@ -98,7 +159,8 @@ def scene_from_config(cfg, obj_paths):
     return Scene(
         materials=mats, geoms=geoms,
         camera=dict(eye=cam["eye"], view=cam["view"], up=cam["up"],
-                    fovy=cam["fovy"]),
+                    fovy=cam["fovy"], aperture=cam.get("aperture", 0.0),
+                    focal=cam.get("focal", 1.0)),
         width=cam["res"][0], height=cam["res"][1], depth=cam["depth"],
         iterations=cam["iterations"],
         tri_verts=(np.concatenate(tv) if tv
@@ -254,12 +316,14 @@ def build_bvh(tv):
 # --- the tables ----------------------------------------------------------------
 
 def pack(scene, translation=None, device="cpu", nee=False):
-    """The tables the tracer reads, on ``device``: ``cam`` (1,16),
+    """The tables the tracer reads, on ``device``: ``cam`` (1,16: eye,
+    view, right, up, tan_x, tan_y, aperture, focal),
     ``mats`` (G,24), ``gmat`` (G,40), with ``nee`` ``lights`` (L,128), the
     triangle rows ``tri`` (T,16) and ``nodes`` with ``bvh_meta`` (one
     (geom, node_off, n_nodes, tri_off, n_tris) entry a mesh), and the
     statics.  ``translation`` (G,3), which may require grad, replaces the
-    configuration's translations."""
+    configuration's translations.  ``features`` holds
+    :attr:`Scene.features`."""
     w, h = scene.width, scene.height
     c = scene.camera
     view = _normalize(_f32(c["view"]))
@@ -268,7 +332,8 @@ def pack(scene, translation=None, device="cpu", nee=False):
     tan_y = torch.tan(_f32(c["fovy"]) * (PI / 180.0))
     tan_x = tan_y * (w / h)
     cam = torch.cat([_f32(c["eye"]), view, right, up,
-                     torch.stack([tan_x, tan_y, _f32(0.0), _f32(1.0)])]
+                     torch.stack([tan_x, tan_y, _f32(c["aperture"]),
+                                  _f32(c["focal"])])]
                     ).reshape(1, 16)
 
     g = scene.geoms
@@ -354,4 +419,4 @@ def pack(scene, translation=None, device="cpu", nee=False):
                 gmat=gmat.to(device), lights=lights, tri=tri, nodes=nodes,
                 bvh_meta=tuple(meta),
                 geom_types=tuple(x["type"] for x in g), width=w, height=h,
-                depth=scene.depth)
+                depth=scene.depth, features=scene.features)

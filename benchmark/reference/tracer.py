@@ -1,10 +1,32 @@
 """The reference tracer: the megakernel's plain version, written out
 again in plain PyTorch for the scenes the benchmark runs (spheres, cubes
-and BVH meshes; diffuse, mirror and emissive materials; next-event
-estimation; Russian roulette), one element a path, in the program's
-operation order, so that it rounds as the program's own plain version
-does.  :func:`trace` renders any set of pixels, so a check can take a
-sample of them.
+and BVH meshes; diffuse, mirror, imperfect-specular, glass and emissive
+materials; a pinhole or thin-lens camera; next-event estimation; Russian
+roulette), one element a path, in the program's operation order, so that
+it rounds as the program's own plain version does.  :func:`trace`
+renders any set of pixels, so a check can take a sample of them.
+
+Three sections beside the diffuse and mirror lobes, each specialised, as
+the program's are, on a static fact of the scene (``tables["features"]``),
+so that a scene without it runs none of its operations:
+
+* the thin lens in raygen (``has_dof``): an aperture sample
+  (``DOF_U``, ``DOF_V``), the ray from it through the focal plane;
+* Schlick glass (``has_glass``): the ``FRESNEL`` choice between the
+  mirror and Snell's refraction (the mirror under total internal
+  reflection), by the hit's facing, on spheres, cubes and meshes alike;
+  the refracted ray pushed past the interface, glass's throughput
+  (``specrgb`` reflected, ``rgb`` refracted, no division by the choice),
+  and under NEE no direct light at a glass hit and the emission seen
+  after it;
+* the imperfect specular lobe (``has_imperfect``): a power-cosine sample
+  (``SPEC_U1``, ``SPEC_U2``) about the mirror direction where ``specex``
+  > 0.
+
+Each carries the program's ``needed`` marks and ``tally`` names, so that
+``work/recount.py`` counts such a scene as the program's count does.
+Checker, bump, subsurface scattering, motion blur and textures are not
+traced: ``tables.check_config`` refuses them.
 
 Two mesh walks give the same winner (the nearest hit in object space,
 the lowest triangle row on a tie): ``"skip"``, the stackless skip-link
@@ -26,6 +48,7 @@ import torch
 from . import rng
 from .bound import needed as _needed
 from .bound import read as _read
+from .bound import tally as _tally
 from .rng import Draw
 from .tables import CUBE, MESH, PI, SPHERE
 
@@ -467,15 +490,42 @@ def _nee_add(rad, thr, h, n, albedo, has_diffuse, it, pix, dep, lights,
     return rad
 
 
+def _imperfect_specular(m_ex, mrx, mry, mrz, u_s1, u_s2):
+    """Power-cosine sample about the mirror direction (GPU Gems 3
+    ch. 20) where ``m_ex`` > 0; the mirror direction elsewhere."""
+    s3 = _c32(SQRT_OF_ONE_THIRD)
+    n1 = torch.reciprocal(m_ex + 1.0)
+    cos_t = torch.pow(torch.clamp_min(u_s1, 1e-12), n1)
+    sin_t = torch.sqrt(torch.clamp_min(1.0 - cos_t * cos_t, 0.0))
+    phi = u_s2 * _c32(TWO_PI)
+    use_xm = torch.abs(mrx) < s3
+    use_ym = ~use_xm & (torch.abs(mry) < s3)
+    nmx = torch.where(use_xm, 1.0, 0.0).to(mrx.dtype)
+    nmy = torch.where(use_ym, 1.0, 0.0).to(mrx.dtype)
+    nmz = torch.where(use_xm | use_ym, 0.0, 1.0).to(mrx.dtype)
+    q1x, q1y, q1z = _normalize3(mry * nmz - mrz * nmy, mrz * nmx - mrx * nmz,
+                                mrx * nmy - mry * nmx)
+    q2x, q2y, q2z = _normalize3(mry * q1z - mrz * q1y, mrz * q1x - mrx * q1z,
+                                mrx * q1y - mry * q1x)
+    cp, sp = torch.cos(phi), torch.sin(phi)
+    imx = cos_t * mrx + cp * sin_t * q1x + sp * sin_t * q2x
+    imy = cos_t * mry + cp * sin_t * q1y + sp * sin_t * q2y
+    imz = cos_t * mrz + cp * sin_t * q1z + sp * sin_t * q2z
+    use_imp = m_ex > 0.0
+    return (torch.where(use_imp, imx, mrx), torch.where(use_imp, imy, mry),
+            torch.where(use_imp, imz, mrz))
+
+
 def _u(it, pix, dep, draw, like):
     """A uniform draw in the precision of ``like``."""
     return rng.uniform(it, pix, dep, draw).to(like.dtype)
 
 
 def _init_state(sc, it, pix, width, height):
-    """Raygen: the antialias jitter, the ray through the pixel."""
+    """Raygen: the antialias jitter, the ray through the pixel, then the
+    thin lens."""
     (pos_x, pos_y, pos_z, v_x, v_y, v_z, r_x, r_y, r_z,
-     u_x, u_y, u_z, tan_x, tan_y, _, _) = sc.cam
+     u_x, u_y, u_z, tan_x, tan_y, aperture, focal) = sc.cam
     fx = (pix % width).to(sc.dtype)
     fy = torch.div(pix, width, rounding_mode="floor").to(sc.dtype)
     ujx = rng.uniform(it, pix, 0, Draw.AA_X).to(sc.dtype)
@@ -489,6 +539,22 @@ def _init_state(sc, it, pix, width, height):
     ox = pos_x.expand_as(dx).contiguous()
     oy = pos_y.expand_as(dx).contiguous()
     oz = pos_z.expand_as(dx).contiguous()
+    if sc.has_dof and aperture > 0.0:
+        # the origin on the aperture, the ray through the focal plane
+        u1 = _u(it, pix, 0, Draw.DOF_U, dx)
+        u2 = _u(it, pix, 0, Draw.DOF_V, dx)
+        r_lens = aperture * torch.sqrt(u1)
+        theta = u2 * _c32(TWO_PI)
+        lc, ls = r_lens * torch.cos(theta), r_lens * torch.sin(theta)
+        off_x = r_x * lc + u_x * ls
+        off_y = r_y * lc + u_y * ls
+        off_z = r_z * lc + u_z * ls
+        cos_v = dx * v_x + dy * v_y + dz * v_z
+        ft = _div(focal, torch.clamp_min(cos_v, 1e-6))
+        pfx, pfy, pfz = ox + dx * ft, oy + dy * ft, oz + dz * ft
+        ox, oy, oz = ox + off_x, oy + off_y, oz + off_z
+        dx, dy, dz = _normalize3(pfx - ox, pfy - oy, pfz - oz)
+        _tally("dof", lambda: torch.ones_like(dx, dtype=torch.bool))
     one, zero = torch.ones_like(dx), torch.zeros_like(dx)
     st = dict(ox=ox, oy=oy, oz=oz, dx=dx, dy=dy, dz=dz, tr=one, tg=one,
               tb=one, rr=zero, rg=zero, rb=zero,
@@ -502,7 +568,8 @@ def _bounces(sc, st, it, pix, depth, counts):
     """Every bounce of the paths ``st``; adds the live count entering
     each bounce into ``counts[d]`` and returns the radiance (r, g, b)."""
     nee = sc.lights is not None
-    mats_t, gmat, lights = sc.mats, sc.gmat, sc.lights
+    has_glass, has_imperfect = sc.has_glass, sc.has_imperfect
+    mats_t, gmat_t, gmat, lights = sc.mats, sc.gmat_t, sc.gmat, sc.lights
     ox, oy, oz, dx, dy, dz = (st[k] for k in ("ox", "oy", "oz", "dx", "dy",
                                                "dz"))
     thr_acc = [st["tr"], st["tg"], st["tb"]]
@@ -532,7 +599,8 @@ def _bounces(sc, st, it, pix, depth, counts):
         cont = live & h.hit & ~emissive
         dep = d + 1
         with _needed("scatter", cont):
-            is_glass = torch.zeros_like(cont)
+            is_glass = (row[:, 8] > 0.0) if has_glass \
+                else torch.zeros_like(cont)
             with _needed(lanes=lambda: ~is_glass):
                 u_lobe = _u(it, pix, dep, Draw.LOBE, ox)
                 p_spec = _clip01(row[:, 7])
@@ -565,20 +633,74 @@ def _bounces(sc, st, it, pix, depth, counts):
 
             with _needed(lanes=spec | is_glass):
                 ndoti = nx * dx + ny * dy + nz * dz
-            with _needed(lanes=spec):
+            mirror = spec
+            if has_glass:
+                with _needed(lanes=is_glass):
+                    # Schlick's choice between the mirror and Snell's
+                    # refraction (the mirror under total internal
+                    # reflection), not divided by its probability
+                    u_fr = _u(it, pix, dep, Draw.FRESNEL, ox)
+                    cos_i = torch.clamp(-ndoti, 0.0, 1.0)
+                    ior = row[:, 9]
+                    r0 = (1.0 - ior) / (1.0 + ior)
+                    r0 = r0 * r0
+                    mm = torch.clamp_min(1.0 - cos_i, 0.0)
+                    refl_p = r0 + (1.0 - r0) * mm * mm * mm * mm * mm
+                    eta = torch.where(
+                        h.outside,
+                        torch.reciprocal(torch.clamp_min(ior, 1e-6)), ior)
+                    kk = 1.0 - eta * eta * (1.0 - ndoti * ndoti)
+                    k_ok = kk >= 0.0
+                    choose_refl = (u_fr < refl_p) | ~k_ok
+                took_refract = is_glass & ~choose_refl
+                mirror = spec | (is_glass & choose_refl)
+                with _needed(lanes=took_refract):
+                    sqk = torch.sqrt(torch.where(k_ok, kk, 1.0))
+                    rf = [eta * dk - (eta * ndoti + sqk) * nk
+                          for dk, nk in ((dx, nx), (dy, ny), (dz, nz))]
+            with _needed(lanes=mirror):
                 mr = (dx - 2.0 * ndoti * nx, dy - 2.0 * ndoti * ny,
                       dz - 2.0 * ndoti * nz)
-            ndir = [torch.where(take_spec, mr[k], ddf[k]) for k in range(3)]
+            sp = mr
+            if has_imperfect:
+                with _needed(lanes=lambda: spec & (row[:, 6] > 0.0)):
+                    sp = _imperfect_specular(
+                        row[:, 6], *mr,
+                        _u(it, pix, dep, Draw.SPEC_U1, ox),
+                        _u(it, pix, dep, Draw.SPEC_U2, ox))
+            ndir = [torch.where(take_spec, sp[k], ddf[k]) for k in range(3)]
             with _needed(lanes=lambda: ~is_glass):
                 thr = [torch.where(take_spec, row[:, 3 + k], albedo[k])
                        / p_safe for k in range(3)]
             took_diffuse = ~take_spec
+            if has_glass:
+                ndir = [torch.where(is_glass,
+                                    torch.where(choose_refl, mr[k], rf[k]),
+                                    ndir[k]) for k in range(3)]
+                thr = [torch.where(is_glass,
+                                   torch.where(choose_refl, row[:, 3 + k],
+                                               albedo[k]), thr[k])
+                       for k in range(3)]
+                took_diffuse = took_diffuse & ~is_glass
             op = [h.px, h.py, h.pz]
+            if has_glass:
+                # a refracted ray starts past the interface
+                with _needed(lanes=took_refract):
+                    push = _rows(gmat_t, h.geom)[:, 36]
+                    op = [torch.where(took_refract, op[k] + push * ndir[k],
+                                      op[k]) for k in range(3)]
             if nee:
                 has_diffuse = cont & ~(row[:, 8] > 0.0)
                 rad = _nee_add(rad, thr_acc, h, (nx, ny, nz), albedo,
                                has_diffuse, it, pix, dep, lights, gmat,
                                sc.geom_types, sc.mesh)
+            # the lanes of the program's K8 section adjoints
+            # (``bound.k8_extra``): an imperfect lobe, a refraction
+            if has_imperfect:
+                imperfect = cont & spec & (row[:, 6] > 0.0)
+                _tally("imperfect", lambda: imperfect)
+            if has_glass:
+                _tally("refraction", lambda: cont & took_refract)
             if sc.rr and d >= 3:
                 nt = [thr_acc[k] * thr[k] for k in range(3)]
                 p_srv = torch.clamp(
@@ -606,6 +728,7 @@ def _scene(tables, walk, rr, dtype):
     """What :func:`_init_state` and :func:`_bounces` read of the tables,
     the small ones as rows of 0-d tensors (which carry the graph of a
     table that requires grad), in ``dtype``."""
+    glass, imperfect, dof = tables["features"]
     mesh = None
     if tables["bvh_meta"]:
         nodes = tables["nodes"]
@@ -616,10 +739,12 @@ def _scene(tables, walk, rr, dtype):
     return SimpleNamespace(
         cam=tables["cam"].to(dtype).reshape(-1).unbind(),
         mats=tables["mats"].to(dtype),
+        gmat_t=tables["gmat"].to(dtype),
         gmat=[row.unbind() for row in tables["gmat"].to(dtype)],
         lights=([row.unbind() for row in lights.to(dtype)]
                 if lights is not None else None),
-        geom_types=tuple(tables["geom_types"]), mesh=mesh, rr=rr, dtype=dtype)
+        geom_types=tuple(tables["geom_types"]), mesh=mesh, rr=rr, dtype=dtype,
+        has_glass=glass, has_imperfect=imperfect, has_dof=dof)
 
 
 def trace_paths(tables, its, pixels, walk="frontier", rr=False,

@@ -1,9 +1,11 @@
 """The reference holds to the program's plain versions at a tiny size on
 the CPU: the same tables, the same radiance and counts bit for bit
-(``trace_plain``), both mesh walks, and the light's gradient of an image
-loss within float32 rounding of the port's ``render_vjp`` on the CPU
-(autograd over ``trace_plain``, the plain K8).  The reference itself
-imports nothing of the program; these tests do."""
+(``trace_plain``), both mesh walks, on the benchmark's configurations and
+on two with glass, an imperfect specular sphere and a thin lens
+(``tiny.glass_config``), and the light's gradient of an image loss within
+float32 rounding of the port's ``render_vjp`` on the CPU (autograd over
+``trace_plain``, the plain K8).  The reference itself imports nothing of
+the program; these tests do."""
 
 from __future__ import annotations
 
@@ -22,13 +24,20 @@ import pathtrace_tpu_torch as ptt
 from pathtrace_tpu_torch.ops.cuda import megakernel as K
 from pathtrace_tpu_torch.ops.cuda import vjp
 
-CONFIGS = ("cornell", "cornell_bigmesh")
+CONFIGS = ("cornell", "cornell_bigmesh", "cornell_glass",
+           "cornell_bigmesh_glass")
 
 
 def _scene(tmp_path, name):
+    """The tiny configuration ``name`` (a benchmark configuration, or
+    one with ``_glass`` after its name: ``tiny.glass_config`` of it), its
+    OBJ paths and the program's scene of it."""
     root = tiny.make_root(tmp_path, res=(24, 16), depth=4)
+    base = name.removesuffix("_glass")
     cfg = json.loads((root / "benchmark" / "configs" /
-                      f"{name}.json").read_text())
+                      f"{base}.json").read_text())
+    if name != base:
+        cfg = tiny.glass_config(cfg)
     path, objs = scenes.write_scene(cfg, tmp_path / "scene")
     return cfg, objs, ptt.load_scene(path)
 
@@ -45,6 +54,8 @@ def test_reference_is_the_plain_version(tmp_path, name, nee):
         if tab[k] is not None:
             assert torch.equal(tab[k], job[k]), k
     assert tab["bvh_meta"] == job["bvh_meta"]
+    assert tab["features"] == job["features"][:3]
+    assert any(tab["features"]) == name.endswith("_glass")
     for walk in ("skip", "frontier"):
         rad, counts = RTR.trace(tab, 2 ** 32 - 2, 3, walk=walk)
         assert torch.equal(rad, want), walk
@@ -74,8 +85,10 @@ def test_light_gradient_is_the_plain_vjp(tmp_path):
     assert float(t.grad[light].abs().max()) > 0
 
 
-def test_control_differs(tmp_path):
-    cfg, objs, _ = _scene(tmp_path, "cornell")
+@pytest.mark.parametrize("name", ("cornell", "cornell_glass",
+                                  "cornell_bigmesh_glass"))
+def test_control_differs(tmp_path, name):
+    cfg, objs, _ = _scene(tmp_path, name)
     tab = RT.pack(RT.scene_from_config(cfg, objs))
     rad, _ = RTR.trace(tab, 1, 2)
     low, _ = RTR.trace(tab, 1, 2, dtype=torch.bfloat16)

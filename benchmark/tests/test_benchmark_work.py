@@ -1,7 +1,9 @@
 """The frozen work counts: the reference's count of a tiny scene equals
 the port's ``ops/cuda/bound.py`` count of its plain version on this
 tree (operations by section, bytes by table, the lanes of K8's
-sections), and ``k8_extra`` and ``bound`` are the port's.  The frozen
+sections), and ``k8_extra`` and ``bound`` are the port's, on the
+benchmark's configurations and on two with glass, an imperfect specular
+sphere and a thin lens (``tiny.glass_config``), whose sections tally.  The frozen
 files hold every key the roofline readers read."""
 
 from __future__ import annotations
@@ -22,11 +24,15 @@ from pathtrace_tpu_torch.ops.cuda import megakernel as K
 
 
 @pytest.mark.parametrize("nee", [False, True])
-@pytest.mark.parametrize("name", ["cornell", "cornell_bigmesh"])
+@pytest.mark.parametrize("name", ["cornell", "cornell_bigmesh",
+                                  "cornell_glass", "cornell_bigmesh_glass"])
 def test_count_is_the_ports(tmp_path, name, nee):
     root = tiny.make_root(tmp_path, res=(20, 12), depth=4)
+    base = name.removesuffix("_glass")
     cfg = json.loads((root / "benchmark" / "configs" /
-                      f"{name}.json").read_text())
+                      f"{base}.json").read_text())
+    if name != base:
+        cfg = tiny.glass_config(cfg)
     path, objs = scenes.write_scene(cfg, tmp_path / "scene")
     job = K.prepare(ptt.load_scene(path), "cpu", nee=nee)
     want_t = {}
@@ -38,6 +44,9 @@ def test_count_is_the_ports(tmp_path, name, nee):
     assert ops_by == want_ops
     assert bytes_by == want_bytes
     assert tallies == want_t
+    assert set(tallies) == ({"dof", "imperfect", "refraction"}
+                            if name != base else set())
+    assert all(tallies.values())
     assert counts == want_c.tolist()
     small = sum(job[k].numel() * 4 for k in ("cam", "mats", "gmat", "lights")
                 if job[k] is not None) + 4 * (

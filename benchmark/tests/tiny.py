@@ -44,6 +44,38 @@ def make_root(tmp, res=(16, 12), depth=3, iterations=16, spp=2):
     return root
 
 
+# scenes/cornell_glass.txt's glass (Schlick, IOR 1.5) and imperfect
+# specular (SPECEX 64, REFL .6) materials, its two spheres and its lens
+GLASS = dict(rgb=[0.98, 0.98, 0.98], specex=0.0, specrgb=[0.98, 0.98, 0.98],
+             refl=0.0, refr=1.0, refrior=1.5, emittance=0.0)
+IMPERFECT = dict(rgb=[0.6, 0.7, 0.95], specex=64.0,
+                 specrgb=[0.95, 0.95, 0.95], refl=0.6, refr=0.0,
+                 refrior=0.0, emittance=0.0)
+GLASS_SPHERE = dict(shape="sphere", trans=[-1.5, 2.0, 1.0],
+                    rotat=[0.0, 0.0, 0.0], scale=[3.0, 3.0, 3.0])
+IMPERFECT_SPHERE = dict(shape="sphere", trans=[2.5, 6.5, -3.0],
+                        rotat=[0.0, 0.0, 0.0], scale=[2.5, 2.5, 2.5])
+LENS = dict(aperture=0.25, focal=11.5)
+
+
+def glass_config(cfg):
+    """``cfg`` (cornell or cornell_bigmesh) with glass, an imperfect
+    specular sphere and a thin lens: its box (objects 0-5) kept, its mesh
+    made glass (or, without one, its sphere replaced by the glass
+    sphere), the SPECEX-64 sphere added, the lens opened."""
+    cfg = json.loads(json.dumps(cfg))
+    cfg["name"] += "_glass"
+    cfg["camera"].update(LENS)
+    mats = cfg["materials"][:4] + [dict(GLASS), dict(IMPERFECT)]
+    box = cfg["objects"][:6]
+    glass = [o for o in cfg["objects"][6:] if o["shape"] == "mesh"] or \
+        [dict(GLASS_SPHERE)]
+    cfg["materials"] = mats
+    cfg["objects"] = box + [dict(o, material=4) for o in glass] + [
+        dict(IMPERFECT_SPHERE, material=5)]
+    return cfg
+
+
 def run_module(root):
     """``run.py`` of the tiny root, as a module."""
     spec = importlib.util.spec_from_file_location(
