@@ -783,7 +783,7 @@ def schedule_holds(ptt, K, SP, TD, build, torch, cornell):
         rad = torch.empty((n_local, 3), device="cuda")
         part = torch.zeros_like(counts)
         err = lib.pt_k1_trace(*args, 160, 120, 8, 4, 3, pix0, n_local,
-                              rad.data_ptr(), part.data_ptr(), 0,
+                              rad.data_ptr(), part.data_ptr(), None, 0,
                               torch.cuda.current_stream().cuda_stream)
         K.launch_error("K1", lib, err)
         tiles.append(rad)

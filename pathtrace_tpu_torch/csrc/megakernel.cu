@@ -67,7 +67,13 @@
 //   the reference's (n_iters, depth), k1_trace<true>).  Shadow rays are not
 //   counted.  The reference keeps int32 counts; at
 //   800x800 and 5000 samples a single bounce sees 3.2e9 paths, which int32
-//   cannot hold.
+//   cannot hold;
+// * event counters: where the caller passes their buffer, K1's counting
+//   instantiation (k1_trace<., unsigned long long>) runs, and each
+//   scattering path and each mesh walk adds to words kept as the live counts
+//   are (K1Events): the scatter kind, and the walk and its nodes by kind of
+//   ray.  Without the buffer the other instantiation runs, compiled without
+//   them.
 // K3, meshes (the reference's BVH walk `trav_w`/`leaf_w` and its winner
 // fold `mt_shade_fold`): per MESH geom, after the spheres and cubes, each
 // thread walks the geom's skip-link BVH (scene/bvh.py: DFS order, no stack)
@@ -142,6 +148,21 @@ constexpr bool kTexAny = kTex || kBtex;
 // kMesh)
 constexpr bool kLinear = kFeatures & 4096u;
 static_assert(!kLinear || kMesh, "the linear fold is a form of the mesh section");
+
+// K1's event counters (k1_trace<., unsigned long long>; every other kernel,
+// k1_trace<.> too, compiles without them): per
+// bounce, a row of kEvCols words (megakernel.py K1_EVENTS): the scatter
+// events by kind (K7's classification in bounce: diffuse, the specular lobe,
+// glass reflection, refraction), then the mesh walks and the BVH nodes they
+// visit, a pair for each kind of ray (kEvRay*): nearest-hit rays that leave
+// a refraction, the other nearest-hit rays, shadow rays.
+constexpr int kEvCols = 10;
+constexpr int kEvWalks = 4;  // walks of ray kind k at kEvWalks + 2k, nodes after
+constexpr int kEvRayRefracted = 0, kEvRayOther = 1, kEvRayShadow = 2;
+// A counting call's chunk of samples: a block's word adds the nodes of its
+// pool's walks (at most 1,024 pixels) over at most kEvChunk samples, so it
+// holds 2^19 nodes a walk on average.
+constexpr int kEvChunk = 8;
 
 constexpr int kBlock = 128;
 constexpr int kWarps = kBlock / 32;
@@ -243,6 +264,24 @@ struct TexTables<false> {
   __device__ explicit TexTables(const uint32_t*) {}
 };
 using Tex = TexTables<kTexAny>;
+
+// A lane's view of its block's event words (kEvCols a bounce, 32-bit, in
+// shared memory).  nearest, nee_add and bounce take one as a trailing
+// pack, empty in every other kernel, so that their code does not change.
+struct K1Events {
+  unsigned* words;
+  int d;           // the bounce the lane traces
+  bool refracted;  // the lane's ray leaves a refraction
+  __device__ __forceinline__ void add(int col, unsigned n) const {
+    atomicAdd(words + d * kEvCols + col, n);
+  }
+  __device__ __forceinline__ void walked(bool shadow, unsigned nodes) const {
+    const int col =
+        kEvWalks + 2 * (shadow ? kEvRayShadow : refracted ? kEvRayRefracted : kEvRayOther);
+    add(col, 1u);
+    add(col + 1, nodes);
+  }
+};
 
 // The albedo: a pointer into the material (or checker) row, and in the
 // texture builds three floats, which the albedo map multiplies.
@@ -383,11 +422,12 @@ __device__ __forceinline__ Hit tri_hit(const float* m, int g, const float4* t, i
 // inverse 3x4 (12..23), inverse-transpose 3x3 (24..32), velocity (33..35).
 // `time` is the ray's shutter time (motion blur).  The shadow form (NEE
 // visibility) skips the normals; its distances and winners are those of the
-// full fold.
-template <bool kShadow, typename M>
+// full fold.  With K1's event counters (ev), each mesh walk counts itself
+// and the nodes it visits.
+template <bool kShadow, typename M, typename... E>
 __device__ Hit nearest(float ox, float oy, float oz, float dx, float dy,
                        float dz, float time, const float* gmat,
-                       const int* types, int n_geoms, const M mesh) {
+                       const int* types, int n_geoms, const M mesh, E*... ev) {
   Hit best{kNoHit, ox, oy, oz, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, -1, false};
   for (int g = 0; g < n_geoms; ++g) {
     if constexpr (kMesh) {
@@ -546,7 +586,9 @@ __device__ Hit nearest(float ox, float oy, float oz, float dx, float dy,
       // the walk: enter a node whose box the ray meets before t_loc, else
       // take its skip link; in a leaf, a nearer hit becomes the winner
       int win = -1;
+      [[maybe_unused]] unsigned steps = 0u;  // the nodes visited (ev)
       for (int n = 0; n < n_nodes;) {
+        if constexpr (sizeof...(E) > 0) ++steps;
         const float4 na = __ldg(nodes + 4 * n);      // min xyz, max x
         const float4 nb = __ldg(nodes + 4 * n + 1);  // max yz, skip, start
         const float4 nc = __ldg(nodes + 4 * n + 2);  // count
@@ -571,6 +613,7 @@ __device__ Hit nearest(float ox, float oy, float oz, float dx, float dy,
         }
         n = (count > 0 || !box_hit) ? static_cast<int>(nb.z) : n + 1;
       }
+      (ev->walked(kShadow, steps), ...);
       if (win < 0) continue;
       // the shading fold, once, on the winner
       float tt;
@@ -906,7 +949,7 @@ __device__ __forceinline__ void imperfect_specular(float m_ex, float& mrx,
 // (pack_lights): 0 geom | 1 type | 2-4 emission | cube: 5 area, 6-11 face
 // cdf, 12-29 origins, 30-47 e_b, 48-65 e_c, 66-83 normals | sphere: 12-20
 // forward 3x3, 21-23 center, 24-32 invT 3x3, 33 |det| | 120-122 velocity.
-template <typename M, typename A>
+template <typename M, typename A, typename... E>
 __device__ __forceinline__ void nee_add(
     float& rr, float& rg, float& rb, float tr, float tg, float tb,
     const Hit& h, float nx, float ny, float nz, const A al, float time,
@@ -916,7 +959,7 @@ __device__ __forceinline__ void nee_add(
 #if PT_VJP
     , unsigned long long& vis  // K8: bit k set where light k's sample is seen
 #endif
-    ) {
+    , E*... ev) {
   for (int k = 0; k < n_lights; ++k) {
     const float* lr = lights + k * kLightCols;
     const uint32_t base = pt::kDrawNeeBase + 3u * static_cast<uint32_t>(k);
@@ -976,7 +1019,7 @@ __device__ __forceinline__ void nee_add(
     const float inv_dl = 1.f / dist_l;
     const float sdx = wlx * inv_dl, sdy = wly * inv_dl, sdz = wlz * inv_dl;
     const Hit sh = nearest<true>(h.px, h.py, h.pz, sdx, sdy, sdz, time, gmat,
-                                 types, n_geoms, mesh);
+                                 types, n_geoms, mesh, ev...);
     // seen: the nearest hit along the shadow ray is the light, at the
     // sampled distance
     const float tol = fmaxf(1e-3f, 5e-3f * dist_l);
@@ -1096,6 +1139,10 @@ __host__ __device__ constexpr int k1_count_chunk(bool per_sample, int n_spp, int
          : kK1CountWords / depth > 0     ? kK1CountWords / depth
                                          : 1;
 }
+// The chunk of a call that counts K1's events (kEvChunk samples at most).
+__host__ __device__ constexpr int k1_chunk(bool per_sample, int n_spp, int depth, bool events) {
+  return k1_count_chunk(per_sample, events && n_spp > kEvChunk ? kEvChunk : n_spp, depth);
+}
 __host__ __device__ constexpr int k1_count_rows(bool per_sample, int chunk, int depth) {
   return per_sample ? chunk * depth : depth;
 }
@@ -1185,13 +1232,15 @@ __device__ __forceinline__ void init_state(PathState& p, const Camera& c, const 
 // Bounce d of a path (the reference's `_make_tracer.bounce`): nearest hit,
 // surface, emission, scatter, NEE, the medium and Russian roulette, on the
 // state p.  A dead path returns at once; a path that ends is marked dead.
-// K1's depth loop and K5's span run this one body.
-template <typename M, typename X>
+// K1's depth loop and K5's span run this one body.  With K1's event
+// counters (ev), it counts its scatter event and its walks.
+template <typename M, typename X, typename... E>
 __device__ __forceinline__ void bounce(PathState& p, int d, uint32_t it, uint32_t pix_u,
-                                       const Tables& s, const M mesh, const X tex) {
+                                       const Tables& s, const M mesh, const X tex, E*... ev) {
   if (!p.live) return;
+  ((ev->d = d), ...);
   const Hit h = nearest<false>(p.ox, p.oy, p.oz, p.dx, p.dy, p.dz, p.time, s.gmat, s.types,
-                               s.n_geoms, mesh);
+                               s.n_geoms, mesh, ev...);
 #if PT_VJP
   p.win_geom = h.geom;
   if constexpr (kMesh) p.win_row = h.row;
@@ -1320,6 +1369,8 @@ __device__ __forceinline__ void bounce(PathState& p, int d, uint32_t it, uint32_
   p.ev[p.n_ev++] = static_cast<uint32_t>(h.geom) << 3 |
                    (took_refract ? 4u : kGlass && mt[8] > 0.f ? 3u : took_diffuse ? 0u : 1u);
 #endif
+  // the same classification, as K1's event columns 0-3
+  (ev->add(took_refract ? 3 : kGlass && mt[8] > 0.f ? 2 : took_diffuse ? 0 : 1, 1u), ...);
   float opx = h.px, opy = h.py, opz = h.pz;
   if (took_refract) {  // past the interface, so as not to hit it again
     opx = opx + gm[36] * ndx;
@@ -1345,7 +1396,7 @@ __device__ __forceinline__ void bounce(PathState& p, int d, uint32_t it, uint32_
 #if PT_VJP
               , p.nee_vis
 #endif
-              );
+              , ev...);
   }
   if constexpr (kSss) {
     if (scatter_inside) {
@@ -1402,6 +1453,7 @@ __device__ __forceinline__ void bounce(PathState& p, int d, uint32_t it, uint32_
   p.dy = ndy;
   p.dz = ndz;
   if constexpr (kNee) p.emit_ok = !took_diffuse || scatter_inside;
+  ((ev->refracted = took_refract), ...);
 }
 
 #if !PT_GRAD && !PT_VJP  // K1 and K5: the forward builds only
@@ -1418,7 +1470,15 @@ __device__ __forceinline__ void bounce(PathState& p, int d, uint32_t it, uint32_
 // of each sample.  Each pixel's samples are still added in sample order by
 // one thread, and every draw is keyed on (iteration, pixel, bounce, draw),
 // so the image and the counts are the lockstep loop's, bit for bit.
-template <bool kPerSample>
+//
+// Events: with one type, unsigned long long, K1's event counters, added
+// into events (depth, kEvCols); k1_trace<., unsigned long long> runs only
+// where a call passes their buffer.  Every other call runs k1_trace<.> with
+// the pack empty, the same machine code as a kernel without counters:
+// compiled in as a branch on a null buffer, their registers cost an
+// untraced window 0.7% of its time without NEE and 4.4% with it (PERF.md
+// section 6).
+template <bool kPerSample, typename... Events>
 __global__ void __launch_bounds__(kBlock, 7)
 k1_trace(const float* __restrict__ cam_g, const float* __restrict__ mats_g,
          const float* __restrict__ gmat_g, const int* __restrict__ types_g,
@@ -1428,16 +1488,20 @@ k1_trace(const float* __restrict__ cam_g, const float* __restrict__ mats_g,
          int n_geoms, int n_lights, int n_meta, int width, int height,
          int depth, uint32_t it0, int n_spp, long long pix0,
          long long n_local, int lane_px, float* __restrict__ rad,
-         unsigned long long* __restrict__ counts) {
-  // shared: the count words (k1_count_rows) and the pool's taken word,
-  // then the tables
+         unsigned long long* __restrict__ counts, Events*... events /* (depth, kEvCols) */) {
+  constexpr bool kEvents = sizeof...(Events) > 0;
+  // shared: the count words (k1_count_rows), the pool's taken word and,
+  // counting events, their words, then the tables
   extern __shared__ unsigned long long smem[];
-  const int chunk = k1_count_chunk(kPerSample, n_spp, depth);
+  const int chunk = k1_chunk(kPerSample, n_spp, depth, kEvents);
   const int rows = k1_count_rows(kPerSample, chunk, depth);
-  const Tables s = stage_tables(smem, k1_count_slots(rows), cam_g, mats_g, gmat_g, types_g,
-                                lights_g, meta_g, charts_g, n_geoms, n_lights, n_meta);
+  const int ev_words = kEvents ? depth * kEvCols : 0;
+  const Tables s = stage_tables(smem, k1_count_slots(rows + ev_words), cam_g, mats_g, gmat_g,
+                                types_g, lights_g, meta_g, charts_g, n_geoms, n_lights, n_meta);
   unsigned* s_counts = reinterpret_cast<unsigned*>(smem);
   unsigned* s_taken = s_counts + rows;  // the pool's pixels taken past its first kBlock
+  [[maybe_unused]] unsigned* s_events = s_taken + 1;
+  [[maybe_unused]] K1Events ev{s_events, 0, false};
   const Mesh mesh(tri_g, nodes_g, s.meta, n_meta);
   const Tex tex(texels_g);
   __syncthreads();
@@ -1519,10 +1583,16 @@ k1_trace(const float* __restrict__ cam_g, const float* __restrict__ mats_g,
                    sy_scale, true);
         d = 0;
         fresh = false;
+        if constexpr (kEvents) ev.refracted = false;
       }
       if (!done) {
         // a live path entering bounce d
         atomicAdd(s_counts + (kPerSample ? (sample - c0) * depth + d : d), 1u);
+        if constexpr (kEvents) {
+          bounce(p, d, it0 + static_cast<uint32_t>(sample), pix_u, s, mesh, tex, &ev);
+          ++d;
+          continue;
+        }
         bounce(p, d, it0 + static_cast<uint32_t>(sample), pix_u, s, mesh, tex);
         ++d;
       }
@@ -1535,6 +1605,14 @@ k1_trace(const float* __restrict__ cam_g, const float* __restrict__ mats_g,
       s_counts[i] = 0u;
       if (c) atomicAdd(&counts[(kPerSample ? static_cast<long long>(c0) * depth : 0) + i],
                        static_cast<unsigned long long>(c));
+    }
+    // the chunk's events, likewise (summed over the samples in both forms)
+    if constexpr (kEvents) {
+      for (int i = threadIdx.x; i < ev_words; i += kBlock) {
+        const unsigned c = s_events[i];
+        s_events[i] = 0u;
+        if (c) (atomicAdd(&events[i], static_cast<unsigned long long>(c)), ...);
+      }
     }
     if (threadIdx.x == 0) *s_taken = 0u;
     __syncthreads();
@@ -3112,7 +3190,10 @@ extern "C" int pt_k1_features() { return static_cast<int>(kFeatures); }
 // rad (n_local,3) float32 is written; counts, the live paths entering each
 // bounce, (n_spp, depth) with per_sample (each sample's) or else (depth,)
 // (summed over the samples), must be zeroed by the caller and is added
-// into.  Returns the cudaError_t of the launch (0 = success).
+// into.  events, K1's event counters (depth, kEvCols) summed over the
+// samples, is added into by K1's counting instantiation; null, k1_trace<.>
+// runs and counts nothing.  Returns the cudaError_t of the launch (0 =
+// success).
 extern "C" int pt_k1_trace(const float* cam, const float* mats,
                            const float* gmat, const int* geom_types,
                            const float* lights, const float* tri,
@@ -3121,35 +3202,45 @@ extern "C" int pt_k1_trace(const float* cam, const float* mats,
                            int n_lights, int n_meta, long long n_texels, int width, int height,
                            int depth, unsigned int it0, int n_spp,
                            long long pix0, long long n_local, float* rad,
-                           unsigned long long* counts, int per_sample, void* stream) {
+                           unsigned long long* counts, unsigned long long* events,
+                           int per_sample, void* stream) {
+  const bool counting = events != nullptr;
   if (kNee != (n_lights > 0) || n_lights < 0 || n_meta < 0 || (!kMesh && n_meta > 0) ||
       kTexAny != (n_texels > 0) || n_texels < 0 || depth <= 0 || n_spp < 0 || pix0 < 0 ||
       n_local <= 0 || pix0 + n_local > static_cast<long long>(width) * height)
     return static_cast<int>(cudaErrorInvalidValue);
-  const auto kernel = per_sample ? k1_trace<true> : k1_trace<false>;
-  const int rows = k1_count_rows(per_sample, k1_count_chunk(per_sample, n_spp, depth), depth);
-  const size_t smem = tables_smem(k1_count_slots(rows), n_geoms, n_lights, n_meta);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  const int rows =
+      k1_count_rows(per_sample, k1_chunk(per_sample, n_spp, depth, counting), depth);
+  const size_t smem = tables_smem(k1_count_slots(rows + (counting ? depth * kEvCols : 0)),
+                                  n_geoms, n_lights, n_meta);
+  // k1_trace<per_sample>, or with events its counting form
+  const auto launch = [&](auto kernel, auto... tail) -> int {
+    if (smem > 48 * 1024) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+      if (e != cudaSuccess) return static_cast<int>(e);
+    }
+    // the pool a block takes, from the blocks the card keeps resident
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kBlock, smem);
     if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  // the pool a block takes, from the blocks the card keeps resident
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kBlock, smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const int lane_px = k1_lane_pixels(n_local, static_cast<long long>(sms) * per_sm);
-  const long long per_block = static_cast<long long>(kBlock) * lane_px;
-  const long long blocks = (n_local + per_block - 1) / per_block;
-  if (blocks <= 0 || blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  kernel<<<static_cast<unsigned>(blocks), kBlock, smem, static_cast<cudaStream_t>(stream)>>>(
-      cam, mats, gmat, geom_types, lights, reinterpret_cast<const float4*>(tri),
-      reinterpret_cast<const float4*>(nodes), meta, texels, charts, n_geoms, n_lights, n_meta,
-      width, height, depth, it0, n_spp, pix0, n_local, lane_px, rad, counts);
-  return static_cast<int>(cudaGetLastError());
+    const int lane_px = k1_lane_pixels(n_local, static_cast<long long>(sms) * per_sm);
+    const long long per_block = static_cast<long long>(kBlock) * lane_px;
+    const long long blocks = (n_local + per_block - 1) / per_block;
+    if (blocks <= 0 || blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+    kernel<<<static_cast<unsigned>(blocks), kBlock, smem, static_cast<cudaStream_t>(stream)>>>(
+        cam, mats, gmat, geom_types, lights, reinterpret_cast<const float4*>(tri),
+        reinterpret_cast<const float4*>(nodes), meta, texels, charts, n_geoms, n_lights, n_meta,
+        width, height, depth, it0, n_spp, pix0, n_local, lane_px, rad, counts, tail...);
+    return static_cast<int>(cudaGetLastError());
+  };
+  if (counting)
+    return per_sample ? launch(k1_trace<true, unsigned long long>, events)
+                      : launch(k1_trace<false, unsigned long long>, events);
+  return per_sample ? launch(k1_trace<true>) : launch(k1_trace<false>);
 }
 
 // The number of state planes K5 of this build carries (state_keys).

@@ -209,7 +209,7 @@ def load_k1(mask=0):
             i, i, i,                               # width, height, depth
             ctypes.c_uint, i,                      # it0, n_spp
             ctypes.c_longlong, ctypes.c_longlong,  # pix0, n_local
-            p, p, i, p,                            # rad, counts, per_sample, stream
+            p, p, p, i, p,                         # rad, counts, events, per_sample, stream
         ]
         lib.pt_k1_trace.restype = i
         lib.pt_k5_span.argtypes = [

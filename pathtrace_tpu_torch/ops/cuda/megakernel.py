@@ -68,6 +68,14 @@ LIGHT_COLS = 128
 TRI_COLS = 16  # v0 (3), e1 (3), e2 (3), object-space unit normal (3), pad
 TRI_TEX_COLS = 24  # + vt corners (6), BUMPTEX UV gradients (6)
 NO_CHART = (-1, 0, 0)
+# K1's event counters (csrc/megakernel.cu K1Events), a row a bounce: the
+# scatter events by kind (a path that goes on from a surface), then the mesh
+# walks and the BVH nodes they visit by kind of ray: rays that leave a
+# refraction, the other nearest-hit rays, shadow rays.
+SCATTER_KINDS = ("diffuse", "specular", "glass_reflection", "refraction")
+RAY_KINDS = ("refracted", "other", "shadow")
+K1_EVENTS = SCATTER_KINDS + tuple(f"{what}.{ray}" for ray in RAY_KINDS
+                                  for what in ("walks", "nodes"))
 
 
 def _c32(x):
@@ -506,7 +514,7 @@ def _moller_trumbore(ray, row, bary=False):
     return (tt, hit, u, vv) if bary else (tt, hit)
 
 
-def _mesh_walk(ray, t0, want, nodes, tri, tri_off):
+def _mesh_walk(ray, t0, want, nodes, tri, tri_off, events=None):
     """K3's traversal, per ray: each ray in ``want`` walks the skip-link
     BVH ``nodes`` (one geom's (n,16) table) from node 0 with its own
     cursor, entering a node whose box it meets before ``t_loc`` (``t0``
@@ -517,7 +525,10 @@ def _mesh_walk(ray, t0, want, nodes, tri, tri_off):
     1/rdx, 1/rdy, 1/rdz) in the geom's object space; leaf starts count
     from row ``tri_off`` of ``tri``.  The rays still walking are kept
     compacted, one step per loop.  Returns the winner's row in ``tri``
-    per ray (int64, -1: none)."""
+    per ray (int64, -1: none).  ``events`` = (a bounce's row of K1's
+    event counters, each ray's kind: an int64 tensor or an int, an index
+    of :data:`RAY_KINDS`) counts each walk and each node it visits, a
+    node a loop step, as K1 does."""
     widx = torch.full_like(t0, -1, dtype=torch.int64)
     live = torch.nonzero(want).squeeze(1)
     rays = torch.stack(ray, dim=1)[live]
@@ -525,7 +536,16 @@ def _mesh_walk(ray, t0, want, nodes, tri, tri_off):
     win = torch.full_like(live, -1)
     cur = torch.zeros_like(live)
     n_nodes = nodes.shape[0]
+    if events is not None:
+        ev_row, kind = events
+        kind = kind[live] if torch.is_tensor(kind) else \
+            torch.full_like(live, kind)
+        walks = ev_row[len(SCATTER_KINDS)::2]  # then each kind's nodes
+        walks += torch.bincount(kind, minlength=len(RAY_KINDS))
     while live.numel():
+        if events is not None:
+            ev_row[len(SCATTER_KINDS) + 1::2] += torch.bincount(
+                kind, minlength=len(RAY_KINDS))
         with _needed("walk", compacted=True):
             node = nodes[cur]
             _read(nodes, "nodes", cur, 9)
@@ -562,6 +582,8 @@ def _mesh_walk(ray, t0, want, nodes, tri, tri_off):
             keep = ~done
             live, rays, t_loc, win, cur = (
                 live[keep], rays[keep], t_loc[keep], win[keep], cur[keep])
+            if events is not None:
+                kind = kind[keep]
     return widx
 
 
@@ -620,7 +642,7 @@ def _linear_walk(m, go, ray, best, want, tri, tri_off, n_tris):
 
 
 def _nearest(ox, oy, oz, dx, dy, dz, time, gmat, geom_types, shadow=False,
-             mesh=None, want=None, uv=False):
+             mesh=None, want=None, uv=False, events=None):
     """Nearest hit over the geoms by world-space distance, the winner
     kept on a strict ``dist < best`` (ties keep the geom folded first):
     the spheres and cubes in index order, then each MESH geom of
@@ -641,7 +663,8 @@ def _nearest(ox, oy, oz, dx, dy, dz, time, gmat, geom_types, shadow=False,
     cube's face chart, a triangle's interpolated vt; zero on a sphere,
     whose chart :func:`_surface` computes from ``q*``) and its triangle
     row ``row`` (-1: not a triangle).  The shadow form skips the normals;
-    its distances and winners are those of the full fold."""
+    its distances and winners are those of the full fold.  ``events``
+    counts the BVH walks (:func:`_mesh_walk`'s)."""
     zeros = torch.zeros_like(ox)
     h = SimpleNamespace(dist=torch.full_like(ox, NO_HIT),
                         geom=torch.full_like(ox, -1, dtype=torch.int64))
@@ -792,7 +815,7 @@ def _nearest(ox, oy, oz, dx, dy, dz, time, gmat, geom_types, shadow=False,
                 widx = _mesh_walk(
                     (*ray, _div(1.0, rdx), _div(1.0, rdy), _div(1.0, rdz)),
                     t0, want, nodes[node_off:node_off + n_nodes], tri,
-                    tri_off)
+                    tri_off, events)
         # the shading fold, once, on the winning row (a zero row for none)
         with _needed(lanes=lambda: widx >= 0):
             row = _rows(tri, widx)
@@ -1118,13 +1141,14 @@ def _imperfect_specular(m_ex, mrx, mry, mrz, u_s1, u_s2):
 
 
 def _nee_add(rad, thr, h, n, albedo, has_diffuse, time, it, pix, dep,
-             lights, gmat, geom_types, mesh):
+             lights, gmat, geom_types, mesh, events=None):
     """Direct lighting at the hit points: per light one area sample and
     one shadow ray, added where ``has_diffuse`` and the light is seen,
     with weight albedo/pi (the reference's ``_nee_add``).  ``lights``
     is a list of table rows of 0-d tensors.  A light that is not a
     sphere is sampled as a cube, as the reference does (an emissive
-    mesh too)."""
+    mesh too).  ``events``, a bounce's row of K1's event counters, counts
+    the shadow rays' walks."""
     nx, ny, nz = n
     rad = list(rad)
     for k, lr in enumerate(lights):
@@ -1190,7 +1214,9 @@ def _nee_add(rad, thr, h, n, albedo, has_diffuse, time, it, pix, dep,
             inv_dl = torch.reciprocal(dist_l)
             sdx, sdy, sdz = wlx * inv_dl, wly * inv_dl, wlz * inv_dl
             sh = _nearest(h.px, h.py, h.pz, sdx, sdy, sdz, time, gmat,
-                          geom_types, shadow=True, mesh=mesh, want=has_diffuse)
+                          geom_types, shadow=True, mesh=mesh, want=has_diffuse,
+                          events=None if events is None else (
+                              events, RAY_KINDS.index("shadow")))
             tol = torch.clamp_min(5e-3 * dist_l, 1e-3)
             visible = sh.hit & (sh.geom == li) & (
                 torch.abs(sh.dist - dist_l) < tol)
@@ -1307,7 +1333,7 @@ def init_state(sc, it, pix, width, height):
     return st
 
 
-def bounces(sc, st, it, pix, d0, d1, counts, grad_mats=None):
+def bounces(sc, st, it, pix, d0, d1, counts, grad_mats=None, events=None):
     """Bounces [d0, d1) of iteration ``it`` on the state ``st`` of the
     pixels ``pix`` (a dict of :func:`init_state`'s form, left as it is);
     returns the state after them and adds the live count entering each
@@ -1320,7 +1346,11 @@ def bounces(sc, st, it, pix, d0, d1, counts, grad_mats=None):
     turns on K7's factor counters (the reference's grad mode): the state
     carries ``grad``, (5, M, N) int32 counts of each path's factors per
     material, in the order of :data:`GRAD_COUNTERS` (seeded at zero when
-    ``st`` has none)."""
+    ``st`` has none).
+
+    ``events`` (depth, len(:data:`K1_EVENTS`)) int64 counts K1's events
+    of bounces from 0 on (``d0`` 0): each bounce's scatter events, and its
+    walks and their nodes."""
     (has_glass, has_imperfect, _, _, has_checker, has_bump,
      has_sss) = sc.features
     nee = sc.lights is not None
@@ -1346,12 +1376,18 @@ def bounces(sc, st, it, pix, d0, d1, counts, grad_mats=None):
         mat_of = torch.tensor(tuple(mat_of_geom) + (-1,), dtype=torch.int64,
                               device=dx.device)
         mat_ids = torch.arange(n_mats, device=dx.device)[:, None]
+    if events is not None:
+        # the rays that leave a refraction: of RAY_KINDS, 0 ("refracted")
+        from_refract = torch.zeros_like(live)
 
     for d in range(d0, d1):
         counts[d] += live.sum()
+        ev = None
+        if events is not None:
+            ev = (events[d], torch.where(from_refract, 0, 1))
         with _needed("trace", live):
             h = _nearest(ox, oy, oz, dx, dy, dz, time, gmat, geom_types,
-                         mesh=mesh, want=live, uv=tex is not None)
+                         mesh=mesh, want=live, uv=tex is not None, events=ev)
         with _needed("surface", lambda: live & h.hit):
             row, albedo, (nx, ny, nz) = _surface(h, mats_t, gmat_t,
                                                  has_checker, has_bump, tex)
@@ -1462,6 +1498,15 @@ def bounces(sc, st, it, pix, d0, d1, counts, grad_mats=None):
                        for k in range(3)]
                 took_diffuse = took_diffuse & ~is_glass
 
+            if events is not None:
+                # the path's scatter event, of SCATTER_KINDS
+                kind = torch.where(took_diffuse, 0, 1)
+                if has_glass:
+                    kind = torch.where(is_glass,
+                                       torch.where(choose_refl, 2, 3), kind)
+                events[d, :len(SCATTER_KINDS)] += torch.bincount(
+                    kind[cont], minlength=len(SCATTER_KINDS))
+
             if grad_mats is not None:
                 # the factors this bounce multiplies into the path, by
                 # the winner's material: a diffuse bounce color and
@@ -1504,7 +1549,8 @@ def bounces(sc, st, it, pix, d0, d1, counts, grad_mats=None):
                 has_diffuse = cont & ~scatter_inside & ~(row[:, 8] > 0.0)
                 rad = _nee_add(rad, thr_acc, h, (nx, ny, nz), albedo,
                                has_diffuse, time, it, pix, dep, lights, gmat,
-                               geom_types, mesh)
+                               geom_types, mesh,
+                               None if events is None else events[d])
 
             if has_sss:
                 with _needed(lanes=scatter_inside):
@@ -1581,6 +1627,8 @@ def bounces(sc, st, it, pix, d0, d1, counts, grad_mats=None):
                                        thr_acc[k]) for k in range(3)]
         emit_ok = ~took_diffuse | scatter_inside
         live = cont
+        if events is not None and has_glass:
+            from_refract = took_refract
     out = dict(ox=ox, oy=oy, oz=oz, dx=dx, dy=dy, dz=dz, tr=thr_acc[0],
                tg=thr_acc[1], tb=thr_acc[2], rr=rad[0], rg=rad[1], rb=rad[2],
                live=live)
@@ -1598,7 +1646,8 @@ def bounces(sc, st, it, pix, d0, d1, counts, grad_mats=None):
 def trace_plain(cam, mats, gmat, geom_types, width, height, depth, it0,
                 n_spp, pix0=0, n_local=None, features=NO_FEATURES,
                 lights=None, rr=False, tri=None, nodes=None, bvh_meta=(),
-                texels=None, tex_geom=(), btex_geom=(), per_sample=False):
+                texels=None, tex_geom=(), btex_geom=(), per_sample=False,
+                events=None):
     """Plain PyTorch K1 on the device of ``cam``: ``n_spp`` samples of
     the ``n_local`` pixels from ``pix0`` (``n_local`` None: to the end of
     the image; all of it by default) at
@@ -1616,7 +1665,9 @@ def trace_plain(cam, mats, gmat, geom_types, width, height, depth, it0,
     Returns (rad (n_local, 3) f32 summed over the samples, counts
     (n_spp, depth) int64: live paths entering each bounce of each
     sample, or with ``per_sample`` False their sum over the samples,
-    (depth,))."""
+    (depth,)).  ``events``, a (depth, len(:data:`K1_EVENTS`)) int64
+    tensor on the device, is added K1's event counts of the samples
+    (:func:`bounces`)."""
     device = cam.device
     sc = plain_scene(cam, mats, gmat, geom_types, features, lights, rr, tri,
                      nodes, bvh_meta, texels, tex_geom, btex_geom)
@@ -1627,7 +1678,7 @@ def trace_plain(cam, mats, gmat, geom_types, width, height, depth, it0,
     for s in range(n_spp):
         it = (it0 + s) & 0xFFFFFFFF
         st = bounces(sc, init_state(sc, it, pixel, width, height), it,
-                     pixel, 0, depth, counts[s])
+                     pixel, 0, depth, counts[s], events=events)
         acc = [a + st[k] for a, k in zip(acc, ("rr", "rg", "rb"))]
     return (torch.stack(acc, dim=-1),
             counts if per_sample else counts.sum(0))
@@ -1787,15 +1838,23 @@ def trace_k1(cam, mats, gmat, geom_types, width, height, depth, it0, n_spp,
     ``per_sample`` the counts are each sample's, (n_spp, depth), from
     the kernel's per-sample form (``k1_trace<true>``); else (depth,),
     summed over the samples.  Raises ``ValueError`` for a float texel
-    table (:func:`check_byte_texels`), on the CPU too."""
+    table (:func:`check_byte_texels`), on the CPU too.
+
+    The first call of a profiler's window counts its events into the
+    counter ``k1`` (``utils/profiling.counter``, (depth,
+    len(:data:`K1_EVENTS`)); on the card K1's counting form adds into it,
+    with no copy and no wait).  Every other call, the window's later ones
+    too, gets no counter and runs the kernel that counts nothing, so a
+    trace times the kernel an untraced call runs."""
     with profiling.span("k1", it0):
         check_byte_texels(texels)
         device = cam.device
+        events = profiling.counter("k1", (depth, len(K1_EVENTS)), device)
         if device.type == "cpu":
             return trace_plain(cam, mats, gmat, geom_types, width, height,
                                depth, it0, n_spp, pix0, n_local, features,
                                lights, rr, tri, nodes, bvh_meta, texels,
-                               tex_geom, btex_geom, per_sample)
+                               tex_geom, btex_geom, per_sample, events)
         if device.type != "cuda":
             raise ValueError(f"K1 runs on cuda or cpu tensors, not {device}")
         from . import build
@@ -1821,8 +1880,8 @@ def trace_k1(cam, mats, gmat, geom_types, width, height, depth, it0, n_spp,
             stream = torch.cuda.current_stream(device).cuda_stream
             err = lib.pt_k1_trace(
                 *args, width, height, depth, it0 & 0xFFFFFFFF, n_spp, pix0,
-                n_local, rad.data_ptr(), counts.data_ptr(), int(per_sample),
-                stream)
+                n_local, rad.data_ptr(), counts.data_ptr(), ptr(events),
+                int(per_sample), stream)
         launch_error("K1", lib, err)
         LAUNCHES[mask] += 1
         return rad, counts

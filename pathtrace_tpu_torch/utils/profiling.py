@@ -8,6 +8,9 @@ Counterpart of ``pathtrace_tpu/utils/profiling.py``:
 * :func:`span` marks a stretch of the program's host work while a
   profiler records (``ptt.<name>`` in the trace, a record in
   :func:`spans`) and costs one flag check when none does;
+* :func:`counter` gives the first call of a profiler's window a device
+  tensor to count its events into (None to every other call), and
+  :func:`counters` reads them after the window;
 * :func:`time_fn` times a call: on the card the median of CUDA events
   around it, the result read back to the host; on the CPU
   ``time.perf_counter``;
@@ -38,7 +41,7 @@ def trace(logdir=None, device="cuda"):
     ``key_averages()`` and :func:`device_busy` read the window.  The
     program's spans (:func:`span`) of the window are in ``trace.json``,
     as ``ptt.<name>``, and in :func:`spans`, which this clears when it
-    starts."""
+    starts, as it clears :func:`counters`."""
     from torch.profiler import ProfilerActivity, profile
 
     logdir = logdir or os.path.join(tempfile.gettempdir(),
@@ -48,6 +51,7 @@ def trace(logdir=None, device="cuda"):
         activities.append(ProfilerActivity.CUDA)
     _RECORDS.clear()
     _OPEN.clear()
+    _COUNTERS.clear()
     with profile(activities=activities) as prof:
         yield prof
     os.makedirs(logdir, exist_ok=True)
@@ -108,6 +112,43 @@ def spans():
     recorded, in the order they opened; :func:`trace` clears them when it
     starts."""
     return list(_RECORDS)
+
+
+_COUNTERS = {}  # name -> its int64 tensor, asked for in the profiler's window
+# a counter was asked for while no profiler recorded: the next ask under a
+# profiler starts a new window's counters
+_OFF_SINCE = [True]
+
+
+def counter(name, shape, device):
+    """The counter ``name`` for one call of a profiler's window: the
+    first call that asks for it while a ``torch.profiler`` records gets an
+    int64 tensor of ``shape`` on ``device``, zeroed, and adds its events
+    into it (a kernel on the card, with no copy and no wait); every other
+    call gets None and counts nothing: the window's later calls, and every
+    call while no profiler records.  So the window's other calls run as
+    they run untraced, and a trace of the window times them.
+    :func:`counters` reads the counters.  They start afresh when
+    :func:`trace` starts, and at the first ask under a profiler after an
+    ask under none (two windows with no ask between them count as one)."""
+    if not _profiler_enabled():
+        _OFF_SINCE[0] = True
+        return None
+    if _OFF_SINCE[0]:
+        _COUNTERS.clear()
+        _OFF_SINCE[0] = False
+    if name in _COUNTERS:
+        return None
+    t = _COUNTERS[name] = torch.zeros(tuple(shape), dtype=torch.int64,
+                                      device=device)
+    return t
+
+
+def counters():
+    """{name: its counts on the host, an int64 numpy array} of every
+    counter of the window (:func:`counter`); the copy waits for the work
+    that adds into it."""
+    return {name: t.cpu().numpy().copy() for name, t in _COUNTERS.items()}
 
 
 def device_busy(prof):

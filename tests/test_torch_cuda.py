@@ -137,7 +137,7 @@ def test_k1_tiles_and_two_calls_give_the_same_bits(cuda):
         rad = torch.empty((n_local, 3), device=cuda)
         part = torch.zeros_like(counts)
         err = lib.pt_k1_trace(*args, 72, 50, 8, 4, 3, pix0, n_local,
-                              rad.data_ptr(), part.data_ptr(), 0,
+                              rad.data_ptr(), part.data_ptr(), None, 0,
                               torch.cuda.current_stream().cuda_stream)
         K.launch_error("K1", lib, err)
         tiles.append(rad)
@@ -145,7 +145,7 @@ def test_k1_tiles_and_two_calls_give_the_same_bits(cuda):
     assert torch.equal(torch.cat(tiles), whole) and torch.equal(total, counts)
     rad = torch.empty((10, 3), device=cuda)
     assert lib.pt_k1_trace(*args, 72, 50, 8, 4, 3, 3595, 10, rad.data_ptr(),
-                           total.data_ptr(), 0, 0) != 0  # past the image
+                           total.data_ptr(), None, 0, 0) != 0  # past the image
 
 
 def test_k1_rejects_bad_tables(cuda):
