@@ -108,8 +108,8 @@ Phases, each of which raises on failure (exit code non-zero):
    and the un-permute;
 13. the gradients on cornell.txt, 1 spp, with a random cotangent that is
    zero on the pixels where K1 and its plain version differ: the reverse
-   sweep K8 (``k8_vjp``, without and with NEE) bit-equal to K1 in its
-   radiance, and every table's gradient against its plain version
+   sweep K8 (``k8_vjp_fwd`` + ``k8_vjp_rev``, without and with NEE)
+   bit-equal to K1 in its radiance, and every table's gradient against its plain version
    (autograd over ``trace_plain`` on the card), at 64x64 depth 4 and at
    800x800 depth 8, and at 64x64 depth 4 also every parameter group of
    ``render_vjp`` against the same entry point on the plain version; the
@@ -300,6 +300,8 @@ K5_SITE = "pathtrace_tpu/ops/pallas/megakernel.py:3923"   # _span_kernel
 K6_SITE = "pathtrace_tpu/ops/scan.py:43"                  # _scan_kernel
 K7_SITE = "pathtrace_tpu/ops/pallas/megakernel.py:2551"   # _grad_accumulate
 K8_SITE = "pathtrace_tpu/ops/pallas/megakernel.py:3494"   # _vjp_kernel
+# the kernels line's name of K8: its pair of kernels (a launch a chunk)
+K8 = "k8_vjp_fwd+k8_vjp_rev"
 K3_LINEAR_SITE = "pathtrace_tpu/ops/pallas/megakernel.py:870"  # tri_body
 GRAD_SMALL = ((64, 64), 4)  # resolution, depth: the reference's tolerance
 # K7 where each block flushes its table more than once: 64x64 d8, 16 spp,
@@ -1295,8 +1297,8 @@ def grad_main_path(ptt, K, MG, VJ, np, torch, cornell):
                                   callback=show(what))
               for what, (scene, spp) in loops.items()}
     torch.cuda.synchronize()
-    launches = {"k7_grads": MG.LAUNCHES[0], "k8_vjp": VJ.LAUNCHES[0],
-                "k8_vjp+k2_nee": VJ.LAUNCHES[K.NEE_BIT],
+    launches = {"k7_grads": MG.LAUNCHES[0], K8: VJ.LAUNCHES[0],
+                f"{K8}+k2_nee": VJ.LAUNCHES[K.NEE_BIT],
                 "k1_trace+k2_nee": K.LAUNCHES[K.NEE_BIT]}
     print(f"gradients' main path: launches {launches}; inverse_light "
           f"position errors {errors}", flush=True)
@@ -1400,8 +1402,8 @@ def mesh_grad_main_path(ptt, K, MG, VJ, torch, mesh):
         engine="planes")
     torch.cuda.synchronize()
     planes_ms = (time.perf_counter() - t0) * 1e3
-    launches = {"k8_vjp+k3_mesh": VJ.LAUNCHES[K.MESH_BIT],
-                "k8_vjp+k2_nee+k3_mesh": VJ.LAUNCHES[K.MESH_BIT | K.NEE_BIT],
+    launches = {f"{K8}+k3_mesh": VJ.LAUNCHES[K.MESH_BIT],
+                f"{K8}+k2_nee+k3_mesh": VJ.LAUNCHES[K.MESH_BIT | K.NEE_BIT],
                 "k7_grads+k3_mesh": MG.LAUNCHES[K.MESH_BIT]}
     tv = float(g_p["tri_verts"].abs().max())
     print(f"mesh gradients' main path: launches {launches} (K1 "
@@ -1465,7 +1467,7 @@ def time_k8(K, VJ, B, torch, label, name, job, nee, card):
 
 def k8_name(K, mask):
     """The kernels line's name of K8's build of ``mask``."""
-    return kernel_name(K, mask).replace("k1_trace", "k8_vjp")
+    return kernel_name(K, mask).replace("k1_trace", K8)
 
 
 def section_grad_main_path(ptt, K, VJ, torch, scenes):
@@ -1590,8 +1592,8 @@ def time_gradients(ptt, K, MG, VJ, B, torch, cornell, card, k7_job):
           flush=True)
     out = {name: time_k8(K, VJ, B, torch, label, name,
                          K.prepare(cornell, "cuda", nee=nee), nee, card)
-           for name, label, nee in (("k8_vjp", "cornell", False),
-                                    ("k8_vjp+k2_nee", "cornell NEE", True))}
+           for name, label, nee in ((K8, "cornell", False),
+                                    (f"{K8}+k2_nee", "cornell NEE", True))}
     out["k7_grads"] = time_k7(K, MG, B, torch, "cornell", "k7_grads", k7_job,
                               card)
     return out
@@ -2607,7 +2609,7 @@ def main():
                        for m in masks]
                       + [(f"k7_m{m}", f"k7_grads (mask {m})")
                          for m in k7_masks]
-                      + [(f"k8_m{m}", f"k8_vjp (mask {m})")
+                      + [(f"k8_m{m}", f"{K8} (mask {m})")
                          for m in VJ.MASKS]
                       + [("k6_scan", "k6_scan"), ("k9_probe", "k9_probe")]):
         sec, log = logs.get(lib, (0.0, "(library found built)"))
@@ -2750,7 +2752,7 @@ def main():
                                 trace_depth=GRAD_SMALL[1])
     grad_rows = {}
     for full, scene in ((False, small), (True, cornell)):
-        for name, nee in (("k8_vjp", False), ("k8_vjp+k2_nee", True)):
+        for name, nee in ((K8, False), (f"{K8}+k2_nee", True)):
             grad_rows[name] = k8_vs_plain(K, VJ, GC, torch, name, scene,
                                           nee, full)
             phase_done(f"{name} vs plain {scene.resolution}")
@@ -2767,8 +2769,8 @@ def main():
     mesh_small = dataclasses.replace(mesh, resolution=GRAD_SMALL[0],
                                      trace_depth=GRAD_SMALL[1])
     for full, scene in ((False, mesh_small), (True, mesh)):
-        for name, nee in (("k8_vjp+k3_mesh", False),
-                          ("k8_vjp+k2_nee+k3_mesh", True)):
+        for name, nee in ((f"{K8}+k3_mesh", False),
+                          (f"{K8}+k2_nee+k3_mesh", True)):
             grad_rows[name] = k8_vs_plain(K, VJ, GC, torch, name, scene,
                                           nee, full)
             phase_done(f"{name} vs plain {scene.resolution}")
@@ -2788,8 +2790,8 @@ def main():
                                      resolution=(800, 800))
     for label, scene in (("cornell_bigmesh", bigmesh800),
                          ("cornell_mesh", mesh)):
-        for name, nee in (("k8_vjp+k3_mesh", False),
-                          ("k8_vjp+k2_nee+k3_mesh", True)):
+        for name, nee in ((f"{K8}+k3_mesh", False),
+                          (f"{K8}+k2_nee+k3_mesh", True)):
             # the cornell_mesh times are the kernels line's
             grad_times[name] = time_k8(
                 K, VJ, B, torch, f"{label} NEE" if nee else label, name,
@@ -2941,8 +2943,8 @@ def main():
         "bound_ms": grad_times[name][1],
         "bound_by": grad_times[name][2],
         "library_ms": None,
-    } for name in ("k7_grads", "k8_vjp", "k8_vjp+k2_nee", "k7_grads+k3_mesh",
-                   "k8_vjp+k3_mesh", "k8_vjp+k2_nee+k3_mesh",
+    } for name in ("k7_grads", K8, f"{K8}+k2_nee", "k7_grads+k3_mesh",
+                   f"{K8}+k3_mesh", f"{K8}+k2_nee+k3_mesh",
                    *section_names)]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -15,9 +15,9 @@
 // Built with -DPT_GRAD=1, the library also holds K7, the analytic material
 // gradients (k7_grads: the reference's grad mode of `_kernel`, with
 // `_grad_accumulate`); built with -DPT_VJP=1, K8, the reverse sweep
-// (k8_vjp: the reference's `_vjp_kernel`).  Both run the same init_state and
-// bounce as K1; the forward builds are compiled without them, and they
-// without K1 and K5.
+// (k8_vjp_fwd and k8_vjp_rev: the reference's `_vjp_kernel`).  Both run the
+// same init_state and bounce as K1; the forward builds are compiled without
+// them, and they without K1 and K5.
 //
 // The same library holds K5, the span kernel of the split and sorted
 // engines (k5_span, at the end): bounces [d0, d1) on path state kept in
@@ -1806,20 +1806,22 @@ k5_span(const float* __restrict__ cam_g, const float* __restrict__ mats_g,
 // natively on 32-bit words in shared memory (64-bit ones, integer or
 // float, are compare-and-swap loops there).  A limb holds any sum of digits
 // below 2^31 in absolute value: 2^19 digits of up to 2^12 - 1, however
-// they are grouped into adds, so after each sample the block adds its
-// limbs, as one 128-bit two's-complement integer an entry, into the one
-// table in global memory (fx_flush) and starts again from zero; a sample
-// adds at most 128 threads x depth x (n_lights + 3) terms to an entry, one
-// digit each to a limb (kFxMaxLights).  Each lane adds its own terms: the
-// atomics need no result, so a lane does not wait on them, where summing a
-// warp's digits first (__match_any_sync, __reduce_add_sync) chains warp
-// collectives on every add and made K8 2-13 times slower (PERF.md).  A
-// term below 2^-64 adds nothing; one that is not finite or reaches 2^62
+// they are grouped into adds, so before its limbs could pass that the block
+// adds them, as one 128-bit two's-complement integer an entry, into the one
+// table in global memory (fx_flush) and starts again from zero: K7 after at
+// most k7_flush_paths paths (ops/cuda), K8 after at most k8_flush_paths,
+// a K8 path adding at most depth x (n_lights + 3) terms to an entry, one
+// digit each to a limb (kFxMaxLights: a flush holds a block's 128 paths).
+// Each lane adds its own terms: the atomics need no result, so a lane does
+// not wait on them, where summing a warp's digits first (__match_any_sync,
+// __reduce_add_sync) chains warp collectives on every add and made K8 2-13
+// times slower (PERF.md).  A term below 2^-64 adds nothing; one that is not finite or reaches 2^62
 // sets the entry's flag bit, and the entry comes out NaN.  fx_round rounds
 // the global table to float32.  The sums are exact while the absolute
 // values of an entry's terms add up to less than 2^63.
 constexpr int kFxLimbs = 11;     // 11 x 12 bits cover the 128
 constexpr int kFxMaxLights = 64;  // 128 x 32 x (64 + 3) < 2^19
+constexpr long long kFxLimbDigits = 1ll << 19;  // the digits a limb holds
 
 struct Fx {
   unsigned* w;  // the block's table: kFxLimbs n limbs, then flag words
@@ -1963,7 +1965,6 @@ inline size_t grad_smem_offset(size_t tables_bytes) {
 // folding each repeated (material, kind) once with its count, folds batched
 // over a warp's lanes and a table for each warp did not pay.
 constexpr int kGradRows = 8;
-constexpr long long kFxLimbDigits = 1ll << 19;
 
 __device__ __forceinline__ void grad_fold(const PathState& p, const float* ct,
                                           const float* mtab, const int* mat_of, int n_mats,
@@ -2145,13 +2146,21 @@ static_assert((kFeatures & ~(127u | 128u | 512u)) == 0,
 // detached; the winner's hit point and normal, the lobe's direction and
 // throughput, the emission and NEE's cos cos' / r^2 term carry gradients.
 //
+// Two kernels joined by a tape in global memory, both on K1's lane schedule
+// (k1_trace): k8_vjp_fwd runs the forward sweeps and writes each live
+// bounce's Saved record and each path's count of live bounces; k8_vjp_rev
+// runs each path's adjoints from its last live bounce down, then raygen's.
+// The host (ops/cuda/vjp.py k8_plan) cuts a call into chunks of samples and,
+// where one sample's tape would pass its ceiling, ranges of pixels, and
+// launches the pair once a chunk.
+//
 // The cotangent of the radiance is ct at every bounce (the radiance only
 // adds up), so the sweep carries the cotangents of the ray (o, d) and of the
 // throughput (and, with SSS, of the medium).  Table gradients go into the
 // block's table in shared memory, exactly (fx_add), which each block adds
-// into the global one after each sample (fx_flush); fx_round rounds that to
-// float32.  Table layout: cam 16 | mats n_geoms x 24 | gmat n_geoms x 40 |
-// lights n_lights x 128 (the packed tables' own).
+// into the global one (fx_flush) after at most k8_flush_paths; fx_round
+// rounds that to float32.  Table layout: cam 16 | mats n_geoms x 24 | gmat
+// n_geoms x 40 | lights n_lights x 128 (the packed tables' own).
 //
 // The sections (bits 0-6 of the mask), each adjoint beside its forward
 // code, every choice detached as the reference's selects are:
@@ -2189,14 +2198,22 @@ static_assert((kFeatures & ~(127u | 128u | 512u)) == 0,
 // What bounds it: K1's operations, plus K7's fold without NEE (the only
 // gradient that is not zero there is the materials') or the adjoints with
 // NEE (bound.k8_extra), and the states each live bounce keeps, written and
-// read once.  It runs far from that: the adjoints and their exact adds
-// (fx_add) take about half of its time, the forward sweep at K8's register
-// count the rest (PERF.md section 5).  The states live in local memory
-// (kVjpMaxDepth of them a thread): in shared memory they would cost more
-// occupancy than they save.
+// read once.  A sweep of one pixel a thread, every bounce forward then every
+// adjoint back a sample, runs each warp to its longest path twice: on
+// cornell at depth 8 with NEE a path has 3.87 live bounces, and nearly
+// every warp holds one that lives to the last, so about half of the
+// lane-steps of both sweeps held a dead path.  Here neither kernel waits
+// for a lane's path: a lane whose path ends starts its pixel's next sample,
+// or takes its pool's next pixel, in the same step.  What that costs is the
+// tape, a record (kTapeWords words) a live bounce, written once by the
+// forward and read once by the reverse, where the one-kernel sweep kept its
+// states in local memory; and the carried camera sums of pixels whose
+// samples span chunks.  Measured: PERF.md section 5.
 constexpr int kVjpMaxDepth = 32;
-// raygen's camera gradients: pos, view, right, up, tan (and the lens)
+// raygen's camera gradients: pos, view, right, up, tan (and the lens), and
+// the floats a pixel's sum of them takes in k8_vjp_rev's g_carry
 constexpr int kCamGrads = kDof ? 16 : 14;
+constexpr int kCarry = 16;
 
 // The state entering a bounce and what its forward found: the winning geom
 // (-1: none) and, in the mesh builds, its triangle row (-1: a primitive);
@@ -2215,34 +2232,82 @@ template <bool> struct SavedVis {};
 template <> struct SavedVis<true> { unsigned long long vis; };
 struct Saved : SavedCore, SavedRow<kMesh>, SavedMed<kSss>, SavedVis<kNee> {};
 
-// The state entering a bounce, into sv.
-template <typename S>
-__device__ __forceinline__ void keep_state(S& sv, const PathState& p) {
-  sv.ox = p.ox;
-  sv.oy = p.oy;
-  sv.oz = p.oz;
-  sv.dx = p.dx;
-  sv.dy = p.dy;
-  sv.dz = p.dz;
-  sv.tr = p.tr;
-  sv.tg = p.tg;
-  sv.tb = p.tb;
-  sv.live = p.live;
-  sv.emit_ok = p.emit_ok;
-  if constexpr (kSss) {
-    sv.med_s = p.med_s;
-    sv.med_r = p.med_r;
-    sv.med_g = p.med_g;
-    sv.med_b = p.med_b;
-  }
+// The tape: a Saved record of kTapeWords 32-bit words a live bounce, whole
+// float4s, so that a lane stores and loads it with vector accesses:
+// ox oy oz dx | dy dz tr tg | (SSS: med_s med_r med_g med_b |) then the tail:
+// tb, geom * 2 + emit_ok, (NEE: the visibility, low word first,) (meshes:
+// the triangle row,) zeros to the float4's end.  A record holds a live
+// bounce only (live is implied).  ops/cuda/vjp.py record_bytes mirrors it.
+constexpr int kTapeTail = kSss ? 12 : 8;  // the word of tb
+constexpr int kTapeVis = kTapeTail + 2;
+constexpr int kTapeRow = kTapeVis + (kNee ? 2 : 0);
+constexpr int kTapeWords = (kTapeRow + (kMesh ? 1 : 0) + 3) / 4 * 4;
+constexpr int kTapeTailWords = kTapeWords - kTapeTail;
+static_assert(kTapeTail % 4 == 0 && kTapeVis % 2 == 0, "the tape's vector accesses");
+
+// The state entering a bounce, into its record, before the bounce runs
+// (but tb, which keep_found stores with the tail).
+__device__ __forceinline__ void keep_state(float4* rec, const PathState& p) {
+  rec[0] = make_float4(p.ox, p.oy, p.oz, p.dx);
+  rec[1] = make_float4(p.dy, p.dz, p.tr, p.tg);
+  if constexpr (kSss) rec[2] = make_float4(p.med_s, p.med_r, p.med_g, p.med_b);
 }
 
-// What the bounce's forward found, into sv: its winner and visibility.
+// The record's tail after the bounce ran: tb and emit_ok as they entered
+// it, and what it found, its winner and visibility.
+__device__ __forceinline__ void keep_found(float4* rec, const PathState& p, float tb,
+                                           bool emit_ok) {
+  uint32_t w[kTapeTailWords] = {};
+  w[0] = __float_as_uint(tb);
+  w[1] = static_cast<uint32_t>(p.win_geom * 2 + (emit_ok ? 1 : 0));
+  if constexpr (kNee) {
+    w[kTapeVis - kTapeTail] = static_cast<uint32_t>(p.nee_vis);
+    w[kTapeVis - kTapeTail + 1] = static_cast<uint32_t>(p.nee_vis >> 32);
+  }
+  if constexpr (kMesh) w[kTapeRow - kTapeTail] = static_cast<uint32_t>(p.win_row);
+#pragma unroll
+  for (int i = 0; i < kTapeTailWords; i += 4)
+    rec[(kTapeTail + i) / 4] = make_float4(__uint_as_float(w[i]), __uint_as_float(w[i + 1]),
+                                           __uint_as_float(w[i + 2]), __uint_as_float(w[i + 3]));
+}
+
+// A record of the tape, as the Saved of a live bounce.
 template <typename S>
-__device__ __forceinline__ void keep_found(S& sv, const PathState& p) {
-  sv.geom = p.win_geom;
-  if constexpr (kMesh) sv.row = p.win_row;
-  if constexpr (kNee) sv.vis = p.nee_vis;
+__device__ __forceinline__ void load_saved(const float4* __restrict__ rec, S& sv) {
+  const float4 a = __ldg(rec), b = __ldg(rec + 1);
+  sv.ox = a.x;
+  sv.oy = a.y;
+  sv.oz = a.z;
+  sv.dx = a.w;
+  sv.dy = b.x;
+  sv.dz = b.y;
+  sv.tr = b.z;
+  sv.tg = b.w;
+  if constexpr (kSss) {
+    const float4 m = __ldg(rec + 2);
+    sv.med_s = m.x;
+    sv.med_r = m.y;
+    sv.med_g = m.z;
+    sv.med_b = m.w;
+  }
+  uint32_t w[kTapeTailWords];
+#pragma unroll
+  for (int i = 0; i < kTapeTailWords; i += 4) {
+    const float4 t = __ldg(rec + (kTapeTail + i) / 4);
+    w[i] = __float_as_uint(t.x);
+    w[i + 1] = __float_as_uint(t.y);
+    w[i + 2] = __float_as_uint(t.z);
+    w[i + 3] = __float_as_uint(t.w);
+  }
+  sv.tb = __uint_as_float(w[0]);
+  const int ge = static_cast<int>(w[1]);
+  sv.geom = ge >> 1;
+  sv.emit_ok = (ge & 1) != 0;
+  sv.live = true;
+  if constexpr (kNee)
+    sv.vis = static_cast<unsigned long long>(w[kTapeVis - kTapeTail]) |
+             static_cast<unsigned long long>(w[kTapeVis - kTapeTail + 1]) << 32;
+  if constexpr (kMesh) sv.row = static_cast<int>(w[kTapeRow - kTapeTail]);
 }
 
 // The cotangents of the ray and the throughput a bounce hands on, and in
@@ -2781,6 +2846,23 @@ __device__ __forceinline__ void mirror_adj(const float* n, const float* dd, cons
   }
 }
 
+// The adjoint of a light's emission, rad += tr * albedo * emit, for
+// bounce_adj and end_adj: into c.t (of the throughput tr), the albedo row
+// al's gradient ga and the emission's, entry 10 of the material's gm.  A
+// macro, not a function: a __forceinline__ function in its place changed
+// the machine code of k8_vjp_rev in four builds (masks 0, 24, 128, 152;
+// PERF.md section 6), where the macro keeps the code of the two copies.
+#define PT_EMIT_ADJ(al, tr, emit, ct, c, ga, gm) \
+  do {                                           \
+    float g_e = 0.f;                             \
+    for (int k = 0; k < 3; ++k) {                \
+      c.t[k] += ct[k] * al[k] * emit;            \
+      gadd(ga + k, ct[k] * tr[k] * emit);        \
+      g_e += ct[k] * tr[k] * al[k];              \
+    }                                            \
+    gadd(gm + 10, g_e);                          \
+  } while (0)
+
 // The adjoint of bounce d on the state sv it started from (shutter time
 // `time`): c holds the cotangents of the ray, the throughput (and the
 // medium) the bounce handed on, and on return those of the ones it was
@@ -2819,16 +2901,7 @@ __device__ void bounce_adj(const S& sv, int d, uint32_t it, uint32_t pix, float 
   }
   const float emit = mt[10];
   if (emit > 0.f) {
-    if (!kNee || sv.emit_ok) {
-      // rad += tr * albedo * emit
-      float g_e = 0.f;
-      for (int k = 0; k < 3; ++k) {
-        c.t[k] += ct[k] * al[k] * emit;
-        gadd(ga + k, ct[k] * tr[k] * emit);
-        g_e += ct[k] * tr[k] * al[k];
-      }
-      gadd(gm + 10, g_e);
-    }
+    if (!kNee || sv.emit_ok) PT_EMIT_ADJ(al, tr, emit, ct, c, ga, gm);
     return;
   }
   const uint32_t dep = static_cast<uint32_t>(d) + 1u;
@@ -3028,21 +3101,300 @@ __device__ void bounce_adj(const S& sv, int d, uint32_t it, uint32_t pix, float 
   }
 }
 
-// 7 blocks an SM: at most 72 registers a thread (the rest spill to local
-// memory), a latency-bound sweep's trade (PERF.md section 5)
+// The adjoint of raygen for sample `it` of pixel pix_u: from the
+// cotangents c of the ray the path started with, adds into g_cam, the
+// pixel's running sum of raygen's gradient (pos, view, right, up, tan, and
+// the lens), in the order of its terms.
+__device__ __forceinline__ void raygen_adj(const Camera& cam, const Tables& s, uint32_t it,
+                                           uint32_t pix_u, int width, float sx_scale,
+                                           float sy_scale, const Cot& c, float* g_cam) {
+  // o = pos, d = normalize(view - right tan_x sx - up tan_y sy)
+  const float fx = static_cast<float>(pix_u % static_cast<uint32_t>(width));
+  const float fy = static_cast<float>(pix_u / static_cast<uint32_t>(width));
+  const float ujx = pt::uniform(it, pix_u, 0u, pt::kDrawAaX);
+  const float ujy = pt::uniform(it, pix_u, 0u, pt::kDrawAaY);
+  const float sx = (fx + ujx) * sx_scale - 1.f;
+  const float sy = (fy + ujy) * sy_scale - 1.f;
+  const float ax = cam.tan_x * sx, ay = cam.tan_y * sy;
+  const float v[3] = {cam.v_x, cam.v_y, cam.v_z};
+  const float r[3] = {cam.r_x, cam.r_y, cam.r_z}, u[3] = {cam.u_x, cam.u_y, cam.u_z};
+  const float raw[3] = {v[0] - r[0] * ax - u[0] * ay, v[1] - r[1] * ax - u[1] * ay,
+                        v[2] - r[2] * ax - u[2] * ay};
+  float g_d[3] = {c.d[0], c.d[1], c.d[2]};
+  float c_o[3] = {c.o[0], c.o[1], c.o[2]};
+  if constexpr (kDof) {
+    const float aperture = s.cam[14], focal = s.cam[15];
+    if (aperture > 0.f) {
+      // the thin lens: o = pos + off, d = normalize(pf - o), pf = pos +
+      // dn ft, ft = focal / max(dn . view, 1e-6), off = right lc + up ls,
+      // (lc, ls) = aperture sqrt(u1) (cos, sin)(2 pi u2)
+      float dn[3] = {raw[0], raw[1], raw[2]};
+      normalize3(dn[0], dn[1], dn[2]);
+      const float sq1 = sqrtf(pt::uniform(it, pix_u, 0u, pt::kDrawDofU));
+      const float theta = pt::uniform(it, pix_u, 0u, pt::kDrawDofV) * kTwoPi;
+      const float r_lens = aperture * sq1;
+      const float cth = cosf(theta), sth = sinf(theta);
+      const float lc = r_lens * cth, ls = r_lens * sth;
+      const float cos_v = dn[0] * v[0] + dn[1] * v[1] + dn[2] * v[2];
+      const float cvc = fmaxf(cos_v, 1e-6f);
+      const float ft = focal / cvc;
+      const float pos[3] = {cam.pos_x, cam.pos_y, cam.pos_z};
+      float wv[3];
+      for (int k = 0; k < 3; ++k) {
+        const float pf = pos[k] + dn[k] * ft;
+        const float ok = pos[k] + (r[k] * lc + u[k] * ls);
+        wv[k] = pf - ok;
+      }
+      float g_w[3] = {c.d[0], c.d[1], c.d[2]};
+      normalize3_adj(wv[0], wv[1], wv[2], g_w);
+      float g_ft = 0.f, g_lc = 0.f, g_ls = 0.f;
+      for (int k = 0; k < 3; ++k) {
+        const float g_off = c_o[k] - g_w[k];
+        g_cam[k] += c_o[k];  // pos: through o and pf
+        g_cam[6 + k] += g_off * lc;
+        g_cam[9 + k] += g_off * ls;
+        g_lc += g_off * r[k];
+        g_ls += g_off * u[k];
+        g_ft += g_w[k] * dn[k];
+        g_d[k] = g_w[k] * ft;
+      }
+      g_cam[15] += g_ft / cvc;
+      const float g_cos = cos_v >= 1e-6f ? -g_ft * (ft / cvc) : 0.f;
+      for (int k = 0; k < 3; ++k) {
+        g_d[k] += g_cos * v[k];
+        g_cam[3 + k] += g_cos * dn[k];
+      }
+      g_cam[14] += (g_lc * cth + g_ls * sth) * sq1;
+      for (int k = 0; k < 3; ++k) c_o[k] = 0.f;  // taken above
+    }
+  }
+  normalize3_adj(raw[0], raw[1], raw[2], g_d);
+  for (int k = 0; k < 3; ++k) {
+    g_cam[k] += c_o[k];
+    g_cam[3 + k] += g_d[k];
+    g_cam[6 + k] += -g_d[k] * ax;
+    g_cam[9 + k] += -g_d[k] * ay;
+    g_cam[12] += -sx * (g_d[k] * r[k]);
+    g_cam[13] += -sy * (g_d[k] * u[k]);
+  }
+}
+
+// The adjoint of a path's last live bounce d where the path ends there
+// without scattering, as bounce_adj's: none after a miss, the emission's
+// after a light (but in the checker builds, where its albedo needs the hit
+// point): then the bounce before it is the next to run, and the step that
+// starts the path runs both, where a step of the last bounce's own would
+// leave the lane next to the others' scattering bounces with little to do.
+// Returns the bounce whose adjoint runs next (d or d - 1).
+__device__ __forceinline__ int end_adj(const float4* __restrict__ rec, int d, const Tables& s,
+                                       const float* ct, Cot& c, const GradTab& G) {
+  const float4* r = rec + d * (kTapeWords / 4);
+  const float4 t = __ldg(r + kTapeTail / 4);  // tb, geom * 2 + emit_ok, ...
+  const int ge = __float_as_int(t.y);
+  const int g = ge >> 1;
+  if (g < 0) return d - 1;  // a miss: nothing
+  if constexpr (kChecker) return d;
+  const float* mt = s.mats + g * kMatCols;
+  const float emit = mt[10];
+  if (!(emit > 0.f)) return d;  // it scatters
+  if (!kNee || (ge & 1) != 0) {
+    const float4 b = __ldg(r + 1);
+    const float tr[3] = {b.z, b.w, t.x};
+    const Fx gm = G.mats + g * kMatCols;
+    PT_EMIT_ADJ(mt, tr, emit, ct, c, gm, gm);
+  }
+  return d - 1;
+}
+
+// The samples of a pass of k8_vjp_rev's pool: short passes start a warp's
+// lanes on neighbouring pixels at one sample again and again, which cost
+// the cell's reverse 12.95 ms (one sample a pass) and 12.99 (two) where one
+// pass of all its 8 samples took 15.77; each pass ends in a barrier, whose
+// idle lanes two samples halve (PERF.md section 5).
+constexpr int kRevPass = 2;
+
+// The paths a block of k8_vjp_rev may add into its table between two
+// flushes: a live bounce adds at most n_lights + 3 terms to an entry, one
+// digit a limb, and a path has at most depth of them, so every limb stays
+// under kFxLimbDigits digits while paths x depth x (n_lights + 3) < 2^19 (a
+// pixel's one camera term a flush is among its path's: the bounces add none
+// to the camera's entries).  At least a block's 128 paths (kFxMaxLights).
+__host__ __device__ constexpr int k8_flush_paths(int depth, int n_lights) {
+  return static_cast<int>((kFxLimbDigits - 1) / (depth * (n_lights + 3)));
+}
+static_assert(k8_flush_paths(kVjpMaxDepth, kFxMaxLights) >= kBlock, "a flush holds a block's paths");
+
+// K8's lane counters (the k8 counter of ops/cuda/vjp.py, a pair a kernel):
+// the lane-steps a warp issued and those of them that ran a live bounce
+// (forward) or a live bounce's adjoint (reverse).  Only the counting
+// instantiations, k8_vjp_fwd<unsigned long long> and
+// k8_vjp_rev<unsigned long long>, keep them: each warp's lane 0 counts in
+// registers and adds into lanes[0] and lanes[1] once, at its end.
+struct K8Lanes {
+  unsigned long long issued = 0ull, live = 0ull;
+};
+
+// The tape's records of path (pixel q of the chunk's range, sample j of
+// the chunk): depth of them, pixel-major, so a pixel's samples follow one
+// another.
+__device__ __forceinline__ long long tape_path(long long q, int j, int n_s) {
+  return q * n_s + j;
+}
+
+// K8's forward sweep over pixels px0 .. px0 + n_px - 1 of the image and
+// samples s0 .. s1 - 1 (iterations it0 + s): K1's lane schedule (k1_trace's
+// loop) with the tape.  Each live bounce's record goes to
+// tape[(tape_path(q, s - s0) depth + d) kTapeWords words]; a path's count of
+// live bounces to n_live[tape_path(q, s - s0)].  rad (the image's, (P, 3))
+// gets each pixel's radiance summed over its samples in order, from the sum
+// the chunks before it left (s0 > 0).  With Lanes, K8's lane counters.
+template <typename... Lanes>
 __global__ void __launch_bounds__(kBlock, 7)
-k8_vjp(const float* __restrict__ cam_g, const float* __restrict__ mats_g,
-       const float* __restrict__ gmat_g, const int* __restrict__ types_g,
-       const float* __restrict__ lights_g, const float4* __restrict__ tri_g,
-       const float4* __restrict__ nodes_g, const int* __restrict__ meta_g, int n_geoms,
-       int n_lights, int n_meta, int width, int height, int depth, uint32_t it0, int n_spp,
-       const float* __restrict__ ct, float* __restrict__ rad,
-       unsigned long long* __restrict__ gtab, size_t grad_off) {
-  // shared: the tables, and at byte grad_off (tables_smem) the block's
-  // gradient table
+k8_vjp_fwd(const float* __restrict__ cam_g, const float* __restrict__ mats_g,
+           const float* __restrict__ gmat_g, const int* __restrict__ types_g,
+           const float* __restrict__ lights_g, const float4* __restrict__ tri_g,
+           const float4* __restrict__ nodes_g, const int* __restrict__ meta_g, int n_geoms,
+           int n_lights, int n_meta, int width, int height, int depth, uint32_t it0,
+           long long px0, long long n_px, int s0, int s1, int lane_px, float* __restrict__ rad,
+           float4* __restrict__ tape, unsigned char* __restrict__ n_live,
+           Lanes*... lanes /* 2 */) {
+  constexpr bool kCount = sizeof...(Lanes) > 0;
+  // shared: the pool's taken word, then the tables
   extern __shared__ unsigned long long smem[];
-  const Tables s = stage_tables(smem, 0, cam_g, mats_g, gmat_g, types_g, lights_g, meta_g,
-                                nullptr, n_geoms, n_lights, n_meta);
+  const Tables s = stage_tables(smem, k1_count_slots(0), cam_g, mats_g, gmat_g, types_g,
+                                lights_g, meta_g, nullptr, n_geoms, n_lights, n_meta);
+  unsigned* s_taken = reinterpret_cast<unsigned*>(smem);  // pixels taken past the first kBlock
+  const Mesh mesh(tri_g, nodes_g, s.meta, n_meta);
+  const Tex tex(nullptr);
+  __syncthreads();
+
+  constexpr unsigned kFull = 0xffffffffu;
+  const int lane = threadIdx.x & 31;
+  const unsigned below = (1u << lane) - 1u;
+  const int n_s = s1 - s0;
+  // the pool: pixels px0 + first .. px0 + first + pool - 1
+  const long long first = static_cast<long long>(blockIdx.x) * kBlock * lane_px;
+  const int pool = static_cast<int>(min(static_cast<long long>(kBlock) * lane_px, n_px - first));
+  const float sx_scale = static_cast<float>(2.0 / width);
+  const float sy_scale = static_cast<float>(2.0 / height);
+  const Camera cam = load_camera(s.cam);
+  [[maybe_unused]] K8Lanes count;
+
+  long long q = 0;  // the lane's pixel in the range
+  uint32_t pix_u = 0u;
+  float fx = 0.f, fy = 0.f, acc_r = 0.f, acc_g = 0.f, acc_b = 0.f;
+  int sample = s0, d = 0;
+  float4* rec = tape;  // the path's records
+  // the pool's pixel k: its sum so far (the chunks before) and sample s0
+  const auto take = [&](int k) {
+    q = first + k;
+    pix_u = static_cast<uint32_t>(px0 + q);
+    fx = static_cast<float>(pix_u % static_cast<uint32_t>(width));
+    fy = static_cast<float>(pix_u / static_cast<uint32_t>(width));
+    acc_r = acc_g = acc_b = 0.f;
+    if (s0 > 0) {
+      acc_r = rad[3ll * pix_u + 0];
+      acc_g = rad[3ll * pix_u + 1];
+      acc_b = rad[3ll * pix_u + 2];
+    }
+    sample = s0;
+  };
+  bool done = static_cast<int>(threadIdx.x) >= pool;
+  bool fresh = !done;  // a sample to start
+  if (!done) take(threadIdx.x);
+  PathState p;
+  p.live = false;
+  for (;;) {
+    bool need = false;  // the lane's pixel has run the chunk
+    if (!done && !fresh && (!p.live || d == depth)) {
+      n_live[tape_path(q, sample - s0, n_s)] = static_cast<unsigned char>(d);
+      acc_r = acc_r + p.rr;
+      acc_g = acc_g + p.rg;
+      acc_b = acc_b + p.rb;
+      if (++sample < s1) {
+        fresh = true;
+      } else {
+        rad[3ll * pix_u + 0] = acc_r;
+        rad[3ll * pix_u + 1] = acc_g;
+        rad[3ll * pix_u + 2] = acc_b;
+        need = true;
+      }
+    }
+    // the lanes that need a pixel take the pool's next ones, in lane order
+    const unsigned want = __ballot_sync(kFull, need);
+    if (want != 0u) {
+      const int leader = __ffs(want) - 1;
+      unsigned got = 0u;
+      if (lane == leader) got = atomicAdd(s_taken, static_cast<unsigned>(__popc(want)));
+      got = __shfl_sync(kFull, got, leader);
+      if (need) {
+        const int k = kBlock + static_cast<int>(got) + __popc(want & below);
+        done = k >= pool;
+        fresh = !done;
+        if (!done) take(k);
+      }
+    }
+    if (__all_sync(kFull, done)) break;
+    if constexpr (kCount) {
+      const unsigned busy = __ballot_sync(kFull, !done);
+      count.issued += 32u;
+      count.live += static_cast<unsigned>(__popc(busy));
+    }
+    if (fresh) {
+      init_state(p, cam, s.cam, it0 + static_cast<uint32_t>(sample), pix_u, fx, fy, sx_scale,
+                 sy_scale, true);
+      d = 0;
+      fresh = false;
+      rec = tape + tape_path(q, sample - s0, n_s) * depth * (kTapeWords / 4);
+    }
+    if (!done) {
+      // a live path entering bounce d: its record
+      float4* r = rec + d * (kTapeWords / 4);
+      keep_state(r, p);
+      const float tb = p.tb;
+      const bool emit_ok = p.emit_ok;
+      bounce(p, d, it0 + static_cast<uint32_t>(sample), pix_u, s, mesh, tex);
+      keep_found(r, p, tb, emit_ok);
+      ++d;
+    }
+  }
+  if constexpr (kCount) {
+    if (lane == 0) {
+      (atomicAdd(lanes, count.issued), ...);
+      (atomicAdd(lanes + 1, count.live), ...);
+    }
+  }
+}
+
+// K8's reverse sweep over the pixels and samples of k8_vjp_fwd's launch
+// before it, on K1's pool: in passes of `pass` samples, a lane runs its
+// pixel's samples in order, each path's adjoints from its last live bounce
+// (the tape's count) down to 0 (end_adj's last and the one before it in one
+// step), then raygen's, and takes its pool's next pixel at once.  The block
+// adds its table into gtab (fx_flush) at the end of each pass: its pool's
+// paths, k8_flush_paths at most (pt_k8_vjp).  Raygen's gradient is summed in
+// float a pixel, in sample order: the sum so far waits in g_carry ((n_px,
+// kCarry), read after the pixel's first sample), and is added into the
+// table once, with the pixel's last sample (n_spp).  With Lanes, K8's lane
+// counters.
+template <typename... Lanes>
+__global__ void __launch_bounds__(kBlock, 7)
+k8_vjp_rev(const float* __restrict__ cam_g, const float* __restrict__ mats_g,
+           const float* __restrict__ gmat_g, const int* __restrict__ types_g,
+           const float* __restrict__ lights_g, const float4* __restrict__ tri_g,
+           const float4* __restrict__ nodes_g, const int* __restrict__ meta_g, int n_geoms,
+           int n_lights, int n_meta, int width, int height, int depth, uint32_t it0,
+           long long px0, long long n_px, int s0, int s1, int n_spp, int lane_px, int pass,
+           const float* __restrict__ ct, const float4* __restrict__ tape,
+           const unsigned char* __restrict__ n_live, float* __restrict__ g_carry,
+           unsigned long long* __restrict__ gtab, size_t grad_off, Lanes*... lanes /* 2 */) {
+  constexpr bool kCount = sizeof...(Lanes) > 0;
+  // shared: the pool's taken word, the tables, and at byte grad_off the
+  // block's gradient table
+  extern __shared__ unsigned long long smem[];
+  const Tables s = stage_tables(smem, k1_count_slots(0), cam_g, mats_g, gmat_g, types_g,
+                                lights_g, meta_g, nullptr, n_geoms, n_lights, n_meta);
+  unsigned* s_taken = reinterpret_cast<unsigned*>(smem);
   unsigned* s_grad = reinterpret_cast<unsigned*>(reinterpret_cast<char*>(smem) + grad_off);
   const int n_tab = kCamCols + n_geoms * (kMatCols + kGeomCols) + n_lights * kLightCols;
   for (int i = threadIdx.x; i < fx_smem_words(n_tab); i += kBlock) s_grad[i] = 0u;
@@ -3050,126 +3402,116 @@ k8_vjp(const float* __restrict__ cam_g, const float* __restrict__ mats_g,
   const GradTab G{tab, tab + kCamCols, tab + (kCamCols + n_geoms * kMatCols),
                   tab + (kCamCols + n_geoms * (kMatCols + kGeomCols))};
   const Mesh mesh(tri_g, nodes_g, s.meta, n_meta);
-  const Tex tex(nullptr);
   __syncthreads();
 
-  const long long idx = static_cast<long long>(blockIdx.x) * kBlock + threadIdx.x;
-  const bool valid = idx < static_cast<long long>(width) * height;
-  const uint32_t pix_u = static_cast<uint32_t>(idx);
-  const float fx = static_cast<float>(idx % width);
-  const float fy = static_cast<float>(idx / width);
+  constexpr unsigned kFull = 0xffffffffu;
+  const int lane = threadIdx.x & 31;
+  const unsigned below = (1u << lane) - 1u;
+  const int n_s = s1 - s0;
+  const long long first = static_cast<long long>(blockIdx.x) * kBlock * lane_px;
+  const int pool = static_cast<int>(min(static_cast<long long>(kBlock) * lane_px, n_px - first));
   const float sx_scale = static_cast<float>(2.0 / width);
   const float sy_scale = static_cast<float>(2.0 / height);
   const Camera cam = load_camera(s.cam);
-  float ctp[3] = {0.f, 0.f, 0.f};
-  if (valid) {
-    for (int k = 0; k < 3; ++k) ctp[k] = ct[3 * idx + k];
-  }
-  // raygen's gradient, summed over the samples: pos, view, right, up, tan
-  // (and the lens: aperture, focal distance)
-  float g_cam[kCamGrads];
-  for (int k = 0; k < kCamGrads; ++k) g_cam[k] = 0.f;
+  [[maybe_unused]] K8Lanes count;
 
-  float acc_r = 0.f, acc_g = 0.f, acc_b = 0.f;
-  Saved saved[kVjpMaxDepth];
-  for (int sample = 0; sample < n_spp; ++sample) {
-    const uint32_t it = it0 + static_cast<uint32_t>(sample);
-    // the forward sweep: K1's, keeping the state entering each bounce
-    PathState p;
-    init_state(p, cam, s.cam, it, pix_u, fx, fy, sx_scale, sy_scale, valid);
-    for (int d = 0; d < depth; ++d) {
-      keep_state(saved[d], p);
-      bounce(p, d, it, pix_u, s, mesh, tex);
-      keep_found(saved[d], p);
-    }
-    acc_r = acc_r + p.rr;
-    acc_g = acc_g + p.rg;
-    acc_b = acc_b + p.rb;
-    if (valid) {
-      // the reverse sweep: the final ray and throughput reach nothing
-      const float time = kMotion ? pt::uniform(it, pix_u, 0u, pt::kDrawTime) : 0.f;
-      Cot c{};
-      for (int d = depth - 1; d >= 0; --d)
-        bounce_adj(saved[d], d, it, pix_u, time, s, mesh, ctp, c, G);
-      // raygen: o = pos, d = normalize(view - right tan_x sx - up tan_y sy)
-      const float ujx = pt::uniform(it, pix_u, 0u, pt::kDrawAaX);
-      const float ujy = pt::uniform(it, pix_u, 0u, pt::kDrawAaY);
-      const float sx = (fx + ujx) * sx_scale - 1.f;
-      const float sy = (fy + ujy) * sy_scale - 1.f;
-      const float ax = cam.tan_x * sx, ay = cam.tan_y * sy;
-      const float v[3] = {cam.v_x, cam.v_y, cam.v_z};
-      const float r[3] = {cam.r_x, cam.r_y, cam.r_z}, u[3] = {cam.u_x, cam.u_y, cam.u_z};
-      const float raw[3] = {v[0] - r[0] * ax - u[0] * ay, v[1] - r[1] * ax - u[1] * ay,
-                            v[2] - r[2] * ax - u[2] * ay};
-      float g_d[3] = {c.d[0], c.d[1], c.d[2]};
-      if constexpr (kDof) {
-        const float aperture = s.cam[14], focal = s.cam[15];
-        if (aperture > 0.f) {
-          // the thin lens: o = pos + off, d = normalize(pf - o), pf = pos +
-          // dn ft, ft = focal / max(dn . view, 1e-6), off = right lc + up ls,
-          // (lc, ls) = aperture sqrt(u1) (cos, sin)(2 pi u2)
-          float dn[3] = {raw[0], raw[1], raw[2]};
-          normalize3(dn[0], dn[1], dn[2]);
-          const float sq1 = sqrtf(pt::uniform(it, pix_u, 0u, pt::kDrawDofU));
-          const float theta = pt::uniform(it, pix_u, 0u, pt::kDrawDofV) * kTwoPi;
-          const float r_lens = aperture * sq1;
-          const float cth = cosf(theta), sth = sinf(theta);
-          const float lc = r_lens * cth, ls = r_lens * sth;
-          const float cos_v = dn[0] * v[0] + dn[1] * v[1] + dn[2] * v[2];
-          const float cvc = fmaxf(cos_v, 1e-6f);
-          const float ft = focal / cvc;
-          const float pos[3] = {cam.pos_x, cam.pos_y, cam.pos_z};
-          float wv[3];
-          for (int k = 0; k < 3; ++k) {
-            const float pf = pos[k] + dn[k] * ft;
-            const float ok = pos[k] + (r[k] * lc + u[k] * ls);
-            wv[k] = pf - ok;
-          }
-          float g_w[3] = {c.d[0], c.d[1], c.d[2]};
-          normalize3_adj(wv[0], wv[1], wv[2], g_w);
-          float g_ft = 0.f, g_lc = 0.f, g_ls = 0.f;
-          for (int k = 0; k < 3; ++k) {
-            const float g_off = c.o[k] - g_w[k];
-            g_cam[k] += c.o[k];  // pos: through o and pf
-            g_cam[6 + k] += g_off * lc;
-            g_cam[9 + k] += g_off * ls;
-            g_lc += g_off * r[k];
-            g_ls += g_off * u[k];
-            g_ft += g_w[k] * dn[k];
-            g_d[k] = g_w[k] * ft;
-          }
-          g_cam[15] += g_ft / cvc;
-          const float g_cos = cos_v >= 1e-6f ? -g_ft * (ft / cvc) : 0.f;
-          for (int k = 0; k < 3; ++k) {
-            g_d[k] += g_cos * v[k];
-            g_cam[3 + k] += g_cos * dn[k];
-          }
-          g_cam[14] += (g_lc * cth + g_ls * sth) * sq1;
-          for (int k = 0; k < 3; ++k) c.o[k] = 0.f;  // taken above
+  for (int p0 = s0; p0 < s1; p0 += pass) {
+    const int p1 = min(s1, p0 + pass);
+    long long q = 0;  // the lane's pixel in the range
+    uint32_t pix_u = 0u;
+    int sample = p0, d = -1;
+    float time = 0.f;
+    const float4* rec = tape;  // the path's records
+    const auto take = [&](int k) {
+      q = first + k;
+      pix_u = static_cast<uint32_t>(px0 + q);
+      sample = p0;
+    };
+    bool done = static_cast<int>(threadIdx.x) >= pool;
+    bool fresh = !done;  // a path to start
+    if (!done) take(threadIdx.x);
+    Cot c{};
+    for (;;) {
+      bool need = false;  // the lane's pixel has run the pass's samples
+      if (!done && !fresh && d < 0) {
+        // raygen's gradient, added to the pixel's sum over the samples
+        // before, which waits in g_carry between its samples
+        float4* gc = reinterpret_cast<float4*>(g_carry) + q * (kCarry / 4);
+        float g_cam[kCarry];
+#pragma unroll
+        for (int k = 0; k < kCarry; k += 4) {
+          const float4 v = sample > 0 ? gc[k / 4] : make_float4(0.f, 0.f, 0.f, 0.f);
+          g_cam[k] = v.x;
+          g_cam[k + 1] = v.y;
+          g_cam[k + 2] = v.z;
+          g_cam[k + 3] = v.w;
+        }
+        raygen_adj(cam, s, it0 + static_cast<uint32_t>(sample), pix_u, width, sx_scale,
+                   sy_scale, c, g_cam);
+        if (sample + 1 == n_spp) {
+          for (int k = 0; k < kCamGrads; ++k) gadd(G.cam + k, g_cam[k]);
+        } else {
+#pragma unroll
+          for (int k = 0; k < kCarry; k += 4)
+            gc[k / 4] = make_float4(g_cam[k], g_cam[k + 1], g_cam[k + 2], g_cam[k + 3]);
+        }
+        if (++sample < p1) {
+          fresh = true;
+        } else {
+          need = true;
         }
       }
-      normalize3_adj(raw[0], raw[1], raw[2], g_d);
-      for (int k = 0; k < 3; ++k) {
-        g_cam[k] += c.o[k];
-        g_cam[3 + k] += g_d[k];
-        g_cam[6 + k] += -g_d[k] * ax;
-        g_cam[9 + k] += -g_d[k] * ay;
-        g_cam[12] += -sx * (g_d[k] * r[k]);
-        g_cam[13] += -sy * (g_d[k] * u[k]);
+      const unsigned want = __ballot_sync(kFull, need);
+      if (want != 0u) {
+        const int leader = __ffs(want) - 1;
+        unsigned got = 0u;
+        if (lane == leader) got = atomicAdd(s_taken, static_cast<unsigned>(__popc(want)));
+        got = __shfl_sync(kFull, got, leader);
+        if (need) {
+          const int k = kBlock + static_cast<int>(got) + __popc(want & below);
+          done = k >= pool;
+          fresh = !done;
+          if (!done) take(k);
+        }
+      }
+      if (__all_sync(kFull, done)) break;
+      if (fresh) {
+        // the path's last live bounce; the final ray and throughput reach
+        // nothing
+        const long long path = tape_path(q, sample - s0, n_s);
+        rec = tape + path * depth * (kTapeWords / 4);
+        c = Cot{};
+        time = kMotion ? pt::uniform(it0 + static_cast<uint32_t>(sample), pix_u, 0u,
+                                     pt::kDrawTime)
+                       : 0.f;
+        fresh = false;
+        d = end_adj(rec, static_cast<int>(__ldg(n_live + path)) - 1, s, ct + 3ll * pix_u, c, G);
+      }
+      if constexpr (kCount) {
+        const unsigned busy = __ballot_sync(kFull, !done && d >= 0);
+        count.issued += 32u;
+        count.live += static_cast<unsigned>(__popc(busy));
+      }
+      if (!done && d >= 0) {
+        Saved sv;
+        load_saved(rec + d * (kTapeWords / 4), sv);
+        bounce_adj(sv, d, it0 + static_cast<uint32_t>(sample), pix_u, time, s, mesh,
+                   ct + 3ll * pix_u, c, G);
+        --d;
       }
     }
+    // the pass's gradients, summed over the block, into the global table
     __syncthreads();
     fx_flush(s_grad, n_tab, gtab);
+    if (threadIdx.x == 0) *s_taken = 0u;
     __syncthreads();
   }
-  if (valid) {
-    rad[3 * idx + 0] = acc_r;
-    rad[3 * idx + 1] = acc_g;
-    rad[3 * idx + 2] = acc_b;
-    for (int k = 0; k < kCamGrads; ++k) gadd(G.cam + k, g_cam[k]);
+  if constexpr (kCount) {
+    if (lane == 0) {
+      (atomicAdd(lanes, count.issued), ...);
+      (atomicAdd(lanes + 1, count.live), ...);
+    }
   }
-  __syncthreads();
-  fx_flush(s_grad, n_tab, gtab);
 }
 #endif  // PT_VJP
 
@@ -3362,40 +3704,102 @@ extern "C" int pt_k7_grads(const float* cam, const float* mats, const float* gma
 #endif
 
 #if PT_VJP
-// Launches K8 on `stream` over the whole image: n_spp samples, iterations
-// it0 ..; cam, mats, gmat, geom_types as pt_k1_trace's, lights (n_lights
-// <= 64, 128) with NEE (this build's), tri, nodes and meta (n_meta
-// entries; the BVH's) as pt_k1_trace's in the mesh builds, ct (P, 3) the
-// cotangent.
-// Writes rad (P, 3) and adds the gradients into gtab, the exact table of n
-// = 16 + 64 n_geoms + 128 n_lights entries (cam, mats, gmat, lights;
-// pt_fx_words(n) words, zeroed by the caller), which pt_fx_round rounds.
-// Returns the cudaError_t of the launch.
+// The bytes of a record of this build's tape (kTapeWords words), and of a
+// pixel's carried camera sums (kCarry floats).
+extern "C" int pt_k8_record_bytes() { return 4 * kTapeWords; }
+extern "C" int pt_k8_carry_bytes() { return 4 * kCarry; }
+
+// Launches K8 on `stream` for one chunk of a call, k8_vjp_fwd then
+// k8_vjp_rev: pixels px0 .. px0 + n_px - 1 of the image, samples s0 .. s1 - 1
+// of n_spp, iterations it0 + s; cam, mats, gmat, geom_types as
+// pt_k1_trace's, lights (n_lights <= 64, 128) with NEE (this build's), tri,
+// nodes and meta (n_meta entries; the BVH's) as pt_k1_trace's in the mesh
+// builds, ct (P, 3) the cotangent.  The chunk's scratch: tape (n_px (s1 -
+// s0) depth pt_k8_record_bytes() bytes, 16-byte aligned), n_live (n_px (s1 -
+// s0) bytes) and g_carry (n_px pt_k8_carry_bytes() bytes), which carries
+// raygen's sums between the chunks of one range of pixels: they run in
+// sample order.  rad (P, 3) gets the range's radiance summed over samples
+// 0 .. s1 - 1 (read back where s0 > 0).  The gradients are added into
+// gtab, the exact table of n = 16 + 64 n_geoms + 128 n_lights entries (cam,
+// mats, gmat, lights; pt_fx_words(n) words, zeroed by the caller before the
+// first chunk), which pt_fx_round rounds, a block's after at most
+// k8_flush_paths paths.  lanes: null, or K8's lane counters (4 int64: the
+// forward's lane-steps issued and live, the reverse's), which the counting
+// instantiations add into.  Returns the cudaError_t of the launches.
 extern "C" int pt_k8_vjp(const float* cam, const float* mats, const float* gmat,
                          const int* geom_types, const float* lights, const float* tri,
                          const float* nodes, const int* meta, int n_geoms, int n_lights,
                          int n_meta, int width, int height, int depth, unsigned int it0,
-                         int n_spp, const float* ct, float* rad, unsigned long long* gtab,
-                         void* stream) {
+                         int n_spp, long long px0, long long n_px, int s0, int s1,
+                         const float* ct, float* rad, void* tape,
+                         unsigned char* n_live, float* g_carry, unsigned long long* gtab,
+                         unsigned long long* lanes, void* stream) {
   const long long n_pix = static_cast<long long>(width) * height;
-  const long long blocks = (n_pix + kBlock - 1) / kBlock;
   if (kNee != (n_lights > 0) || n_lights < 0 || n_lights > kFxMaxLights || n_geoms <= 0 ||
       n_meta < 0 || (!kMesh && n_meta > 0) || !(0 < depth && depth <= kVjpMaxDepth) ||
-      blocks <= 0 || blocks > 0x7fffffffLL)
+      width <= 0 || height <= 0 || n_pix >= (1ll << 31) || px0 < 0 || n_px <= 0 ||
+      px0 + n_px > n_pix || !(0 <= s0 && s0 < s1 && s1 <= n_spp) ||
+      (reinterpret_cast<uintptr_t>(tape) & 15u) != 0u)
     return static_cast<int>(cudaErrorInvalidValue);
+  const int flush_paths = k8_flush_paths(depth, n_lights);
   const int n_tab = kCamCols + n_geoms * (kMatCols + kGeomCols) + n_lights * kLightCols;
-  const size_t grad_off = grad_smem_offset(tables_smem(0, n_geoms, n_lights, n_meta));
-  const size_t smem = grad_off + sizeof(unsigned) * fx_smem_words(n_tab);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        k8_vjp, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  k8_vjp<<<static_cast<unsigned>(blocks), kBlock, smem, static_cast<cudaStream_t>(stream)>>>(
-      cam, mats, gmat, geom_types, lights, reinterpret_cast<const float4*>(tri),
-      reinterpret_cast<const float4*>(nodes), meta, n_geoms, n_lights, n_meta, width, height,
-      depth, it0, n_spp, ct, rad, gtab, grad_off);
-  return static_cast<int>(cudaGetLastError());
+  const size_t fwd_smem = tables_smem(k1_count_slots(0), n_geoms, n_lights, n_meta);
+  const size_t grad_off = grad_smem_offset(fwd_smem);
+  const size_t rev_smem = grad_off + sizeof(unsigned) * fx_smem_words(n_tab);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  // the blocks of a kernel the card keeps resident
+  const auto resident = [&](auto kernel, size_t smem, long long* out) -> cudaError_t {
+    if (smem > 48 * 1024) {
+      const cudaError_t r = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+      if (r != cudaSuccess) return r;
+    }
+    int per_sm = 0;
+    const cudaError_t r =
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kBlock, smem);
+    *out = static_cast<long long>(sms) * per_sm;
+    return r;
+  };
+  const auto blocks_of = [&](int lane_px) {
+    const long long per_block = static_cast<long long>(kBlock) * lane_px;
+    return (n_px + per_block - 1) / per_block;
+  };
+  const auto pair = [&](auto fwd, auto rev, auto... tail) -> int {
+    long long res = 0;
+    cudaError_t r = resident(fwd, fwd_smem, &res);
+    if (r != cudaSuccess) return static_cast<int>(r);
+    const int fwd_px = k1_lane_pixels(n_px, res);
+    r = resident(rev, rev_smem, &res);
+    if (r != cudaSuccess) return static_cast<int>(r);
+    // the reverse's pool, K1's rule but that a flush must hold a sample of
+    // it, and its passes: kRevPass samples, or as many as a flush holds
+    int rev_px = k1_lane_pixels(n_px, res);
+    if (rev_px > flush_paths / kBlock) rev_px = flush_paths / kBlock;
+    const int most = rev_px > 0 ? flush_paths / (kBlock * rev_px) : 0;
+    const int pass = most < kRevPass ? most : kRevPass;
+    if (pass <= 0 || blocks_of(fwd_px) > 0x7fffffffLL || blocks_of(rev_px) > 0x7fffffffLL)
+      return static_cast<int>(cudaErrorInvalidValue);
+    fwd<<<static_cast<unsigned>(blocks_of(fwd_px)), kBlock, fwd_smem, st>>>(
+        cam, mats, gmat, geom_types, lights, reinterpret_cast<const float4*>(tri),
+        reinterpret_cast<const float4*>(nodes), meta, n_geoms, n_lights, n_meta, width, height,
+        depth, it0, px0, n_px, s0, s1, fwd_px, rad, static_cast<float4*>(tape), n_live,
+        tail...);
+    r = cudaGetLastError();
+    if (r != cudaSuccess) return static_cast<int>(r);
+    rev<<<static_cast<unsigned>(blocks_of(rev_px)), kBlock, rev_smem, st>>>(
+        cam, mats, gmat, geom_types, lights, reinterpret_cast<const float4*>(tri),
+        reinterpret_cast<const float4*>(nodes), meta, n_geoms, n_lights, n_meta, width, height,
+        depth, it0, px0, n_px, s0, s1, n_spp, rev_px, pass, ct,
+        static_cast<const float4*>(tape), n_live, g_carry, gtab, grad_off, (tail + 2)...);
+    return static_cast<int>(cudaGetLastError());
+  };
+  if (lanes != nullptr)
+    return pair(k8_vjp_fwd<unsigned long long>, k8_vjp_rev<unsigned long long>, lanes);
+  return pair(k8_vjp_fwd<>, k8_vjp_rev<>);
 }
 #endif
 

@@ -182,15 +182,20 @@ def load_k8(mask=0):
     """The K8 library (``csrc/megakernel.cu`` with ``-DPT_VJP=1``) of
     feature mask ``mask`` (0, NEE's, the mesh bit's or both), built at
     first use."""
-    p, i = ctypes.c_void_p, ctypes.c_int
-    return _load_grad(("k8", mask), _k8_job(mask), mask, "pt_k8_vjp", [
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib = _load_grad(("k8", mask), _k8_job(mask), mask, "pt_k8_vjp", [
         p, p, p, p, p,           # cam, mats, gmat, types, lights
         p, p, p,                 # tri, nodes, meta
         i, i, i,                 # n_geoms, n_lights, n_meta
         i, i, i,                 # width, height, depth
         ctypes.c_uint, i,        # it0, n_spp
-        p, p, p, p,              # ct, rad, gradient table, stream
+        ll, ll, i, i,            # px0, n_px, s0, s1
+        p, p, p, p, p,           # ct, rad, tape, n_live, carried sums
+        p, p, p,                 # gradient table, lane counters, stream
     ])
+    for fn in (lib.pt_k8_record_bytes, lib.pt_k8_carry_bytes):
+        fn.argtypes, fn.restype = [], i
+    return lib
 
 
 def load_k1(mask=0):

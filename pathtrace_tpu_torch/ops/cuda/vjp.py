@@ -9,16 +9,24 @@ packing (``megakernel.pack_scene``/``pack_lights`` under autograd) to the
 parameters of ``render/diff.split_params``.
 
 The plain version (:func:`k8_plain`) is autograd over
-``megakernel.trace_plain``.  The kernel (``k8_vjp`` in
-``csrc/megakernel.cu``, built with ``-DPT_VJP=1``) runs, per sample, the
-forward sweep through K1's own ``init_state``/``bounce`` (so its radiance
-is K1's, bit for bit), keeping each bounce's path state, then walks the
-bounces backwards through their adjoints, written by hand (the
-reference differentiates its tracer with ``jax.vjp``).  Each block adds
-its threads' table gradients into a table in shared memory, then adds
-that into the one table in global memory, which a second kernel rounds
-to float32.  Every sum is exact (fixed point, integer atomics: csrc's
-``fx_add``), so two calls give the same bits.
+``megakernel.trace_plain``.  On the card (:func:`trace_k8`) K8 is two
+kernels of ``csrc/megakernel.cu`` built with ``-DPT_VJP=1``, joined by a
+tape in device memory, both on K1's lane schedule (a lane whose path ends
+starts its pixel's next sample, or takes its block's next pixel, at
+once).  ``k8_vjp_fwd`` runs the forward sweeps through K1's own
+``init_state``/``bounce`` (so its radiance is K1's, bit for bit) and
+writes each live bounce's path state and what it found to the tape;
+``k8_vjp_rev`` walks each path's live bounces backwards through their
+adjoints, written by hand (the reference differentiates its tracer with
+``jax.vjp``), then raygen's.  The tape has a fixed ceiling,
+:data:`TAPE_BYTES`: :func:`k8_plan` cuts a call into chunks of samples
+and, where one sample of the image passes it, ranges of pixels, and the
+pair runs once a chunk.  Each block adds its threads' table gradients
+into a table in shared memory, then adds that into the one table in
+global memory before any limb of it could overflow (csrc's
+``k8_flush_paths``), which a third kernel rounds to float32.  Every sum
+is exact (fixed point, integer atomics: csrc's ``fx_add``), so two
+calls, and any chunking, give the same bits.
 
 Meshes with a BVH (masks 512 and 640) run the reference's "carry" form
 of ``bvh_grad``: the forward sweep keeps each bounce's winning triangle,
@@ -50,7 +58,7 @@ from ...render import diff as D
 from ...utils import profiling
 from . import megakernel as K
 
-# Launches of K8 by feature mask.
+# Launches of K8's pair of kernels by feature mask, one a chunk of the plan.
 LAUNCHES = Counter()
 # the builds the gradients' paths launch: without sections, with NEE, BVH
 # meshes; with sections, cornell_glass (7), cornell_checker (24), its bump +
@@ -61,6 +69,13 @@ MASKS = tuple(m | nee for m in (0, K.MESH_BIT, 7, 24, 103, 537, 544)
               for nee in (0, K.NEE_BIT))
 MAX_DEPTH = 32
 MAX_LIGHTS = 64  # the kernel's exact sums (csrc's kFxMaxLights)
+# The tape's ceiling: the device memory a call of K8 keeps from its forward
+# sweep for its reverse one (the records, each path's count of live bounces
+# and each pixel's carried camera sums), one chunk at a time.
+TAPE_BYTES = 2 ** 31
+# K8's lane counters (``utils/profiling.counter("k8")``): lane-steps the
+# warps issued and those that ran a live bounce, forward then reverse.
+K8_LANES = ("fwd.issued", "fwd.live", "rev.issued", "rev.live")
 
 
 def check_supported(scene, nee=False):
@@ -86,6 +101,44 @@ def check_supported(scene, nee=False):
     if not 0 < int(scene.trace_depth) <= MAX_DEPTH:
         raise NotImplementedError(
             f"render_vjp keeps every bounce's state: depth 1..{MAX_DEPTH}")
+
+
+def k8_plan(n_pix, n_spp, depth, record, carry, budget):
+    """The chunks of a call of K8, as (first pixel, pixels, first sample,
+    end sample): a launch of the pair each, in this order.  A chunk's tape
+    holds its pixels x samples paths of ``depth`` records of ``record``
+    bytes and a count byte each, and a pixel's carried camera sums of
+    ``carry`` bytes (the build's ``pt_k8_record_bytes`` and
+    ``pt_k8_carry_bytes``), within ``budget`` bytes.  The whole image
+    a chunk, as many samples as fit, in chunks of even size; where one
+    sample of the image does not fit, ranges of pixels of even size, one
+    sample a chunk, each range's samples in order before the next range
+    (the carried sums are a range's).  Every (pixel, sample) is in one
+    chunk, each pixel's samples in order.  No chunk for 0 samples.
+    Raises ``ValueError`` for sizes :func:`trace_k8` refuses and for a
+    budget below one path's tape."""
+    if not (0 < depth <= MAX_DEPTH and 0 <= n_spp and 0 < n_pix < 2 ** 31
+            and record > 0 and carry >= 0):
+        raise ValueError(f"bad K8 sizes: depth {depth}, {n_spp} spp, "
+                         f"{n_pix} pixels, records of {record} bytes, "
+                         f"carried sums of {carry}")
+    path = depth * record + 1
+    if n_spp == 0:
+        return []
+    if n_pix * (path + carry) <= budget:
+        most = min(n_spp, (budget // n_pix - carry) // path)
+        n_chunks = -(-n_spp // most)
+        n_s = -(-n_spp // n_chunks)
+        return [(0, n_pix, s0, min(n_spp, s0 + n_s))
+                for s0 in range(0, n_spp, n_s)]
+    most = budget // (path + carry)
+    if most < 1:
+        raise ValueError(f"K8's tape budget of {budget} bytes holds no "
+                         f"path of depth {depth} ({path + carry} bytes)")
+    n_ranges = -(-n_pix // most)
+    n_px = -(-n_pix // n_ranges)
+    return [(p0, min(n_px, n_pix - p0), s0, s0 + 1)
+            for p0 in range(0, n_pix, n_px) for s0 in range(n_spp)]
 
 
 def table_grad_shapes(n_geoms, n_lights):
@@ -121,9 +174,16 @@ def trace_k8(cam, mats, gmat, geom_types, width, height, depth, it0, n_spp,
     """K8 on the packed tables (the sections ``features``; NEE when
     ``lights`` is given; the BVH meshes of ``tri``, ``nodes`` and
     ``bvh_meta``): (rad (P,3), [d_cam (1,16), d_mats (G,24), d_gmat
-    (G,40)(, d_lights (L,128))]), the gradients of sum(ct * rad).  For tensors on the CPU
-    this is :func:`k8_plain`; on a CUDA device it launches the kernel
-    (built at first use) and raises if the build or the launch fails."""
+    (G,40)(, d_lights (L,128))]), the gradients of sum(ct * rad).  For
+    tensors on the CPU this is :func:`k8_plain`; on a CUDA device it
+    launches the pair of kernels once a chunk of :func:`k8_plan` under
+    :data:`TAPE_BYTES` (built at first use) and raises if the build or a
+    launch fails.
+
+    The first call of a profiler's window counts K8's lane-steps into the
+    counter ``k8`` (``utils/profiling.counter``, :data:`K8_LANES`), in the
+    kernels' counting forms; every other call runs the forms that count
+    nothing."""
     device = cam.device
     if device.type == "cpu":
         return k8_plain(cam, mats, gmat, geom_types, width, height, depth,
@@ -146,23 +206,37 @@ def trace_k8(cam, mats, gmat, geom_types, width, height, depth, it0, n_spp,
     K._check_table("ct", ct, (n_pix, 3), device)
     shapes = table_grad_shapes(len(geom_types), n_lights)
     n_tab = sum(a * b for a, b in filter(None, shapes))
-    rad = torch.empty((n_pix, 3), dtype=torch.float32, device=device)
     lib = build.load_k8(mask)
+    record, carry_bytes = lib.pt_k8_record_bytes(), lib.pt_k8_carry_bytes()
+    plan = k8_plan(n_pix, n_spp, depth, record, carry_bytes, TAPE_BYTES)
+    lanes = profiling.counter("k8", (len(K8_LANES),), device)
+    rad = torch.zeros((n_pix, 3), dtype=torch.float32, device=device)
     # the exact table the blocks add into, as 64-bit words (csrc's fx_add)
     exact = torch.zeros(lib.pt_fx_words(n_tab), dtype=torch.int64,
                         device=device)
     tab = torch.empty(n_tab, dtype=torch.float32, device=device)
+    # a chunk's scratch, sized for the largest
+    n_px = max((c[1] for c in plan), default=0)
+    n_s = max((c[3] - c[2] for c in plan), default=0)
+    tape = torch.empty(n_px * n_s * depth * record, dtype=torch.uint8,
+                       device=device)
+    n_live = torch.empty(n_px * n_s, dtype=torch.uint8, device=device)
+    carry = torch.empty(n_px * carry_bytes // 4, dtype=torch.float32,
+                        device=device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        # cam, mats, gmat, types, lights, tri, nodes, meta and the counts
-        # of geoms, lights and meta entries
-        err = lib.pt_k8_vjp(
-            *args[:8], *args[10:13], width, height, depth, it0 & 0xFFFFFFFF,
-            n_spp, ct.data_ptr(), rad.data_ptr(), exact.data_ptr(), stream)
-        K.launch_error("K8", lib, err)
+        for px0, n, s0, s1 in plan:
+            # cam, mats, gmat, types, lights, tri, nodes, meta and the
+            # counts of geoms, lights and meta entries
+            err = lib.pt_k8_vjp(
+                *args[:8], *args[10:13], width, height, depth,
+                it0 & 0xFFFFFFFF, n_spp, px0, n, s0, s1, ct.data_ptr(),
+                rad.data_ptr(), tape.data_ptr(), n_live.data_ptr(), carry.data_ptr(), exact.data_ptr(),
+                K.ptr(lanes), stream)
+            K.launch_error("K8", lib, err)
+            LAUNCHES[mask] += 1
         err = lib.pt_fx_round(exact.data_ptr(), n_tab, tab.data_ptr(), stream)
     K.launch_error("K8's rounding", lib, err)
-    LAUNCHES[mask] += 1
     grads, off = [], 0
     for shape in filter(None, shapes):
         n = shape[0] * shape[1]

@@ -711,6 +711,95 @@ def test_k8_flags_a_term_that_is_not_finite(cuda):
         assert torch.equal(g[~g.isnan()], w[~g.isnan()])
 
 
+# the chunkings of K8's tape: (scene file, NEE, mask, resolution, depth,
+# samples)
+K8_CHUNK_JOBS = [("cornell", False, 0, (48, 40), 4, 3),
+                 ("cornell", True, 128, (48, 40), 4, 3),
+                 ("cornell_mesh", True, 640, (48, 40), 4, 3),
+                 ("cornell", True, 128, (32, 32), 8, 300)]
+
+
+@pytest.mark.parametrize("name, nee, mask, res, depth, spp", K8_CHUNK_JOBS)
+def test_k8_chunkings_give_the_same_bits(cuda, monkeypatch, name, nee, mask,
+                                         res, depth, spp):
+    # the tape's ceiling set down: a call cut into chunks of samples (one
+    # sample a chunk, or some), or into ranges of pixels, gives the bits of
+    # one chunk (the exact sums; rad and the camera's float sums carried
+    # from chunk to chunk in sample order), a launch of the pair a chunk;
+    # at 32x32 d8 300 spp a block flushes its table three times inside one
+    # launch
+    scene = _scene(name, res, depth)
+    job = K.prepare(scene, cuda, nee=nee)
+    assert K.scene_mask(scene, nee) == mask
+    ct = torch.rand((scene.pixel_count, 3), device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(8))
+    args = list(_k8_args(job, ct))
+    args[8] = spp
+    want_rad, _ = K.trace_k1(**job, it0=1, n_spp=spp)
+    rad, grads = VJ.trace_k8(*args)
+    assert torch.equal(rad, want_rad)
+    from pathtrace_tpu_torch.ops.cuda import build
+
+    lib = build.load_k8(mask)
+    record, carry = lib.pt_k8_record_bytes(), lib.pt_k8_carry_bytes()
+    n_pix, per_px = scene.pixel_count, depth * record + 1
+    assert len(VJ.k8_plan(n_pix, spp, depth, record, carry,
+                          VJ.TAPE_BYTES)) == 1
+    budgets = {"one sample a chunk": n_pix * (per_px + carry),
+               "a third of the samples a chunk":
+                   n_pix * (-(-spp // 3) * per_px + carry),
+               "two ranges of pixels": n_pix * (per_px + carry) - 1,
+               "seven ranges of pixels": -(-n_pix // 7) * (per_px + carry)}
+    for how, budget in budgets.items():
+        plan = VJ.k8_plan(n_pix, spp, depth, record, carry, budget)
+        ranges = {c[0] for c in plan}
+        assert len(plan) > 1 and len(ranges) == (
+            2 if how.startswith("two") else 7 if how.startswith("seven")
+            else 1), (how, plan[:3])
+        monkeypatch.setattr(VJ, "TAPE_BYTES", budget)
+        before = VJ.LAUNCHES[mask]
+        got_rad, got = VJ.trace_k8(*args)
+        assert VJ.LAUNCHES[mask] == before + len(plan), how  # a pair a chunk
+        assert torch.equal(got_rad, rad), how
+        assert all(torch.equal(a, b) for a, b in zip(got, grads)), how
+
+
+def test_k8_counter_fills_in_a_windows_first_call_only(cuda, tmp_path):
+    # the lane counters count the window's first call, in the kernels'
+    # counting forms, with the bits of the forms that count nothing: a
+    # live lane-step a live bounce forward (K1's live counts), one a live
+    # bounce's adjoint back but for the paths' last bounces that end_adj
+    # runs in the step that starts the path (a miss or a light: most
+    # paths), out of 32 a warp-step; the window's later calls and calls
+    # with no profiler count nothing
+    from pathtrace_tpu_torch.utils import profiling
+
+    job = K.prepare(_scene("cornell", (64, 64), 8), cuda, nee=True)
+    ct = torch.rand((64 * 64, 3), device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(9))
+    _, counts = K.trace_k1(**job, it0=1, n_spp=2)
+    rad, grads = VJ.trace_k8(*_k8_args(job, ct))
+    with profiling.trace(str(tmp_path), device="cuda"):
+        rad_c, grads_c = VJ.trace_k8(*_k8_args(job, ct))
+        torch.cuda.synchronize()
+        first = profiling.counters()["k8"].copy()
+        VJ.trace_k8(*_k8_args(job, ct))
+        torch.cuda.synchronize()
+        assert (profiling.counters()["k8"] == first).all()
+    assert torch.equal(rad_c, rad)
+    assert all(torch.equal(a, b) for a, b in zip(grads_c, grads))
+    lanes = dict(zip(VJ.K8_LANES, first.tolist()))
+    live, paths = int(counts.sum()), 64 * 64 * 2
+    assert lanes["fwd.live"] == live, lanes
+    assert live - paths <= lanes["rev.live"] < live - paths // 2, lanes
+    for sweep in ("fwd", "rev"):
+        issued = lanes[f"{sweep}.issued"]
+        assert issued % 32 == 0 and lanes[f"{sweep}.live"] <= issued, lanes
+    VJ.trace_k8(*_k8_args(job, ct))
+    torch.cuda.synchronize()
+    assert (profiling.counters()["k8"] == first).all()
+
+
 def test_k7_two_calls_give_equal_gradients(cuda):
     scene = _scene("cornell", (64, 64), 4)
     ct = torch.rand((64 * 64, 3), device=cuda,

@@ -39,7 +39,8 @@ cotangent drawn from a numpy seed, on the scene of that build (``K8_JOBS``: corn
 cornell_checker and the variants of ``scene/variants.py``): these are the
 digests that ``test_torch_cuda.py`` pins.  With ``--k8-time`` it prints
 each K8 build's ms on its scene at the file's own size, depth 8, 1 spp a
-call: the median of 9 calls, CUDA events, after one warm call.  With
+call (``--k8-spp N``: N): the median of 9 calls, CUDA events, after one
+warm call, and the device time of each of its kernels.  With
 ``--k6`` it prints the sha256 of K6's output at ``K6_SIZES`` (0/1 masks
 from a numpy seed), checks it against ``cumsum(x) - x``, and prints the
 device time a call of K6 and of ``torch.cumsum(x, dtype=int32) - x``
@@ -90,7 +91,7 @@ K5_RUNS = 5
 TIME_SPP, TIME_CALLS = 8, 9
 # the kernels of the sources, by the names ptxas reports them under
 KERNELS = ("k1_trace", "k5_span", "k6_scan", "k9_probe", "k7_grads",
-           "k8_vjp", "fx_round")
+           "k8_vjp_fwd", "k8_vjp_rev", "k8_vjp", "fx_round")
 # K8's builds: (scene file, variants of scene/variants.py, mask without
 # NEE); each is run without and with NEE
 K8_JOBS = (("cornell", (), 0), ("cornell_mesh", (), 512),
@@ -100,6 +101,9 @@ K8_JOBS = (("cornell", (), 0), ("cornell_mesh", (), 512),
            ("cornell_mesh", ("MESH_BUMP",), 544))
 K8_RES, K8_DEPTH = (64, 64), 4
 K8_TIME_DEPTH, K8_TIME_CALLS = 8, 9
+# K8's kernels, by the names the profiler reports: the parent's one kernel
+# holds "k8_vjp"
+K8_KERNELS = ("k8_vjp_fwd", "k8_vjp_rev", "k8_vjp", "fx_round")
 K6_SIZES = (640000, 2073600, 5000, 16200)
 # K7: (scene file, mask, resolution or None for the file's, depth, spp)
 K7_JOBS = (("cornell", 0, (64, 64), 4, 2), ("cornell", 0, None, 8, 1),
@@ -115,6 +119,14 @@ def digest(rad):
     return hashlib.sha256(rad.cpu().numpy().tobytes()).hexdigest()[:16]
 
 
+def form(mangled):
+    """The form of a template kernel its mangled name shows: "<true>" (K1's
+    per-sample form), "<counting>" (K1's and K8's counting forms), both or
+    neither."""
+    return ("<true>" if "ILb1E" in mangled else "") + (
+        "<counting>" if "JyE" in mangled else "")
+
+
 def ptxas_usage(log):
     """{kernel: "registers ... | spills"} from nvcc's ``-Xptxas -v``
     output: a kernel of KERNELS under its own name, any other under its
@@ -123,8 +135,7 @@ def ptxas_usage(log):
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
             fn = next((k for k in KERNELS if k in ln), ln.split("'")[1])
-            if "ILb1E" in ln:  # a template kernel's true form
-                fn += "<true>"
+            fn += form(ln)
         elif "spill" in ln:
             spill = ln.strip()
         elif "registers" in ln and fn:
@@ -185,11 +196,12 @@ def sass(root, masks):
             for part in text.split("Function : ")[1:]:
                 name = part.splitlines()[0].strip()
                 fn = next((k for k in KERNELS if k in name), name)
-                if "ILb1E" in name:  # a template kernel's true form
-                    fn += "<true>"
+                fn += form(name)
                 # the instruction lines, "/*0010*/ OP ... ;", each
-                # followed by its encoding, "/* 0x... */"
-                code = [ln.strip() for ln in part.splitlines()
+                # followed by its encoding, "/* 0x... */", their runs of
+                # spaces as one (cuobjdump's padding of the columns moves
+                # with the rest of the cubin)
+                code = [" ".join(ln.split()) for ln in part.splitlines()
                         if ln.strip().startswith("/*")
                         and not ln.strip().startswith("/* 0x")]
                 h = hashlib.sha256("\n".join(code).encode()).hexdigest()[:16]
@@ -285,9 +297,9 @@ def k8_scenes(root, ptt, K):
     return out
 
 
-def k8_args(job, ct):
+def k8_args(job, ct, spp=1):
     return (job["cam"], job["mats"], job["gmat"], job["geom_types"],
-            job["width"], job["height"], job["depth"], 1, 1, job["lights"],
+            job["width"], job["height"], job["depth"], 1, spp, job["lights"],
             ct, job["tri"], job["nodes"], job["bvh_meta"], job["features"])
 
 
@@ -327,16 +339,18 @@ def k8_digests(root, torch, ptt, K, VJ, masks):
                            f"{sorted(VJ.MASKS)}")
 
 
-def k8_times(root, torch, ptt, K, VJ, masks, label=None):
-    """Each K8 build of ``masks``: its ms at its scene's own size, 1 spp a
-    call, printed under ``label`` (default: ``root``)."""
+def k8_times(root, torch, ptt, K, VJ, masks, label=None, spp=1):
+    """Each K8 build of ``masks``: its ms at its scene's own size, ``spp``
+    samples a call, printed under ``label`` (default: ``root``), and the
+    device time of each of its kernels a call (:data:`K8_KERNELS`; the
+    profiler's window runs the counting forms in its first call of 10)."""
     for scene, nee, mask in k8_scenes(root, ptt, K):
         if mask not in masks:
             continue
         scene = dataclasses.replace(scene, trace_depth=K8_TIME_DEPTH)
         job = K.prepare(scene, "cuda", nee=nee)
         ct = torch.ones((scene.pixel_count, 3), device="cuda")
-        args = k8_args(job, ct)
+        args = k8_args(job, ct, spp)
         VJ.trace_k8(*args)
         runs = []
         for _ in range(K8_TIME_CALLS):
@@ -348,14 +362,26 @@ def k8_times(root, torch, ptt, K, VJ, masks, label=None):
             torch.cuda.synchronize()
             runs.append(start.elapsed_time(stop))
         width, height = scene.resolution
-        print(f"k8 time mask {mask} {width}x{height} d{K8_TIME_DEPTH} 1spp "
-              f"({label or root}): {statistics.median(runs):.4f} ms, runs "
-              f"{[round(t, 4) for t in runs]}", flush=True)
+        print(f"k8 time mask {mask} {width}x{height} d{K8_TIME_DEPTH} "
+              f"{spp}spp ({label or root}): {statistics.median(runs):.4f} ms,"
+              f" runs {[round(t, 4) for t in runs]}", flush=True)
+        split = device_split(torch, lambda: VJ.trace_k8(*args), 10,
+                             K8_KERNELS)
+        print(f"k8 device mask {mask} {width}x{height} d{K8_TIME_DEPTH} "
+              f"{spp}spp ({label or root}): " + ", ".join(
+                  f"{k} {v:.4f}" for k, v in split.items()) + " ms a call",
+              flush=True)
 
 
 def device_ms(torch, fn, calls=50, name=None):
     """The device time of ``fn``'s kernels (those whose name holds
     ``name``, if given), ms a call (torch.profiler)."""
+    return device_split(torch, fn, calls, (name or "",))[name or ""]
+
+
+def device_split(torch, fn, calls, names):
+    """{name: the device time of ``fn``'s kernels whose name holds it, ms
+    a call} (torch.profiler, one window of ``calls`` calls)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -364,10 +390,11 @@ def device_ms(torch, fn, calls=50, name=None):
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    return sum(getattr(e, "device_time_total", 0) or
-               getattr(e, "cuda_time_total", 0)
-               for e in prof.key_averages()
-               if name is None or name in e.key) / calls / 1e3
+    events = prof.key_averages()
+    return {n: sum(getattr(e, "device_time_total", 0) or
+                   getattr(e, "cuda_time_total", 0)
+                   for e in events if n in e.key) / calls / 1e3
+            for n in names}
 
 
 def k7_job(root, torch, ptt, K, MG, name, res, depth):
@@ -494,6 +521,7 @@ def main(argv):
     p.add_argument("--sass", default="")
     p.add_argument("--k8", action="store_true")
     p.add_argument("--k8-time", action="store_true")
+    p.add_argument("--k8-spp", type=int, default=1)
     p.add_argument("--k6", action="store_true")
     p.add_argument("--k7", action="store_true")
     p.add_argument("--k7-time", action="store_true")
@@ -553,7 +581,7 @@ def main(argv):
     if args.k8:
         k8_digests(root, torch, ptt, K, VJ, masks)
     if args.k8_time:
-        k8_times(root, torch, ptt, K, VJ, masks)
+        k8_times(root, torch, ptt, K, VJ, masks, spp=args.k8_spp)
     if args.k6:
         k6_digests(root, torch)
     if args.k7 or args.k7_time:

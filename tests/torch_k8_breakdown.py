@@ -1,23 +1,27 @@
 #!/usr/bin/env python3
 """Where K8's time goes: the breakdown of PERF.md section 5, on the card.
 
-    python3 tests/torch_k8_breakdown.py [variant ...]
+    python3 tests/torch_k8_breakdown.py [--spp N] [variant ...]
 
 Each variant of ``VARIANTS`` changes ``pathtrace_tpu_torch/csrc/
 megakernel.cu`` in a copy of the sources in a temporary directory (the
 checkout is never touched): one of the reverse sweep's designs taken back
 out (the carried winner, the carried shadow visibility, the skipped zero
-hit adjoint, the launch bound), a design that was measured and not kept
-put in (the saved states in shared memory; a warp's digits summed before
-one lane adds them), the adds cut apart (their digits read but not
-added; one atomic of each term's bits, no digits), or the adds taken away
-(their digits and atomics; the adjoint arithmetic that feeds them stays:
-an upper bound of what the adds cost; only their time means anything,
-their tables are wrong).  Each variant's K8 builds of ``MASKS`` are
-compiled at once, one variant after another; then the checkout's own K8 and each variant's are
-timed on the scenes of ``tests/torch_digest.py``'s ``K8_JOBS`` at their
-own size, depth 8, 1 spp a call, as ``torch_digest.py --k8-time`` times
-them, the checkout's own first and last.  Prints the card, each build's
+hit adjoint, either kernel's launch bound, the pools of several pixels a
+lane, a flush every several samples), a design that was measured and not
+kept put in (a warp's digits summed before one lane adds them), the adds
+cut apart (their digits read but not added; one atomic of each term's
+bits, no digits), or the adds taken away (their digits and atomics; the
+adjoint arithmetic that feeds them stays: an upper bound of what the adds
+cost; only their time means anything, their tables are wrong).  Each
+variant's K8 builds of ``MASKS`` are compiled at once, one variant after
+another; then the checkout's own K8 and each variant's are timed on the
+scenes of ``tests/torch_digest.py``'s ``K8_JOBS`` at their own size,
+depth 8, ``--spp`` samples a call (default 1), as ``torch_digest.py
+--k8-time`` times them, the checkout's own first and last, each with
+the device time of its kernels a call (``k8_vjp_fwd``, the forward sweep
+with its tape; ``k8_vjp_rev``, the adjoints with their adds;
+``fx_round``; ``torch.profiler``).  Prints the card, each build's
 registers and each time; exits 1 without a CUDA GPU.
 """
 
@@ -33,8 +37,14 @@ REPO = os.path.dirname(HERE)
 # without NEE, with it, the mesh with NEE, the mesh variant with NEE
 MASKS = (0, 128, 640, 665)
 
-LAUNCH_BOUND = ("__global__ void __launch_bounds__(kBlock, 7)\nk8_vjp(",
-                "__global__ void __launch_bounds__(kBlock)\nk8_vjp(")
+def launch_bound(kernel, blocks=None):
+    """The replacement that takes ``kernel``'s launch bound out, or asks
+    for ``blocks`` blocks an SM instead of 7."""
+    bound = "kBlock" if blocks is None else f"kBlock, {blocks}"
+    return (f"__global__ void __launch_bounds__(kBlock, 7)\n{kernel}(",
+            f"__global__ void __launch_bounds__({bound})\n{kernel}(")
+
+
 # name: replacements (old, new) in megakernel.cu, each old found once
 VARIANTS = {
     "winner not carried": [(
@@ -67,24 +77,24 @@ VARIANTS = {
       gn[2] == 0.f)
     return;
 """, "")],
-    "no launch bound": [LAUNCH_BOUND],
-    "saved states in shared memory": [
-        LAUNCH_BOUND,
-        ("""       unsigned long long* __restrict__ gtab, size_t grad_off) {""",
-         """       unsigned long long* __restrict__ gtab, size_t grad_off, size_t saved_off) {"""),
-        ("""  Saved saved[kVjpMaxDepth];""",
-         """  Saved* saved = reinterpret_cast<Saved*>(reinterpret_cast<char*>(smem) + saved_off) +
-                 threadIdx.x;"""),
-        ("keep_state(saved[d], p);", "keep_state(saved[d * kBlock], p);"),
-        ("keep_found(saved[d], p);", "keep_found(saved[d * kBlock], p);"),
-        ("bounce_adj(saved[d], d,", "bounce_adj(saved[d * kBlock], d,"),
-        ("""  const size_t smem = grad_off + sizeof(unsigned) * fx_smem_words(n_tab);""",
-         """  const size_t saved_off = (grad_off + sizeof(unsigned) * fx_smem_words(n_tab) + 15) &
-                           ~size_t(15);
-  const size_t smem = saved_off + sizeof(Saved) * kBlock * depth;"""),
-        ("""      depth, it0, n_spp, ct, rad, gtab, grad_off);""",
-         """      depth, it0, n_spp, ct, rad, gtab, grad_off, saved_off);"""),
-    ],
+    "no launch bound (forward)": [launch_bound("k8_vjp_fwd")],
+    "no launch bound (reverse)": [launch_bound("k8_vjp_rev")],
+    "reverse at 6 blocks an SM": [launch_bound("k8_vjp_rev", 6)],
+    "reverse at 8 blocks an SM": [launch_bound("k8_vjp_rev", 8)],
+    "one pixel a lane": [
+        ("    const int fwd_px = k1_lane_pixels(n_px, res);",
+         "    const int fwd_px = 1;"),
+        ("    int rev_px = k1_lane_pixels(n_px, res);", "    int rev_px = 1;")],
+    "gadd not inlined": [(
+        "__device__ __forceinline__ void gadd(const Fx& p, float v) { fx_add(p, v); }",
+        "__device__ __noinline__ void gadd(const Fx p, float v) { fx_add(p, v); }")],
+    "the last bounce a step of its own": [(
+        "        d = end_adj(rec, static_cast<int>(__ldg(n_live + path)) - 1, s, ct + 3ll * pix_u, c, G);",
+        "        d = static_cast<int>(__ldg(n_live + path)) - 1;")],
+    "one sample a pass": [("constexpr int kRevPass = 2;", "constexpr int kRevPass = 1;")],
+    "four samples a pass": [("constexpr int kRevPass = 2;", "constexpr int kRevPass = 4;")],
+    "one pass of a chunk's samples": [("constexpr int kRevPass = 2;",
+                                        "constexpr int kRevPass = 1 << 20;")],
     "a warp's digits summed first": [(
         """  const unsigned long long m = (b & 0x7fffffu) | 0x800000u;
   const int k = sh < 0 ? 0 : sh / 12;  // the lowest limb the digits go to
@@ -130,6 +140,17 @@ VARIANTS = {
     x += static_cast<unsigned>(limb - e.w) + j * e.n + (neg ? 0u - d : d);
   }
   if (x == 0x9e3779b9u) atomicAdd(e.w, 1u);  // keeps the digits read""")],
+    "digits read, one atomic a term": [(
+        """  for (int j = 0; j < 3; ++j) {
+    const unsigned d = static_cast<unsigned>(t >> (12 * j)) & 0xfffu;
+    if (d) atomicAdd(limb + j * e.n, neg ? 0u - d : d);
+  }""",
+        """  unsigned x = 0u;
+  for (int j = 0; j < 3; ++j) {
+    const unsigned d = static_cast<unsigned>(t >> (12 * j)) & 0xfffu;
+    x += neg ? 0u - d : d;
+  }
+  atomicAdd(limb, x);""")],
     "one atomic of the bits": [(
         """  const uint32_t b = __float_as_uint(v);
 """,
@@ -186,11 +207,11 @@ def build_all(csrc, build_dir):
     for m in MASKS:
         log = logs.get(f"k8_m{m}", (0.0, ""))[1]  # "": built before
         for fn, usage in ptxas_usage(log).items():
-            if fn == "k8_vjp":
-                print(f"regs {csrc} mask {m}: {usage}", flush=True)
+            if fn.startswith("k8_vjp"):
+                print(f"regs {csrc} mask {m} {fn}: {usage}", flush=True)
 
 
-def main(names):
+def main(names, spp=1):
     import torch
 
     if not torch.cuda.is_available():
@@ -221,7 +242,7 @@ def main(names):
               f" {time.perf_counter() - t0:.1f} s", flush=True)
         for name, d in [("as it is", own), *dirs.items(), ("as it is", own)]:
             use(B, *d)
-            TD.k8_times(REPO, torch, ptt, K, VJ, MASKS, label=name)
+            TD.k8_times(REPO, torch, ptt, K, VJ, MASKS, label=name, spp=spp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return 0
@@ -232,4 +253,7 @@ if __name__ == "__main__":
         sys.path.insert(0, HERE)
         build_all(sys.argv[2], sys.argv[3])
         sys.exit(0)
-    sys.exit(main(sys.argv[1:] or list(VARIANTS)))
+    argv, spp = sys.argv[1:], 1
+    if argv[:1] == ["--spp"]:
+        spp, argv = int(argv[1]), argv[2:]
+    sys.exit(main(argv or list(VARIANTS), spp))
