@@ -633,7 +633,7 @@ def time_variant(K, B, torch, label, job, mask, card, spp_kernel, k_kernel,
     ``k_plain`` 0 the plain version is not timed (plain ms None)."""
     width, height = job["width"], job["height"]
     ms_k, runs_k, (_, counts) = median_ms(
-        lambda: K.trace_k1(**job, it0=1, n_spp=spp_kernel), torch, k_kernel)
+        lambda: K.trace_k1(job, 1, spp_kernel), torch, k_kernel)
     # the plain version's warm call is its first sample, counted
     tallies = {}
     _, ops_by, bytes_by = B.count_work(
@@ -677,12 +677,13 @@ def tex_breakdown(K, torch, scene, card):
     job = K.prepare(scene, "cuda")
     off = tuple(K.NO_CHART for _ in job["geom_types"])
     runs = [("maps on", job),
-            ("charts off, same build", dict(job, tex_geom=off, btex_geom=off)),
-            ("mask-0 build", dict(job, texels=None, tex_geom=(),
-                                  btex_geom=()))]
+            ("charts off, same build",
+             K.Job(**dict(job, tex_geom=off, btex_geom=off))),
+            ("mask-0 build", K.Job(**dict(job, texels=None, tex_geom=(),
+                                          btex_geom=())))]
     for what, j in runs:
         ms, _, _ = median_ms(
-            lambda: K.trace_k1(**j, it0=1, n_spp=SPP_PER_CALL), torch, 9)
+            lambda: K.trace_k1(j, 1, SPP_PER_CALL), torch, 9)
         print(f"texture breakdown cornell_tex 800x800 d8, {what}: "
               f"{ms / SPP_PER_CALL:.4f} ms/iter on {card}", flush=True)
 
@@ -754,8 +755,8 @@ def schedule_holds(ptt, K, SP, TD, build, torch, cornell):
             ptt.load_scene(os.path.join(HERE, "scenes", f"{name}.txt")),
             resolution=TD.RES, trace_depth=TD.DEPTH)
         job = K.prepare(scene, "cuda")
-        rad, _ = K.trace_k1(**job, it0=1, n_spp=TD.SPP)
-        _, counts = K.trace_k1(**job, it0=1, n_spp=TD.SPP, per_sample=True)
+        rad, _ = K.trace_k1(job, 1, TD.SPP)
+        _, counts = K.trace_k1(job, 1, TD.SPP, per_sample=True)
         got = (TD.digest(rad), TD.digest(counts))
         print(f"k1 digest {name} (mask {mask}): radiance {got[0]} counts "
               f"{got[1]}, pinned {K1_DIGESTS[name]}", flush=True)
@@ -764,7 +765,7 @@ def schedule_holds(ptt, K, SP, TD, build, torch, cornell):
     job = K.prepare(dataclasses.replace(cornell, resolution=(160, 120)),
                     "cuda")
     for n_spp in (1, 3, 65):
-        rad, per = K.trace_k1(**job, it0=2, n_spp=n_spp, per_sample=True)
+        rad, per = K.trace_k1(job, 2, n_spp, per_sample=True)
         ref, ref_per = K.trace_plain(**job, it0=2, n_spp=n_spp,
                                      per_sample=True)
         ok = torch.equal(rad, ref) and torch.equal(per, ref_per)
@@ -773,18 +774,14 @@ def schedule_holds(ptt, K, SP, TD, build, torch, cornell):
         if not ok:
             raise RuntimeError(f"K1's per-sample form at {n_spp} spp is not "
                                f"its plain version")
-    whole, counts = K.trace_k1(**job, it0=4, n_spp=3)
-    again, again_counts = K.trace_k1(**job, it0=4, n_spp=3)
-    mask, args = K.kernel_tables(
-        job["cam"], job["mats"], job["gmat"], job["geom_types"],
-        job["features"], job["lights"], job["rr"], job["tri"], job["nodes"],
-        job["bvh_meta"], job["texels"], job["tex_geom"], job["btex_geom"])
-    lib = build.load_k1(mask)
+    whole, counts = K.trace_k1(job, 4, 3)
+    again, again_counts = K.trace_k1(job, 4, 3)
+    lib = build.load_k1(job.mask)
     tiles, total = [], torch.zeros_like(counts)
     for pix0, n_local in ((0, 5000), (5000, 1), (5001, 9999), (15000, 4200)):
         rad = torch.empty((n_local, 3), device="cuda")
         part = torch.zeros_like(counts)
-        err = lib.pt_k1_trace(*args, 160, 120, 8, 4, 3, pix0, n_local,
+        err = lib.pt_k1_trace(*job.args, 160, 120, 8, 4, 3, pix0, n_local,
                               rad.data_ptr(), part.data_ptr(), None, 0,
                               torch.cuda.current_stream().cuda_stream)
         K.launch_error("K1", lib, err)
@@ -1001,7 +998,7 @@ def time_engines(ptt, K, SP, torch, scenes, card):
         job = K.prepare(scene, "cuda", nee=nee, rr=rr)
         run = SP.engine(scene, job, split, split is None)[1]
         engine = lambda: run(1, spp)  # noqa: E731
-        k1 = lambda: K.trace_k1(**job, it0=1, n_spp=spp)  # noqa: E731
+        k1 = lambda: K.trace_k1(job, 1, spp)  # noqa: E731
         ms_k1a, runs_a, _ = median_ms(k1, torch, 5)
         ms_e, runs_e, _ = median_ms(engine, torch, 5)
         ms_k1b, runs_b, _ = median_ms(k1, torch, 5, warm=False)
@@ -1113,14 +1110,9 @@ def k8_vs_plain(K, VJ, GC, torch, label, scene, nee, full=False):
     # bump with NEE: the tilted normal magnifies float32 rounding past the
     # bare tolerance at any size, on both parts of the cotangent
     bump_nee = nee and bool(mask & 32)
-    rad, _ = K.trace_k1(**job, it0=1, n_spp=1)
+    rad, _ = K.trace_k1(job, 1, 1)
     ref, _ = K.trace_plain(**job, it0=1, n_spp=1)
     ct = masked_ct(torch, rad, ref, 0)
-
-    def args(c):
-        return (job["cam"], job["mats"], job["gmat"], job["geom_types"],
-                width, height, depth, 1, 1, job["lights"], c, job["tri"],
-                job["nodes"], job["bvh_meta"], job["features"])
 
     def trace(cam, mats, gmat, lights=None):
         return K.trace_plain(cam, mats, gmat, job["geom_types"], width,
@@ -1128,9 +1120,9 @@ def k8_vs_plain(K, VJ, GC, torch, label, scene, nee, full=False):
                              lights=lights, tri=job["tri"], nodes=job["nodes"],
                              bvh_meta=job["bvh_meta"])[0]
 
-    rad8, got = VJ.trace_k8(*args(ct))
+    rad8, got = VJ.trace_k8(job, 1, 1, ct)
     twice = all(torch.equal(a, b)
-                for a, b in zip(got, VJ.trace_k8(*args(ct))[1]))
+                for a, b in zip(got, VJ.trace_k8(job, 1, 1, ct)[1]))
     same = torch.equal(rad8, rad)
     ff = GC.fireflies(rad, 1, scene.materials.emittance)
     print(f"k8 {label} {width}x{height} d{depth} 1spp (mask {mask}): "
@@ -1163,7 +1155,7 @@ def k8_vs_plain(K, VJ, GC, torch, label, scene, nee, full=False):
                   f"and leave the cotangent", flush=True)
         if not bool(c.any()):
             continue
-        _, g = VJ.trace_k8(*args(c))
+        _, g = VJ.trace_k8(job, 1, 1, c)
         if judge:
             t0 = time.perf_counter()
             w64 = grads64(c)
@@ -1175,7 +1167,7 @@ def k8_vs_plain(K, VJ, GC, torch, label, scene, nee, full=False):
                   flush=True)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        _, w = VJ.k8_plain(*args(c))
+        _, w = VJ.k8_plain(job, 1, 1, c)
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
         plain_ms = ms if plain_ms is None else plain_ms
@@ -1230,7 +1222,7 @@ def k7_vs_plain(K, MG, GC, torch, label, scene, spp=1, flush_paths=None):
     job = K.prepare(scene, "cuda")
     mtab = MG.material_table(scene, "cuda")
     mat_of = tuple(int(m) for m in scene.geoms.material_id)
-    rad, counts = K.trace_k1(**job, it0=1, n_spp=spp)
+    rad, counts = K.trace_k1(job, 1, spp)
     ref, _ = K.trace_plain(**job, it0=1, n_spp=spp)
     ct = masked_ct(torch, rad, ref, 1)
     rad7, counts7, got = MG.trace_k7(job, mtab, mat_of, ct, 1, spp)
@@ -1439,13 +1431,10 @@ def time_k8(K, VJ, B, torch, label, name, job, nee, card):
     width, height = job["width"], job["height"]
     n_pix = width * height
     ones = torch.ones((n_pix, 3), device="cuda")
-    args = (job["cam"], job["mats"], job["gmat"], job["geom_types"], width,
-            height, job["depth"], 1, 1, job["lights"], ones, job["tri"],
-            job["nodes"], job["bvh_meta"], job["features"])
-    ms_k8, runs_k8, (_, tabs) = median_ms(lambda: VJ.trace_k8(*args),
-                                          torch, 9)
+    ms_k8, runs_k8, (_, tabs) = median_ms(
+        lambda: VJ.trace_k8(job, 1, 1, ones), torch, 9)
     ms_k1, runs_k1, (_, counts) = median_ms(
-        lambda: K.trace_k1(**job, it0=1, n_spp=1), torch, 9)
+        lambda: K.trace_k1(job, 1, 1), torch, 9)
     ops, n_bytes, tallies = forward_work(K, B, torch, label, job)
     if not nee:
         tallies = {}
@@ -1544,7 +1533,7 @@ def time_k7(K, MG, B, torch, label, name, k7_job, card):
         lambda: MG.trace_k7(job, mtab, mat_of, ct, 1, 1), torch, 9)
     # K1's same build at 1 spp a call: K7 / K1 is the fold's own cost
     ms_k1, runs_k1, _ = median_ms(
-        lambda: K.trace_k1(**job, it0=1, n_spp=1), torch, 9)
+        lambda: K.trace_k1(job, 1, 1), torch, 9)
     ops, n_bytes, _ = forward_work(K, B, torch, label, job)
     extra_ops, extra_bytes = B.k7_extra(counts.tolist(), n_pix,
                                         mtab.shape[0])
@@ -1636,7 +1625,7 @@ def wavefront_holds(K, SC, I, torch, label, scene, nee):
             and torch.equal(out["sort"][1], out["mask"][1])):
         raise RuntimeError(f"wavefront {label}: sort is not mask's bits")
     job = K.prepare(scene, "cuda", nee=nee)
-    ref, ref_counts = K.trace_k1(**job, it0=1, n_spp=1, per_sample=True)
+    ref, ref_counts = K.trace_k1(job, 1, 1, per_sample=True)
     rad, counts = out["mask"]
     share, err, exact = _flip_share(torch, rad, ref)
     counts, ref_counts = counts[0].tolist(), ref_counts[0].tolist()
@@ -1782,7 +1771,7 @@ def time_wavefront(K, I, torch, cornell, card):
     for nee in (False, True):
         job = K.prepare(cornell, "cuda", nee=nee)
         k1, runs_k1, _ = median_ms(
-            lambda: K.trace_k1(**job, it0=1, n_spp=SPP_PER_CALL), torch, 5)
+            lambda: K.trace_k1(job, 1, SPP_PER_CALL), torch, 5)
         line = []
         for compaction in ("mask", "sort"):
             run = lambda: I.pathtrace_batch(  # noqa: E731
@@ -2138,7 +2127,7 @@ def progressive_phase(ptt, K, MG, torch, np, scenes, card):
     job = K.prepare(moved, "cuda")
     fresh = torch.zeros((moved.pixel_count, 3), device="cuda")
     for it0 in (1, 9):
-        fresh += K.trace_k1(**job, it0=it0, n_spp=8)[0]
+        fresh += K.trace_k1(job, it0, 8)[0]
     if not np.array_equal(moved_img, fresh.cpu().numpy()):
         raise RuntimeError("the camera key's render is not a fresh render "
                            "of the moved camera")
@@ -2148,7 +2137,7 @@ def progressive_phase(ptt, K, MG, torch, np, scenes, card):
           f"(np.savez_compressed, host clock) ms "
           f"{[round(t, 1) for t in spy['saves']]}", flush=True)
 
-    k1_rad = K.trace_k1(**K.prepare(tex, "cuda"), it0=1, n_spp=1)[0]
+    k1_rad = K.trace_k1(K.prepare(tex, "cuda"), 1, 1)[0]
     planes_rad = K.trace_plain(**K.prepare(tex, "cuda", texels="f32"), it0=1,
                                n_spp=1)[0]
     share = float(((k1_rad - planes_rad).abs().amax(dim=-1) > 1e-3)
@@ -2266,7 +2255,7 @@ def shard_child(rank, world, store, out):
         times("nccl", mesh)
         job = K.prepare(cornell, "cuda")
         info["unsharded k1 ms"] = _wall_ms(
-            torch, lambda: K.trace_k1(**job, it0=1, n_spp=n))
+            torch, lambda: K.trace_k1(job, 1, n))
         dist.destroy_process_group()
     np.savez(out, **arrays)
     with open(out + ".json", "w") as f:
@@ -2357,7 +2346,7 @@ def shard_phase(ptt, K, SP, VJ, I, torch, np, cornell, parsed, card):
         return host(one(1, spp)), halves
 
     job = K.prepare(cornell, "cuda")
-    k1 = route(lambda i, m: K.trace_k1(**job, it0=i, n_spp=m))
+    k1 = route(lambda i, m: K.trace_k1(job, i, m))
     srt = route(lambda i, m: SP.pathtrace_batch_sorted(cornell, i, m,
                                                        "cuda"))
     pjob = K.prepare(small, "cuda", texels="f32")
@@ -2379,8 +2368,7 @@ def shard_phase(ptt, K, SP, VJ, I, torch, np, cornell, parsed, card):
         _hold_render(np, label, (got[f"{label}.rad"], got[f"{label}.counts"]),
                      want, halves)
     # the grad step: K1 + render_vjp in one process with the same loss
-    rad, _ = K.trace_k1(**K.prepare(cornell, "cuda", nee=True), it0=1,
-                        n_spp=2)
+    rad, _ = K.trace_k1(K.prepare(cornell, "cuda", nee=True), 1, 2)
     img = rad / 2
     loss = float(torch.mean(img ** 2))
     _, want = VJ.render_vjp(cornell, 2.0 * img / float(img.numel() * 2), 1,

@@ -103,8 +103,8 @@ def pathtrace_batch(scene, it0, n_iters, compaction="mask", remat=True,
     ``render.integrator.pathtrace_batch`` (``--engine xla`` on the CLI),
     whose ``"sort"`` densifies the live rays on K6."""
     _check_compaction(compaction)
-    return trace_k1(**prepare(scene, device, nee=nee, rr=rr), it0=it0,
-                    n_spp=n_iters, per_sample=True)
+    return trace_k1(prepare(scene, device, nee=nee, rr=rr), it0, n_iters,
+                    per_sample=True)
 
 
 def render(scene, n_iters=None, chunk=8, compaction="mask", callback=None,
@@ -125,8 +125,7 @@ def render(scene, n_iters=None, chunk=8, compaction="mask", callback=None,
     done = 0
     while done < n_iters:
         step = min(chunk, n_iters - done)
-        rad, counts = trace_k1(**job, it0=done + 1, n_spp=step,
-                               per_sample=True)
+        rad, counts = trace_k1(job, done + 1, step, per_sample=True)
         accum += rad
         done += step
         if callback is not None:

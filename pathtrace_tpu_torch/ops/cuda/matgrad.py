@@ -161,7 +161,10 @@ def trace_k7(job, mtab, mat_of_geom, ct, it0, n_spp, flush_paths=None):
     first use) and raises if the build or the launch fails.  A block
     flushes its table after at most ``flush_paths`` paths (default
     :func:`k7_flush_paths`; fewer flush more often, to the same bits; the
-    launch fails below one sample of a block's pool)."""
+    launch fails below one sample of a block's pool).  Raises
+    ``ValueError`` for a plain-only job (``megakernel.Job.check_kernel``),
+    on the CPU too."""
+    job.check_kernel("K7")
     device = job["cam"].device
     if device.type == "cpu":
         return k7_plain(job, mtab, mat_of_geom, ct, it0, n_spp)
@@ -184,14 +187,10 @@ def trace_k7(job, mtab, mat_of_geom, ct, it0, n_spp, flush_paths=None):
                          f"paths at depth {depth}, not {flush_paths}")
     K._check_table("mtab", mtab, (n_mats, GRAD_ROWS), device)
     K._check_table("ct", ct, (n_pix, 3), device)
-    mask, args = K.kernel_tables(
-        job["cam"], job["mats"], job["gmat"], job["geom_types"],
-        job["features"], None, False, job["tri"], job["nodes"],
-        job["bvh_meta"], None, (), ())
     mat_t = K._int_table(tuple(mat_of_geom), device)
     rad = torch.empty((n_pix, 3), dtype=torch.float32, device=device)
     counts = torch.zeros(depth, dtype=torch.int64, device=device)
-    lib = build.load_k7(mask)
+    lib = build.load_k7(job.mask)
     # the exact table the blocks add into, as 64-bit words (csrc's fx_add)
     exact = torch.zeros(lib.pt_fx_words(GRAD_ROWS * n_mats),
                         dtype=torch.int64, device=device)
@@ -200,7 +199,7 @@ def trace_k7(job, mtab, mat_of_geom, ct, it0, n_spp, flush_paths=None):
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.pt_k7_grads(
-            *args, width, height, depth, it0 & 0xFFFFFFFF, n_spp,
+            *job.args, width, height, depth, it0 & 0xFFFFFFFF, n_spp,
             flush_paths, mtab.data_ptr(), mat_t.data_ptr(), n_mats,
             ct.data_ptr(), rad.data_ptr(), counts.data_ptr(),
             exact.data_ptr(), stream)
@@ -208,7 +207,7 @@ def trace_k7(job, mtab, mat_of_geom, ct, it0, n_spp, flush_paths=None):
         err = lib.pt_fx_round(exact.data_ptr(), GRAD_ROWS * n_mats,
                               gtab.data_ptr(), stream)
     K.launch_error("K7's rounding", lib, err)
-    LAUNCHES[mask] += 1
+    LAUNCHES[job.mask] += 1
     return rad, counts, gtab
 
 

@@ -6,7 +6,8 @@ forward render path: ``pack_scene``, ``pack_lights``, ``pack_mesh`` and
 ``pack_textures`` build the same ``cam``/``mats``/``gmat``/``lights``/
 ``tri``/``nodes`` tables and texels as ``_pack_scene``, ``_pack_lights``
 and ``_pack_textures``, and ``tex_spec``/``btex_spec`` the same
-per-geom texture charts; ``trace_k1`` launches the CUDA kernel
+per-geom texture charts; ``prepare`` checks them once into a ``Job``,
+which every launcher takes; ``trace_k1`` launches the CUDA kernel
 ``csrc/megakernel.cu`` (which replaces the Pallas ``_kernel``), built
 once per feature set as Mosaic specializes the reference's; and
 ``trace_plain`` is the same computation in plain PyTorch, one element per
@@ -30,7 +31,8 @@ map that requires grad: the planes engine's route (``--engine planes``,
 from __future__ import annotations
 
 from collections import Counter
-from types import SimpleNamespace
+from collections.abc import Mapping
+from types import MappingProxyType, SimpleNamespace
 
 import numpy as np
 import torch
@@ -128,27 +130,6 @@ def scene_mask(scene, nee=False, rr=False):
                         bool(tex_geom), bool(btex_geom),
                         mesh and bool(scene.mesh.count)
                         and not scene.mesh.bvh_meta)
-
-
-def check_supported(scene):
-    """Raise ``ValueError`` for a scene the kernel cannot render as the
-    reference does: a used texture whose texels are not on the u8 grid
-    (those render on the planes engine, ``prepare(..., texels="f32")``)."""
-    for t in tex_used(scene):
-        _texel_words(scene.textures[t], t)
-
-
-def check_byte_texels(texels):
-    """Raise ``ValueError`` unless ``texels`` is None or the kernel's
-    byte table (``pack_textures``' int32 words): K1 and K5 read texels as
-    bytes, and a float table (``pack_textures_f32``) is never converted
-    to one behind the caller's back."""
-    if texels is not None and texels.dtype != torch.int32:
-        raise ValueError(
-            f"the kernels read texels as bytes (pack_textures' int32 "
-            f"words), not a {texels.dtype} table: a float texel table "
-            f"(pack_textures_f32) renders on trace_plain, the planes "
-            f"engine (--engine planes, engine='planes')")
 
 
 def resolve_device(device):
@@ -1266,7 +1247,7 @@ def plain_scene(cam, mats, gmat, geom_types, features=NO_FEATURES,
                 lights=None, rr=False, tri=None, nodes=None, bvh_meta=(),
                 texels=None, tex_geom=(), btex_geom=(), **_):
     """What :func:`init_state` and :func:`bounces` read of a scene:
-    the tables of :func:`trace_k1`'s arguments, the small ones (cam,
+    the tables of a :class:`Job`, the small ones (cam,
     gmat, lights) also as rows of 0-d tensors, the scalars the planes
     meet.  A 0-d float32 tensor rounds as a Python float does in these
     ops, and it carries the graph of a table that requires grad, so
@@ -1742,14 +1723,16 @@ def _check_textures(texels, tex_geom, btex_geom, n_geoms, device):
     """The texture tables must be ``pack_textures``' and
     ``tex_statics``': an int32 word per texel, and each chart mode ()
     or one (offset, H, W) per geom, ``NO_CHART`` or a map inside the
-    table."""
+    table.  A float table (``pack_textures_f32``') is held to its charts
+    alone, a texel a row."""
     if not (tex_geom or btex_geom):
         if texels is not None:
             raise ValueError("texels given without tex_geom or btex_geom")
         return
-    if texels is None or texels.device != device or \
-            texels.dtype != torch.int32 or texels.dim() != 1 or \
-            not texels.is_contiguous() or not 0 < texels.numel() < 2 ** 31:
+    if texels is None or not texels.is_floating_point() and (
+            texels.device != device or texels.dtype != torch.int32 or
+            texels.dim() != 1 or not texels.is_contiguous() or
+            not 0 < texels.numel() < 2 ** 31):
         raise ValueError(
             f"texels: want a contiguous int32 (n,) tensor on {device}, got "
             f"{None if texels is None else (texels.dtype, texels.shape)}")
@@ -1760,59 +1743,99 @@ def _check_textures(texels, tex_geom, btex_geom, n_geoms, device):
         for off, h, w in spec:
             if (off, h, w) != NO_CHART and not (
                     0 <= off and 0 < h and 0 < w
-                    and off + h * w <= texels.numel()):
+                    and off + h * w <= len(texels)):
                 raise ValueError(
                     f"{name}: chart {(off, h, w)} is not inside a table of "
-                    f"{texels.numel()} texels")
-
-
-def kernel_tables(cam, mats, gmat, geom_types, features, lights, rr, tri,
-                  nodes, bvh_meta, texels, tex_geom, btex_geom):
-    """Checks the tables of a K1 or K5 launch on the device of ``cam``;
-    returns (the feature mask, the launch's scene arguments: pointers
-    cam, mats, gmat, types, lights, tri, nodes, meta, texels, charts,
-    then n_geoms, n_lights, n_meta, n_texels).  The int tables (types,
-    meta, charts) are made once per device."""
-    device = cam.device
-    geom_types, bvh_meta = tuple(geom_types), tuple(bvh_meta)
-    tex_geom, btex_geom = tuple(tex_geom), tuple(btex_geom)
-    textured = bool(tex_geom or btex_geom)
-    n_geoms = len(geom_types)
-    n_lights = 0 if lights is None else lights.shape[0]
-    if any(t not in (T.SPHERE, T.CUBE, T.MESH) for t in geom_types):
-        raise ValueError(f"unknown geom types in {geom_types}")
-    if len(features) != len(FEATURE_NAMES) or not (
-            0 < n_geoms and (lights is None or n_lights > 0)):
-        raise ValueError(f"bad scene: {n_geoms} geoms, features {features}, "
-                         f"{n_lights} lights")
-    _check_table("cam", cam, (1, 16), device)
-    _check_table("mats", mats, (n_geoms, 24), device)
-    _check_table("gmat", gmat, (n_geoms, 40), device)
-    if lights is not None:
-        _check_table("lights", lights, (n_lights, LIGHT_COLS), device)
-    _check_mesh(tri, nodes, bvh_meta, geom_types, device,
-                TRI_TEX_COLS if textured else TRI_COLS)
-    _check_textures(texels, tex_geom, btex_geom, n_geoms, device)
-    types = _int_table(geom_types, device)
-    meta = _int_table(bvh_meta, device) if bvh_meta else None
-    # one (albedo offset, H, W, bump offset, H, W) row per geom
-    charts = _int_table(tuple(
-        a + b for a, b in zip(tex_geom or (NO_CHART,) * n_geoms,
-                              btex_geom or (NO_CHART,) * n_geoms)),
-        device) if textured else None
-    mask = feature_mask(features, lights is not None, rr,
-                        T.MESH in geom_types, bool(tex_geom), bool(btex_geom),
-                        bool(bvh_meta) and nodes is None)
-    return mask, (
-        cam.data_ptr(), mats.data_ptr(), gmat.data_ptr(), types.data_ptr(),
-        ptr(lights), ptr(tri), ptr(nodes), ptr(meta), ptr(texels),
-        ptr(charts), n_geoms, n_lights, len(bvh_meta),
-        0 if texels is None else texels.numel())
+                    f"{len(texels)} texels")
 
 
 def ptr(t):
     """The device address of tensor ``t``; 0 for None."""
     return 0 if t is None else t.data_ptr()
+
+
+class Job(Mapping):
+    """A scene's tables on the device of ``cam``, checked once, where the
+    job is made (:func:`prepare`, or ``Job(cam, mats, ...)`` of tables a
+    caller packed: ``ValueError`` unless they are the ``pack_*``
+    functions'); what :func:`trace_k1`, ``span.trace_span``,
+    ``matgrad.trace_k7`` and ``vjp.trace_k8`` take first.  A read-only
+    mapping of :func:`trace_plain`'s keyword arguments but ``it0`` and
+    ``n_spp``.  ``mask``: the kernels' feature mask; ``args``: a launch's
+    scene arguments, pointers cam, mats, gmat, types, lights, tri, nodes,
+    meta, texels, charts, then n_geoms, n_lights, n_meta, n_texels.  A
+    float texel table (:func:`pack_textures_f32`'s) makes a plain-only
+    job, which the launchers refuse (:meth:`check_kernel`)."""
+
+    def __init__(self, cam, mats, gmat, geom_types, width, height, depth,
+                 features=NO_FEATURES, lights=None, rr=False, tri=None,
+                 nodes=None, bvh_meta=(), texels=None, tex_geom=(),
+                 btex_geom=()):
+        device = cam.device
+        geom_types, bvh_meta = tuple(geom_types), tuple(bvh_meta)
+        tex_geom, btex_geom = tuple(tex_geom), tuple(btex_geom)
+        textured = bool(tex_geom or btex_geom)
+        n_geoms = len(geom_types)
+        n_lights = 0 if lights is None else lights.shape[0]
+        if any(t not in (T.SPHERE, T.CUBE, T.MESH) for t in geom_types):
+            raise ValueError(f"unknown geom types in {geom_types}")
+        if len(features) != len(FEATURE_NAMES) or not (
+                0 < n_geoms and (lights is None or n_lights > 0)):
+            raise ValueError(f"bad scene: {n_geoms} geoms, features "
+                             f"{features}, {n_lights} lights")
+        _check_table("cam", cam, (1, 16), device)
+        _check_table("mats", mats, (n_geoms, 24), device)
+        _check_table("gmat", gmat, (n_geoms, 40), device)
+        if lights is not None:
+            _check_table("lights", lights, (n_lights, LIGHT_COLS), device)
+        _check_mesh(tri, nodes, bvh_meta, geom_types, device,
+                    TRI_TEX_COLS if textured else TRI_COLS)
+        _check_textures(texels, tex_geom, btex_geom, n_geoms, device)
+        types = _int_table(geom_types, device)
+        meta = _int_table(bvh_meta, device) if bvh_meta else None
+        # one (albedo offset, H, W, bump offset, H, W) row per geom
+        charts = _int_table(tuple(
+            a + b for a, b in zip(tex_geom or (NO_CHART,) * n_geoms,
+                                  btex_geom or (NO_CHART,) * n_geoms)),
+            device) if textured else None
+        # set past __setattr__, which keeps a job read-only
+        self.__dict__.update(tables=MappingProxyType(dict(
+            cam=cam, mats=mats, gmat=gmat, geom_types=geom_types,
+            width=width, height=height, depth=depth, features=features,
+            lights=lights, rr=rr, tri=tri, nodes=nodes, bvh_meta=bvh_meta,
+            texels=texels, tex_geom=tex_geom, btex_geom=btex_geom)),
+            mask=feature_mask(features, lights is not None, rr,
+                              T.MESH in geom_types, bool(tex_geom),
+                              bool(btex_geom),
+                              bool(bvh_meta) and nodes is None),
+            args=(cam.data_ptr(), mats.data_ptr(), gmat.data_ptr(),
+                  types.data_ptr(), ptr(lights), ptr(tri), ptr(nodes),
+                  ptr(meta), ptr(texels), ptr(charts), n_geoms, n_lights,
+                  len(bvh_meta), 0 if texels is None else len(texels)))
+
+    def __setattr__(self, name, value):
+        raise AttributeError(f"a Job is read-only: {name}")
+
+    def __getitem__(self, key):
+        return self.tables[key]
+
+    def __iter__(self):
+        return iter(self.tables)
+
+    def __len__(self):
+        return len(self.tables)
+
+    def check_kernel(self, kernel):
+        """Raise ``ValueError`` for a plain-only job: the kernels read
+        texels as bytes (``pack_textures``' int32 words), and a float
+        table is never converted to one behind the caller's back."""
+        texels = self.tables["texels"]
+        if texels is not None and texels.is_floating_point():
+            raise ValueError(
+                f"{kernel} reads texels as bytes (pack_textures' int32 "
+                f"words), not a {texels.dtype} table: a float texel table "
+                f"(pack_textures_f32) renders on trace_plain, the planes "
+                f"engine (--engine planes, engine='planes')")
 
 
 def launch_error(name, lib, err):
@@ -1822,23 +1845,19 @@ def launch_error(name, lib, err):
                            f"({lib.pt_cuda_error_string(err).decode()})")
 
 
-def trace_k1(cam, mats, gmat, geom_types, width, height, depth, it0, n_spp,
-             pix0=0, n_local=None, features=NO_FEATURES, lights=None,
-             rr=False, tri=None, nodes=None, bvh_meta=(), texels=None,
-             tex_geom=(), btex_geom=(), per_sample=False):
-    """K1 (and K2 when ``lights`` is given, K3 when ``bvh_meta`` is,
-    K3-linear when it is without ``nodes``, K4 when ``tex_geom`` or
-    ``btex_geom`` is): the same computation and result as
-    :func:`trace_plain`.
+def trace_k1(job, it0, n_spp, pix0=0, n_local=None, per_sample=False):
+    """K1 on ``job`` (K2 when it has lights, K3 when it has ``bvh_meta``,
+    K3-linear when that is without ``nodes``, K4 when it has a texture
+    chart): the same computation and result as :func:`trace_plain`.
 
-    For tensors on the CPU this is :func:`trace_plain`.  For tensors on
-    a CUDA device it launches the kernel of ``csrc/megakernel.cu``
-    compiled for this feature set on the current stream (building it at
-    first use) and raises if the build or the launch fails.  With
-    ``per_sample`` the counts are each sample's, (n_spp, depth), from
-    the kernel's per-sample form (``k1_trace<true>``); else (depth,),
-    summed over the samples.  Raises ``ValueError`` for a float texel
-    table (:func:`check_byte_texels`), on the CPU too.
+    For a job on the CPU this is :func:`trace_plain`.  For one on a CUDA
+    device it launches the kernel of ``csrc/megakernel.cu`` compiled for
+    the job's ``mask`` on the current stream (building it at first use)
+    and raises if the build or the launch fails.  With ``per_sample`` the
+    counts are each sample's, (n_spp, depth), from the kernel's
+    per-sample form (``k1_trace<true>``); else (depth,), summed over the
+    samples.  Raises ``ValueError`` for a plain-only job
+    (:meth:`Job.check_kernel`), on the CPU too.
 
     The first call of a profiler's window counts its events into the
     counter ``k1`` (``utils/profiling.counter``, (depth,
@@ -1847,14 +1866,14 @@ def trace_k1(cam, mats, gmat, geom_types, width, height, depth, it0, n_spp,
     too, gets no counter and runs the kernel that counts nothing, so a
     trace times the kernel an untraced call runs."""
     with profiling.span("k1", it0):
-        check_byte_texels(texels)
-        device = cam.device
+        job.check_kernel("K1")
+        width, height, depth = job["width"], job["height"], job["depth"]
+        device = job["cam"].device
         events = profiling.counter("k1", (depth, len(K1_EVENTS)), device)
         if device.type == "cpu":
-            return trace_plain(cam, mats, gmat, geom_types, width, height,
-                               depth, it0, n_spp, pix0, n_local, features,
-                               lights, rr, tri, nodes, bvh_meta, texels,
-                               tex_geom, btex_geom, per_sample, events)
+            return trace_plain(**job, it0=it0, n_spp=n_spp, pix0=pix0,
+                               n_local=n_local, per_sample=per_sample,
+                               events=events)
         if device.type != "cuda":
             raise ValueError(f"K1 runs on cuda or cpu tensors, not {device}")
         from . import build
@@ -1867,23 +1886,20 @@ def trace_k1(cam, mats, gmat, geom_types, width, height, depth, it0, n_spp,
             raise ValueError(
                 f"bad K1 sizes: depth {depth}, {n_spp} spp, pixels "
                 f"{pix0}+{n_local} of {n_pixels}")
-        mask, args = kernel_tables(cam, mats, gmat, geom_types, features,
-                                   lights, rr, tri, nodes, bvh_meta, texels,
-                                   tex_geom, btex_geom)
         rad = torch.empty((n_local, 3), dtype=torch.float32, device=device)
         # the kernel adds into these as unsigned 64-bit integers: per sample
         # (its per-sample build), or summed over the samples
         counts = torch.zeros((n_spp, depth) if per_sample else depth,
                              dtype=torch.int64, device=device)
-        lib = build.load_k1(mask)
+        lib = build.load_k1(job.mask)
         with torch.cuda.device(device):
             stream = torch.cuda.current_stream(device).cuda_stream
             err = lib.pt_k1_trace(
-                *args, width, height, depth, it0 & 0xFFFFFFFF, n_spp, pix0,
-                n_local, rad.data_ptr(), counts.data_ptr(), ptr(events),
-                int(per_sample), stream)
+                *job.args, width, height, depth, it0 & 0xFFFFFFFF, n_spp,
+                pix0, n_local, rad.data_ptr(), counts.data_ptr(),
+                ptr(events), int(per_sample), stream)
         launch_error("K1", lib, err)
-        LAUNCHES[mask] += 1
+        LAUNCHES[job.mask] += 1
         return rad, counts
 
 
@@ -1891,11 +1907,10 @@ TEXELS = ("u32", "f32")
 
 
 def prepare(scene, device="cuda", nee=False, rr=False, texels="u32"):
-    """Check that K1 can render ``scene`` on ``device`` and return the
-    keyword arguments of :func:`trace_k1` (and :func:`trace_plain`) but
-    ``it0`` and ``n_spp``: the packed tables on ``device``, resident for
-    the whole render, and the static facts the kernel is compiled for.
-    Raises ``ValueError`` for a texture off the u8 grid and
+    """Check that K1 can render ``scene`` on ``device`` and return its
+    :class:`Job`: the packed tables on ``device``, resident for the whole
+    render, and the static facts the kernel is compiled for.  Raises
+    ``ValueError`` for a texture off the u8 grid (``pack_textures``) and
     ``RuntimeError`` for a CUDA device without a GPU.
 
     ``texels="f32"`` packs the maps as :func:`pack_textures_f32`'s float
@@ -1906,23 +1921,21 @@ def prepare(scene, device="cuda", nee=False, rr=False, texels="u32"):
         if texels not in TEXELS:
             raise ValueError(
                 f"texels must be one of {TEXELS}, not {texels!r}")
-        if texels == "u32":
-            check_supported(scene)
         device = resolve_device(device)
         cam, mats, gmat = pack_scene(scene, device)
         lights = pack_lights(scene, device)[0] if nee else None
         tri, nodes, bvh_meta = pack_mesh(scene, device)
         tex_geom, btex_geom = tex_statics(scene)
         width, height = scene.resolution
-        return dict(cam=cam, mats=mats, gmat=gmat,
-                    geom_types=tuple(scene.geoms.type), width=width,
-                    height=height, depth=int(scene.trace_depth),
-                    features=scene_features(scene), lights=lights, rr=rr,
-                    tri=tri, nodes=nodes, bvh_meta=bvh_meta,
-                    texels=(pack_textures_f32 if texels == "f32" else
-                            pack_textures)(scene, device)
-                    if tex_geom or btex_geom else None,
-                    tex_geom=tex_geom, btex_geom=btex_geom)
+        return Job(cam=cam, mats=mats, gmat=gmat,
+                   geom_types=tuple(scene.geoms.type), width=width,
+                   height=height, depth=int(scene.trace_depth),
+                   features=scene_features(scene), lights=lights, rr=rr,
+                   tri=tri, nodes=nodes, bvh_meta=bvh_meta,
+                   texels=(pack_textures_f32 if texels == "f32" else
+                           pack_textures)(scene, device)
+                   if tex_geom or btex_geom else None,
+                   tex_geom=tex_geom, btex_geom=btex_geom)
 
 
 def pathtrace_batch_cuda(scene, it0, n_iters, device="cuda", nee=False,
@@ -1932,5 +1945,4 @@ def pathtrace_batch_cuda(scene, it0, n_iters, device="cuda", nee=False,
     (P,3) f32, counts (depth,) int64 summed over the samples) on
     ``device``.  A CPU device runs :func:`trace_plain`; a CUDA device
     runs the kernel and raises when there is no GPU."""
-    return trace_k1(**prepare(scene, device, nee=nee, rr=rr), it0=it0,
-                    n_spp=n_iters)
+    return trace_k1(prepare(scene, device, nee=nee, rr=rr), it0, n_iters)

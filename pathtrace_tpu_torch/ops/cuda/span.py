@@ -149,10 +149,9 @@ def trace_span(job, state, keys, d0, d1, it, counts, tbl=None, n_live=None,
 
     On a CUDA device this launches K5 of the job's feature mask on the
     current stream and raises if the build or the launch fails; on the
-    CPU it is :func:`span_plain`.  Raises ``ValueError`` for a job with
-    a float texel table (``megakernel.check_byte_texels``), on the CPU
-    too."""
-    K.check_byte_texels(job["texels"])
+    CPU it is :func:`span_plain`.  Raises ``ValueError`` for a plain-only
+    job (``megakernel.Job.check_kernel``), on the CPU too."""
+    job.check_kernel("K5")
     device = state.device
     if device.type == "cpu":
         return span_plain(job, state, keys, d0, d1, it, counts, tbl,
@@ -194,22 +193,17 @@ def trace_span(job, state, keys, d0, d1, it, counts, tbl=None, n_live=None,
                          "span's: raygen runs every ray")
     _int32_one("n_live", n_live, device)
     _int32_one("live_out", live_out, device)
-    mask, args = K.kernel_tables(
-        job["cam"], job["mats"], job["gmat"], job["geom_types"],
-        job["features"], job["lights"], job["rr"], job["tri"],
-        job["nodes"], job["bvh_meta"], job["texels"], job["tex_geom"],
-        job["btex_geom"])
-    lib = build.load_k1(mask)
+    lib = build.load_k1(job.mask)
     n_keys = lib.pt_k5_state_keys()
     with torch.cuda.device(device), _phase("span", device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.pt_k5_span(
-            *args, width, height, state.data_ptr(), len(keys),
+            *job.args, width, height, state.data_ptr(), len(keys),
             n_keys if carry else -1, n_rays, K.ptr(tbl), K.ptr(n_live),
             n_tiles, K.ptr(live_out), d0, d1, depth, it & 0xFFFFFFFF,
             counts.data_ptr(), stream)
     K.launch_error("K5", lib, err)
-    LAUNCHES[mask] += 1
+    LAUNCHES[job.mask] += 1
 
 
 def split_batch(job, it0, n_iters, split, plain=False):
@@ -389,8 +383,9 @@ def engine(scene, job, split=None, sort=False, plain=False):
         def run(it0, n):
             return split_batch(job, it0, n, split, plain=plain)
         return f"split at {split} (K5, K6)", run
-    k1 = K.trace_plain if plain else K.trace_k1
 
     def run(it0, n):
-        return k1(**job, it0=it0, n_spp=n)
+        if plain:
+            return K.trace_plain(**job, it0=it0, n_spp=n)
+        return K.trace_k1(job, it0, n)
     return "pallas (K1)", run

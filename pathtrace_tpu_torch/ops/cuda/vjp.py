@@ -141,72 +141,59 @@ def k8_plan(n_pix, n_spp, depth, record, carry, budget):
             for p0 in range(0, n_pix, n_px) for s0 in range(n_spp)]
 
 
-def table_grad_shapes(n_geoms, n_lights):
-    """The shapes of the gradient tables: d_cam, d_mats, d_gmat and
-    d_lights (None without lights)."""
-    return ((1, 16), (n_geoms, 24), (n_geoms, 40),
-            (n_lights, K.LIGHT_COLS) if n_lights else None)
+def table_grad_shapes(job):
+    """The shapes of the gradient tables: those of the job's cam, mats,
+    gmat and lights (None without lights)."""
+    return tuple(None if job[k] is None else tuple(job[k].shape)
+                 for k in ("cam", "mats", "gmat", "lights"))
 
 
-def k8_plain(cam, mats, gmat, geom_types, width, height, depth, it0, n_spp,
-             lights, ct, tri=None, nodes=None, bvh_meta=(),
-             features=K.NO_FEATURES):
-    """Plain PyTorch K8 on the device of the tables: autograd over
-    :func:`megakernel.trace_plain` with the scene's sections
-    ``features`` (``scene_features``), the mesh tables (``pack_mesh``'s)
+def k8_plain(job, it0, n_spp, ct):
+    """Plain PyTorch K8 on the device of the job: autograd over
+    :func:`megakernel.trace_plain` of ``job``, the mesh tables
     constants.  Returns (rad (P,3), [d_cam, d_mats, d_gmat(,
     d_lights)])."""
-    leaf = [t.detach().requires_grad_(True) for t in (cam, mats, gmat)]
-    if lights is not None:
-        leaf.append(lights.detach().requires_grad_(True))
-    rad, _ = K.trace_plain(*leaf[:3], geom_types, width, height, depth, it0,
-                           n_spp, features=features,
-                           lights=leaf[3] if lights is not None else None,
-                           tri=tri, nodes=nodes, bvh_meta=bvh_meta)
+    leaf = {k: job[k].detach().requires_grad_(True)
+            for k in ("cam", "mats", "gmat", "lights") if job[k] is not None}
+    rad, _ = K.trace_plain(**dict(job, **leaf), it0=it0, n_spp=n_spp)
     torch.autograd.backward(rad, ct)
     return rad.detach(), [t.grad if t.grad is not None
-                          else torch.zeros_like(t) for t in leaf]
+                          else torch.zeros_like(t) for t in leaf.values()]
 
 
-def trace_k8(cam, mats, gmat, geom_types, width, height, depth, it0, n_spp,
-             lights, ct, tri=None, nodes=None, bvh_meta=(),
-             features=K.NO_FEATURES):
-    """K8 on the packed tables (the sections ``features``; NEE when
-    ``lights`` is given; the BVH meshes of ``tri``, ``nodes`` and
-    ``bvh_meta``): (rad (P,3), [d_cam (1,16), d_mats (G,24), d_gmat
-    (G,40)(, d_lights (L,128))]), the gradients of sum(ct * rad).  For
-    tensors on the CPU this is :func:`k8_plain`; on a CUDA device it
-    launches the pair of kernels once a chunk of :func:`k8_plan` under
+def trace_k8(job, it0, n_spp, ct):
+    """K8 on ``job`` (its sections; NEE when it has lights; its BVH
+    meshes): (rad (P,3), [d_cam (1,16), d_mats (G,24), d_gmat (G,40)(,
+    d_lights (L,128))]), the gradients of sum(ct * rad).  For a job on
+    the CPU this is :func:`k8_plain`; on a CUDA device it launches the
+    pair of kernels once a chunk of :func:`k8_plan` under
     :data:`TAPE_BYTES` (built at first use) and raises if the build or a
-    launch fails.
+    launch fails.  Raises ``ValueError`` for a plain-only job
+    (``megakernel.Job.check_kernel``), on the CPU too.
 
     The first call of a profiler's window counts K8's lane-steps into the
     counter ``k8`` (``utils/profiling.counter``, :data:`K8_LANES`), in the
     kernels' counting forms; every other call runs the forms that count
     nothing."""
-    device = cam.device
+    job.check_kernel("K8")
+    device = job["cam"].device
     if device.type == "cpu":
-        return k8_plain(cam, mats, gmat, geom_types, width, height, depth,
-                        it0, n_spp, lights, ct, tri, nodes, bvh_meta,
-                        features)
+        return k8_plain(job, it0, n_spp, ct)
     from . import build
 
+    width, height, depth = job["width"], job["height"], job["depth"]
     n_pix = width * height
-    n_lights = 0 if lights is None else lights.shape[0]
-    if not (0 < depth <= MAX_DEPTH and 0 <= n_spp and 0 < n_pix < 2 ** 31
-            and n_lights <= MAX_LIGHTS):
-        raise ValueError(f"bad K8 sizes: depth {depth}, {n_spp} spp, "
-                         f"{n_pix} pixels, {n_lights} lights")
-    if bvh_meta and nodes is None:
+    n_lights = 0 if job["lights"] is None else job["lights"].shape[0]
+    if n_lights > MAX_LIGHTS or job["rr"] or job["texels"] is not None:
+        raise ValueError(f"K8 takes at most {MAX_LIGHTS} lights and no RR "
+                         f"or textures, not {n_lights} lights, rr {job['rr']}")
+    if job["bvh_meta"] and job["nodes"] is None:
         raise ValueError("K8 carries the BVH walk's winners: a mesh without "
                          "nodes (the linear form) has none")
-    mask, args = K.kernel_tables(cam, mats, gmat, geom_types, features,
-                                 lights, False, tri, nodes, bvh_meta, None,
-                                 (), ())
     K._check_table("ct", ct, (n_pix, 3), device)
-    shapes = table_grad_shapes(len(geom_types), n_lights)
+    shapes = table_grad_shapes(job)
     n_tab = sum(a * b for a, b in filter(None, shapes))
-    lib = build.load_k8(mask)
+    lib = build.load_k8(job.mask)
     record, carry_bytes = lib.pt_k8_record_bytes(), lib.pt_k8_carry_bytes()
     plan = k8_plan(n_pix, n_spp, depth, record, carry_bytes, TAPE_BYTES)
     lanes = profiling.counter("k8", (len(K8_LANES),), device)
@@ -229,12 +216,12 @@ def trace_k8(cam, mats, gmat, geom_types, width, height, depth, it0, n_spp,
             # cam, mats, gmat, types, lights, tri, nodes, meta and the
             # counts of geoms, lights and meta entries
             err = lib.pt_k8_vjp(
-                *args[:8], *args[10:13], width, height, depth,
+                *job.args[:8], *job.args[10:13], width, height, depth,
                 it0 & 0xFFFFFFFF, n_spp, px0, n, s0, s1, ct.data_ptr(),
                 rad.data_ptr(), tape.data_ptr(), n_live.data_ptr(), carry.data_ptr(), exact.data_ptr(),
                 K.ptr(lanes), stream)
             K.launch_error("K8", lib, err)
-            LAUNCHES[mask] += 1
+            LAUNCHES[job.mask] += 1
         err = lib.pt_fx_round(exact.data_ptr(), n_tab, tab.data_ptr(), stream)
     K.launch_error("K8's rounding", lib, err)
     grads, off = [], 0
@@ -275,15 +262,17 @@ def _render_vjp(scene, ct, it0, n_spp, nee, device, plain):
         lights = K.pack_lights(sc, device)[0] if nee else None
         if lights is not None:
             tables.append(lights)
+        # the scene as loaded: the triangles are constants of the sweep
         tri, nodes, bvh_meta = K.pack_mesh(scene, device)
+        width, height = scene.resolution
+        job = K.Job(*(t.detach() for t in tables[:3]),
+                    tuple(scene.geoms.type), width, height,
+                    int(scene.trace_depth), K.scene_features(scene),
+                    lights.detach() if lights is not None else None,
+                    tri=tri, nodes=nodes, bvh_meta=bvh_meta)
         ct = torch.as_tensor(ct, dtype=torch.float32).to(device).reshape(
             scene.pixel_count, 3).contiguous()
-    width, height = scene.resolution
-    rad, d_tables = (k8_plain if plain else trace_k8)(
-        *(t.detach() for t in tables[:3]), tuple(scene.geoms.type), width,
-        height, int(scene.trace_depth), it0, n_spp,
-        lights.detach() if lights is not None else None, ct, tri, nodes,
-        bvh_meta, K.scene_features(scene))
+    rad, d_tables = (k8_plain if plain else trace_k8)(job, it0, n_spp, ct)
     # the chain's first step copies the table gradients to the host,
     # which waits for K8: wait here, so the chain's span holds none of it
     if device.type == "cuda":

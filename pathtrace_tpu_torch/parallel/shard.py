@@ -179,8 +179,7 @@ def _k1(scene, mesh, nee, rr):
     job = K.prepare(scene, mesh.device, nee=nee, rr=rr)
 
     def run(it0, n, pix0=0, n_local=None):
-        return K.trace_k1(**job, it0=it0, n_spp=n, pix0=pix0,
-                          n_local=n_local)
+        return K.trace_k1(job, it0, n, pix0=pix0, n_local=n_local)
     return run
 
 
@@ -407,8 +406,7 @@ def sharded_grad_step_pallas(scene, target, it0, n_iters, mesh, nee=True):
             "sharded_grad_step_pallas: mesh scenes need the BVH (the "
             "reverse sweep carries the walk's winners)")
     first, per = _first_iteration(it0, n_iters, mesh)
-    rad, _ = K.trace_k1(**K.prepare(scene, mesh.device, nee=nee), it0=first,
-                        n_spp=per)
+    rad, _ = K.trace_k1(K.prepare(scene, mesh.device, nee=nee), first, per)
     loss, ct = _loss_and_cotangent(rad, target, n_iters, mesh)
     _, grads = vjp.render_vjp(scene, ct, first, per, nee=nee,
                               device=mesh.device)

@@ -52,8 +52,8 @@ def test_summed_counts_are_the_per_sample_ones_summed():
     # trace_k1's callers other than pathtrace_batch take the sum
     _, port = _scenes()
     job = K.prepare(port, "cpu")
-    rad, per = K.trace_k1(**job, it0=1, n_spp=SPP, per_sample=True)
-    rad2, summed = K.trace_k1(**job, it0=1, n_spp=SPP)
+    rad, per = K.trace_k1(job, 1, SPP, per_sample=True)
+    rad2, summed = K.trace_k1(job, 1, SPP)
     assert torch.equal(rad, rad2)
     assert torch.equal(per.sum(0), summed) and tuple(summed.shape) == (DEPTH,)
 

@@ -65,7 +65,8 @@ def test_k1_matches_plain(cuda, name, res):
     scene = _scene(name, res)
     tables = K.pack_scene(scene, cuda)
     before = K.LAUNCHES[0]
-    rad, counts = K.trace_k1(*tables, scene.geoms.type, *res, 8, 1, 3)
+    rad, counts = K.trace_k1(K.Job(*tables, scene.geoms.type, *res, 8), 1,
+                             3)
     torch.cuda.synchronize()
     assert K.LAUNCHES[0] == before + 1
     assert rad.shape == (res[0] * res[1], 3) and rad.device.type == "cuda"
@@ -77,9 +78,9 @@ def test_k1_matches_plain(cuda, name, res):
 def test_k1_pixel_range(cuda):
     scene = _scene("cornell", (40, 30), 4)
     tables = K.pack_scene(scene, cuda)
-    args = (scene.geoms.type, 40, 30, 4, 9, 2)
-    whole, counts = K.trace_k1(*tables, *args)
-    tail, _ = K.trace_k1(*tables, *args, pix0=500)
+    job = K.Job(*tables, scene.geoms.type, 40, 30, 4)
+    whole, counts = K.trace_k1(job, 9, 2)
+    tail, _ = K.trace_k1(job, 9, 2, pix0=500)
     assert torch.equal(tail, whole[500:])
     assert int(counts[0]) == 2 * 40 * 30
 
@@ -97,12 +98,12 @@ def test_k1_counts_per_sample_over_chunks(cuda):
     # 70 samples at depth 8 take two of K1's count chunks (64 samples a
     # block): each sample's row is that sample's own launch's
     job = K.prepare(_scene("cornell", (24, 16)), cuda)
-    rad, per = K.trace_k1(**job, it0=5, n_spp=70, per_sample=True)
+    rad, per = K.trace_k1(job, 5, 70, per_sample=True)
     assert tuple(per.shape) == (70, 8)
     for s in (0, 1, 63, 64, 69):
-        _, one = K.trace_k1(**job, it0=5 + s, n_spp=1, per_sample=True)
+        _, one = K.trace_k1(job, 5 + s, 1, per_sample=True)
         assert torch.equal(per[s], one[0])
-    assert torch.equal(K.trace_k1(**job, it0=5, n_spp=70)[1], per.sum(0))
+    assert torch.equal(K.trace_k1(job, 5, 70)[1], per.sum(0))
     assert int(per[:, 0].min()) == 24 * 16
 
 
@@ -111,10 +112,10 @@ def test_k1_per_sample_counts_are_the_plain_versions(cuda, n_spp):
     # the lane schedule's counts, each sample's (65: past one count
     # chunk), are the plain version's; the summed form's are their sum
     job = K.prepare(_scene("cornell", (40, 24)), cuda)
-    rad, per = K.trace_k1(**job, it0=2, n_spp=n_spp, per_sample=True)
+    rad, per = K.trace_k1(job, 2, n_spp, per_sample=True)
     ref, ref_per = K.trace_plain(**job, it0=2, n_spp=n_spp, per_sample=True)
     assert torch.equal(rad, ref) and torch.equal(per, ref_per)
-    assert torch.equal(K.trace_k1(**job, it0=2, n_spp=n_spp)[1], per.sum(0))
+    assert torch.equal(K.trace_k1(job, 2, n_spp)[1], per.sum(0))
 
 
 def test_k1_tiles_and_two_calls_give_the_same_bits(cuda):
@@ -124,19 +125,15 @@ def test_k1_tiles_and_two_calls_give_the_same_bits(cuda):
     from pathtrace_tpu_torch.ops.cuda import build
 
     job = K.prepare(_scene("cornell_glass", (72, 50)), cuda)
-    whole, counts = K.trace_k1(**job, it0=4, n_spp=3)
-    again, again_counts = K.trace_k1(**job, it0=4, n_spp=3)
+    whole, counts = K.trace_k1(job, 4, 3)
+    again, again_counts = K.trace_k1(job, 4, 3)
     assert torch.equal(whole, again) and torch.equal(counts, again_counts)
-    mask, args = K.kernel_tables(
-        job["cam"], job["mats"], job["gmat"], job["geom_types"],
-        job["features"], job["lights"], job["rr"], job["tri"], job["nodes"],
-        job["bvh_meta"], job["texels"], job["tex_geom"], job["btex_geom"])
-    lib = build.load_k1(mask)
+    lib = build.load_k1(job.mask)
     tiles, total = [], torch.zeros_like(counts)
     for pix0, n_local in ((0, 1000), (1000, 1), (1001, 1599), (2600, 1000)):
         rad = torch.empty((n_local, 3), device=cuda)
         part = torch.zeros_like(counts)
-        err = lib.pt_k1_trace(*args, 72, 50, 8, 4, 3, pix0, n_local,
+        err = lib.pt_k1_trace(*job.args, 72, 50, 8, 4, 3, pix0, n_local,
                               rad.data_ptr(), part.data_ptr(), None, 0,
                               torch.cuda.current_stream().cuda_stream)
         K.launch_error("K1", lib, err)
@@ -144,20 +141,21 @@ def test_k1_tiles_and_two_calls_give_the_same_bits(cuda):
         total += part
     assert torch.equal(torch.cat(tiles), whole) and torch.equal(total, counts)
     rad = torch.empty((10, 3), device=cuda)
-    assert lib.pt_k1_trace(*args, 72, 50, 8, 4, 3, 3595, 10, rad.data_ptr(),
-                           total.data_ptr(), None, 0, 0) != 0  # past the image
+    assert lib.pt_k1_trace(*job.args, 72, 50, 8, 4, 3, 3595, 10,
+                           rad.data_ptr(), total.data_ptr(), None, 0,
+                           0) != 0  # past the image
 
 
 def test_k1_rejects_bad_tables(cuda):
     scene = _scene("cornell", (8, 8))
     cam, mats, gmat = K.pack_scene(scene, cuda)
-    args = (scene.geoms.type, 8, 8, 8, 1, 1)
+    args = (scene.geoms.type, 8, 8, 8)
     with pytest.raises(ValueError, match="mats"):
-        K.trace_k1(cam, mats.double(), gmat, *args)
+        K.Job(cam, mats.double(), gmat, *args)
     with pytest.raises(ValueError, match="gmat"):
-        K.trace_k1(cam, mats, gmat[:, :36], *args)
+        K.Job(cam, mats, gmat[:, :36], *args)
     with pytest.raises(ValueError, match="on cpu"):
-        K.trace_k1(cam, mats.cpu(), gmat, *args)
+        K.Job(cam, mats.cpu(), gmat, *args)
 
 
 @pytest.mark.parametrize("config", [c for c in S.CONFIGS if c != "cornell"])
@@ -167,7 +165,7 @@ def test_features_match_plain(cuda, config):
     mask = K.feature_mask(job["features"], job["lights"] is not None,
                           job["rr"])
     before = K.LAUNCHES[mask]
-    rad, counts = K.trace_k1(**job, it0=1, n_spp=2)
+    rad, counts = K.trace_k1(job, 1, 2)
     torch.cuda.synchronize()
     assert K.LAUNCHES[mask] == before + 1
     assert bool(torch.isfinite(rad).all())
@@ -182,7 +180,7 @@ def test_feature_free_build_is_bit_equal(cuda, name):
     # bit for bit, as the first K1 did
     job = K.prepare(_scene(name, (96, 80)), cuda)
     assert K.feature_mask(job["features"], False, False) == 0
-    got = K.trace_k1(**job, it0=1, n_spp=3)
+    got = K.trace_k1(job, 1, 3)
     want = K.trace_plain(**job, it0=1, n_spp=3)
     assert all(torch.equal(g, w) for g, w in zip(got, want))
     if name == "cornell":
@@ -197,7 +195,7 @@ def test_k1_count_digests_are_pinned(cuda, name):
     # spp from iteration 1) are the ones K1 gave before its lane schedule
     # (H100, CUDA 12.8): sha256 of the int64 counts, first 16 digits
     job = K.prepare(_scene(name, (96, 80)), cuda)
-    _, counts = K.trace_k1(**job, it0=1, n_spp=3, per_sample=True)
+    _, counts = K.trace_k1(job, 1, 3, per_sample=True)
     assert digest(counts) == {"cornell": "a52ad48147c2ae95",
                               "cornell_mesh": "a9bc73f86ac50c28"}[name]
 
@@ -205,7 +203,7 @@ def test_k1_count_digests_are_pinned(cuda, name):
 def test_k1_rejects_mismatched_lights(cuda):
     job = S.job("cornell-nee", (8, 8), 2, cuda)
     with pytest.raises(ValueError, match="lights"):
-        K.trace_k1(**dict(job, lights=job["lights"][:, :64]), it0=1, n_spp=1)
+        K.Job(**dict(job, lights=job["lights"][:, :64]))
 
 
 @pytest.mark.parametrize("config", [
@@ -217,7 +215,7 @@ def test_mesh_matches_plain(cuda, config):
     mask = K.feature_mask(job["features"], job["lights"] is not None,
                           job["rr"], mesh=True)
     before = K.LAUNCHES[mask]
-    rad, counts = K.trace_k1(**job, it0=1, n_spp=2)
+    rad, counts = K.trace_k1(job, 1, 2)
     torch.cuda.synchronize()
     assert K.LAUNCHES[mask] == before + 1
     assert bool(torch.isfinite(rad).all())
@@ -229,9 +227,9 @@ def test_mesh_matches_plain(cuda, config):
 def test_k1_rejects_bad_mesh_tables(cuda):
     job = S.job("cornell_mesh", (8, 8), 2, cuda)
     with pytest.raises(ValueError, match="tri"):
-        K.trace_k1(**dict(job, tri=job["tri"][:, :12]), it0=1, n_spp=1)
+        K.Job(**dict(job, tri=job["tri"][:, :12]))
     with pytest.raises(ValueError, match="bvh_meta"):
-        K.trace_k1(**dict(job, nodes=job["nodes"][:3]), it0=1, n_spp=1)
+        K.Job(**dict(job, nodes=job["nodes"][:3]))
 
 
 def test_mesh_build_is_bit_equal(cuda):
@@ -242,7 +240,7 @@ def test_mesh_build_is_bit_equal(cuda):
     # digits
     job = S.job("cornell_mesh", (96, 80), 8, cuda)
     assert K.scene_mask(S.load("cornell_mesh")) == K.MESH_BIT
-    got = K.trace_k1(**job, it0=1, n_spp=3)
+    got = K.trace_k1(job, 1, 3)
     want = K.trace_plain(**job, it0=1, n_spp=3)
     assert all(torch.equal(g, w) for g, w in zip(got, want))
     assert digest(got[0]) == "42eec1d67a3c3d90"
@@ -255,14 +253,14 @@ def test_textures_match_plain(cuda, config, nee):
     # the texture builds of K1 (K4, with K2 and K3 where the scene asks)
     job = S.job(config, (96, 80), 8, cuda)
     if nee:
-        job["lights"] = K.pack_lights(S.load(*S.TEX_CONFIGS[config][:2]),
-                                      cuda)[0]
+        job = K.Job(**dict(job, lights=K.pack_lights(
+            S.load(*S.TEX_CONFIGS[config][:2]), cuda)[0]))
     mask = K.feature_mask(job["features"], nee, job["rr"],
                           T.MESH in job["geom_types"],
                           bool(job["tex_geom"]), bool(job["btex_geom"]))
     assert mask & (K.TEX_BIT | K.BTEX_BIT)
     before = K.LAUNCHES[mask]
-    rad, counts = K.trace_k1(**job, it0=1, n_spp=2)
+    rad, counts = K.trace_k1(job, 1, 2)
     torch.cuda.synchronize()
     assert K.LAUNCHES[mask] == before + 1
     assert bool(torch.isfinite(rad).all())
@@ -280,7 +278,7 @@ def test_texture_scenes_with_nee_and_rr_match_plain(cuda, name):
     mask = K.scene_mask(scene, nee=True, rr=True)
     assert mask & K.NEE_BIT and mask & K.RR_BIT
     before = K.LAUNCHES[mask]
-    rad, counts = K.trace_k1(**job, it0=1, n_spp=2)
+    rad, counts = K.trace_k1(job, 1, 2)
     torch.cuda.synchronize()
     assert K.LAUNCHES[mask] == before + 1
     ref, ref_counts = K.trace_plain(**job, it0=1, n_spp=2)
@@ -306,14 +304,12 @@ def test_cli_renders_texture_scenes_on_the_card(cuda, tmp_path, name, flags):
 def test_k1_rejects_bad_texture_tables(cuda):
     job = S.job("cornell_tex", (8, 8), 2, cuda)
     with pytest.raises(ValueError, match="texels"):
-        K.trace_k1(**dict(job, texels=job["texels"].float()), it0=1,
-                   n_spp=1)
+        K.trace_k1(K.Job(**dict(job, texels=job["texels"].float())), 1, 1)
     with pytest.raises(ValueError, match="inside a table"):
-        K.trace_k1(**dict(job, texels=job["texels"][:100]), it0=1, n_spp=1)
+        K.Job(**dict(job, texels=job["texels"][:100]))
     with pytest.raises(ValueError, match="tri"):
         mesh = S.job("cornell_bumpmesh", (8, 8), 2, cuda)
-        K.trace_k1(**dict(mesh, tri=mesh["tri"][:, :16].contiguous()),
-                   it0=1, n_spp=1)
+        K.Job(**dict(mesh, tri=mesh["tri"][:, :16].contiguous()))
 
 
 @pytest.mark.parametrize("bundle", [(32, 128), (1, 32), (3, 50)])
@@ -362,7 +358,7 @@ def test_k5_engines_bit_equal_to_k1(cuda, config, engine):
     # bit for bit, and the engine went through K5 (and K6 when split)
     scene, job = _engine_job(config, cuda)
     mask = K.scene_mask(scene, job["lights"] is not None, job["rr"])
-    want = K.trace_k1(**job, it0=1, n_spp=2)
+    want = K.trace_k1(job, 1, 2)
     before, scans = SP.LAUNCHES[mask], SC.LAUNCHES["k6_scan"]
     if engine == "split":
         got = SP.split_batch(job, 1, 2, 3)
@@ -379,14 +375,14 @@ def test_k5_split_clamp_and_sphere(cuda, split):
     # sphere at split 1: every tile dies at bounce 0, so the table is
     # empty and the resumed span's blocks all exit; split >= depth clamps
     scene = _scene("sphere", (50, 37))
-    want = K.trace_k1(**K.prepare(scene, cuda), it0=3, n_spp=2)
+    want = K.trace_k1(K.prepare(scene, cuda), 3, 2)
     got = ptt.pathtrace_batch_split(scene, 3, 2, split=split, device="cuda")
     assert all(torch.equal(g, w) for g, w in zip(got, want))
 
 
 def test_k5_depth_one(cuda):
     scene = _scene("cornell", (33, 7), 1)
-    want = K.trace_k1(**K.prepare(scene, cuda), it0=1, n_spp=2)
+    want = K.trace_k1(K.prepare(scene, cuda), 1, 2)
     before = dict(SP.LAUNCHES)
     got = ptt.pathtrace_batch_split(scene, 1, 2, device="cuda")
     assert dict(SP.LAUNCHES) == before  # depth 1 goes to K1
@@ -556,12 +552,6 @@ def test_cli_engines_on_the_card(cuda, tmp_path, flags):
 # K7 (the material gradients) and K8 (the reverse sweep)
 # ----------------------------------------------------------------------------
 
-def _k8_args(job, ct):
-    return (job["cam"], job["mats"], job["gmat"], job["geom_types"],
-            job["width"], job["height"], job["depth"], 1, 2, job["lights"],
-            ct, job["tri"], job["nodes"], job["bvh_meta"], job["features"])
-
-
 def _masked_ct(rad, ref, seed=0):
     """A random cotangent, zero on the pixels where the kernel's forward
     and the plain version's differ (tie flips), as the reference's tests
@@ -575,16 +565,16 @@ def _masked_ct(rad, ref, seed=0):
 def test_k8_forward_equals_k1(cuda, nee):
     # K8's forward sweep runs K1's init_state and bounce: the same bits
     job = K.prepare(_scene("cornell", (96, 80)), cuda, nee=nee)
-    want, _ = K.trace_k1(**job, it0=1, n_spp=2)
+    want, _ = K.trace_k1(job, 1, 2)
     ct = torch.ones((96 * 80, 3), device=cuda)
-    got, grads = VJ.trace_k8(*_k8_args(job, ct))
+    got, grads = VJ.trace_k8(job, 1, 2, ct)
     assert torch.equal(got, want)
     assert len(grads) == (4 if nee else 3)
 
 
 def test_k7_forward_equals_k1(cuda):
     scene = _scene("cornell", (96, 80))
-    want, want_counts = K.trace_k1(**K.prepare(scene, cuda), it0=1, n_spp=2)
+    want, want_counts = K.trace_k1(K.prepare(scene, cuda), 1, 2)
     before = MG.LAUNCHES[0]
     got, g = MG.material_grads(scene, torch.ones((96 * 80, 3)), 1, 2)
     assert MG.LAUNCHES[0] == before + 1
@@ -599,7 +589,7 @@ def test_k8_matches_plain(cuda, nee):
     # GC.FIREFLY_SHARE of that part's largest entry (tests/torch_gradcheck.py)
     scene = _scene("cornell", (64, 64), 4)
     job = K.prepare(scene, cuda, nee=nee)
-    rad, _ = K.trace_k1(**job, it0=1, n_spp=2)
+    rad, _ = K.trace_k1(job, 1, 2)
     ref, _ = K.trace_plain(**job, it0=1, n_spp=2)
     ct = _masked_ct(rad, ref)
     ff = GC.fireflies(rad, 2, scene.materials.emittance)
@@ -609,9 +599,9 @@ def test_k8_matches_plain(cuda, nee):
         if not bool(c.any()):
             continue
         before = VJ.LAUNCHES[K.NEE_BIT if nee else 0]
-        _, got = VJ.trace_k8(*_k8_args(job, c))
+        _, got = VJ.trace_k8(job, 1, 2, c)
         assert VJ.LAUNCHES[K.NEE_BIT if nee else 0] == before + 1
-        _, want = VJ.k8_plain(*_k8_args(job, c))
+        _, want = VJ.k8_plain(job, 1, 2, c)
         rows = GC.compare(zip(names, got), zip(names, want), *GC.K8_TOL,
                           share)
         assert all(row[-1] for row in rows), rows
@@ -627,21 +617,21 @@ def test_k8_sections_match_plain(cuda, name, nee):
     job = K.prepare(scene, cuda, nee=nee)
     mask = K.scene_mask(scene, nee)
     assert mask & (K.NEE_BIT - 1)
-    rad, _ = K.trace_k1(**job, it0=1, n_spp=2)
+    rad, _ = K.trace_k1(job, 1, 2)
     ref, _ = K.trace_plain(**job, it0=1, n_spp=2)
     ct = _masked_ct(rad, ref)
     before = VJ.LAUNCHES[mask]
-    rad8, first = VJ.trace_k8(*_k8_args(job, ct))
+    rad8, first = VJ.trace_k8(job, 1, 2, ct)
     assert VJ.LAUNCHES[mask] == before + 1 and torch.equal(rad8, rad)
     assert all(torch.equal(a, b) for a, b in
-               zip(first, VJ.trace_k8(*_k8_args(job, ct))[1]))
+               zip(first, VJ.trace_k8(job, 1, 2, ct)[1]))
     ff = GC.fireflies(rad, 2, scene.materials.emittance)
     names = ("cam", "mats", "gmat", "lights")
     for c, share in zip(GC.split(ct, ff), (None, GC.FIREFLY_SHARE)):
         if not bool(c.any()):
             continue
-        _, got = VJ.trace_k8(*_k8_args(job, c))
-        _, want = VJ.k8_plain(*_k8_args(job, c))
+        _, got = VJ.trace_k8(job, 1, 2, c)
+        _, want = VJ.k8_plain(job, 1, 2, c)
         rows = GC.compare(zip(names, got), zip(names, want), *GC.K8_TOL,
                           share)
         assert all(row[-1] for row in rows), rows
@@ -655,8 +645,8 @@ def test_k8_two_calls_give_equal_gradients(cuda, nee):
     job = K.prepare(_scene("cornell", (64, 64), 4), cuda, nee=nee)
     ct = torch.rand((64 * 64, 3), device=cuda,
                     generator=torch.Generator(device=cuda).manual_seed(3))
-    _, a = VJ.trace_k8(*_k8_args(job, ct))
-    _, b = VJ.trace_k8(*_k8_args(job, ct))
+    _, a = VJ.trace_k8(job, 1, 2, ct)
+    _, b = VJ.trace_k8(job, 1, 2, ct)
     for x, y in zip(a, b):
         assert torch.equal(x, y)
 
@@ -702,9 +692,9 @@ def test_k8_flags_a_term_that_is_not_finite(cuda):
                     generator=torch.Generator(device=cuda).manual_seed(6))
     pix = 32 * 64 + 32
     ct[pix] = 0.0
-    _, want = VJ.trace_k8(*_k8_args(job, ct))
+    _, want = VJ.trace_k8(job, 1, 2, ct)
     ct[pix] = float("nan")
-    _, got = VJ.trace_k8(*_k8_args(job, ct))
+    _, got = VJ.trace_k8(job, 1, 2, ct)
     hit = torch.cat([g.isnan().flatten() for g in got])
     assert 0 < int(hit.sum()) < hit.numel()
     for g, w in zip(got, want):
@@ -733,10 +723,8 @@ def test_k8_chunkings_give_the_same_bits(cuda, monkeypatch, name, nee, mask,
     assert K.scene_mask(scene, nee) == mask
     ct = torch.rand((scene.pixel_count, 3), device=cuda,
                     generator=torch.Generator(device=cuda).manual_seed(8))
-    args = list(_k8_args(job, ct))
-    args[8] = spp
-    want_rad, _ = K.trace_k1(**job, it0=1, n_spp=spp)
-    rad, grads = VJ.trace_k8(*args)
+    want_rad, _ = K.trace_k1(job, 1, spp)
+    rad, grads = VJ.trace_k8(job, 1, spp, ct)
     assert torch.equal(rad, want_rad)
     from pathtrace_tpu_torch.ops.cuda import build
 
@@ -758,7 +746,7 @@ def test_k8_chunkings_give_the_same_bits(cuda, monkeypatch, name, nee, mask,
             else 1), (how, plan[:3])
         monkeypatch.setattr(VJ, "TAPE_BYTES", budget)
         before = VJ.LAUNCHES[mask]
-        got_rad, got = VJ.trace_k8(*args)
+        got_rad, got = VJ.trace_k8(job, 1, spp, ct)
         assert VJ.LAUNCHES[mask] == before + len(plan), how  # a pair a chunk
         assert torch.equal(got_rad, rad), how
         assert all(torch.equal(a, b) for a, b in zip(got, grads)), how
@@ -777,13 +765,13 @@ def test_k8_counter_fills_in_a_windows_first_call_only(cuda, tmp_path):
     job = K.prepare(_scene("cornell", (64, 64), 8), cuda, nee=True)
     ct = torch.rand((64 * 64, 3), device=cuda,
                     generator=torch.Generator(device=cuda).manual_seed(9))
-    _, counts = K.trace_k1(**job, it0=1, n_spp=2)
-    rad, grads = VJ.trace_k8(*_k8_args(job, ct))
+    _, counts = K.trace_k1(job, 1, 2)
+    rad, grads = VJ.trace_k8(job, 1, 2, ct)
     with profiling.trace(str(tmp_path), device="cuda"):
-        rad_c, grads_c = VJ.trace_k8(*_k8_args(job, ct))
+        rad_c, grads_c = VJ.trace_k8(job, 1, 2, ct)
         torch.cuda.synchronize()
         first = profiling.counters()["k8"].copy()
-        VJ.trace_k8(*_k8_args(job, ct))
+        VJ.trace_k8(job, 1, 2, ct)
         torch.cuda.synchronize()
         assert (profiling.counters()["k8"] == first).all()
     assert torch.equal(rad_c, rad)
@@ -795,7 +783,7 @@ def test_k8_counter_fills_in_a_windows_first_call_only(cuda, tmp_path):
     for sweep in ("fwd", "rev"):
         issued = lanes[f"{sweep}.issued"]
         assert issued % 32 == 0 and lanes[f"{sweep}.live"] <= issued, lanes
-    VJ.trace_k8(*_k8_args(job, ct))
+    VJ.trace_k8(job, 1, 2, ct)
     torch.cuda.synchronize()
     assert (profiling.counters()["k8"] == first).all()
 
@@ -815,7 +803,7 @@ def test_k7_matches_plain(cuda):
     job = K.prepare(scene, cuda)
     mtab = MG.material_table(scene, cuda)
     mat_of = tuple(int(m) for m in scene.geoms.material_id)
-    rad, _ = K.trace_k1(**job, it0=1, n_spp=2)
+    rad, _ = K.trace_k1(job, 1, 2)
     ref, _ = K.trace_plain(**job, it0=1, n_spp=2)
     ct = _masked_ct(rad, ref)
     before = MG.LAUNCHES[0]
@@ -833,7 +821,7 @@ def test_render_vjp_on_the_card(cuda, nee):
     # version, on the card, every parameter group, 64x64 d4
     scene = _scene("cornell", (64, 64), 4)
     job = K.prepare(scene, cuda, nee=nee)
-    rad, _ = K.trace_k1(**job, it0=1, n_spp=1)
+    rad, _ = K.trace_k1(job, 1, 1)
     ref, _ = K.trace_plain(**job, it0=1, n_spp=1)
     ct = _masked_ct(rad, ref)
     got_rad, _ = ptt.render_vjp(scene, ct, 1, 1, nee=nee)
@@ -882,9 +870,9 @@ def test_k8_rejects_bad_tables(cuda):
     job = K.prepare(_scene("cornell", (16, 16), 2), cuda)
     ct = torch.ones((256, 3), device=cuda)
     with pytest.raises(ValueError, match="ct"):
-        VJ.trace_k8(*_k8_args(job, ct[:100]))
+        VJ.trace_k8(job, 1, 2, ct[:100])
     with pytest.raises(ValueError, match="depth"):
-        VJ.trace_k8(*_k8_args(dict(job, depth=VJ.MAX_DEPTH + 1), ct))
+        VJ.trace_k8(K.Job(**dict(job, depth=VJ.MAX_DEPTH + 1)), 1, 2, ct)
 
 
 @pytest.mark.parametrize("nee", [False, True])
@@ -903,15 +891,14 @@ def test_k3_linear_matches_plain(cuda, config, nee):
     mask = K.scene_mask(flat, nee)
     assert mask & K.LINEAR_BIT and job["nodes"] is None
     before = K.LAUNCHES[mask]
-    rad, counts = K.trace_k1(**job, it0=1, n_spp=2)
+    rad, counts = K.trace_k1(job, 1, 2)
     torch.cuda.synchronize()
     assert K.LAUNCHES[mask] == before + 1
     assert int(counts[0]) == 2 * 96 * 80
     ref, ref_counts = K.trace_plain(**job, it0=1, n_spp=2)
     _assert_tie_flip_bound(rad, ref, counts, ref_counts)
     if config != "cornell_bumpmesh":
-        bvh, bvh_counts = K.trace_k1(**K.prepare(scene, cuda, nee=nee),
-                                     it0=1, n_spp=2)
+        bvh, bvh_counts = K.trace_k1(K.prepare(scene, cuda, nee=nee), 1, 2)
         _assert_tie_flip_bound(rad, bvh, counts, bvh_counts)
 
 
@@ -921,7 +908,7 @@ def test_k3_linear_engines_bit_equal_to_k1(cuda, engine):
     scene = without_bvh(S.load("cornell_mesh", (), (96, 80), 8))
     job = K.prepare(scene, cuda, nee=True)
     mask = K.scene_mask(scene, True)
-    want = K.trace_k1(**job, it0=1, n_spp=2)
+    want = K.trace_k1(job, 1, 2)
     before = SP.LAUNCHES[mask]
     if engine == "split":
         got = SP.split_batch(job, 1, 2, 3)
@@ -940,7 +927,7 @@ def test_k8_mesh_matches_plain(cuda, nee):
     scene = _scene("cornell_mesh", (64, 64), 4)
     job = K.prepare(scene, cuda, nee=nee)
     mask = K.MESH_BIT | (K.NEE_BIT if nee else 0)
-    rad, _ = K.trace_k1(**job, it0=1, n_spp=2)
+    rad, _ = K.trace_k1(job, 1, 2)
     ref, _ = K.trace_plain(**job, it0=1, n_spp=2)
     ct = _masked_ct(rad, ref)
     ff = GC.fireflies(rad, 2, scene.materials.emittance)
@@ -949,15 +936,15 @@ def test_k8_mesh_matches_plain(cuda, nee):
         if not bool(c.any()):
             continue
         before = VJ.LAUNCHES[mask]
-        rad8, got = VJ.trace_k8(*_k8_args(job, c))
+        rad8, got = VJ.trace_k8(job, 1, 2, c)
         assert VJ.LAUNCHES[mask] == before + 1
         assert torch.equal(rad8, rad)
-        _, want = VJ.k8_plain(*_k8_args(job, c))
+        _, want = VJ.k8_plain(job, 1, 2, c)
         rows = GC.compare(zip(names, got), zip(names, want), *GC.K8_TOL,
                           share)
         assert all(row[-1] for row in rows), rows
     # two calls, the same bits
-    a, b = (VJ.trace_k8(*_k8_args(job, ct))[1] for _ in range(2))
+    a, b = (VJ.trace_k8(job, 1, 2, ct)[1] for _ in range(2))
     assert all(torch.equal(x, y) for x, y in zip(a, b))
 
 
@@ -977,7 +964,7 @@ def test_render_vjp_on_a_mesh_on_the_card(cuda):
 def test_k8_rejects_the_linear_form(cuda):
     job = K.prepare(without_bvh(_scene("cornell_mesh", (16, 16), 2)), cuda)
     with pytest.raises(ValueError, match="BVH"):
-        VJ.trace_k8(*_k8_args(job, torch.ones((256, 3), device=cuda)))
+        VJ.trace_k8(job, 1, 2, torch.ones((256, 3), device=cuda))
 
 
 def test_k7_over_several_flushes_matches_plain(cuda):
@@ -989,7 +976,7 @@ def test_k7_over_several_flushes_matches_plain(cuda):
     job = K.prepare(scene, cuda)
     mtab = MG.material_table(scene, cuda)
     mat_of = tuple(int(m) for m in scene.geoms.material_id)
-    rad, counts = K.trace_k1(**job, it0=1, n_spp=64)
+    rad, counts = K.trace_k1(job, 1, 64)
     ref, _ = K.trace_plain(**job, it0=1, n_spp=64)
     ct = _masked_ct(rad, ref)
     assert MG.k7_flush_paths(8) >= 64 * 128
@@ -1014,7 +1001,7 @@ def test_k7_on_a_mesh_matches_plain(cuda):
     job = K.prepare(scene, cuda)
     mtab = MG.material_table(scene, cuda)
     mat_of = tuple(int(m) for m in scene.geoms.material_id)
-    rad, counts = K.trace_k1(**job, it0=1, n_spp=2)
+    rad, counts = K.trace_k1(job, 1, 2)
     ref, _ = K.trace_plain(**job, it0=1, n_spp=2)
     ct = _masked_ct(rad, ref)
     before = MG.LAUNCHES[K.MESH_BIT]
@@ -1048,8 +1035,8 @@ def test_wavefront_matches_k1_and_sort_is_mask(cuda, name, nee):
         assert torch.equal(a, b)
     rad, counts = out["mask"]
     assert counts.dtype == torch.int64 and counts.device.type == "cuda"
-    ref, ref_counts = K.trace_k1(**K.prepare(scene, cuda, nee=nee), it0=1,
-                                 n_spp=2, per_sample=True)
+    ref, ref_counts = K.trace_k1(K.prepare(scene, cuda, nee=nee), 1, 2,
+                                 per_sample=True)
     assert (counts[:, 0] == 64 * 64).all()
     _assert_tie_flip_bound(rad, ref, counts, ref_counts)
 

@@ -114,7 +114,8 @@ def test_each_section_changes_the_render(config, section):
     # same tables render differently (with NEE, so that every surface hit
     # adds light)
     job = S.job(config, (32, 32), 5)
-    job["lights"] = K.pack_lights(S.load(*S.CONFIGS[config][:2]), "cpu")[0]
+    job = K.Job(**dict(job, lights=K.pack_lights(
+        S.load(*S.CONFIGS[config][:2]), "cpu")[0]))
     i = K.FEATURE_NAMES.index(section)
     assert job["features"][i]
     off = dict(job, features=tuple(f and k != i

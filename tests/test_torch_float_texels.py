@@ -80,7 +80,7 @@ def test_off_grid_map_renders_on_the_planes_engine():
     js = dataclasses.replace(js, textures=off_grid(js.textures))
     scene = convert.from_jax_scene(js)
     with pytest.raises(ValueError, match="off the u8 grid"):
-        K.check_supported(scene)
+        K.prepare(scene, "cpu")
     want, _ = pathtrace_batch_planes(js, 1, 2, nee=True)
     got = D.render_mean(scene, 1, 2, nee=True, engine="planes",
                         device="cpu") * 2
@@ -105,7 +105,7 @@ def test_kernels_refuse_a_float_table():
     scene = load("cornell_tex", res=(8, 8), depth=2)
     job = K.prepare(scene, "cpu", texels="f32")
     with pytest.raises(ValueError, match="pack_textures_f32"):
-        K.trace_k1(**job, it0=1, n_spp=1)
+        K.trace_k1(job, 1, 1)
     state = torch.zeros((len(K.state_keys(job["features"], False)), 64))
     with pytest.raises(ValueError, match="pack_textures_f32"):
         SP.trace_span(job, state, K.state_keys(job["features"], False), 0,

@@ -53,9 +53,7 @@ def test_terms_bound_every_pixels_part(config):
     rad = trace(*leaf)
     with GC.AbsTerms():
         mags = torch.autograd.grad(rad, leaf, ct.double().abs())
-    rad32, _ = VJ.k8_plain(*tables[:3], job["geom_types"], job["width"],
-                           job["height"], job["depth"], 1, 1, tables[3],
-                           ct, job["tri"], job["nodes"], job["bvh_meta"])
+    rad32, _ = VJ.k8_plain(job, 1, 1, ct)
     assert bool(GC.same_paths(rad32, rad64).all())
     parts = [torch.zeros_like(t, dtype=torch.float64) for t in tables]
     sums = [torch.zeros_like(t, dtype=torch.float64) for t in tables]

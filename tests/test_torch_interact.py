@@ -140,7 +140,7 @@ def test_restart_equals_fresh_render(tmp_path, engine):
     def iteration(scene, it):
         if engine == "wavefront":
             return I.pathtrace_iteration(scene, it, device="cpu")[0]
-        return K.trace_k1(**K.prepare(scene, "cpu"), it0=it, n_spp=1)[0]
+        return K.trace_k1(K.prepare(scene, "cpu"), it, 1)[0]
 
     scene = dataclasses.replace(ptt.load_scene(CORNELL), resolution=(16, 16),
                                 trace_depth=2)

@@ -205,10 +205,10 @@ def test_k1_counter_under_a_profiler(tmp_path):
     job = K.prepare(scene, "cpu")
     want = torch.zeros((3, N_EV), dtype=torch.int64)
     K.trace_plain(**job, it0=1, n_spp=1, events=want)
-    plain = K.trace_k1(**job, it0=1, n_spp=1)
+    plain = K.trace_k1(job, 1, 1)
     with profiling.trace(str(tmp_path), device="cpu"):
-        rad, counts = K.trace_k1(**job, it0=1, n_spp=1)
-        K.trace_k1(**job, it0=9, n_spp=1)
+        rad, counts = K.trace_k1(job, 1, 1)
+        K.trace_k1(job, 9, 1)
     assert torch.equal(rad, plain[0]) and torch.equal(counts, plain[1])
     got = profiling.counters()
     assert set(got) == {"k1"} and np.array_equal(got["k1"], want.numpy())
@@ -217,11 +217,11 @@ def test_k1_counter_under_a_profiler(tmp_path):
     job = K.prepare(cornell, "cpu")
     assert K.scene_mask(cornell) == 0
     with profiling.trace(str(tmp_path), device="cpu"):
-        rad, counts = K.trace_k1(**job, it0=1, n_spp=2)
+        rad, counts = K.trace_k1(job, 1, 2)
     ev = torch.from_numpy(profiling.counters()["k1"])
     assert torch.equal(ev[:-1, :N_SCATTER].sum(1), counts[1:])
     assert int(ev[:, N_SCATTER:].sum()) == 0
-    assert torch.equal(rad, K.trace_k1(**job, it0=1, n_spp=2)[0])
+    assert torch.equal(rad, K.trace_k1(job, 1, 2)[0])
 
 
 CARD_SCENES = [("glass_mesh", False), ("glass_mesh", True),
@@ -243,10 +243,10 @@ def test_k1_counters_equal_the_plain_versions_on_the_card(tmp_path, name,
     job = K.prepare(scene, "cuda", nee=nee)
     want = torch.zeros((8, N_EV), dtype=torch.int64, device="cuda")
     rad_p, counts_p = K.trace_plain(**job, it0=3, n_spp=12, events=want)
-    rad0, counts0 = K.trace_k1(**job, it0=3, n_spp=12)
+    rad0, counts0 = K.trace_k1(job, 3, 12)
     with profiling.trace(str(tmp_path), device="cuda"):
-        rad, counts = K.trace_k1(**job, it0=3, n_spp=12)
-        K.trace_k1(**job, it0=15, n_spp=12)  # the window's later calls count nothing
+        rad, counts = K.trace_k1(job, 3, 12)
+        K.trace_k1(job, 15, 12)  # the window's later calls count nothing
     got = profiling.counters()["k1"]
     # counting leaves the image and the live counts as they were
     assert torch.equal(rad, rad0) and torch.equal(counts, counts0)
@@ -256,5 +256,5 @@ def test_k1_counters_equal_the_plain_versions_on_the_card(tmp_path, name,
         assert int(_walks(want, SHADOW).sum()) > 0
     # the per-sample form counts the same
     with profiling.trace(str(tmp_path), device="cuda"):
-        K.trace_k1(**job, it0=3, n_spp=12, per_sample=True)
+        K.trace_k1(job, 3, 12, per_sample=True)
     assert np.array_equal(profiling.counters()["k1"], got)

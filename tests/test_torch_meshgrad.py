@@ -104,17 +104,15 @@ def test_k8_wrapper_on_cpu_mesh_tables_is_the_plain_version():
     _, scene = mesh_rig(res=(8, 8))
     job = K.prepare(scene, "cpu", nee=True)
     ct = torch.rand((64, 3), generator=torch.Generator().manual_seed(3))
-    args = (job["cam"], job["mats"], job["gmat"], job["geom_types"], 8, 8,
-            2, 1, 1, job["lights"], ct, job["tri"], job["nodes"],
-            job["bvh_meta"])
     before = sum(VJ.LAUNCHES.values())
-    got, want = VJ.trace_k8(*args), VJ.k8_plain(*args)
+    got, want = VJ.trace_k8(job, 1, 1, ct), VJ.k8_plain(job, 1, 1, ct)
     assert torch.equal(got[0], want[0])
     for a, b in zip(got[1], want[1]):
         assert torch.equal(a, b)
     assert sum(VJ.LAUNCHES.values()) == before
     # the mesh takes part: as constants, not as a missing geom
-    bare = VJ.k8_plain(*args[:11])
+    bare = VJ.k8_plain(K.Job(**dict(job, tri=None, nodes=None,
+                                    bvh_meta=())), 1, 1, ct)
     assert not torch.equal(bare[0], want[0])
 
 

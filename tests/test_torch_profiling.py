@@ -106,7 +106,7 @@ def test_prepare_and_k1_spans(tmp_path):
     scene = load("cornell", res=(8, 6), depth=2)
     with profiling.trace(str(tmp_path), device="cpu"):
         job = K.prepare(scene, "cpu")
-        rad, _ = K.trace_k1(**job, it0=11, n_spp=1)
+        rad, _ = K.trace_k1(job, 11, 1)
     assert _tree(profiling.spans()) == [("prepare", -1, None),
                                         ("k1", -1, 11)]
     assert torch.equal(rad, K.trace_plain(**job, it0=11, n_spp=1)[0])

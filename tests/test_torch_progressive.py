@@ -174,7 +174,7 @@ def k1_chunks(scene, n, chunk=2):
     job = K.prepare(scene, "cpu")
     acc = torch.zeros((scene.pixel_count, 3))
     for it0 in range(1, n + 1, chunk):
-        acc += K.trace_k1(**job, it0=it0, n_spp=min(chunk, n + 1 - it0))[0]
+        acc += K.trace_k1(job, it0, min(chunk, n + 1 - it0))[0]
     return acc.numpy()
 
 

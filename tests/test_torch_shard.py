@@ -131,8 +131,7 @@ def _one_process_grad(key, sc, target):
     """(loss, gradients) of one process on the same route as ``key``."""
     fn, _, n, kw = C.GRADS[key]
     if fn == "sharded_grad_step_pallas":
-        rad, _ = K.trace_k1(**K.prepare(sc, "cpu", nee=kw["nee"]), it0=1,
-                            n_spp=n)
+        rad, _ = K.trace_k1(K.prepare(sc, "cpu", nee=kw["nee"]), 1, n)
         img = rad / n
         loss = torch.mean((img - target) ** 2)
         ct = 2.0 * (img - target) / float(img.shape[0] * 3 * n)
@@ -258,10 +257,11 @@ def test_pixel_tiles_put_together_are_the_image(scenes, tiles):
     whole, counts = K.trace_plain(**job, it0=3, n_spp=2)
     bounds = list(tiles) + [whole.shape[0]]
     total = torch.zeros_like(counts)
-    for fn in (K.trace_plain, K.trace_k1):
+    for fn in (lambda **kw: K.trace_plain(**job, **kw),
+               lambda **kw: K.trace_k1(job, **kw)):
         parts = []
         for a, b in zip(bounds, bounds[1:]):
-            rad, c = fn(**job, it0=3, n_spp=2, pix0=a, n_local=b - a)
+            rad, c = fn(it0=3, n_spp=2, pix0=a, n_local=b - a)
             assert rad.shape == (b - a, 3)
             parts.append(rad)
             total += c

@@ -46,7 +46,8 @@ def test_checker_odd_cells_replace_the_texture():
     # on the checker variant the odd cells take the checker colour, so
     # fewer pixels see the map than on cornell_tex
     job = S.job("tex_checker", (32, 32), 3)
-    job["lights"] = K.pack_lights(S.load("cornell_tex"), "cpu")[0]
+    job = K.Job(**dict(job, lights=K.pack_lights(S.load("cornell_tex"),
+                                                 "cpu")[0]))
     rad, _ = K.trace_plain(**job, it0=1, n_spp=1)
     flat, _ = K.trace_plain(**dict(job, tex_geom=tuple(
         K.NO_CHART for _ in job["tex_geom"])), it0=1, n_spp=1)

@@ -251,7 +251,7 @@ def test_unused_textures_stay_out_of_the_tables():
 ])
 def test_texture_scene_masks(name, bits):
     scene = S.load(name)
-    K.check_supported(scene)
+    K.prepare(scene, "cpu")
     assert K.scene_mask(scene) == bits
     assert K.scene_mask(scene, nee=True) == bits | K.NEE_BIT
 

@@ -130,12 +130,9 @@ def test_wrapper_on_cpu_tensors_is_the_plain_version():
     for name in ("cornell", "cornell_glass"):
         job = K.prepare(load(name, res=(8, 8), depth=3), "cpu", nee=True)
         ct = torch.rand((64, 3), generator=torch.Generator().manual_seed(2))
-        args = (job["cam"], job["mats"], job["gmat"], job["geom_types"], 8,
-                8, 3, 1, 2, job["lights"], ct, None, None, (),
-                job["features"])
         before = sum(VJ.LAUNCHES.values())
-        got = VJ.trace_k8(*args)
-        want = VJ.k8_plain(*args)
+        got = VJ.trace_k8(job, 1, 2, ct)
+        want = VJ.k8_plain(job, 1, 2, ct)
         assert torch.equal(got[0], want[0])
         assert len(got[1]) == 4
         for a, b in zip(got[1], want[1]):
@@ -143,7 +140,8 @@ def test_wrapper_on_cpu_tensors_is_the_plain_version():
         assert sum(VJ.LAUNCHES.values()) == before
         if any(job["features"]):
             # the sections take part: the trace without them is another
-            plain = VJ.k8_plain(*args[:11])
+            plain = VJ.k8_plain(K.Job(**dict(job, features=K.NO_FEATURES)),
+                                1, 2, ct)
             assert not torch.equal(plain[0], want[0])
 
 

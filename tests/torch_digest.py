@@ -220,13 +220,13 @@ def k1_times(root, torch, ptt, K):
         scene = ptt.load_scene(os.path.join(root, "scenes", f"{name}.txt"))
         scene = dataclasses.replace(scene, trace_depth=DEPTH)
         job = K.prepare(scene, "cuda", nee=nee, rr=rr)
-        K.trace_k1(**job, it0=1, n_spp=spp)
+        K.trace_k1(job, 1, spp)
         runs = []
         for _ in range(TIME_CALLS):
             start, stop = (torch.cuda.Event(enable_timing=True)
                            for _ in range(2))
             start.record()
-            K.trace_k1(**job, it0=1, n_spp=spp)
+            K.trace_k1(job, 1, spp)
             stop.record()
             torch.cuda.synchronize()
             runs.append(start.elapsed_time(stop) / spp)
@@ -297,12 +297,6 @@ def k8_scenes(root, ptt, K):
     return out
 
 
-def k8_args(job, ct, spp=1):
-    return (job["cam"], job["mats"], job["gmat"], job["geom_types"],
-            job["width"], job["height"], job["depth"], 1, spp, job["lights"],
-            ct, job["tri"], job["nodes"], job["bvh_meta"], job["features"])
-
-
 def k8_digest(torch, K, VJ, scene, nee, mask):
     """(radiance digest, tables digest) of K8's build ``mask`` on
     ``scene`` at K8_RES, K8_DEPTH, 1 spp, under a cotangent drawn from
@@ -315,7 +309,7 @@ def k8_digest(torch, K, VJ, scene, nee, mask):
     ct = torch.from_numpy(np.random.RandomState(mask).rand(
         scene.pixel_count, 3).astype(np.float32)).cuda()
     VJ.LAUNCHES.clear()
-    rad, tabs = VJ.trace_k8(*k8_args(job, ct))
+    rad, tabs = VJ.trace_k8(job, 1, 1, ct)
     torch.cuda.synchronize()
     if dict(VJ.LAUNCHES) != {mask: 1}:
         raise RuntimeError(f"K8 launches {dict(VJ.LAUNCHES)}, want one of "
@@ -350,7 +344,7 @@ def k8_times(root, torch, ptt, K, VJ, masks, label=None, spp=1):
         scene = dataclasses.replace(scene, trace_depth=K8_TIME_DEPTH)
         job = K.prepare(scene, "cuda", nee=nee)
         ct = torch.ones((scene.pixel_count, 3), device="cuda")
-        args = k8_args(job, ct, spp)
+        args = (job, 1, spp, ct)
         VJ.trace_k8(*args)
         runs = []
         for _ in range(K8_TIME_CALLS):
@@ -452,7 +446,7 @@ def k7_times(root, torch, ptt, K, MG):
         k7, runs = events_ms(
             torch, lambda: MG.trace_k7(job, mtab, mat_of, ct, 1, 1),
             TIME_CALLS)
-        k1, _ = events_ms(torch, lambda: K.trace_k1(**job, it0=1, n_spp=1),
+        k1, _ = events_ms(torch, lambda: K.trace_k1(job, 1, 1),
                           TIME_CALLS)
         print(f"k7 time mask {mask} {name} {job['width']}x{job['height']} d8 "
               f"1spp ({root}): {k7:.4f} ms, runs "
@@ -551,8 +545,8 @@ def main(argv):
         scene = dataclasses.replace(scene, resolution=RES, trace_depth=DEPTH)
         K.LAUNCHES.clear()
         job = K.prepare(scene, "cuda")
-        rad, _ = K.trace_k1(**job, it0=1, n_spp=SPP)
-        _, counts = K.trace_k1(**job, it0=1, n_spp=SPP, per_sample=True)
+        rad, _ = K.trace_k1(job, 1, SPP)
+        _, counts = K.trace_k1(job, 1, SPP, per_sample=True)
         torch.cuda.synchronize()
         if dict(K.LAUNCHES) != {mask: 2}:
             raise RuntimeError(f"{name}: launches {dict(K.LAUNCHES)}, want "

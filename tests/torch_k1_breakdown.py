@@ -175,13 +175,13 @@ def k1_jobs(ptt, K):
 
 def k1_times(torch, K, jobs, label):
     for name, mask, spp, job in jobs:
-        K.trace_k1(**job, it0=1, n_spp=spp)
+        K.trace_k1(job, 1, spp)
         runs = []
         for _ in range(CALLS):
             start, stop = (torch.cuda.Event(enable_timing=True)
                            for _ in range(2))
             start.record()
-            K.trace_k1(**job, it0=1, n_spp=spp)
+            K.trace_k1(job, 1, spp)
             stop.record()
             torch.cuda.synchronize()
             runs.append(start.elapsed_time(stop) / spp)

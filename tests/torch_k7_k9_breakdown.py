@@ -397,7 +397,7 @@ def times(torch, K, MG, P, TD, jobs, probe_args, label):
         k7, runs = TD.events_ms(
             torch, lambda: MG.trace_k7(job, mtab, mat_of, ct, 1, spp), CALLS)
         k1, _ = TD.events_ms(
-            torch, lambda: K.trace_k1(**job, it0=1, n_spp=spp), CALLS)
+            torch, lambda: K.trace_k1(job, 1, spp), CALLS)
         print(f"k7 {name} mask {mask} ({label}): {k7:.4f} ms a call, runs "
               f"{[round(t, 4) for t in runs]}; k1 {k1:.4f}; k7 / k1 "
               f"{k7 / k1:.3f}", flush=True)

@@ -249,7 +249,7 @@ def texel_port(dtype):
 
     scene, tid = _texel_scene(ptt.load_scene)
     off, h, w = K.tex_offsets(scene)[tid]
-    job = K.prepare(scene, "cpu", nee=True, texels="f32")
+    job = dict(K.prepare(scene, "cpu", nee=True, texels="f32"))
     for key in ("cam", "mats", "gmat", "lights", "texels"):
         job[key] = job[key].to(dtype)
     job["texels"].requires_grad_(True)

@@ -84,8 +84,8 @@ def load(name, edits=(), res=None, depth=None):
 
 
 def job(config, res, depth, device="cpu"):
-    """``trace_k1``/``trace_plain`` keyword arguments for ``config`` (of
-    ``CONFIGS``, ``MESH_CONFIGS`` or ``TEX_CONFIGS``)."""
+    """The job (``megakernel.prepare``'s) of ``config`` (of ``CONFIGS``,
+    ``MESH_CONFIGS`` or ``TEX_CONFIGS``)."""
     name, edits, nee, rr = {**CONFIGS, **MESH_CONFIGS, **TEX_CONFIGS}[config]
     return K.prepare(load(name, edits, res, depth), device, nee=nee, rr=rr)
 

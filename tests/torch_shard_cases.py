@@ -79,8 +79,7 @@ def one_process(engine, sc, it0, n, compaction="mask", nee=False, rr=False):
         return I.pathtrace_batch(sc, it0, n, compaction, remat=False,
                                  nee=nee, rr=rr, device="cpu")
     if engine == "k1":
-        return K.trace_k1(**K.prepare(sc, "cpu", nee=nee, rr=rr), it0=it0,
-                          n_spp=n)
+        return K.trace_k1(K.prepare(sc, "cpu", nee=nee, rr=rr), it0, n)
     if engine == "sorted":
         return span.pathtrace_batch_sorted(sc, it0, n, "cpu", nee=nee, rr=rr)
     assert engine == "planes", engine
