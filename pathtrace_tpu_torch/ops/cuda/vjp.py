@@ -5,8 +5,9 @@ Counterpart of ``_vjp_kernel``, ``_run_vjp`` and ``_render_vjp_jit`` /
 (:3494-3866): the radiance of ``n_spp`` samples and the gradient of
 ``sum(ct * radiance)`` with respect to every entry of the packed tables
 (cam, mats, gmat and, with NEE, lights), chained on the host through the
-packing (``megakernel.pack_scene``/``pack_lights`` under autograd) to the
-parameters of ``render/diff.split_params``.
+packing's adjoint, written by hand (``pack_adjoint.pack_adjoint``: the
+tables are packed with no autograd graph), to the parameters of
+``render/diff.split_params``.
 
 The plain version (:func:`k8_plain`) is autograd over
 ``megakernel.trace_plain``.  On the card (:func:`trace_k8`) K8 is two
@@ -54,9 +55,9 @@ from collections import Counter
 
 import torch
 
-from ...render import diff as D
 from ...utils import profiling
 from . import megakernel as K
+from .pack_adjoint import pack_adjoint
 
 # Launches of K8's pair of kernels by feature mask, one a chunk of the plan.
 LAUNCHES = Counter()
@@ -161,12 +162,48 @@ def k8_plain(job, it0, n_spp, ct):
                           else torch.zeros_like(t) for t in leaf.values()]
 
 
+def split_tables(tab, shapes):
+    """The flat table ``tab`` (a tensor or an array) cut into the tables
+    of ``shapes`` (:func:`table_grad_shapes`), views of it."""
+    out, off = [], 0
+    for shape in filter(None, shapes):
+        n = shape[0] * shape[1]
+        out.append(tab[off:off + n].reshape(shape))
+        off += n
+    return out
+
+
+def _joined(tables):
+    return torch.cat([t.reshape(-1) for t in tables])
+
+
+def _on_device(tables, device):
+    """``tables`` (CPU tensors, or None) on ``device``: views of one
+    buffer, filled by one copy from pinned memory that does not wait for
+    the device (a copy from pageable memory waits for the work queued
+    before it, a step's render among it)."""
+    have = [t for t in tables if t is not None]
+    flat = _joined(have)
+    if device.type == "cuda":
+        flat = flat.pin_memory().to(device, non_blocking=True)
+    moved = iter(split_tables(flat, [tuple(t.shape) for t in have]))
+    return [None if t is None else next(moved) for t in tables]
+
+
 def trace_k8(job, it0, n_spp, ct):
     """K8 on ``job`` (its sections; NEE when it has lights; its BVH
     meshes): (rad (P,3), [d_cam (1,16), d_mats (G,24), d_gmat (G,40)(,
-    d_lights (L,128))]), the gradients of sum(ct * rad).  For a job on
-    the CPU this is :func:`k8_plain`; on a CUDA device it launches the
-    pair of kernels once a chunk of :func:`k8_plan` under
+    d_lights (L,128))]), the gradients of sum(ct * rad): :func:`k8_flat`'s
+    table cut into its tables."""
+    rad, tab = k8_flat(job, it0, n_spp, ct)
+    return rad, split_tables(tab, table_grad_shapes(job))
+
+
+def k8_flat(job, it0, n_spp, ct):
+    """K8 on ``job`` as :func:`trace_k8`, the gradient tables flattened
+    and joined in one (cam, mats, gmat(, lights)), on the job's device.
+    For a job on the CPU this is :func:`k8_plain`; on a CUDA device it
+    launches the pair of kernels once a chunk of :func:`k8_plan` under
     :data:`TAPE_BYTES` (built at first use) and raises if the build or a
     launch fails.  Raises ``ValueError`` for a plain-only job
     (``megakernel.Job.check_kernel``), on the CPU too.
@@ -178,7 +215,8 @@ def trace_k8(job, it0, n_spp, ct):
     job.check_kernel("K8")
     device = job["cam"].device
     if device.type == "cpu":
-        return k8_plain(job, it0, n_spp, ct)
+        rad, tables = k8_plain(job, it0, n_spp, ct)
+        return rad, _joined(tables)
     from . import build
 
     width, height, depth = job["width"], job["height"], job["depth"]
@@ -224,62 +262,52 @@ def trace_k8(job, it0, n_spp, ct):
             LAUNCHES[job.mask] += 1
         err = lib.pt_fx_round(exact.data_ptr(), n_tab, tab.data_ptr(), stream)
     K.launch_error("K8's rounding", lib, err)
-    grads, off = [], 0
-    for shape in filter(None, shapes):
-        n = shape[0] * shape[1]
-        grads.append(tab[off:off + n].view(shape))
-        off += n
-    return rad, grads
+    return rad, tab
 
 
 def render_vjp(scene, ct, it0, n_spp, nee=False, device="cuda",
                plain=False):
     """Radiance and the gradients of ``sum(ct * accumulated radiance)``
     with respect to every parameter of ``render/diff.split_params`` (the
-    reference's ``render_vjp_pallas``): the tables are packed on the CPU
-    with autograd on and moved to ``device``, K8 gives their gradients,
-    and ``torch.autograd.backward`` carries them to the parameters.
-    ``ct`` is the (P,3) cotangent image.  Returns (rad (P,3) on
-    ``device``, the gradients keyed as ``split_params``); a parameter
-    no path depends on gets zeros, and a mesh scene's ``tri_verts`` gets
-    None (the triangles are constants of the sweep, as the reference's).
+    reference's ``render_vjp_pallas``): the tables are packed on the CPU,
+    with no autograd graph, and moved to ``device`` in one copy that
+    does not wait for the work queued there, K8 gives their gradients,
+    and the packing's adjoint written by hand
+    (``pack_adjoint.pack_adjoint``) carries them, copied to the host in
+    one table, to the parameters.  ``ct`` is the (P,3) cotangent image.
+    Returns (rad (P,3) on ``device``, the gradients keyed as
+    ``split_params``, float32 CPU tensors); a parameter no path depends
+    on gets zeros, and a mesh scene's ``tri_verts`` gets None (the
+    triangles are constants of the sweep, as the reference's).
     ``plain`` runs K8's plain version (:func:`k8_plain`) on ``device`` in
     the kernel's place.  Raises ``NotImplementedError`` outside K8's
     slice (:func:`check_supported`)."""
-    # the span closes once the call's locals, the packing's graph among
-    # them, are freed
     with profiling.span("vjp", it0):
-        return _render_vjp(scene, ct, it0, n_spp, nee, device, plain)
-
-
-def _render_vjp(scene, ct, it0, n_spp, nee, device, plain):
-    with profiling.span("vjp.pack"):
-        check_supported(scene, nee)
-        device = K.resolve_device(device)
-        params = D.requires_grad(D.split_params(scene))
-        sc = D.merge_params(scene, params)
-        tables = list(K.pack_scene(sc, device))
-        lights = K.pack_lights(sc, device)[0] if nee else None
-        if lights is not None:
-            tables.append(lights)
-        # the scene as loaded: the triangles are constants of the sweep
-        tri, nodes, bvh_meta = K.pack_mesh(scene, device)
-        width, height = scene.resolution
-        job = K.Job(*(t.detach() for t in tables[:3]),
-                    tuple(scene.geoms.type), width, height,
-                    int(scene.trace_depth), K.scene_features(scene),
-                    lights.detach() if lights is not None else None,
-                    tri=tri, nodes=nodes, bvh_meta=bvh_meta)
-        ct = torch.as_tensor(ct, dtype=torch.float32).to(device).reshape(
-            scene.pixel_count, 3).contiguous()
-    rad, d_tables = (k8_plain if plain else trace_k8)(job, it0, n_spp, ct)
-    # the chain's first step copies the table gradients to the host,
-    # which waits for K8: wait here, so the chain's span holds none of it
-    if device.type == "cuda":
-        torch.cuda.current_stream(device).synchronize()
-    with profiling.span("vjp.chain"):
-        torch.autograd.backward(tables, d_tables)
-        grads = D.grads(params)
-    if scene.mesh.count:
-        grads["tri_verts"] = None
-    return rad, grads
+        with profiling.span("vjp.pack"):
+            check_supported(scene, nee)
+            device = K.resolve_device(device)
+            with torch.no_grad():
+                tables = [*K.pack_scene(scene, "cpu"),
+                          K.pack_lights(scene, "cpu")[0] if nee else None]
+            tri, nodes, bvh_meta = K.pack_mesh(scene, "cpu")
+            cam, mats, gmat, lights, tri, nodes = _on_device(
+                tables + [tri, nodes], device)
+            width, height = scene.resolution
+            job = K.Job(cam, mats, gmat, tuple(scene.geoms.type), width,
+                        height, int(scene.trace_depth),
+                        K.scene_features(scene), lights, tri=tri,
+                        nodes=nodes, bvh_meta=bvh_meta)
+            ct = torch.as_tensor(ct, dtype=torch.float32).to(device).reshape(
+                scene.pixel_count, 3).contiguous()
+        if plain:
+            rad, tab = k8_plain(job, it0, n_spp, ct)
+            tab = _joined(tab)
+        else:
+            rad, tab = k8_flat(job, it0, n_spp, ct)
+        # the chain's copy to the host waits for K8: wait here, so the
+        # chain's span holds none of it
+        if device.type == "cuda":
+            torch.cuda.current_stream(device).synchronize()
+        with profiling.span("vjp.chain"):
+            tables = split_tables(tab.cpu().numpy(), table_grad_shapes(job))
+            return rad, pack_adjoint(scene, *tables)

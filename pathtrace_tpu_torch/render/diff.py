@@ -4,11 +4,13 @@ its gradients.
 Counterpart of ``pathtrace_tpu/render/diff.py``: ``split_params`` and
 ``merge_params`` give the same dict (``materials``, ``translation``,
 ``rotation``, ``scale``, ``camera``, ``tri_verts``), whose leaves here
-are numpy arrays or float32 tensors.  The gradient entry points
-(``ops/cuda/vjp.render_vjp``, :func:`render_loss_and_grad`) turn the
-leaves into tensors that require grad (:func:`requires_grad`), pack the
-merged scene with autograd on, and read the gradients back in the same
-dict (:func:`grads`).
+are numpy arrays or float32 tensors.  The autograd entry points
+(:func:`render_loss_and_grad`, :func:`render_value_and_pixel_grad`) turn
+the leaves into tensors that require grad (:func:`requires_grad`), pack
+the merged scene with autograd on, and read the gradients back in the
+same dict (:func:`grads`); ``ops/cuda/vjp.render_vjp`` packs with no
+graph and gives the same dict through the packing's adjoint, written by
+hand (``ops/cuda/pack_adjoint``).
 
 :func:`render_mean` and :func:`render_loss_and_grad` take the
 reference's ``engine``: ``"planes"`` is autograd over the megakernel's

@@ -840,6 +840,37 @@ def test_render_vjp_on_the_card(cuda, nee):
         assert all(row[-1] for row in rows), rows
 
 
+def test_render_vjp_chains_without_a_graph_on_the_card(cuda, monkeypatch):
+    # cornell NEE at 800x800 d8, 8 spp, as the inverse step runs it: the
+    # tables K8 gets require no grad, the radiance is K8's on the tables
+    # packed under autograd bit for bit, and the gradients are the
+    # autograd chain's from its table gradients (in float64: in float32
+    # the walls' scale rounds past the tolerance on its own)
+    scene = _scene("cornell", (800, 800))
+    ct = torch.rand((800 * 800, 3),
+                    generator=torch.Generator().manual_seed(9)) * 1e-6
+    jobs, k8_flat = [], VJ.k8_flat
+
+    def k8(job, *args):
+        jobs.append(job)
+        return k8_flat(job, *args)
+
+    monkeypatch.setattr(VJ, "k8_flat", k8)
+    rad, g = ptt.render_vjp(scene, ct, 1, 8, nee=True)
+    (job,) = jobs
+    assert not any(job[k].requires_grad
+                   for k in ("cam", "mats", "gmat", "lights"))
+    from pathtrace_tpu_torch.render import diff as D
+
+    assert all(t.grad_fn is None and t.device.type == "cpu"
+               for t in D.leaves(g))
+    want, d_tables = VJ.trace_k8(GC.autograd_job(scene, True, cuda), 1, 8,
+                                 ct.to(cuda))
+    assert torch.equal(rad, want)
+    assert GC.chain_misses(g, GC.autograd_chain(scene, d_tables,
+                                                torch.float64)) == []
+
+
 def test_material_grads_on_the_card(cuda):
     scene = _scene("cornell", (48, 40), 3)
     ct = torch.rand((48 * 40, 3),

@@ -33,6 +33,7 @@ from pathtrace_tpu_torch.ops.cuda import vjp as VJ
 from pathtrace_tpu_torch.render import diff as D
 from pathtrace_tpu_torch.scene.bvh import without_bvh
 
+import torch_gradcheck as GC
 from torch_scenes import REPO, load
 
 RTOL, ATOL = 2e-4, 3e-4
@@ -154,6 +155,42 @@ def test_render_vjp_traces_the_scene_sections():
     want, _ = K.trace_plain(**K.prepare(scene, "cpu"), it0=1, n_spp=1)
     assert torch.equal(rad, want)
     assert tuple(g) == D.KEYS
+
+
+@pytest.mark.parametrize("nee", [False, True])
+def test_render_vjp_packs_without_a_graph(monkeypatch, nee):
+    # the tables K8 gets require no grad and no gradient has a graph; the
+    # radiance is K8's on the tables packed under autograd, bit for bit,
+    # and the gradients are the autograd chain's from K8's table gradients
+    scene = load("cornell", res=(12, 12), depth=4)
+    ct = np.random.RandomState(4).rand(144, 3).astype(np.float32)
+    jobs, k8_flat = [], VJ.k8_flat
+
+    def k8(job, *args):
+        jobs.append(job)
+        return k8_flat(job, *args)
+
+    monkeypatch.setattr(VJ, "k8_flat", k8)
+    rad, g = VJ.render_vjp(scene, ct, 1, 2, nee=nee, device="cpu")
+    (job,) = jobs
+    names = ("cam", "mats", "gmat", "lights")
+    assert (job["lights"] is not None) == nee
+    assert not any(job[k].requires_grad for k in names if job[k] is not None)
+    assert all(t.grad_fn is None and not t.requires_grad
+               for t in D.leaves(g))
+    ref = GC.autograd_job(scene, nee, "cpu")
+    for k in names:
+        assert (job[k] is None and ref[k] is None) or torch.equal(job[k],
+                                                                  ref[k])
+    want, d_tables = VJ.trace_k8(ref, 1, 2, torch.as_tensor(ct))
+    assert torch.equal(rad, want)
+    # the chain in float64: in float32 the walls' scale (inverse rows
+    # times 1/0.01^2, cancelling) rounds past the tolerance on its own
+    assert GC.chain_misses(g, GC.autograd_chain(scene, d_tables,
+                                                torch.float64)) == []
+    # geometry gradients need NEE's continuous term
+    assert float(g["materials"].color.abs().max()) > 0
+    assert (float(g["translation"].abs().max()) > 0) == nee
 
 
 # the ids are the cases' names from before meshes rendered; the sections

@@ -39,6 +39,7 @@ bound carried through that chain on absolute values (:func:`chain_bound`,
 scale (the floor's 0.01) and so magnifies the tables' rounding.
 """
 
+import numpy as np
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
@@ -183,26 +184,120 @@ def compare_own(got, want, w64, rtol, atol):
     return rows
 
 
+def _packed(scene, nee, dtype=torch.float32):
+    """(the parameters of ``render/diff.split_params(scene)`` as leaves
+    of ``dtype`` that require grad, the tables cam, mats, gmat(, lights
+    with ``nee``) packed from them under autograd on the CPU, in
+    ``dtype``).  In float64 the packing's casts of its parameters to
+    float32 (``vecmath.as_f32``, as ``megakernel`` and
+    ``render/integrator`` bind it) are swapped for casts to float64 while
+    it packs: the same functions, rounding as float64 does."""
+    from pathtrace_tpu_torch.ops.cuda import megakernel as K
+    from pathtrace_tpu_torch.render import diff as D
+    from pathtrace_tpu_torch.render import integrator as I
+
+    def cast(x):
+        x = x if torch.is_tensor(x) else torch.as_tensor(np.asarray(x))
+        return x.to("cpu", dtype)
+
+    params = D.map_params(
+        lambda x: cast(x).detach().clone().requires_grad_(True),
+        D.split_params(scene))
+    sc = D.merge_params(scene, params)
+    saved = K._f32, I._f32
+    K._f32 = I._f32 = cast
+    try:
+        tables = list(K.pack_scene(sc, "cpu"))
+        lights = K.pack_lights(sc, "cpu")[0] if nee else None
+    finally:
+        K._f32, I._f32 = saved
+    assert all(t.dtype == dtype for t in tables)
+    return params, tables + ([] if lights is None else [lights])
+
+
+def autograd_job(scene, nee, device):
+    """The job ``render_vjp`` handed K8 before its chain was written by
+    hand: the tables packed under autograd (:func:`_packed`), detached
+    and moved to ``device``."""
+    from pathtrace_tpu_torch.ops.cuda import megakernel as K
+
+    tables = [t.detach().to(device) for t in _packed(scene, nee)[1]]
+    tri, nodes, bvh_meta = K.pack_mesh(scene, device)
+    width, height = scene.resolution
+    return K.Job(*tables[:3], tuple(scene.geoms.type), width, height,
+                 int(scene.trace_depth), K.scene_features(scene),
+                 tables[3] if len(tables) > 3 else None, tri=tri,
+                 nodes=nodes, bvh_meta=bvh_meta)
+
+
 def chain_bound(scene, nee, tables_bound):
     """The bound on each parameter of ``render/diff.split_params`` that
     a bound on each packed table's gradient gives: render_vjp carries the
-    table gradients to the parameters through the packing's backward,
+    table gradients to the parameters through the packing's adjoint,
     and there each parameter takes sum |d table / d param| times the
     table's bound (the backward on absolute values, :class:`AbsTerms`).
     ``tables_bound``: (cam, mats, gmat(, lights)) bounds, on any device.
     Returns [(name, bound)] as ``render/diff.named_leaves``."""
-    from pathtrace_tpu_torch.ops.cuda import megakernel as K
     from pathtrace_tpu_torch.render import diff as D
 
-    params = D.requires_grad(D.split_params(scene))
-    sc = D.merge_params(scene, params)
-    tables = list(K.pack_scene(sc, "cpu"))
-    if nee:
-        tables.append(K.pack_lights(sc, "cpu")[0])
+    params, tables = _packed(scene, nee)
     with AbsTerms():
         torch.autograd.backward(tables, [b.detach().cpu().abs().float()
                                          for b in tables_bound])
     return D.named_leaves(D.grads(params))
+
+
+# render_vjp's chain (``ops/cuda/pack_adjoint``, written by hand, float64)
+# against autograd over the packing (float32): rtol, and atol as a share
+# of each parameter's largest gradient
+CHAIN_TOL = (1e-5, 1e-6)
+
+
+def autograd_chain(scene, d_tables, dtype=torch.float32):
+    """The oracle of ``render_vjp``'s chain: the gradients that
+    ``torch.autograd.backward`` carries from the table gradients
+    ``d_tables`` (cam, mats, gmat(, lights), on any device) through the
+    packing under autograd (:func:`_packed`, in ``dtype``) to the
+    parameters, keyed as ``render/diff.split_params``, zeros where no
+    table reads a parameter; a mesh scene's ``tri_verts`` None, as
+    ``render_vjp`` returns it.  The float32 chain is the one
+    ``render_vjp`` ran before its chain was written by hand; the float64
+    one rounds the same terms as float64 does."""
+    from pathtrace_tpu_torch.render import diff as D
+
+    params, tables = _packed(scene, len(d_tables) > 3, dtype)
+    torch.autograd.backward(tables, [t.detach().cpu().to(dtype)
+                                     for t in d_tables])
+    grads = D.grads(params)
+    if scene.mesh.count:
+        grads["tri_verts"] = None
+    return grads
+
+
+def chain_misses(got, want):
+    """Where the float32 gradients ``got`` (keyed as ``split_params``)
+    miss :func:`autograd_chain`'s ``want`` (float32 or float64): [(leaf
+    name, what)] for a leaf that is None in one and not in the other, of
+    another shape or not float32, not zero where w is, or beyond |g - w|
+    <= rtol |w| + share max|w| (:data:`CHAIN_TOL`; the worst entry's
+    share of that).  [] when they agree."""
+    from pathtrace_tpu_torch.render import diff as D
+
+    rtol, share = CHAIN_TOL
+    g, w = dict(D.named_leaves(got)), dict(D.named_leaves(want))
+    misses = [(name, "None in one") for name in sorted(set(g) ^ set(w))]
+    for name in sorted(set(g) & set(w)):
+        a, b = g[name], w[name].double()
+        if a.shape != b.shape or a.dtype != torch.float32:
+            misses.append((name, f"{a.dtype} {tuple(a.shape)}"))
+        elif bool((a[b == 0] != 0).any()):
+            misses.append((name, "not zero where the oracle is"))
+        elif bool((b != 0).any()):
+            tol = share * float(b.abs().max()) + rtol * b.abs()
+            diff = (a.double() - b).abs()
+            if not bool((diff <= tol).all()):
+                misses.append((name, float((diff / tol)[b != 0].max())))
+    return misses
 
 
 def compare_chained(got, want, bounds, rtol, atol):
